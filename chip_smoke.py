@@ -3,14 +3,24 @@
     python3 chip_smoke.py
 
 Phases, each printing one line: ``device`` (fails without CUDA), ``build``
-(compiles the CUDA kernels from ``csrc/`` with nvcc for sm_90a), ``kernels``
-(each kernel against its plain torch version at the main path's shapes, f32
-and bf16, with CUDA-event times), ``stream`` (full-width SELSA R50-DC5 at the
-default config through ``init_model`` / ``inference_vid``: 14 reference frames
-at frame 0, then more frames; launch counters prove both kernels ran) and
-``agree`` (f32, TF32 off: the kernel path against the plain path on one
-frame). Then one JSON line per kernel summary, and a last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+(compiles the CUDA kernels from ``csrc/`` with nvcc for sm_90a, one nvcc per
+source in parallel), ``kernels`` (each kernel against its plain torch
+version at the main paths' shapes, f32 and bf16, with CUDA-event times:
+kernel A single-stream and stream-batched at S = 4, kernel B single and
+batched, kernel C alone and against kernel A on the same keys), ``stream``
+(full-width SELSA R50-DC5 at the default config through ``init_model`` /
+``inference_vid``: 14 reference frames at frame 0, then more frames; launch
+counters prove both kernels ran), ``agree`` (f32, TF32 off: the kernel path
+against the plain path on one frame), ``serve_agree`` (f32: the batched
+kernel path against the batched plain path, and each stream of the batch
+against that stream alone), ``serve`` (S = 4 streams of T = 8 frames
+through ``make_serve_step``, clip mode, then per-frame steps; one kernel-A
+launch per head stage and one kernel-B launch per batched step) and
+``single_slab`` (kernel C on the path: the SELSA stages built from the
+head's public methods with ``attend_cached`` over the concatenated memo and
+current K/V, against ``forward_cached_stream_kv``). Then one JSON line of
+kernel summaries, and a last line ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -33,6 +43,12 @@ ROI_F32_ATOL = 1e-5     # f32: summation order only
 ROI_BF16_TOL = 1e-2     # bf16 output: one rounding (rtol and atol)
 AGREE_TOL = 1e-3        # f32 head outputs, kernel path vs plain path
 STREAM_FRAMES = 10      # streamed after frame 0
+SERVE_S, SERVE_T = 4, 8  # streams and frames per clip of the serve phase
+SERVE_STEPS = 3         # per-frame batched steps after the clips
+AGREE_S, AGREE_T = 2, 3  # serve_agree: streams, frames (roll every 2nd)
+SET_BOX_TOL = 5e-3      # px; detections as sets, f32 (as the CPU tests)
+SET_SCORE_TOL = 1e-5
+RAW_HW = (600, 1000)    # raw frames of the serve phase, before prepare
 PKG = "lowlightenvironmentvideoobjectdetection_torch"
 
 
@@ -100,6 +116,280 @@ def test_rois(dev, n, h, w, g):
     return r.to(dev)
 
 
+def batched_attention_inputs(dev, dtype, g, n_streams):
+    """Kernel A's operands for S streams, each as ``attention_inputs``."""
+    parts = [attention_inputs(dev, dtype, g) for _ in range(n_streams)]
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def reset_counts(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def match_sets(got, want):
+    """Detections of one frame (DetResult) as sets: every valid row of
+    ``want`` needs a row of ``got`` with its label, box within SET_BOX_TOL
+    and score within SET_SCORE_TOL. Returns the counts, the rows of want
+    left unmatched, the largest differences among matched rows, and for
+    unmatched rows the nearest same-label row in units of the tolerances."""
+    def rows(d):
+        v = d.valid.cpu().numpy()
+        return list(zip(d.labels.cpu().numpy()[v],
+                        d.boxes.float().cpu().numpy()[v],
+                        d.scores.float().cpu().numpy()[v]))
+    grows, wrows = rows(got), rows(want)
+    out = dict(n_got=len(grows), n_want=len(wrows), unmatched=0, box=0.0,
+               score=0.0, nearest_unmatched=0.0)
+    for lab, box, score in wrows:
+        dist = [(max(np.abs(b - box).max() / SET_BOX_TOL,
+                     abs(sc - score) / SET_SCORE_TOL), i)
+                for i, (lb, b, sc) in enumerate(grows) if lb == lab]
+        hit = min(dist, default=(np.inf, -1))
+        if hit[0] >= 1.0:
+            out["unmatched"] += 1
+            out["nearest_unmatched"] = max(out["nearest_unmatched"],
+                                           float(hit[0]))
+            continue
+        _, b, sc = grows.pop(hit[1])
+        out["box"] = max(out["box"], float(np.abs(b - box).max()))
+        out["score"] = max(out["score"], float(abs(sc - score)))
+    return out
+
+
+def serve(dev, smi, init_model, S, kernels):
+    """Full-width SELSA R50-DC5 at the default config (bf16), SERVE_S
+    streams: memos from each stream's own 14 reference frames, two clips of
+    SERVE_T frames through ``make_serve_step`` (the first warms up), then
+    SERVE_STEPS per-frame steps that roll the memo. Returns the model, one
+    stream's memo, one more prepared frame and its image shape."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    from lowlightenvironmentvideoobjectdetection_torch.parallel.serve import (
+        make_serve_step)
+    model = init_model("SELSA", seed=0, device=dev)
+    m, cfg, anchors = model.model, model.cfg, model.anchors
+    rng = np.random.RandomState(1)
+    refs = rng.randint(0, 256, (SERVE_S, cfg.num_ref_frames) + RAW_HW + (3,)
+                       ).astype(np.uint8)
+    raw = rng.randint(0, 256, (SERVE_S, SERVE_T + SERVE_STEPS + 1) + RAW_HW
+                      + (3,)).astype(np.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t = time.perf_counter()
+    memos = []
+    for s in range(SERVE_S):
+        imgs, shape, _ = prepare_frames(refs[s], cfg.pad_h, cfg.pad_w,
+                                        device=dev)
+        memos.append(S.init_video_state(m, imgs, shape, anchors))
+    states = S.stack_video_states(memos)
+    torch.cuda.synchronize()
+    fill_ms = (time.perf_counter() - t) * 1e3
+    prepared = [prepare_frames(raw[s], cfg.pad_h, cfg.pad_w, device=dev)
+                for s in range(SERVE_S)]
+    frames = torch.stack([p[0] for p in prepared])  # [S, T', H, W, 3]
+    shapes = torch.stack([p[1] for p in prepared])
+    sfs = torch.as_tensor(np.stack([p[2] for p in prepared]), device=dev)
+    step, _ = make_serve_step(m)
+    clip_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        states, dets = step(anchors, states, frames[:, :SERVE_T], shapes, sfs)
+        torch.cuda.synchronize()
+        clip_ms.append((time.perf_counter() - t) * 1e3)
+    fstep, _ = make_serve_step(m, clip=False, update_memo=True)
+    step_ms = []
+    for i in range(SERVE_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        states, fdets = fstep(anchors, states, frames[:, SERVE_T + i], shapes,
+                              sfs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    counts = [k.launches for k in kernels]
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = 2 * SERVE_T + SERVE_STEPS
+    if counts != [2 * n_steps, SERVE_S + n_steps, 0]:
+        raise AssertionError(f"serve: launch counts (A, B, C) {counts} for "
+                             f"{n_steps} batched steps of {SERVE_S} streams")
+    for d, lead in ((dets, (SERVE_S, SERVE_T)), (fdets, (SERVE_S,))):
+        if (d.boxes.shape != lead + (100, 4) or d.scores.shape != lead + (100,)
+                or d.labels.shape != lead + (100,)
+                or d.valid.shape != lead + (100,)
+                or not torch.isfinite(d.boxes).all()
+                or not torch.isfinite(d.scores).all()):
+            raise AssertionError("serve: bad DetResult")
+    if states.next_slot.tolist() != [SERVE_STEPS % cfg.num_ref_frames] * SERVE_S:
+        raise AssertionError(f"serve: memo slots {states.next_slot.tolist()}")
+    for k, v in states.ref_kv:
+        if not (torch.isfinite(k).all() and torch.isfinite(v).all()):
+            raise AssertionError("serve: non-finite memo")
+    med = statistics.median(step_ms)
+    phase("serve", card=smi, streams=SERVE_S, frames_per_clip=SERVE_T,
+          memo_fill_ms=fill_ms, warmup_clip_ms=clip_ms[0],
+          clip_ms=clip_ms[1], clip_frames_per_s=SERVE_S * SERVE_T
+          / (clip_ms[1] / 1e3), clip_ms_per_batched_step=clip_ms[1] / SERVE_T,
+          step_ms=step_ms, median_step_ms=med,
+          step_frames_per_s=SERVE_S / (med / 1e3), peak_mem_gb=peak / 2**30,
+          launches=dict(attention=counts[0], roi_align=counts[1],
+                        attention_1slab=counts[2]),
+          batched_steps=n_steps,
+          detections_per_frame=dets.valid.sum(-1).tolist())
+    return model, memos[0], frames[0, -1], shapes[0]
+
+
+def serve_agree(m32, dev, g, S):
+    """f32, TF32 off, AGREE_S streams of AGREE_T frames with the memo rolled
+    on every second frame: the batched kernel path against the batched
+    plain path (proposals identical, head outputs and memo within
+    AGREE_TOL), and each stream of ``inference_clip_batch`` against that
+    stream alone through ``inference_clip`` (detections equal as sets)."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (  # noqa: E501
+        rpn_head as rpn)
+    model, anchors, cfg = m32.model, m32.anchors, m32.cfg
+    hw = (cfg.pad_h, cfg.pad_w, 3)
+    ref_imgs = torch.randn((AGREE_S, cfg.num_ref_frames) + hw,
+                           generator=g).to(dev)
+    frames = torch.randn((AGREE_S, AGREE_T) + hw, generator=g).to(dev)
+    shapes = torch.tensor([[cfg.pad_h, cfg.pad_w],
+                           [cfg.pad_h - 8, cfg.pad_w - 24]],
+                          dtype=torch.float32, device=dev)
+    sfs = torch.tensor([[1.0] * 4, [0.5] * 4], device=dev)
+    memos = [S.init_video_state(model, ref_imgs[s], shapes[s], anchors)
+             for s in range(AGREE_S)]
+    del ref_imgs
+    st_k, st_p = S.stack_video_states(memos), S.stack_video_states(memos)
+    props_equal, cls_err, reg_err, failures = [], 0.0, 0.0, []
+    for t in range(AGREE_T):
+        hk = S.stream_head_batch(model, st_k, frames[:, t], shapes, anchors)
+        hp = S.stream_head_batch(model, st_p, frames[:, t], shapes, anchors,
+                                 impl="plain")
+        props_equal.append(
+            torch.equal(hk.proposals.boxes, hp.proposals.boxes)
+            and torch.equal(hk.proposals.valid, hp.proposals.valid))
+        for name, a, b in (("cls_score", hk.cls_score, hp.cls_score),
+                           ("bbox_pred", hk.bbox_pred, hp.bbox_pred)):
+            try:
+                check_close(f"serve_agree {name}", a, b, AGREE_TOL, AGREE_TOL)
+            except AssertionError as e:
+                failures.append(str(e))
+        cls_err = max(cls_err, max_err(hk.cls_score, hp.cls_score))
+        reg_err = max(reg_err, max_err(hk.bbox_pred, hp.bbox_pred))
+        if t % 2 == 0:
+            st_k = S.roll_memo(st_k, hk.cur_kvs, hk.proposals.valid)
+            st_p = S.roll_memo(st_p, hp.cur_kvs, hp.proposals.valid)
+    memo_err = max(max_err(a, b) for (ka, va), (kb, vb)
+                   in zip(st_k.ref_kv, st_p.ref_kv) for a, b in ((ka, kb),
+                                                                 (va, vb)))
+    del st_k, st_p, hk, hp
+
+    # each stream of the batch against that stream alone
+    _, bdets = S.inference_clip_batch(
+        model, S.stack_video_states(memos), frames, shapes, sfs, anchors,
+        update_memo=True, frame_stride=2)
+    sets, props_alone = [], []
+    for s in range(AGREE_S):
+        _, odets = S.inference_clip(model, memos[s], frames[s], shapes[s],
+                                    sfs[s], anchors, update_memo=True,
+                                    frame_stride=2)
+        for t in range(AGREE_T):
+            sets.append(match_sets(type(odets)(*(f[t] for f in odets)),
+                                   type(bdets)(*(f[s, t] for f in bdets))))
+    for t in range(AGREE_T):  # the proposals of both batch sizes
+        neck = model.extract_feat(frames[:, t])
+        pb = rpn.rpn_proposals(*model.rpn_forward(neck), anchors, shapes,
+                               nms_pre=cfg.test_nms_pre,
+                               nms_post=cfg.test_nms_post,
+                               iou_threshold=cfg.rpn_nms_iou)
+        for s in range(AGREE_S):
+            neck = model.extract_feat(frames[s, t][None])
+            cls, reg = model.rpn_forward(neck)
+            po = rpn.rpn_proposals(cls[0], reg[0], anchors, shapes[s],
+                                   nms_pre=cfg.test_nms_pre,
+                                   nms_post=cfg.test_nms_post,
+                                   iou_threshold=cfg.rpn_nms_iou)
+            props_alone.append(dict(
+                valid_equal=torch.equal(po.valid, pb.valid[s]),
+                box_err=max_err(po.boxes, pb.boxes[s])))
+    unmatched = sum(x["unmatched"] for x in sets)
+    phase("serve_agree", streams=AGREE_S, frames=AGREE_T,
+          proposals_equal=props_equal, cls_score_max_abs_err=cls_err,
+          bbox_pred_max_abs_err=reg_err, memo_max_abs_err=memo_err,
+          rtol_atol=AGREE_TOL, alone_vs_batch_sets=sets,
+          alone_vs_batch_proposals=props_alone,
+          set_tolerances=dict(box_px=SET_BOX_TOL, score=SET_SCORE_TOL))
+    if failures:
+        raise AssertionError("\n".join(failures))
+    if not all(props_equal):
+        raise AssertionError("serve_agree: proposals differ between the "
+                             "kernel and the plain path")
+    if memo_err > AGREE_TOL:
+        raise AssertionError(f"serve_agree: memo differs by {memo_err}")
+    if unmatched or any(x["n_got"] != x["n_want"] for x in sets):
+        raise AssertionError("serve_agree: a stream of the batch differs "
+                             "from the stream alone")
+
+
+def single_slab(model, memo, frame, shape, kernels):
+    """Kernel C on a path: one more frame against one stream's full-width
+    memo, the two SELSA stages built from the head's public methods with
+    ``attend_cached`` (kernel C) over the concatenated memo and current
+    K/V, against ``forward_cached_stream_kv`` (kernel A). Returns the
+    launch counts (A, B, C) of that path."""
+    import torch.nn.functional as F
+
+    from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (  # noqa: E501
+        rpn_head as rpn)
+    attention = kernels[0]
+    m, cfg, head = model.model, model.cfg, model.model.bbox_head
+    reset_counts(*kernels)
+    with torch.no_grad():
+        neck = m.extract_feat(frame[None])
+        cls, reg = m.rpn_forward(neck)
+        props = rpn.rpn_proposals(cls[0], reg[0], model.anchors, shape,
+                                  nms_pre=cfg.test_nms_pre,
+                                  nms_post=cfg.test_nms_post,
+                                  iou_threshold=cfg.rpn_nms_iou)
+        rfeats = m.roi_feats(neck[0], props.boxes)
+        ref_kvs = tuple((k.flatten(1, 2), v.flatten(1, 2))
+                        for k, v in memo.ref_kv)  # [nb, R*P, hd]
+        ref_mask = memo.ref_valid.reshape(-1)
+        (want_cls, want_reg), _ = head.forward_cached_stream_kv(
+            rfeats, ref_kvs, ref_mask, props.valid)
+        n_a = attention.launches
+        mask = torch.cat([ref_mask, props.valid])
+        x, r = rfeats.flatten(-3), None
+        for i in range(head.num_shared_fcs):
+            fc, agg = getattr(head, f"shared_fc{i}"), getattr(head,
+                                                              f"aggregator{i}")
+            xf = fc(x)
+            cur = xf if i == 0 else fc(r)
+            r = F.relu(cur)
+            ck, cv = agg.project_kv_hm(cur)
+            mk, mv = ref_kvs[i]
+            k = torch.cat([mk, ck.to(mk.dtype)], 1)
+            v = torch.cat([mv, cv.to(mv.dtype)], 1)
+            x = F.relu(xf + agg.attend_cached(agg.project_q(xf), k, v, mask))
+        got_cls, got_reg = head.fc_cls(x), head.fc_reg(x)
+        torch.cuda.synchronize()
+    counts = [k.launches for k in kernels]
+    phase("single_slab", cls_score_max_abs_err=max_err(got_cls, want_cls),
+          bbox_pred_max_abs_err=max_err(got_reg, want_reg),
+          rtol_atol=AGREE_TOL, launches=dict(
+              attention=counts[0], roi_align=counts[1],
+              attention_1slab=counts[2]),
+          valid_rois=int(props.valid.sum()), memo_keys=int(k.shape[1]))
+    if counts != [2, 1, 2] or n_a != 2:
+        raise AssertionError(f"single_slab: launch counts (A, B, C) {counts}")
+    check_close("single_slab cls_score", got_cls, want_cls, AGREE_TOL,
+                AGREE_TOL)
+    check_close("single_slab bbox_pred", got_reg, want_reg, AGREE_TOL,
+                AGREE_TOL)
+    return counts
+
+
 def main() -> int:
     # ---- device
     if not torch.cuda.is_available():
@@ -111,9 +401,11 @@ def main() -> int:
         selsa as S)
     from lowlightenvironmentvideoobjectdetection_torch.ops import cuda_build
     from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (  # noqa: E501
-        selsa_fused_attention_2slab_hm as attention)
+        selsa_fused_attention_2slab_hm as attention,
+        selsa_fused_attention_hm as attention1)
     from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
         roi_align)
+    kernels_on_path = (attention, roi_align, attention1)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -179,13 +471,49 @@ def main() -> int:
                                   impl="plain"), )
             summary["roi_align"] = dict(err=errs["roi_align_bfloat16"],
                                         ms=r_ms, plain_ms=r_plain)
+    del maps, brois, bgot, bwant
+
+    # kernel C alone, and against kernel A on the same keys split in two
+    for dtype in (torch.float32, torch.bfloat16):
+        for masked in (False, True):
+            q, k1, v1, k2, v2, b1, b2 = attention_inputs(dev, dtype, g,
+                                                         all_masked=masked)
+            c_args = (q, torch.cat([k1, k2], 1), torch.cat([v1, v2], 1),
+                      torch.cat([b1, b2]))
+            got = attention1(*c_args)
+            want = attention1(*c_args, impl="plain")
+            two = attention(q, k1, v1, k2, v2, b1, b2)
+            check_close("attention_1slab", got, want, 0.0, ATTN_ATOL)
+            check_close("attention_1slab vs 2slab", got, two, 0.0, ATTN_ATOL)
+            tag = f"{str(dtype)[6:]}{'_all_masked' if masked else ''}"
+            errs[f"attention_1slab_{tag}"] = max_err(got, want)
+            errs[f"attention_1slab_vs_2slab_{tag}"] = max_err(got, two)
+    q, k1, v1, k2, v2, b1, b2 = attention_inputs(dev, torch.bfloat16, g)
+    c_args = (q, torch.cat([k1, k2], 1), torch.cat([v1, v2], 1),
+              torch.cat([b1, b2]))
+    c_ms, c_plain = compare_times(lambda: attention1(*c_args),
+                                  lambda: attention1(*c_args, impl="plain"))
+    summary["attention_1slab"] = dict(err=errs["attention_1slab_bfloat16"],
+                                      ms=c_ms, plain_ms=c_plain)
+
+    # kernel A with the stream axis of the serve path
+    for dtype in (torch.float32, torch.bfloat16):
+        args = batched_attention_inputs(dev, dtype, g, SERVE_S)
+        got = attention(*args)
+        want = attention(*args, impl="plain")
+        check_close("attention batched", got, want, 0.0, ATTN_ATOL)
+        errs[f"attention_s{SERVE_S}_{str(dtype)[6:]}"] = max_err(got, want)
+    ab_ms, ab_plain = compare_times(lambda: attention(*args),
+                                    lambda: attention(*args, impl="plain"))
+    del args, got, want
     phase("kernels", max_abs_err=errs,
           attention_bf16_ms=dict(kernel=a_ms, plain=a_plain),
+          attention_s4_bf16_ms=dict(kernel=ab_ms, plain=ab_plain),
+          attention_1slab_bf16_ms=dict(kernel=c_ms, plain=c_plain),
           roi_align_bf16_ms=dict(kernel=r_ms, plain=r_plain),
           roi_align_batched_bf16_ms=dict(kernel=rb_ms, plain=rb_plain),
           tolerances=dict(attention_atol=ATTN_ATOL, roi_f32_atol=ROI_F32_ATOL,
                           roi_bf16_rtol_atol=ROI_BF16_TOL))
-    del maps, brois, bgot, bwant
 
     # ---- stream: full-width SELSA R50-DC5, default config (bf16)
     rng = np.random.RandomState(0)
@@ -196,8 +524,7 @@ def main() -> int:
     cfg = model.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attention.launches = 0
-    roi_align.launches = 0
+    reset_counts(*kernels_on_path)
     lat = []
     results = []
     for fid in range(STREAM_FRAMES + 1):
@@ -208,7 +535,8 @@ def main() -> int:
         results.append(out["bbox_results"])
     n_attn, n_roi = attention.launches, roi_align.launches
     nframes = STREAM_FRAMES + 1
-    if n_attn != 2 * nframes or n_roi != nframes + 1:
+    if (n_attn != 2 * nframes or n_roi != nframes + 1
+            or attention1.launches != 0):
         raise AssertionError(f"launch counts attention={n_attn} "
                              f"roi_align={n_roi} for {nframes} frames")
     for res in results:
@@ -241,6 +569,7 @@ def main() -> int:
           detections_per_frame=[sum(len(r) for r in res) for res in results])
     summary["attention"]["launches"] = n_attn
     summary["roi_align"]["launches"] = n_roi
+    summary["attention_1slab"]["launches"] = 0
     del model, st, results
 
     # ---- agree: f32 full width, kernel path vs plain path
@@ -262,6 +591,20 @@ def main() -> int:
                                                  want.cls_score),
           bbox_pred_max_abs_err=max_err(got.bbox_pred, want.bbox_pred),
           rtol_atol=AGREE_TOL, valid_rois=int(got.proposals.valid.sum()))
+    del state, ref_imgs
+
+    serve_agree(m32, dev, g, S)
+    del m32
+
+    # launches in the JSON line: the stream, serve and single_slab paths
+    names = ("attention", "roi_align", "attention_1slab")
+    model, memo, frame, shape = serve(dev, smi, init_model, S,
+                                      kernels_on_path)
+    for name, kern in zip(names, kernels_on_path):
+        summary[name]["launches"] += kern.launches
+    for name, n in zip(names, single_slab(model, memo, frame, shape,
+                                          kernels_on_path)):
+        summary[name]["launches"] += n
 
     kernels = [
         dict(name="selsa_fused_attention_2slab_hm", route="cuda",
@@ -279,6 +622,14 @@ def main() -> int:
              max_abs_err=summary["roi_align"]["err"],
              ms=summary["roi_align"]["ms"],
              plain_ms=summary["roi_align"]["plain_ms"]),
+        dict(name="selsa_fused_attention_hm", route="cuda",
+             source=f"{PKG}/csrc/selsa_attention.cu",
+             replaces="lowlightenvironmentvideoobjectdetection_tpu/ops/"
+                      "fused_attention.py:53",
+             launches=summary["attention_1slab"]["launches"],
+             max_abs_err=summary["attention_1slab"]["err"],
+             ms=summary["attention_1slab"]["ms"],
+             plain_ms=summary["attention_1slab"]["plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@ def delta2bbox(
 ) -> torch.Tensor:
     """rois: [..., N, 4]; deltas: [..., N, 4*K] (K classes or 1), with zero
     means. Returns [..., N, 4*K]. ``max_shape`` is (H, W) for border
-    clipping; its entries may be Python numbers or 0-d tensors."""
+    clipping; its entries may be Python numbers or 0-d tensors. A tensor
+    [S, 2] gives each of the S images of deltas [S, N, 4*K] its own (H, W)."""
     k = deltas.shape[-1] // 4
     d = deltas.reshape(*deltas.shape[:-1], k, 4)
     d = d * torch.tensor(stds, dtype=deltas.dtype, device=deltas.device)
@@ -37,6 +38,9 @@ def delta2bbox(
     gy = py + ph * dy
     x1, y1 = gx - gw * 0.5, gy - gh * 0.5
     x2, y2 = gx + gw * 0.5, gy + gh * 0.5
+    if torch.is_tensor(max_shape) and max_shape.ndim == 2:
+        ms = max_shape.to(x1.dtype)[:, :, None, None]  # over [S, N, K]
+        max_shape = (ms[:, 0], ms[:, 1])
     if max_shape is not None:
         h = torch.as_tensor(max_shape[0], dtype=x1.dtype, device=x1.device)
         w = torch.as_tensor(max_shape[1], dtype=x1.dtype, device=x1.device)

@@ -1,6 +1,10 @@
 """SELSA cross-frame attention aggregator (streaming form), the counterpart
 of the JAX package's ``models/aggregators/selsa_aggregator.py``
-(``project_q``, ``project_kv_hm``, ``attend_cached2``)."""
+(``project_q``, ``project_kv_hm``, ``attend_cached``, ``attend_cached2``).
+
+Every method also takes a leading stream axis S (the counterpart of
+``jax.vmap`` over it): projections keep the leading axes, and the attention
+runs all S streams in one kernel launch."""
 
 from __future__ import annotations
 
@@ -10,7 +14,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.fused_attention import selsa_fused_attention_2slab_hm
+from ...ops.fused_attention import (
+    selsa_fused_attention_2slab_hm,
+    selsa_fused_attention_hm,
+)
 
 
 class Linear(nn.Linear):
@@ -24,6 +31,10 @@ class Linear(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def _bias(mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, 0.0, -1e30).float()
 
 
 class SelsaAggregator(nn.Module):
@@ -41,26 +52,41 @@ class SelsaAggregator(nn.Module):
 
     def _split(self, t: torch.Tensor) -> torch.Tensor:
         nb = self.num_attention_blocks
-        return t.reshape(-1, nb, self.in_channels // nb)
+        return t.reshape(*t.shape[:-1], nb, self.in_channels // nb)
+
+    def _merge(self, agg: torch.Tensor) -> torch.Tensor:
+        """[..., N, nb, hd] attention output -> fc([..., N, C])."""
+        agg = agg.to(self.compute_dtype)
+        return self.fc(agg.reshape(*agg.shape[:-2], self.in_channels))
 
     def project_q(self, x: torch.Tensor) -> torch.Tensor:
-        """[N, C] -> [N, nb, hd] query embedding."""
+        """[..., N, C] -> [..., N, nb, hd] query embedding."""
         return self._split(self.fc_embed(x))
 
     def project_kv_hm(self, ref_x: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[M, C] -> head-major (k, v), each [nb, M, hd] and contiguous."""
-        k = self._split(self.ref_fc_embed(ref_x)).transpose(0, 1).contiguous()
-        v = self._split(self.ref_fc(ref_x)).transpose(0, 1).contiguous()
-        return k, v
+        """[..., M, C] -> head-major (k, v), each [..., nb, M, hd] and
+        contiguous."""
+        k = self._split(self.ref_fc_embed(ref_x)).transpose(-3, -2)
+        v = self._split(self.ref_fc(ref_x)).transpose(-3, -2)
+        return k.contiguous(), v.contiguous()
+
+    def attend_cached(self, q, k, v, ref_mask: Optional[torch.Tensor] = None,
+                      impl: Optional[str] = None) -> torch.Tensor:
+        """Attention over one head-major K/V slab [..., nb, M, hd] (the
+        memo layout); ref_mask [..., M] (None: every key live). Kernel C on
+        CUDA tensors."""
+        bias = (_bias(ref_mask) if ref_mask is not None
+                else torch.zeros(k.shape[:-3] + k.shape[-2:-1],
+                                 dtype=torch.float32, device=k.device))
+        return self._merge(selsa_fused_attention_hm(q, k, v, bias, impl=impl))
 
     def attend_cached2(self, q, k_memo, v_memo, k_cur, v_cur, memo_mask,
                        cur_mask, impl: Optional[str] = None) -> torch.Tensor:
-        """Joint softmax over the memo K/V [nb, M1, hd] and this frame's K/V
-        [nb, M2, hd] (cast to the memo dtype); kernel A on CUDA tensors."""
-        b1 = torch.where(memo_mask, 0.0, -1e30).float()
-        b2 = torch.where(cur_mask, 0.0, -1e30).float()
+        """Joint softmax over the memo K/V [..., nb, M1, hd] and this frame's
+        K/V [..., nb, M2, hd] (cast to the memo dtype); kernel A on CUDA
+        tensors. Same math as ``attend_cached`` over the concatenation."""
         agg = selsa_fused_attention_2slab_hm(
             q, k_memo, v_memo, k_cur.to(k_memo.dtype), v_cur.to(v_memo.dtype),
-            b1, b2, impl=impl)
-        return self.fc(agg.to(self.compute_dtype).reshape(-1, self.in_channels))
+            _bias(memo_mask), _bias(cur_mask), impl=impl)
+        return self._merge(agg)

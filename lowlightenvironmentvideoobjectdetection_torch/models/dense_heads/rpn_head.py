@@ -37,7 +37,7 @@ class RPNHead(nn.Module):
 
 
 class Proposals(NamedTuple):
-    boxes: torch.Tensor  # [num, 4]
+    boxes: torch.Tensor  # [num, 4] (or [S, num, 4])
     scores: torch.Tensor  # [num]
     valid: torch.Tensor  # [num] bool
 
@@ -47,9 +47,12 @@ def rpn_proposals(cls: torch.Tensor, reg: torch.Tensor, anchors: torch.Tensor,
                   iou_threshold: float = 0.7) -> Proposals:
     """Fixed-count proposals for one image from its RPN outputs
     (cls [H, W, A], reg [H, W, 4A]): decode every anchor, clip to
-    ``img_shape`` (h, w), then one NMS over the top ``nms_pre``."""
-    scores = torch.sigmoid(cls.reshape(-1).float())
-    boxes = box_ops.delta2bbox(anchors, reg.reshape(-1, 4).float(),
+    ``img_shape`` (h, w), then one NMS over the top ``nms_pre``. With a
+    leading stream axis (cls [S, H, W, A], reg [S, H, W, 4A], img_shape
+    [S, 2]) all S images share one NMS call and the fields are [S, num]."""
+    lead = cls.shape[:-3]
+    scores = torch.sigmoid(cls.reshape(*lead, -1).float())
+    boxes = box_ops.delta2bbox(anchors, reg.reshape(*lead, -1, 4).float(),
                                max_shape=img_shape)
     res = nms_ops.nms_fixed(boxes, scores, iou_threshold, nms_post,
                             pre_top_k=nms_pre)

@@ -1,7 +1,9 @@
 """Second-stage Shared2FC bbox head with per-FC SELSA aggregation (streaming
 form) and its decode, the counterpart of the JAX package's
 ``models/roi_heads/bbox_head.py`` (``ref_transform_kv``,
-``forward_cached_stream_kv``, ``bbox_decode``)."""
+``forward_cached_stream_kv``, ``bbox_decode``). The streaming forward and
+the decode also take a leading stream axis S (the counterpart of
+``jax.vmap`` over them)."""
 
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ class Shared2FCBBoxHead(nn.Module):
     def ref_transform_kv(self, ref_x: torch.Tensor):
         """Per-stage head-major (k, v) [nb, M, hd] of the reference rois: the
         aggregator's projections of each FC's pre-relu activation."""
-        ref_x = ref_x.reshape(ref_x.shape[0], -1)
+        ref_x = ref_x.flatten(-3)
         kvs = []
         for i in range(self.num_shared_fcs):
             fc, agg = self._stage(i)
@@ -58,8 +60,11 @@ class Shared2FCBBoxHead(nn.Module):
                                  impl: Optional[str] = None):
         """Streaming forward over the memo K/V plus this frame's own rois.
         x: [N, 7, 7, C]; ref_kvs: per stage (k, v) [nb, M, hd]; masks: [M]
-        and [N] bool. Returns ((cls [N, C+1], reg [N, 4C]), cur_kvs)."""
-        x = x.reshape(x.shape[0], -1)
+        and [N] bool. Returns ((cls [N, C+1], reg [N, 4C]), cur_kvs
+        [nb, N, hd]). With a leading stream axis on every argument
+        (x [S, N, 7, 7, C], ...) each FC is one matmul over all S*N rois,
+        each stage one attention launch, and cur_kvs are [S, nb, N, hd]."""
+        x = x.flatten(-3)
         cur_kvs = []
         r = None
         for i in range(self.num_shared_fcs):
@@ -83,7 +88,8 @@ def bbox_decode(rois, cls_score, bbox_pred, img_shape,
     """Softmax scores, per-class delta decode (stds 0.2) clipped to
     ``img_shape``, division by ``scale_factor`` [4], then fixed-shape
     multiclass NMS (score > 1e-4, IoU 0.5, at most 100; the reference test
-    config)."""
+    config). Batched: rois [S, N, 4], head outputs [S, N, ...], img_shape
+    [S, 2], scale_factor [S, 4], roi_valid [S, N]; one NMS for all S."""
     scores = torch.softmax(cls_score.float(), dim=-1)
     decoded = box_ops.delta2bbox(rois, bbox_pred.float(), stds=BBOX_STDS,
                                  max_shape=img_shape)
@@ -91,6 +97,6 @@ def bbox_decode(rois, cls_score, bbox_pred, img_shape,
         k = decoded.shape[-1] // 4
         sf = torch.as_tensor(scale_factor, dtype=decoded.dtype,
                              device=decoded.device)
-        decoded = decoded / sf.repeat(k)
+        decoded = decoded / sf.repeat((1,) * (sf.ndim - 1) + (k,))[..., None, :]
     return nms_ops.multiclass_nms(decoded, scores, 1e-4, 0.5, 100,
                                   box_valid=roi_valid, pre_top_k=nms_pre)

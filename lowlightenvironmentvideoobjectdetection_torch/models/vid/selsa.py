@@ -2,7 +2,14 @@
 JAX package's ``models/vid/selsa.py`` (``SelsaConfig``, ``SelsaDetector``,
 ``VideoState``, ``make_anchors``, ``empty_video_state``,
 ``init_video_state``, ``inference_step``, ``inference_clip``,
-``init_params``).
+``inference_clip_batch``, ``init_params``).
+
+Multi-stream serving: a ``VideoState`` with a leading stream axis S on every
+leaf holds S independent memos, and ``inference_step_batch`` (the
+counterpart of ``jax.vmap(inference_step)``) serves one frame of each stream
+with one backbone pass, one RPN, one proposal NMS, one RoIAlign launch over
+the S maps and one attention launch per head stage. The single-stream
+functions are its S = 1 case.
 
 Feature maps cross module boundaries NHWC, as in the JAX package; the convs
 inside run NCHW views of them. RoIAlign (kernel B) and the two-slab SELSA
@@ -13,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -46,6 +53,8 @@ class SelsaConfig:
     det_nms_pre: int = 2048
     num_ref_frames: int = 14
     compute_dtype: torch.dtype = torch.bfloat16
+    # bbox-head dtype (None = follow compute_dtype); also the memo's dtype
+    head_dtype: Optional[torch.dtype] = None
     input_packed: int = 0
 
     def __post_init__(self):
@@ -60,6 +69,11 @@ class SelsaConfig:
     @property
     def num_base_anchors(self) -> int:
         return len(self.anchor_scales) * len(self.anchor_ratios)
+
+    @property
+    def bbox_head_dtype(self) -> torch.dtype:
+        return (self.head_dtype if self.head_dtype is not None
+                else self.compute_dtype)
 
 
 class SelsaDetector(nn.Module):
@@ -76,7 +90,7 @@ class SelsaDetector(nn.Module):
         self.rpn_head = rpn.RPNHead(c.neck_channels, c.neck_channels,
                                     c.num_base_anchors, dtype=c.compute_dtype)
         self.bbox_head = bh.Shared2FCBBoxHead(
-            7 * 7 * c.neck_channels, c.num_classes, dtype=c.compute_dtype)
+            7 * 7 * c.neck_channels, c.num_classes, dtype=c.bbox_head_dtype)
 
     def extract_feat(self, imgs: torch.Tensor) -> torch.Tensor:
         """imgs: [T, H, W, 3] normalized -> neck feature [T, h, w, C]."""
@@ -143,21 +157,23 @@ def cast_for_inference(model: SelsaDetector) -> SelsaDetector:
 
 class VideoState(NamedTuple):
     """Streaming memo: per shared-FC stage the cached reference K/V, head
-    major [nb, S, P, hd]; their validity [S, P]; the fix-stride roll slot."""
+    major [nb, R, P, hd] for R reference frames; their validity [R, P]; the
+    fix-stride roll slot. Batched over S streams: [S, nb, R, P, hd],
+    [S, R, P] and an int64 tensor [S] of slots."""
 
     ref_kv: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     ref_valid: torch.Tensor
-    next_slot: int
+    next_slot: "int | torch.Tensor"
 
 
 def empty_video_state(cfg: SelsaConfig, device=None,
                       generator: Optional[torch.Generator] = None
                       ) -> VideoState:
-    """A full-validity memo in the compute dtype; zeros, or N(0, 0.1^2)
+    """A full-validity memo in the bbox head's dtype; zeros, or N(0, 0.1^2)
     values from ``generator``."""
     head = bh.Shared2FCBBoxHead
     nb, c, dtype = head.num_attention_blocks, head.fc_out_channels, \
-        cfg.compute_dtype
+        cfg.bbox_head_dtype
     shape = (nb, cfg.num_ref_frames, cfg.test_nms_post, c // nb)
 
     def one():
@@ -172,6 +188,26 @@ def empty_video_state(cfg: SelsaConfig, device=None,
     return VideoState(kv, valid, 0)
 
 
+def stack_video_states(states: Sequence[VideoState]) -> VideoState:
+    """Per-stream states -> one batched state (a copy): a leading stream
+    axis on every leaf, ``next_slot`` an int64 tensor [S]."""
+    kv = tuple(tuple(torch.stack([st.ref_kv[i][j] for st in states])
+                     for j in range(2))
+               for i in range(len(states[0].ref_kv)))
+    valid = torch.stack([st.ref_valid for st in states])
+    slots = torch.tensor([int(st.next_slot) for st in states],
+                         dtype=torch.int64, device=valid.device)
+    return VideoState(kv, valid, slots)
+
+
+def copy_video_state(state: VideoState) -> VideoState:
+    """A copy that owns its memory (single or batched)."""
+    slot = state.next_slot
+    return VideoState(tuple((k.clone(), v.clone()) for k, v in state.ref_kv),
+                      state.ref_valid.clone(),
+                      slot.clone() if torch.is_tensor(slot) else slot)
+
+
 def _proposals(cfg, cls, reg, anchors, img_shape) -> rpn.Proposals:
     return rpn.rpn_proposals(cls, reg, anchors, img_shape,
                              nms_pre=cfg.test_nms_pre,
@@ -182,25 +218,27 @@ def _proposals(cfg, cls, reg, anchors, img_shape) -> rpn.Proposals:
 @torch.no_grad()
 def init_video_state(model: SelsaDetector, ref_imgs: torch.Tensor, img_shape,
                      anchors: torch.Tensor) -> VideoState:
-    """Fill the memo from the reference frames ref_imgs [S, H, W, 3]."""
+    """Fill the memo from the reference frames ref_imgs [R, H, W, 3] (one
+    proposal NMS for all R)."""
     cfg = model.cfg
-    s = ref_imgs.shape[0]
+    r = ref_imgs.shape[0]
     p = cfg.test_nms_post
     neck = model.extract_feat(ref_imgs)
     cls_all, reg_all = model.rpn_forward(neck)
-    props = [_proposals(cfg, cls_all[i], reg_all[i], anchors, img_shape)
-             for i in range(s)]
-    rois = torch.cat([pr.boxes for pr in props])
-    binds = torch.arange(s, device=rois.device).repeat_interleave(p)
-    rfeats = model.roi_feats(neck, rois, binds)
+    shapes = torch.as_tensor(img_shape, dtype=torch.float32,
+                             device=neck.device).expand(r, 2)
+    props = _proposals(cfg, cls_all, reg_all, anchors, shapes)
+    binds = torch.arange(r, device=neck.device).repeat_interleave(p)
+    rfeats = model.roi_feats(neck, props.boxes.reshape(-1, 4), binds)
     kvs = model.bbox_head.ref_transform_kv(rfeats)
-    kvs = tuple((k.reshape(k.shape[0], s, p, -1), v.reshape(v.shape[0], s, p, -1))
+    kvs = tuple((k.reshape(k.shape[0], r, p, -1), v.reshape(v.shape[0], r, p, -1))
                 for k, v in kvs)
-    return VideoState(kvs, torch.stack([pr.valid for pr in props]), 0)
+    return VideoState(kvs, props.valid, 0)
 
 
 class StreamHead(NamedTuple):
-    """One frame's pre-decode outputs (see ``stream_head``)."""
+    """One frame's pre-decode outputs (see ``stream_head``); batched, every
+    field has a leading stream axis."""
 
     proposals: rpn.Proposals
     cls_score: torch.Tensor  # [P, C+1]
@@ -209,23 +247,119 @@ class StreamHead(NamedTuple):
 
 
 @torch.no_grad()
+def stream_head_batch(model: SelsaDetector, states: VideoState,
+                      frames: torch.Tensor, img_shapes: torch.Tensor,
+                      anchors: torch.Tensor,
+                      impl: Optional[str] = None) -> StreamHead:
+    """Backbone, neck, RPN and proposals, RoIAlign and the SELSA head for
+    one frame of each of S streams, frames [S, H, W, 3] and img_shapes
+    [S, 2], against the batched memo ``states``. ``impl="plain"`` runs both
+    kernels' plain versions (for comparisons only)."""
+    cfg = model.cfg
+    s = frames.shape[0]
+    neck = model.extract_feat(frames)
+    cls, reg = model.rpn_forward(neck)
+    props = _proposals(cfg, cls, reg, anchors, img_shapes)
+    p = props.boxes.shape[1]
+    binds = torch.arange(s, device=neck.device).repeat_interleave(p)
+    rfeats = model.roi_feats(neck, props.boxes.reshape(-1, 4), binds,
+                             impl=impl)
+    ref_kvs = tuple((k.flatten(-3, -2), v.flatten(-3, -2))
+                    for k, v in states.ref_kv)  # [S, nb, R*P, hd]
+    (cls_score, bbox_pred), cur_kvs = model.bbox_head.forward_cached_stream_kv(
+        rfeats.reshape(s, p, *rfeats.shape[1:]), ref_kvs,
+        states.ref_valid.flatten(-2), props.valid, impl=impl)
+    return StreamHead(props, cls_score, bbox_pred, cur_kvs)
+
+
+def roll_memo(states: VideoState, cur_kvs, valid: torch.Tensor
+              ) -> VideoState:
+    """The fix-stride roll of a batched memo: each stream's current K/V
+    cur_kvs [S, nb, P, hd] and proposal validity [S, P] replace its slot
+    ``next_slot[s]``. Writes the memo tensors in place (the JAX step returns
+    new arrays) to avoid copying the memo every frame; the returned state
+    shares them."""
+    ar = torch.arange(valid.shape[0], device=valid.device)
+    slot = states.next_slot
+    for (bk, bv), (ck, cv) in zip(states.ref_kv, cur_kvs):
+        bk[ar, :, slot] = ck.to(bk.dtype)
+        bv[ar, :, slot] = cv.to(bv.dtype)
+    states.ref_valid[ar, slot] = valid
+    return VideoState(states.ref_kv, states.ref_valid,
+                      (slot + 1) % states.ref_valid.shape[1])
+
+
+@torch.no_grad()
+def inference_step_batch(model: SelsaDetector, states: VideoState,
+                         frames: torch.Tensor, img_shapes: torch.Tensor,
+                         scale_factors: Optional[torch.Tensor],
+                         anchors: torch.Tensor, update_memo: bool = False,
+                         do_update: bool = True
+                         ) -> Tuple[VideoState, DetResult]:
+    """One frame of each of S streams, frames [S, H, W, 3], img_shapes
+    [S, 2], scale_factors [S, 4] -> (states, DetResult [S, 100, ...]): the
+    counterpart of ``jax.vmap(inference_step)``. With ``update_memo`` and
+    ``do_update`` the memo of every stream rolls at its own ``next_slot``,
+    in place (see ``roll_memo``)."""
+    cfg = model.cfg
+    out = stream_head_batch(model, states, frames, img_shapes, anchors)
+    props = out.proposals
+    dets = bh.bbox_decode(props.boxes, out.cls_score, out.bbox_pred,
+                          img_shapes, roi_valid=props.valid,
+                          scale_factor=scale_factors, nms_pre=cfg.det_nms_pre)
+    if update_memo and do_update:
+        states = roll_memo(states, out.cur_kvs, props.valid)
+    return states, dets
+
+
+def inference_clip_batch(model: SelsaDetector, states: VideoState,
+                         frames: torch.Tensor, img_shapes: torch.Tensor,
+                         scale_factors: Optional[torch.Tensor],
+                         anchors: torch.Tensor, update_memo: bool = False,
+                         frame_stride: int = 1
+                         ) -> Tuple[VideoState, DetResult]:
+    """Multi-stream clips, frames [S, T, H, W, 3], streamed frame by frame
+    through ``inference_step_batch``; the roll happens on frames t with
+    t % frame_stride == 0. Returns the final states and the DetResult
+    fields stacked as [S, T, ...]. The given states are left as they are:
+    with ``update_memo`` the memo is copied once per clip."""
+    if update_memo:
+        states = copy_video_state(states)
+    dets = []
+    for t in range(frames.shape[1]):
+        states, d = inference_step_batch(
+            model, states, frames[:, t], img_shapes, scale_factors, anchors,
+            update_memo=update_memo, do_update=t % frame_stride == 0)
+        dets.append(d)
+    return states, DetResult(*(torch.stack(f, 1) for f in zip(*dets)))
+
+
+def _one_stream(state: VideoState) -> VideoState:
+    """A single-stream state as a batch of one (views, so a roll of the
+    batch writes the state's own tensors)."""
+    slot = torch.tensor([state.next_slot], dtype=torch.int64,
+                        device=state.ref_valid.device)
+    return VideoState(tuple((k[None], v[None]) for k, v in state.ref_kv),
+                      state.ref_valid[None], slot)
+
+
+def _batch_of_one(x, like: torch.Tensor) -> Optional[torch.Tensor]:
+    if x is None:
+        return None
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)[None]
+
+
+@torch.no_grad()
 def stream_head(model: SelsaDetector, state: VideoState, frame: torch.Tensor,
                 img_shape, anchors: torch.Tensor,
                 impl: Optional[str] = None) -> StreamHead:
-    """Backbone, neck, RPN and proposals, RoIAlign and the SELSA head for one
-    frame [H, W, 3] against the memo. ``impl="plain"`` runs both kernels'
-    plain versions (for comparisons only)."""
-    cfg = model.cfg
-    neck = model.extract_feat(frame[None])
-    cls, reg = model.rpn_forward(neck)
-    props = _proposals(cfg, cls[0], reg[0], anchors, img_shape)
-    rfeats = model.roi_feats(neck[0], props.boxes, impl=impl)
-    ref_kvs = tuple((k.reshape(k.shape[0], -1, k.shape[-1]),
-                     v.reshape(v.shape[0], -1, v.shape[-1]))
-                    for k, v in state.ref_kv)
-    (cls_score, bbox_pred), cur_kvs = model.bbox_head.forward_cached_stream_kv(
-        rfeats, ref_kvs, state.ref_valid.reshape(-1), props.valid, impl=impl)
-    return StreamHead(props, cls_score, bbox_pred, cur_kvs)
+    """``stream_head_batch`` for one frame [H, W, 3] against one memo."""
+    out = stream_head_batch(model, _one_stream(state), frame[None],
+                            _batch_of_one(img_shape, frame), anchors,
+                            impl=impl)
+    return StreamHead(rpn.Proposals(*(f[0] for f in out.proposals)),
+                      out.cls_score[0], out.bbox_pred[0],
+                      tuple((k[0], v[0]) for k, v in out.cur_kvs))
 
 
 @torch.no_grad()
@@ -233,27 +367,20 @@ def inference_step(model: SelsaDetector, state: VideoState,
                    frame: torch.Tensor, img_shape, scale_factor,
                    anchors: torch.Tensor, update_memo: bool = False,
                    do_update: bool = True) -> Tuple[VideoState, DetResult]:
-    """One streamed frame [H, W, 3] -> (state, DetResult).
+    """One streamed frame [H, W, 3] -> (state, DetResult): the S = 1 case
+    of ``inference_step_batch``.
 
     With ``update_memo`` (fix-stride mode) and ``do_update``, this frame's
-    K/V replace the oldest memo slot. The roll writes the memo tensors in
-    place (the JAX step returns new arrays) to avoid copying the memo every
-    frame; the returned state shares them."""
-    cfg = model.cfg
-    out = stream_head(model, state, frame, img_shape, anchors)
-    props = out.proposals
-    dets = bh.bbox_decode(props.boxes, out.cls_score, out.bbox_pred, img_shape,
-                          roi_valid=props.valid, scale_factor=scale_factor,
-                          nms_pre=cfg.det_nms_pre)
+    K/V replace the oldest memo slot, written in place in the given state's
+    tensors (see ``roll_memo``); the returned state shares them."""
+    states, dets = inference_step_batch(
+        model, _one_stream(state), frame[None], _batch_of_one(img_shape, frame),
+        _batch_of_one(scale_factor, frame), anchors, update_memo=update_memo,
+        do_update=do_update)
     if update_memo and do_update:
-        slot = state.next_slot
-        for (bk, bv), (ck, cv) in zip(state.ref_kv, out.cur_kvs):
-            bk[:, slot] = ck.to(bk.dtype)
-            bv[:, slot] = cv.to(bv.dtype)
-        state.ref_valid[slot] = props.valid
         state = VideoState(state.ref_kv, state.ref_valid,
-                           (slot + 1) % state.ref_valid.shape[0])
-    return state, dets
+                           (state.next_slot + 1) % state.ref_valid.shape[0])
+    return state, DetResult(*(f[0] for f in dets))
 
 
 def inference_clip(model: SelsaDetector, state: VideoState,
@@ -262,7 +389,10 @@ def inference_clip(model: SelsaDetector, state: VideoState,
                    frame_stride: int = 1) -> Tuple[VideoState, DetResult]:
     """Stream frames [T, H, W, 3] in order; the fix-stride roll happens on
     frames t with t % frame_stride == 0. Returns the final state and the
-    DetResult fields stacked over frames."""
+    DetResult fields stacked over frames. The given state is left as it is:
+    with ``update_memo`` the memo is copied once per clip."""
+    if update_memo:
+        state = copy_video_state(state)
     dets = []
     for t in range(frames.shape[0]):
         state, d = inference_step(model, state, frames[t], img_shape,

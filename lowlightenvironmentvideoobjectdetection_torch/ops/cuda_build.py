@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, at first use, and loaded with ``ctypes``. The
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
+all started together, and linked into one shared library with a plain C
+interface, at first use, and loaded with ``ctypes``. The
 library's name carries a hash of the sources and flags, so a changed source is
 rebuilt and a stale library is never loaded. The build directory
 (``_build/`` beside this package's ``csrc/``) is listed in ``.gitignore``.
@@ -24,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("roi_align.cu", "selsa_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,9 +35,13 @@ SIGNATURES = {
     # out_size, sampling_ratio, dtype, stream
     "llvod_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                         _I, _P),
-    # q, k1, v1, k2, v2, b1, b2, out, N, NB, M1, M2, q_dtype, kv_dtype, stream
+    # q, k1, v1, k2, v2, b1, b2, out, S, N, NB, M1, M2, q_dtype, kv_dtype,
+    # stream
     "llvod_selsa_attention_2slab": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _P),
+                                    _I, _I, _I, _I, _I, _P),
+    # q, k, v, b, out, S, N, NB, M, q_dtype, kv_dtype, stream
+    "llvod_selsa_attention_1slab": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _P),
 }
 
 
@@ -60,20 +65,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"libllvod_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every nvcc process; raise with the first one's errors."""
+    failed = []
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the sources unless a library for their hash exists."""
+    """Compile the sources unless a library for their hash exists: one nvcc
+    per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [str(Path(tmpdir) / (Path(s).stem + ".o")) for s in SOURCES]
+        _run([(s, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)],
+            stderr=subprocess.PIPE, text=True))
+            for s, o in zip(SOURCES, objs)])
+        lib = str(Path(tmpdir) / out.name)
+        _run([("link", subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+            stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or none
     return out
 
 

@@ -12,7 +12,8 @@ the leaf renamed:
 - ``bias`` -> ``bias``; FrozenBN ``scale`` -> ``weight``;
 - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
-Any other collection or leaf raises. Needs numpy only.
+Any other collection or leaf raises. ``video_state_from_jax`` turns a JAX
+``VideoState`` (single or batched) into the port's. Needs numpy only.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from ..models.vid.selsa import VideoState
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -61,3 +64,27 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"two leaves map to {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes, which torch cannot read
+        return torch.from_numpy(a.astype(np.float32)).bfloat16()
+    return torch.from_numpy(np.array(a))
+
+
+def video_state_from_jax(state) -> VideoState:
+    """A JAX ``VideoState`` as numpy arrays (``ref_kv``, ``ref_valid``,
+    ``next_slot``; e.g. ``jax.tree.map(np.asarray, state)``) -> the port's
+    ``VideoState`` on the CPU, in the same layout. A 0-d ``next_slot``
+    gives a single-stream state (an int slot), a [S] one a batched state
+    (an int64 tensor). The TemporalRoIAlign maps (``ref_maps``) are not
+    ported and must be None."""
+    if getattr(state, "ref_maps", None) is not None:
+        raise ValueError("video state: ref_maps are not ported")
+    slot = np.asarray(state.next_slot)
+    kv = tuple((_tensor(k), _tensor(v)) for k, v in state.ref_kv)
+    valid = _tensor(state.ref_valid).bool()
+    if slot.ndim == 0:
+        return VideoState(kv, valid, int(slot))
+    return VideoState(kv, valid, torch.from_numpy(slot.astype(np.int64)))

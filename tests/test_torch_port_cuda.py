@@ -17,6 +17,7 @@ import torch
 
 from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (
     selsa_fused_attention_2slab_hm as attention,
+    selsa_fused_attention_hm as attention1,
 )
 from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
     roi_align,
@@ -34,14 +35,16 @@ def dev():
     return torch.device("cuda")
 
 
-def _attn_inputs(dev, n, nb, m1, m2, dtype, seed=0, masked=0.3):
+def _attn_inputs(dev, n, nb, m1, m2, dtype, seed=0, masked=0.3, lead=()):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    r = lambda *s: (torch.randn(*s, generator=g) * 0.5).to(dev)  # noqa: E731
+    r = lambda *s: (torch.randn(*lead, *s, generator=g) * 0.5).to(dev)  # noqa
     q = r(n, nb, 64).to(dtype)
     k1, v1 = r(nb, m1, 64).to(dtype), r(nb, m1, 64).to(dtype)
     k2, v2 = r(nb, m2, 64).to(dtype), r(nb, m2, 64).to(dtype)
-    b1 = torch.where(torch.rand(m1, generator=g) < masked, -1e30, 0.0).to(dev)
-    b2 = torch.where(torch.rand(m2, generator=g) < masked, -1e30, 0.0).to(dev)
+    b1 = torch.where(torch.rand(*lead, m1, generator=g) < masked, -1e30,
+                     0.0).to(dev)
+    b2 = torch.where(torch.rand(*lead, m2, generator=g) < masked, -1e30,
+                     0.0).to(dev)
     return q, k1, v1, k2, v2, b1, b2
 
 
@@ -64,6 +67,53 @@ def test_attention_all_masked_is_mean_of_v(dev):
     got = attention(*args)
     mean_v = torch.cat([args[2], args[4]], 1).mean(1)  # [nb, 64]
     torch.testing.assert_close(got, mean_v[None].expand_as(got), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,n,nb,m1,m2", [(1, 300, 16, 4200, 300),
+                                          (4, 300, 16, 4200, 300),
+                                          (3, 7, 2, 5, 3), (3, 33, 4, 0, 17),
+                                          (2, 40, 3, 61, 0)])
+def test_stream_batched_attention_matches_plain(dev, dtype, s, n, nb, m1, m2):
+    args = _attn_inputs(dev, n, nb, m1, m2, dtype, lead=(s,))
+    before = attention.launches
+    got = attention(*args)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1  # one launch for all streams
+    want = attention(*args, impl="plain")
+    assert got.shape == (s, n, nb, 64)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    one = attention(*(a[s - 1] for a in args))  # the last stream alone
+    torch.testing.assert_close(got[s - 1], one, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,n,nb,m1,m2", [((), 300, 16, 4200, 300),
+                                             ((), 7, 2, 5, 3),
+                                             ((3,), 33, 4, 20, 17)])
+def test_one_slab_kernel_matches_plain_and_two_slab(dev, dtype, lead, n, nb,
+                                                    m1, m2):
+    q, k1, v1, k2, v2, b1, b2 = _attn_inputs(dev, n, nb, m1, m2, dtype,
+                                             lead=lead)
+    k, v = torch.cat([k1, k2], -2), torch.cat([v1, v2], -2)
+    b = torch.cat([b1, b2], -1)
+    before = attention1.launches
+    got = attention1(q, k, v, b)
+    torch.cuda.synchronize()
+    assert attention1.launches == before + 1
+    torch.testing.assert_close(got, attention1(q, k, v, b, impl="plain"),
+                               rtol=0, atol=1e-5)
+    # the same keys split in two slabs walk the same tiles in kernel A
+    torch.testing.assert_close(got, attention(q, k1, v1, k2, v2, b1, b2),
+                               rtol=0, atol=1e-5)
+
+
+def test_one_slab_all_masked_is_mean_of_v(dev):
+    q, k, v, _, _, b, _ = _attn_inputs(dev, 20, 2, 50, 0, torch.float32,
+                                       masked=1.0)
+    got = attention1(q, k, v, b)
+    torch.testing.assert_close(got, v.mean(1)[None].expand_as(got), rtol=0,
                                atol=1e-5)
 
 
@@ -144,3 +194,48 @@ def test_small_stream_kernel_path_matches_plain(dev):
                                atol=1e-4)
     torch.testing.assert_close(got.bbox_pred, want.bbox_pred, rtol=1e-4,
                                atol=1e-4)
+
+
+def test_small_batched_serve_step_kernel_path_matches_plain(dev):
+    """A small f32 two-stream step: the batched kernel path against the
+    batched plain path (one launch of each kernel per stage), then a step
+    through ``make_serve_step`` that rolls both memos."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S,
+    )
+    from lowlightenvironmentvideoobjectdetection_torch.parallel.serve import (
+        make_serve_step,
+    )
+
+    cfg = S.SelsaConfig(pad_h=128, pad_w=128, neck_channels=32, num_classes=4,
+                        num_ref_frames=2, test_nms_pre=200, test_nms_post=16,
+                        det_nms_pre=64, compute_dtype=torch.float32)
+    model = S.SelsaDetector(cfg)
+    S.init_params(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    anchors = S.make_anchors(cfg, dev)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    refs = torch.randn(2, 2, 128, 128, 3, generator=g).to(dev)
+    frames = torch.randn(2, 128, 128, 3, generator=g).to(dev)
+    shapes = torch.tensor([[128.0, 128.0], [100.0, 120.0]], device=dev)
+    states = S.stack_video_states([
+        S.init_video_state(model, refs[s], shapes[s], anchors)
+        for s in range(2)])
+    a0, r0 = attention.launches, roi_align.launches
+    got = S.stream_head_batch(model, states, frames, shapes, anchors)
+    torch.cuda.synchronize()
+    assert (attention.launches - a0, roi_align.launches - r0) == (2, 1)
+    want = S.stream_head_batch(model, states, frames, shapes, anchors,
+                               impl="plain")
+    torch.testing.assert_close(got.proposals.boxes, want.proposals.boxes)
+    torch.testing.assert_close(got.cls_score, want.cls_score, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(got.bbox_pred, want.bbox_pred, rtol=1e-4,
+                               atol=1e-4)
+    step, shard_args = make_serve_step(model, clip=False, update_memo=True)
+    states, dets = step(*shard_args(anchors, states, frames, shapes,
+                                    torch.ones(2, 4)))
+    assert dets.boxes.shape == (2, 100, 4)
+    assert states.next_slot.tolist() == [1, 1]
+    torch.testing.assert_close(states.ref_kv[1][0][:, :, 0],
+                               got.cur_kvs[1][0], rtol=0, atol=1e-6)
