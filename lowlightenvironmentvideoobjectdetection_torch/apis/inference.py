@@ -11,6 +11,7 @@ import torch
 
 from ..data.preprocess import prepare_frames
 from ..models.vid import selsa as S
+from ..utils.device import resolve_device
 
 
 def result_to_per_class(dets, num_classes: int) -> List[np.ndarray]:
@@ -30,7 +31,9 @@ class VIDModel:
     ``ref_method``: 'adaptive' keeps the frame-0 memo for the whole video;
     'fix' rolls each streamed frame's own K/V into it every
     ``frame_stride`` frames. ``state_dict`` None gives seeded random weights
-    (``init_params`` with a CPU generator seeded by ``seed``)."""
+    (``init_params`` with a CPU generator seeded by ``seed``). ``device``
+    None builds on the card and raises without one; pass ``device="cpu"``
+    for the CPU."""
 
     def __init__(self, model_type: str = "SELSA", state_dict=None,
                  seed: int = 0, ref_method: str = "adaptive",
@@ -41,7 +44,7 @@ class VIDModel:
         if ref_method not in ("adaptive", "fix"):
             raise ValueError(f"unknown ref_method {ref_method!r}")
         self.cfg = S.SelsaConfig(**cfg_kwargs)
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         model = S.SelsaDetector(self.cfg)
         if state_dict is None:
             S.init_params(model, torch.Generator().manual_seed(seed))

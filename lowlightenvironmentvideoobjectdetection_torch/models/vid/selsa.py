@@ -170,7 +170,8 @@ def empty_video_state(cfg: SelsaConfig, device=None,
                       generator: Optional[torch.Generator] = None
                       ) -> VideoState:
     """A full-validity memo in the bbox head's dtype; zeros, or N(0, 0.1^2)
-    values from ``generator``."""
+    values from ``generator`` (drawn on the generator's device, then moved
+    to ``device``)."""
     head = bh.Shared2FCBBoxHead
     nb, c, dtype = head.num_attention_blocks, head.fc_out_channels, \
         cfg.bbox_head_dtype
@@ -179,8 +180,9 @@ def empty_video_state(cfg: SelsaConfig, device=None,
     def one():
         if generator is None:
             return torch.zeros(shape, dtype=dtype, device=device)
-        return (torch.randn(shape, generator=generator, device=device) * 0.1
-                ).to(dtype)
+        return (torch.randn(shape, generator=generator,
+                            device=generator.device) * 0.1
+                ).to(device=device, dtype=dtype)
 
     kv = tuple((one(), one()) for _ in range(head.num_shared_fcs))
     valid = torch.ones((cfg.num_ref_frames, cfg.test_nms_post), dtype=torch.bool,

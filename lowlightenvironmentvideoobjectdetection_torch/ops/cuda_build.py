@@ -36,12 +36,12 @@ SIGNATURES = {
     "llvod_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                         _I, _P),
     # q, k1, v1, k2, v2, b1, b2, out, S, N, NB, M1, M2, q_dtype, kv_dtype,
-    # stream
+    # body, stream
     "llvod_selsa_attention_2slab": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _P),
-    # q, k, v, b, out, S, N, NB, M, q_dtype, kv_dtype, stream
+                                    _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, b, out, S, N, NB, M, q_dtype, kv_dtype, body, stream
     "llvod_selsa_attention_1slab": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _P),
+                                    _I, _I, _P),
 }
 
 

@@ -11,6 +11,11 @@ stream axis S on all its operands (q [S, N, nb, hd], k/v [S, nb, M, hd],
 bias [S, M]), the counterpart of ``jax.vmap`` over it; the kernel then runs
 all S streams in one launch. A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
+
+The kernel has two bodies (``_attention_body``): ``mma`` on the tensor cores
+for bf16 q and K/V (the default config's path) and ``fma`` on the CUDA cores
+for f32 and mixed dtypes. Each entry counts its launches in ``launches`` and
+per body in ``body_launches``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,14 @@ import torch
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BODIES = {"fma": 0, "mma": 1}
+
+
+def _attention_body(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    """The kernel body for a dtype pair: ``"mma"`` (bf16 tensor-core
+    products, f32 softmax, P split in two bf16 parts) for bf16 q and K/V,
+    ``"fma"`` (f32 arithmetic on the CUDA cores) for every other pair."""
+    return "mma" if q_dtype == kv_dtype == torch.bfloat16 else "fma"
 
 
 def selsa_attention_reference_hm(q, k, v, bias):
@@ -123,17 +136,25 @@ def _attention_cuda(entry, counted, q, slabs):
         raise TypeError("selsa attention kernel: K/V slabs need one dtype")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("selsa attention kernel: inputs must be contiguous")
+    body = _attention_body(q.dtype, kv_dtype)
+    if body == "mma" and any(t.data_ptr() % 16 for k, v, _ in slabs
+                             for t in (k, v)):
+        raise ValueError("selsa attention kernel: bf16 K/V must start on a "
+                         "16-byte boundary")
     out = torch.empty(lead + (n, nb, hd), dtype=torch.float32, device=q.device)
     s = lead[0] if lead else 1
     lib = cuda_build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = getattr(lib, entry)(
         *(t.data_ptr() for t in ts), out.data_ptr(), s, n, nb, *lengths,
-        _DTYPES[q.dtype], _DTYPES[kv_dtype], stream)
+        _DTYPES[q.dtype], _DTYPES[kv_dtype], _BODIES[body], stream)
     cuda_build.check(status, entry)
     counted.launches += 1
+    counted.body_launches[body] += 1
     return out
 
 
 selsa_fused_attention_hm.launches = 0
+selsa_fused_attention_hm.body_launches = dict.fromkeys(_BODIES, 0)
 selsa_fused_attention_2slab_hm.launches = 0
+selsa_fused_attention_2slab_hm.body_launches = dict.fromkeys(_BODIES, 0)

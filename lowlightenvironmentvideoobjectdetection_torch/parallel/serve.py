@@ -21,6 +21,7 @@ from ..models.vid.selsa import (
     inference_clip_batch,
     inference_step_batch,
 )
+from ..utils.device import resolve_device
 
 
 def batched_video_state(cfg, n_streams: int, device=None,
@@ -28,8 +29,10 @@ def batched_video_state(cfg, n_streams: int, device=None,
                         ) -> VideoState:
     """An S-stream memo: ``empty_video_state`` copied onto a leading stream
     axis of every leaf (each stream owns its memory), ``next_slot`` an int64
-    tensor [S] of zeros."""
-    st = empty_video_state(cfg, device=device, generator=generator)
+    tensor [S] of zeros. ``device`` None puts it on the card and raises
+    without one; pass ``device="cpu"`` for the CPU."""
+    st = empty_video_state(cfg, device=resolve_device(device),
+                           generator=generator)
 
     def tile(a):
         return a[None].repeat((n_streams,) + (1,) * a.ndim)

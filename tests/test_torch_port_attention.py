@@ -12,6 +12,7 @@ from lowlightenvironmentvideoobjectdetection_tpu.ops.fused_attention import (
     selsa_fused_attention_2slab_hm as jax_2slab_hm,
 )
 from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (
+    _attention_body,
     selsa_attention_reference_hm,
     selsa_fused_attention_2slab_hm,
 )
@@ -89,3 +90,15 @@ def test_bf16_memo_follows_the_f32_math():
     got = selsa_fused_attention_2slab_hm(*t)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), _port(args), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,body", [
+    (torch.bfloat16, torch.bfloat16, "mma"),
+    (torch.float32, torch.float32, "fma"),
+    (torch.float32, torch.bfloat16, "fma"),
+    (torch.bfloat16, torch.float32, "fma"),
+])
+def test_attention_body_by_dtype(q_dtype, kv_dtype, body):
+    """The tensor-core body takes bf16 q and K/V only; every other pair
+    takes the CUDA-core body."""
+    assert _attention_body(q_dtype, kv_dtype) == body

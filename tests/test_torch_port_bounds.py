@@ -1,0 +1,56 @@
+"""The kernels' least times in ``chip_smoke.py`` against hand counts.
+
+Counting rule: each input byte read once and each output byte written once;
+2 FLOPs per multiply-add. Kernel A at the main path's shapes (300 queries,
+16 heads, head dim 64, 4200 memo + 300 current keys, bf16 q and K/V, f32
+bias and output), kernel C on the same keys as one slab, kernel B on one
+38 x 64 x 512 bf16 map with 300 rois and on 14 maps with 4200 rois.
+"""
+
+import pytest
+
+import chip_smoke as cs
+
+A_BYTES = (300 * 16 * 64 * 2          # q
+           + 2 * 16 * 4200 * 64 * 2   # memo K/V
+           + 2 * 16 * 300 * 64 * 2    # current K/V
+           + 4500 * 4                 # biases
+           + 300 * 16 * 64 * 4)       # output
+B_BYTES = 38 * 64 * 512 * 2 + 300 * 4 * 4 + 300 * 7 * 7 * 512 * 2
+
+
+def test_hand_counts():
+    assert A_BYTES == 20_293_200
+    assert B_BYTES == 17_547_968
+
+
+@pytest.mark.parametrize("s,m1,m2", [(1, 4200, 300), (4, 4200, 300),
+                                     (1, 4500, 0), (8, 4200, 300)])
+def test_attention_cost(s, m1, m2):
+    nbytes, flops = cs.attention_cost(s, 300, 16, m1, m2)
+    assert nbytes == s * A_BYTES
+    assert flops == s * 5.5296e9
+
+
+@pytest.mark.parametrize("maps,rois,bind_bytes,want", [
+    (1, 300, 0, B_BYTES),
+    (14, 4200, 8, 14 * 38 * 64 * 512 * 2 + 4200 * 16 + 4200 * 8
+     + 4200 * 7 * 7 * 512 * 2),
+])
+def test_roi_align_cost(maps, rois, bind_bytes, want):
+    nbytes, flops = cs.roi_align_cost(maps, 38, 64, 512, rois,
+                                      bind_bytes=bind_bytes)
+    assert nbytes == want
+    assert flops == rois * 7 * 7 * 512 * 4 * 4 * 2  # 4 corners x 2x2 samples
+
+
+def test_bounds_and_what_bounds_them():
+    ms, by = cs.bound(*cs.attention_cost(1, 300, 16, 4200, 300),
+                      cs.BF16_TENSOR_FLOP_PER_S)
+    assert by == "bytes"  # 6.06 us of bytes against 5.59 us of products
+    assert ms == pytest.approx(20_293_200 / 3.35e12 * 1e3)
+    ms, by = cs.bound(*cs.roi_align_cost(14, 38, 64, 512, 4200, bind_bytes=8),
+                      cs.F32_FLOP_PER_S)
+    assert by == "bytes" and ms == pytest.approx(0.0733, abs=1e-4)
+    assert cs.bound(0, 989e9, cs.BF16_TENSOR_FLOP_PER_S) == (1.0,
+                                                             "operations")

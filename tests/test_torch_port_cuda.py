@@ -8,7 +8,9 @@ file imports no jax, so it runs where JAX is absent:
 Tolerances: f32 inputs 1e-5 absolute on unit-scale outputs (summation order
 only); bf16 inputs go through the same f32 arithmetic in both versions, so
 they get the same bound (kernel A) or one bf16 rounding of the output
-(kernel B, 1e-2 relative).
+(kernel B, 1e-2 relative). Kernels A and C in bf16 take the tensor-core
+(``mma``) body: exact bf16 products summed in f32, and P split into two
+bf16 parts (about 16 bits), so they keep the 1e-5 bound.
 """
 
 import numpy as np
@@ -115,6 +117,70 @@ def test_one_slab_all_masked_is_mean_of_v(dev):
     got = attention1(q, k, v, b)
     torch.testing.assert_close(got, v.mean(1)[None].expand_as(got), rtol=0,
                                atol=1e-5)
+
+
+_MMA_CASES = (
+    [("random", n, m1, m2, s) for s in (1, 4)
+     for m1, m2 in ((0, 17), (63, 1), (64, 0), (65, 300), (4200, 300))
+     for n in (1, 15, 17, 64, 65, 300)]
+    + [("masked_tiles", 300, 4200, 300, 1), ("masked_tiles", 65, 700, 20, 4),
+       ("all_masked", 300, 4200, 300, 1), ("all_masked", 17, 63, 1, 4),
+       ("one_hot", 64, 64, 0, 1), ("one_hot", 130, 100, 28, 2)])
+
+
+def _mma_inputs(dev, kind, n, m1, m2, s):
+    """Kernel A's bf16 operands for one case of ``_MMA_CASES``: random
+    (30% of keys masked), whole 64-key tiles masked before live keys, every
+    key masked, or a one-hot q against identity-like K (query i picks key
+    i % 64 with weight 1 - 1e-7), whose answer is known: V's rows."""
+    nb = 16 if m1 + m2 == 4500 else 3
+    q, k1, v1, k2, v2, b1, b2 = _attn_inputs(
+        dev, n, nb, m1, m2, torch.bfloat16, seed=n + m1 + m2 + s,
+        masked=1.0 if kind == "all_masked" else 0.3, lead=(s,))
+    if kind == "masked_tiles":  # keys [0, 192) and [640, M - 64) masked
+        j = torch.arange(m1 + m2, device=dev)
+        b = torch.where((j < 192) | ((j >= 640) & (j < m1 + m2 - 64)),
+                        -1e30, 0.0).expand(s, -1)
+        b1, b2 = b[:, :m1].contiguous(), b[:, m1:].contiguous()
+    if kind == "one_hot":  # score 20 on key i % 64 (q = 160 e_i), else 0
+        eye = torch.eye(64, device=dev)
+        q = (160 * eye[torch.arange(n, device=dev) % 64])[None, :, None]
+        q = q.expand(s, n, nb, 64).to(torch.bfloat16).contiguous()
+        keys = eye[torch.arange(m1 + m2, device=dev) % 64]
+        k = keys[None, None].expand(s, nb, -1, -1).to(torch.bfloat16)
+        k1, k2 = k[:, :, :m1].contiguous(), k[:, :, m1:].contiguous()
+        b1, b2 = torch.zeros_like(b1), torch.zeros_like(b2)
+    return q, k1, v1, k2, v2, b1, b2
+
+
+@pytest.mark.parametrize("kind,n,m1,m2,s", _MMA_CASES)
+def test_mma_body_matches_plain(dev, kind, n, m1, m2, s):
+    """Kernel A's tensor-core body in bf16 against the f32 plain version,
+    atol 1e-5, with ragged query tiles, slab boundaries inside and at the
+    edge of a 64-key tile, masked tiles before live keys and all-masked
+    rows; every launch takes the mma body."""
+    args = _mma_inputs(dev, kind, n, m1, m2, s)
+    before = dict(attention.body_launches)
+    got = attention(*args)
+    torch.cuda.synchronize()
+    assert attention.body_launches["mma"] == before["mma"] + 1
+    assert attention.body_launches["fma"] == before["fma"]
+    torch.testing.assert_close(got, attention(*args, impl="plain"), rtol=0,
+                               atol=1e-5)
+    v = torch.cat([args[2], args[4]], -2).float()  # [s, nb, M, 64]
+    if kind == "all_masked":
+        torch.testing.assert_close(
+            got, v.mean(-2)[:, None].expand_as(got), rtol=0, atol=1e-5)
+    if kind == "one_hot":
+        # query i attends to key i % 64 and its repeats i % 64 + 64r: their
+        # mean over V (weight 1 - 63 e^-20 in all)
+        m = m1 + m2
+        want = torch.stack([v[..., torch.arange(i % 64, m, 64, device=dev),
+                              :].mean(-2) for i in range(n)], 1)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    if s > 1:  # a stream of the batch equals the stream alone
+        one = attention(*(a[s - 1] for a in args))
+        torch.testing.assert_close(got[s - 1], one, rtol=0, atol=0)
 
 
 def test_attention_rejects_bad_input(dev):

@@ -1,0 +1,58 @@
+"""The port's entry points build on the card unless the caller asks for the
+CPU, and raise where there is no card."""
+
+import pytest
+import torch
+
+from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+    VIDModel,
+    init_model,
+)
+from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+    selsa as TS,
+)
+from lowlightenvironmentvideoobjectdetection_torch.parallel.serve import (
+    batched_video_state,
+)
+from lowlightenvironmentvideoobjectdetection_torch.utils.device import (
+    resolve_device,
+)
+
+TINY = dict(pad_h=64, pad_w=64, neck_channels=32, num_classes=3,
+            num_ref_frames=2, test_nms_pre=64, test_nms_post=8,
+            det_nms_pre=32, compute_dtype=torch.float32)
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+    if torch.cuda.is_available():
+        assert resolve_device() == torch.device("cuda")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device()
+
+
+@pytest.mark.parametrize("build", [
+    lambda: VIDModel(**TINY),
+    lambda: init_model("SELSA", **TINY),
+    lambda: batched_video_state(TS.SelsaConfig(**TINY), 2),
+], ids=["VIDModel", "init_model", "batched_video_state"])
+def test_entry_points_default_to_the_card(build):
+    if torch.cuda.is_available():
+        built = build()
+        leaf = built.anchors if hasattr(built, "anchors") else built.ref_valid
+        assert leaf.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+
+
+def test_cpu_on_request():
+    model = VIDModel(device="cpu", **TINY)
+    assert model.device == torch.device("cpu")
+    assert next(model.model.parameters()).device.type == "cpu"
+    st = batched_video_state(TS.SelsaConfig(**TINY), 2, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    assert st.ref_kv[0][0].device.type == "cpu"
+    assert st.ref_kv[0][0].shape == (2, 16, 2, 8, 64)

@@ -178,7 +178,7 @@ def test_vid_model_prepared_entry_matches_jax(pair):
     jvm = JaxVIDModel(params=params, ref_method="fix", compute_dtype="float32",
                       **SMALL)
     tvm = VIDModel(state_dict=tmodel.state_dict(), ref_method="fix",
-                   compute_dtype=torch.float32, **SMALL)
+                   compute_dtype=torch.float32, device="cpu", **SMALL)
     sf = np.array([0.5, 0.5, 0.5, 0.5], np.float32)
     for fid in range(3):
         img = frames[fid, :100, :120]

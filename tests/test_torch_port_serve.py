@@ -409,7 +409,8 @@ def test_inference_clip_leaves_the_callers_state_intact(system):
 def test_batched_video_state_and_head_dtype():
     cfg = TS.SelsaConfig(compute_dtype=torch.float32,
                          head_dtype=torch.bfloat16, **TINY)
-    st = batched_video_state(cfg, 3, generator=torch.Generator().manual_seed(0))
+    st = batched_video_state(cfg, 3, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
     assert st.ref_kv[0][0].shape == (3, 16, 2, 8, 64)
     assert st.ref_kv[0][0].dtype == torch.bfloat16
     assert st.ref_valid.shape == (3, 2, 8) and bool(st.ref_valid.all())
