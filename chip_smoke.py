@@ -7,21 +7,22 @@ Phases, each printing one line: ``device`` (fails without CUDA), ``build``
 source in parallel), ``kernels`` (each kernel against its plain torch
 version at the main paths' shapes, f32 and bf16, with CUDA-event times:
 first a known-answer check of the tensor-core body's fragment layouts, then
-kernel A single-stream and stream-batched at S = 4, kernel B single and
-batched, kernel C alone and against kernel A on the same keys; each timed
-beside its plain version and, for A and C, one
-``F.scaled_dot_product_attention`` call on the same inputs as a yardstick,
-with its bound from the shapes), ``stream`` (full-width SELSA R50-DC5 at the
-default config through ``init_model`` / ``inference_vid``: 14 reference
-frames at frame 0, then more frames; launch counters prove both kernels ran
-and every kernel-A launch took the tensor-core body), ``agree`` (f32, TF32
+kernel A single-stream and stream-batched at S = 4, kernel B at the
+single-stream, S = 4 serve and memo-fill shapes, kernel C alone and against
+kernel A on the same keys; each timed beside its plain version and, for A
+and C, one ``F.scaled_dot_product_attention`` call on the same inputs as a
+yardstick, with its bound from the shapes), ``stream`` (full-width SELSA
+R50-DC5 at the default config through ``init_model`` / ``inference_vid``: 14
+reference frames at frame 0, then more frames; launch counters prove both
+kernels ran, every kernel-A launch took the tensor-core body and every
+kernel-B launch the 7x7 gather body), ``agree`` (f32, TF32
 off: the kernel path, through the CUDA-core body, against the plain path on
 one frame), ``serve_agree`` (f32: the batched kernel path against the
 batched plain path, and each stream of the batch against that stream
 alone), ``serve`` (S = 4 streams of T = 8 frames through
 ``make_serve_step``, clip mode, then per-frame steps; one kernel-A launch
 per head stage, all on the tensor-core body, and one kernel-B launch per
-batched step) and
+memo fill and per batched step, all on the 7x7 gather body) and
 ``single_slab`` (kernel C on the path: the SELSA stages built from the
 head's public methods with ``attend_cached`` over the concatenated memo and
 current K/V, against ``forward_cached_stream_kv``). Then one JSON line of
@@ -51,6 +52,10 @@ ROI_BF16_TOL = 1e-2     # bf16 output: one rounding (rtol and atol)
 AGREE_TOL = 1e-3        # f32 head outputs, kernel path vs plain path
 STREAM_FRAMES = 10      # streamed after frame 0
 SERVE_S, SERVE_T = 4, 8  # streams and frames per clip of the serve phase
+# kernel B's shapes on the main path: (name, maps, rois); 300 proposals a map
+ROI_SHAPES = (("single", 1, 300),
+              (f"serve_s{SERVE_S}", SERVE_S, SERVE_S * 300),
+              ("memo_fill", 14, 4200))
 SERVE_STEPS = 3         # per-frame batched steps after the clips
 AGREE_S, AGREE_T = 2, 3  # serve_agree: streams, frames (roll every 2nd)
 SET_BOX_TOL = 5e-3      # px; detections as sets, f32 (as the CPU tests)
@@ -191,9 +196,9 @@ def attention_times(fn, args, err):
 
 
 def roi_align_times(roi_align, feats, rois, binds, err):
-    """Kernel B at its shapes: the kernel and its plain version in the
-    turns plain, kernel, kernel, plain, and the bound from the shapes; no
-    library call (NO_LIBRARY_ROI_ALIGN)."""
+    """Kernel B at one of its shapes: the kernel and its plain version in
+    the turns plain, kernel, kernel, plain, and the bound from the shapes;
+    no library call (NO_LIBRARY_ROI_ALIGN)."""
     ms, plain_ms, _ = compare_times(
         lambda: roi_align(feats, rois, 1 / 16, batch_inds=binds),
         lambda: roi_align(feats, rois, 1 / 16, batch_inds=binds,
@@ -206,7 +211,38 @@ def roi_align_times(roi_align, feats, rois, binds, err):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, share_of_bound=bound_ms / ms,
                 library_ms=None, library_note=NO_LIBRARY_ROI_ALIGN,
-                bytes=nbytes, flops=flops)
+                bytes=nbytes, flops=flops, maps=maps.shape[0],
+                rois=rois.shape[0])
+
+
+def roi_align_kernels(dev, g, roi_align, errs):
+    """Kernel B at each of ROI_SHAPES, f32 and bf16: one launch on the 7x7
+    gather body against the plain version (the first roi lies outside the
+    map and must give 0), errors into ``errs``; then the bf16 times. Returns
+    the single-stream shape's times with the others under their names."""
+    times = {}
+    for name, n_maps, n_rois in ROI_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            maps, rois, binds = roi_inputs(dev, dtype, g, n_maps, n_rois)
+            n_body = roi_align.body_launches["gather7x2"]
+            got = roi_align(maps, rois, 1 / 16, batch_inds=binds)
+            if roi_align.body_launches["gather7x2"] != n_body + 1:
+                raise AssertionError(f"roi_align {name}: not the gather7x2 "
+                                     "body")
+            want = roi_align(maps, rois, 1 / 16, batch_inds=binds,
+                             impl="plain")
+            tol = ROI_F32_ATOL if dtype == torch.float32 else ROI_BF16_TOL
+            check_close(f"roi_align {name}", got, want,
+                        0.0 if dtype == torch.float32 else tol, tol)
+            if got[0].abs().max().item() != 0.0:
+                raise AssertionError(f"roi_align {name}: a roi outside the "
+                                     "map is not 0")
+            errs[f"roi_align_{name}_{str(dtype)[6:]}"] = max_err(got, want)
+        times[name] = roi_align_times(roi_align, maps, rois, binds,
+                                      errs[f"roi_align_{name}_bfloat16"])
+    entry = times.pop("single")
+    entry.update(times)
+    return entry
 
 
 def test_rois(dev, n, h, w, g):
@@ -237,6 +273,23 @@ def reset_counts(*kernels):
         k.launches = 0
         for body in getattr(k, "body_launches", {}):
             k.body_launches[body] = 0
+
+
+def roi_inputs(dev, dtype, g, n_maps, n_rois):
+    """Kernel B's operands as the main path gives them: [B, 38, 64, 512]
+    maps, ``test_rois`` rois in map order and int64 map indices, 300 a
+    map."""
+    maps = torch.randn(n_maps, 38, 64, 512, generator=g).to(dev, dtype)
+    binds = torch.arange(n_maps, device=dev).repeat_interleave(
+        n_rois // n_maps)
+    return maps, test_rois(dev, n_rois, 38, 64, g), binds
+
+
+def add_bodies(entry, kernel):
+    """Add the kernel's launches per body to ``entry["body_launches"]``."""
+    total = entry.setdefault("body_launches", {})
+    for body, n in kernel.body_launches.items():
+        total[body] = total.get(body, 0) + n
 
 
 def check_bodies(name, kernel, **want):
@@ -357,6 +410,8 @@ def serve(dev, smi, init_model, S, kernels):
         raise AssertionError(f"serve: launch counts (A, B, C) {counts} for "
                              f"{n_steps} batched steps of {SERVE_S} streams")
     check_bodies("serve attention", kernels[0], fma=0, mma=2 * n_steps)
+    check_bodies("serve roi_align", kernels[1], gather7x2=SERVE_S + n_steps,
+                 gather14x2=0)
     for d, lead in ((dets, (SERVE_S, SERVE_T)), (fdets, (SERVE_S,))):
         if (d.boxes.shape != lead + (100, 4) or d.scores.shape != lead + (100,)
                 or d.labels.shape != lead + (100,)
@@ -534,6 +589,8 @@ def single_slab(model, memo, frame, shape, kernels):
         raise AssertionError(f"single_slab: launch counts (A, B, C) {counts}")
     check_bodies("single_slab attention", attention, fma=0, mma=2)
     check_bodies("single_slab attention_1slab", kernels[2], fma=0, mma=2)
+    check_bodies("single_slab roi_align", kernels[1], gather7x2=1,
+                 gather14x2=0)
     check_close("single_slab cls_score", got_cls, want_cls, AGREE_TOL,
                 AGREE_TOL)
     check_close("single_slab bbox_pred", got_reg, want_reg, AGREE_TOL,
@@ -596,30 +653,7 @@ def main() -> int:
     summary["attention"] = attention_times(attention, args,
                                            errs["attention_bfloat16"])
 
-    for dtype in (torch.float32, torch.bfloat16):
-        feat = torch.randn(38, 64, 512, generator=g).to(dev, dtype)
-        rois = test_rois(dev, 300, 38, 64, g)
-        got = roi_align(feat, rois, 1 / 16)
-        want = roi_align(feat, rois, 1 / 16, impl="plain")
-        tol = ROI_F32_ATOL if dtype == torch.float32 else ROI_BF16_TOL
-        check_close("roi_align", got, want, 0.0 if dtype == torch.float32
-                    else tol, tol)
-        if got[0].abs().max().item() != 0.0:
-            raise AssertionError("roi_align: a roi outside the map is not 0")
-        errs[f"roi_align_{str(dtype)[6:]}"] = max_err(got, want)
-        maps = torch.randn(14, 38, 64, 512, generator=g).to(dev, dtype)
-        brois = test_rois(dev, 4200, 38, 64, g)
-        binds = torch.arange(14, device=dev).repeat_interleave(300)
-        bgot = roi_align(maps, brois, 1 / 16, batch_inds=binds)
-        bwant = roi_align(maps, brois, 1 / 16, batch_inds=binds, impl="plain")
-        check_close("roi_align batched", bgot, bwant,
-                    0.0 if dtype == torch.float32 else tol, tol)
-        errs[f"roi_align_batched_{str(dtype)[6:]}"] = max_err(bgot, bwant)
-    summary["roi_align"] = roi_align_times(roi_align, feat, rois, None,
-                                           errs["roi_align_bfloat16"])
-    summary["roi_align"]["batched"] = roi_align_times(
-        roi_align, maps, brois, binds, errs["roi_align_batched_bfloat16"])
-    del maps, brois, bgot, bwant
+    summary["roi_align"] = roi_align_kernels(dev, g, roi_align, errs)
 
     # kernel C alone, and against kernel A on the same keys split in two
     for dtype in (torch.float32, torch.bfloat16):
@@ -691,6 +725,9 @@ def main() -> int:
         raise AssertionError(f"launch counts attention={n_attn} "
                              f"roi_align={n_roi} for {nframes} frames")
     check_bodies("stream attention", attention, fma=0, mma=n_attn)
+    check_bodies("stream roi_align", roi_align, gather7x2=n_roi,
+                 gather14x2=0)
+    add_bodies(summary["roi_align"], roi_align)
     for res in results:
         if len(res) != cfg.num_classes or sum(len(r) for r in res) > 100:
             raise AssertionError("bad per-class result shapes")
@@ -756,9 +793,11 @@ def main() -> int:
                                       kernels_on_path)
     for name, kern in zip(names, kernels_on_path):
         summary[name]["launches"] += kern.launches
+    add_bodies(summary["roi_align"], roi_align)
     for name, n in zip(names, single_slab(model, memo, frame, shape,
                                           kernels_on_path)):
         summary[name]["launches"] += n
+    add_bodies(summary["roi_align"], roi_align)
 
     tpu_ops = "lowlightenvironmentvideoobjectdetection_tpu/ops/"
     kernels = [

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel ops/roi_align_pallas.py::roi_align_pallas
 // (_kernel) of the JAX package, and serves the batched gather form
 // ops/roi_align.py::roi_align as well: one entry takes B maps and a per-roi
-// map index.
+// map index (int32 or int64, read as given; clamped to [0, B - 1]).
 //
 // Semantics (ops/roi_align.py:24-45 of the JAX package): sample positions
 // y = y1 + (p + (s + 0.5) / sr) * roi_h / out, samples below -1 or above the
@@ -11,134 +11,263 @@
 // corner is clamped to size - 1, and the bin value is the mean over the
 // sr x sr sub-samples. All of it in f32; the output has the feature dtype.
 //
-// What bounds it on the H100: bytes. Each of the 49 x 4 samples reads four
-// C-wide rows of the map (about 400 KB of gathers per roi at C = 512 in
-// bf16, mostly L2 hits: a 38 x 64 x 512 bf16 map is 2.5 MB and stays in the
-// 50 MB L2) and does 4 FMAs per element read. The design: one block per
-// (roi, channel chunk), threads along C so every corner read is one
-// coalesced row segment, and the per-axis sample table (indices and weights)
-// computed once per block into shared memory.
+// What bounds it on the H100: the gather stream through L1, not HBM and not
+// L2. The least time of the function (its bytes over 3.35 TB/s, mostly the
+// output) is far below what the gathers cost: 16 corner rows of C channels
+// for each of the out x out bins, about 800 KB through L1 per roi at C = 512
+// in bf16, with one bf16 -> f32 conversion and one FMA per gathered element.
+// The map (2.5 MB a frame at 38 x 64 x 512 bf16) stays in the 50 MB L2, and
+// the time does not change with the rois' size (zero-area rois, whose
+// gathers all hit L1, take as long as rois of 1600 px), so what sets the
+// pace is the number of load and arithmetic instructions and how many loads
+// are in flight, not L2 traffic; staging a roi's footprint in shared memory
+// would not help.
+//
+// The design ("gather" body, one instantiation per (out, sr)):
+// - (out, sr) are template arguments, so the sub-sample and channel loops
+//   unroll completely: each bin's 4 sr^2 corner loads are independent and
+//   all in flight together, with no dependent chain across samples. The
+//   bins run one after another.
+// - Each thread owns 16 bytes of channels (8 bf16 or 4 f32): one 16-byte
+//   ld.global.nc per corner, as many f32 accumulators, and one 16-byte
+//   streaming store per output bin (the output is not read again here, so
+//   it should not push the maps out of L2).
+// - One block per roi: threads run over (output row, channel vector), so a
+//   warp reads whole 512-byte row segments of the map and the roi's
+//   repeated corners are shared through one SM's L1. The roi's per-axis
+//   sample table (corner offsets and weights, 16 bytes a sample) is computed
+//   once per block into shared memory and read back as warp-uniform
+//   broadcasts. `rows` < out splits a roi over several blocks of that many
+//   output rows each (for measuring the mapping; the wrapper takes all).
+// - Positions round with __fmul_rn / __fadd_rn: FMA contraction moved
+//   samples by an ulp against the plain version.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <algorithm>
+#include <cstring>
+
 namespace {
 
-constexpr int kMaxPts = 64;  // out_size * sampling_ratio per axis
+// 7 output rows of 64 threads (C = 512 in bf16); two such blocks an SM
+// leave each thread 72 registers, which hold a bin's 16 loads without spills
+constexpr int kMaxThreads = 448;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// One sample along one axis: the element offsets of its two corners along
+// that axis (index times the axis stride) and their bilinear weights, zero
+// when the sample is out of range.
+struct __align__(16) Sample {
+  int o0, o1;
+  float w0, w1;
+};
 
-// One axis of the sample table: corner indices and bilinear weights of
-// sample i (bin i / sr, sub-sample i % sr), zero weights when out of range.
-__device__ __forceinline__ void axis_sample(float lo_coord, float bin, int i,
-                                            int sr, int size, int* c0, int* c1,
-                                            float* w0, float* w1) {
-  const int p = i / sr;
-  const int s = i % sr;
-  const float sub = (static_cast<float>(s) + 0.5f) / static_cast<float>(sr);
+__device__ __forceinline__ Sample axis_sample(float lo, float bin, int p,
+                                              float sub, int size,
+                                              int stride) {
   // _rn: no FMA contraction, so positions round as in the plain version
-  const float x = __fadd_rn(lo_coord, __fmul_rn(static_cast<float>(p) + sub, bin));
+  const float x = __fadd_rn(lo, __fmul_rn(static_cast<float>(p) + sub, bin));
   const bool oob = (x < -1.0f) || (x > static_cast<float>(size));
   const float xc = fminf(fmaxf(x, 0.0f), static_cast<float>(size) - 1.0f);
   const float f0 = floorf(xc);
   const float f1 = fminf(f0 + 1.0f, static_cast<float>(size) - 1.0f);
   const float l = xc - f0;
-  *c0 = static_cast<int>(f0);
-  *c1 = static_cast<int>(f1);
-  *w0 = oob ? 0.0f : 1.0f - l;
-  *w1 = oob ? 0.0f : l;
+  Sample s;
+  s.o0 = static_cast<int>(f0) * stride;
+  s.o1 = static_cast<int>(f1) * stride;
+  s.w0 = oob ? 0.0f : 1.0f - l;
+  s.w1 = oob ? 0.0f : l;
+  return s;
 }
 
+// 16 bytes of channels: load through the read-only path, store streaming.
 template <typename T>
-__global__ void roi_align_kernel(const T* __restrict__ feat,
-                                 const float* __restrict__ rois,
-                                 const int* __restrict__ binds,
-                                 T* __restrict__ out, int B, int H, int W,
-                                 int C, float spatial_scale, float offset,
-                                 int out_size, int sr) {
-  __shared__ int ys0[kMaxPts], ys1[kMaxPts], xs0[kMaxPts], xs1[kMaxPts];
-  __shared__ float wy0[kMaxPts], wy1[kMaxPts], wx0[kMaxPts], wx1[kMaxPts];
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void load(const float* p, float (&v)[4]) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  // a bf16 is the high half of the f32 with the same value; the element at
+  // the lower address is the low half of each 32-bit word
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float (&v)[8]) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p,
+                                               const float (&v)[8]) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      memcpy(&w[i], &h, sizeof(unsigned));
+    }
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+  }
+};
+
+template <typename T, int OUT, int SR>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+roi_align_gather(const T* __restrict__ feat, const float* __restrict__ rois,
+                 const void* __restrict__ binds, int bind_bytes,
+                 T* __restrict__ out, int B, int H, int W, int C,
+                 float spatial_scale, float offset, int rows) {
+  constexpr int kV = Vec<T>::kN;
+  constexpr int kPts = OUT * SR;
+  __shared__ Sample ys[kPts], xs[kPts];
 
   const int n = blockIdx.x;
-  const int npts = out_size * sr;
   const float* r = rois + 4 * n;
   const float x1 = __fsub_rn(__fmul_rn(r[0], spatial_scale), offset);
   const float y1 = __fsub_rn(__fmul_rn(r[1], spatial_scale), offset);
   const float x2 = __fsub_rn(__fmul_rn(r[2], spatial_scale), offset);
   const float y2 = __fsub_rn(__fmul_rn(r[3], spatial_scale), offset);
-  const float bin_w = (x2 - x1) / static_cast<float>(out_size);
-  const float bin_h = (y2 - y1) / static_cast<float>(out_size);
-  for (int i = threadIdx.x; i < 2 * npts; i += blockDim.x) {
-    if (i < npts) {
-      axis_sample(y1, bin_h, i, sr, H, &ys0[i], &ys1[i], &wy0[i], &wy1[i]);
+  const float bin_w = (x2 - x1) / static_cast<float>(OUT);
+  const float bin_h = (y2 - y1) / static_cast<float>(OUT);
+  for (int i = threadIdx.x; i < 2 * kPts; i += blockDim.x) {
+    const int j = i < kPts ? i : i - kPts;
+    const float sub = (static_cast<float>(j % SR) + 0.5f) /
+                      static_cast<float>(SR);
+    if (i < kPts) {
+      ys[j] = axis_sample(y1, bin_h, j / SR, sub, H, W * C);
     } else {
-      const int j = i - npts;
-      axis_sample(x1, bin_w, j, sr, W, &xs0[j], &xs1[j], &wx0[j], &wx1[j]);
+      xs[j] = axis_sample(x1, bin_w, j / SR, sub, W, C);
     }
   }
+
+  long long b = 0;
+  if (bind_bytes == 8) {
+    b = static_cast<const long long*>(binds)[n];
+  } else if (bind_bytes == 4) {
+    b = static_cast<const int*>(binds)[n];
+  }
+  b = b < 0 ? 0 : (b >= B ? B - 1 : b);
+  const T* f = feat + static_cast<size_t>(b) * H * W * C;
+  T* o = out + static_cast<size_t>(n) * OUT * OUT * C;
   __syncthreads();
 
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  int b = binds ? binds[n] : 0;
-  b = min(max(b, 0), B - 1);
-  const T* f = feat + static_cast<size_t>(b) * H * W * C + c;
-  const float inv = 1.0f / static_cast<float>(sr * sr);
-  T* o = out + static_cast<size_t>(n) * out_size * out_size * C + c;
-
-  for (int p = 0; p < out_size; ++p) {
-    for (int q = 0; q < out_size; ++q) {
-      float acc = 0.0f;
-      for (int sy = 0; sy < sr; ++sy) {
-        const int iy = p * sr + sy;
-        const size_t r0 = static_cast<size_t>(ys0[iy]) * W;
-        const size_t r1 = static_cast<size_t>(ys1[iy]) * W;
-        const float hy = wy0[iy], ly = wy1[iy];
-        for (int sx = 0; sx < sr; ++sx) {
-          const int ix = q * sr + sx;
-          const float hx = wx0[ix], lx = wx1[ix];
-          const size_t c0 = xs0[ix], c1 = xs1[ix];
-          acc += hy * hx * to_f32(f[(r0 + c0) * C]) +
-                 hy * lx * to_f32(f[(r0 + c1) * C]) +
-                 ly * hx * to_f32(f[(r1 + c0) * C]) +
-                 ly * lx * to_f32(f[(r1 + c1) * C]);
+  const int lanes = C / kV;
+  const int row0 = blockIdx.y * rows;
+  const int items = lanes * min(rows, OUT - row0);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int p = row0 + it / lanes;
+    const int c = (it % lanes) * kV;
+    Sample sy[SR];
+#pragma unroll
+    for (int k = 0; k < SR; ++k) sy[k] = ys[p * SR + k];
+    // one bin at a time: unrolling the bins as well spills at this budget
+#pragma unroll 1
+    for (int q = 0; q < OUT; ++q) {
+      float acc[kV];
+#pragma unroll
+      for (int k = 0; k < kV; ++k) acc[k] = 0.0f;
+#pragma unroll
+      for (int ky = 0; ky < SR; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < SR; ++kx) {
+          const Sample sx = xs[q * SR + kx];
+          const T* f0 = f + sy[ky].o0 + c;
+          const T* f1 = f + sy[ky].o1 + c;
+          float v00[kV], v01[kV], v10[kV], v11[kV];
+          Vec<T>::load(f0 + sx.o0, v00);
+          Vec<T>::load(f0 + sx.o1, v01);
+          Vec<T>::load(f1 + sx.o0, v10);
+          Vec<T>::load(f1 + sx.o1, v11);
+          const float w00 = sy[ky].w0 * sx.w0, w01 = sy[ky].w0 * sx.w1;
+          const float w10 = sy[ky].w1 * sx.w0, w11 = sy[ky].w1 * sx.w1;
+#pragma unroll
+          for (int k = 0; k < kV; ++k) {
+            acc[k] += w00 * v00[k] + w01 * v01[k] + w10 * v10[k] +
+                      w11 * v11[k];
+          }
         }
       }
-      store(o + static_cast<size_t>(p * out_size + q) * C, acc * inv);
+#pragma unroll
+      for (int k = 0; k < kV; ++k) {
+        acc[k] *= 1.0f / static_cast<float>(SR * SR);
+      }
+      Vec<T>::store(o + static_cast<size_t>(p * OUT + q) * C + c, acc);
     }
   }
 }
 
+template <typename T, int OUT, int SR>
+int launch(const void* feat, const float* rois, const void* binds,
+           int bind_bytes, void* out, int B, int H, int W, int C, int N,
+           float spatial_scale, float offset, int rows, cudaStream_t s) {
+  const int lanes = C / Vec<T>::kN;
+  rows = rows < 1 ? OUT : std::min(rows, OUT);
+  const int threads = std::min(kMaxThreads, (lanes * rows + 31) / 32 * 32);
+  const dim3 grid(N, (OUT + rows - 1) / rows);
+  roi_align_gather<T, OUT, SR><<<grid, threads, 0, s>>>(
+      static_cast<const T*>(feat), rois, binds, bind_bytes,
+      static_cast<T*>(out), B, H, W, C, spatial_scale, offset, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_body(int out_size, int sr, const void* feat, const float* rois,
+                const void* binds, int bind_bytes, void* out, int B, int H,
+                int W, int C, int N, float spatial_scale, float offset,
+                int rows, cudaStream_t s) {
+  if (C % Vec<T>::kN != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (out_size == 7 && sr == 2) {
+    return launch<T, 7, 2>(feat, rois, binds, bind_bytes, out, B, H, W, C, N,
+                           spatial_scale, offset, rows, s);
+  }
+  if (out_size == 14 && sr == 2) {
+    return launch<T, 14, 2>(feat, rois, binds, bind_bytes, out, B, H, W, C,
+                            N, spatial_scale, offset, rows, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (features and output). binds may be null
-// (every roi reads map 0). Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16 (features and output); C a multiple of
+// 16 bytes of channels and feat / out 16-byte aligned. binds: the per-roi
+// map index, bind_bytes 8 (int64) or 4 (int32), or null with bind_bytes 0
+// (every roi reads map 0). (out_size, sr) is (7, 2) or (14, 2). rows: output
+// rows per block (< 1: all of them, one block per roi). Returns
+// cudaGetLastError() after the launch.
 extern "C" int llvod_roi_align(const void* feat, const void* rois,
-                               const void* binds, void* out, int B, int H,
-                               int W, int C, int N, float spatial_scale,
-                               float offset, int out_size, int sr, int dtype,
+                               const void* binds, int bind_bytes, void* out,
+                               int B, int H, int W, int C, int N,
+                               float spatial_scale, float offset,
+                               int out_size, int sr, int dtype, int rows,
                                void* stream) {
   if (N == 0) return 0;
-  if (out_size * sr > kMaxPts) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = C >= 128 ? 128 : ((C + 31) / 32) * 32;
-  const dim3 grid(N, (C + threads - 1) / threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* r = static_cast<const float*>(rois);
-  const int* bi = static_cast<const int*>(binds);
-  if (dtype == 0) {
-    roi_align_kernel<float><<<grid, threads, 0, s>>>(
-        static_cast<const float*>(feat), r, bi, static_cast<float*>(out), B, H,
-        W, C, spatial_scale, offset, out_size, sr);
-  } else if (dtype == 1) {
-    roi_align_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(feat), r, bi,
-        static_cast<__nv_bfloat16*>(out), B, H, W, C, spatial_scale, offset,
-        out_size, sr);
-  } else {
+  if ((binds == nullptr) != (bind_bytes == 0) ||
+      (bind_bytes != 0 && bind_bytes != 4 && bind_bytes != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rois);
+  if (dtype == 0) {
+    return launch_body<float>(out_size, sr, feat, r, binds, bind_bytes, out,
+                              B, H, W, C, N, spatial_scale, offset, rows, s);
+  }
+  if (dtype == 1) {
+    return launch_body<__nv_bfloat16>(out_size, sr, feat, r, binds,
+                                      bind_bytes, out, B, H, W, C, N,
+                                      spatial_scale, offset, rows, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,6 +6,11 @@ and the batched ``roi_align``) and of its TPU kernel
 ``ops/roi_align_pallas.py::roi_align_pallas``, in the form every caller uses:
 ``aligned=True`` (half-pixel offset). A CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises.
+
+The kernel has one gather body per (out_size, sampling_ratio) it is compiled
+for (``_roi_align_body``): ``gather7x2`` (the box head's 7x7) and
+``gather14x2`` (the mask heads' 14x14). ``roi_align.launches`` counts the
+launches, ``roi_align.body_launches`` the launches per body.
 """
 
 from __future__ import annotations
@@ -17,8 +22,22 @@ import torch
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BIND_DTYPES = {torch.int32: 4, torch.int64: 8}
+_BODIES = {(7, 2): "gather7x2", (14, 2): "gather14x2"}
 _OFFSET = 0.5  # aligned=True
 _CHUNK = 64  # rois per gather step of the plain version (bounds its memory)
+
+
+def _roi_align_body(out_size: int, sampling_ratio: int) -> str:
+    """The kernel body for an output size and sampling ratio; raises
+    ``ValueError`` for a pair the kernel is not compiled for."""
+    try:
+        return _BODIES[(out_size, sampling_ratio)]
+    except KeyError:
+        raise ValueError(
+            f"roi_align kernel: no body for out_size={out_size}, "
+            f"sampling_ratio={sampling_ratio} (compiled for "
+            f"{sorted(_BODIES)})") from None
 
 
 def _axis_samples(lo, length, size: int, out_size: int, sr: int):
@@ -52,10 +71,12 @@ def roi_align_plain(
 ) -> torch.Tensor:
     """Plain torch RoIAlign: 4-corner gathers, f32 arithmetic, the feature
     dtype out. feats: [H, W, C] or [B, H, W, C]; rois: [N, 4];
-    batch_inds: [N] map index per roi (None = map 0).
-    Returns [N, out_size, out_size, C]."""
+    batch_inds: [N] map index per roi, clamped to [0, B - 1]; required for
+    a batch of more than one map. Returns [N, out_size, out_size, C]."""
     maps = feats if feats.ndim == 4 else feats[None]
     b, h, w, c = maps.shape
+    if batch_inds is None and b != 1:
+        raise ValueError("roi_align: batch_inds required for a batch of maps")
     n = rois.shape[0]
     sr = sampling_ratio
     flat = maps.reshape(b * h * w, c)
@@ -99,8 +120,10 @@ def roi_align(
     """RoIAlign over one map [H, W, C] or a batch [B, H, W, C] (with
     ``batch_inds``). Returns [N, out_size, out_size, C] in the feature dtype.
 
-    CPU tensors take ``roi_align_plain``; CUDA tensors launch the kernel.
-    ``impl="plain"`` forces the plain version (for comparisons only)."""
+    CPU tensors take ``roi_align_plain``; CUDA tensors launch the kernel's
+    body for (out_size, sampling_ratio), (7, 2) or (14, 2), and raise
+    ``ValueError`` for any other pair. ``impl="plain"`` forces the plain
+    version (for comparisons only)."""
     if impl not in (None, "plain"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "plain" or feats.device.type == "cpu":
@@ -111,44 +134,62 @@ def roi_align(
 
 
 def _roi_align_cuda(feats, rois, spatial_scale, batch_inds, out_size,
-                    sampling_ratio):
+                    sampling_ratio, rows=0):
+    """Check the operands and launch the kernel's body for (out_size,
+    sampling_ratio). ``rows``: output rows per thread block, 0 for all of
+    them (one block per roi); ``tools/roi_align_times.py`` measures the
+    others."""
+    body = _roi_align_body(out_size, sampling_ratio)
     if feats.device.type != "cuda":
         raise RuntimeError(f"roi_align: no kernel for device {feats.device}")
     if feats.dtype not in _DTYPES:
         raise TypeError(f"roi_align: feature dtype {feats.dtype} not supported")
     if feats.ndim not in (3, 4) or rois.ndim != 2 or rois.shape[-1] != 4:
         raise ValueError(f"roi_align: bad shapes {feats.shape}, {rois.shape}")
-    if out_size * sampling_ratio > 64:
-        raise ValueError("roi_align kernel: out_size * sampling_ratio > 64")
     maps = feats if feats.ndim == 4 else feats[None]
     if not maps.is_contiguous():
         raise ValueError("roi_align kernel: feature map must be contiguous")
     b, h, w, c = maps.shape
+    vec = 16 // maps.element_size()  # channels per 16-byte load
+    if c % vec or maps.data_ptr() % 16:
+        raise ValueError(f"roi_align kernel: {c} channels of {maps.dtype} "
+                         "must be whole 16-byte vectors on a 16-byte "
+                         "boundary")
+    if h * w * c >= 2 ** 31:
+        raise ValueError("roi_align kernel: a map of 2^31 elements or more")
     n = rois.shape[0]
     if rois.device != feats.device or rois.dtype != torch.float32:
         raise TypeError("roi_align kernel: rois must be float32 on the map's "
                         "device")
     rois_c = rois.contiguous()
-    binds = None
+    binds, bind_bytes = None, 0
     if batch_inds is not None:
         if batch_inds.shape != (n,) or batch_inds.device != feats.device:
             raise ValueError("roi_align kernel: batch_inds must be [N] on the "
                              "map's device")
-        binds = batch_inds.to(torch.int32).contiguous()
+        if batch_inds.dtype not in _BIND_DTYPES:
+            raise TypeError("roi_align kernel: batch_inds must be int32 or "
+                            "int64")
+        binds, bind_bytes = batch_inds.contiguous(), _BIND_DTYPES[
+            batch_inds.dtype]
     elif b != 1:
         raise ValueError("roi_align: batch_inds required for a batch of maps")
     out = torch.empty((n, out_size, out_size, c), dtype=feats.dtype,
                       device=feats.device)
+    if n == 0:
+        return out
     lib = cuda_build.load_library()
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     status = lib.llvod_roi_align(
         maps.data_ptr(), rois_c.data_ptr(),
-        binds.data_ptr() if binds is not None else None, out.data_ptr(),
-        b, h, w, c, n, float(spatial_scale), _OFFSET, out_size, sampling_ratio,
-        _DTYPES[feats.dtype], stream)
+        binds.data_ptr() if binds is not None else None, bind_bytes,
+        out.data_ptr(), b, h, w, c, n, float(spatial_scale), _OFFSET, out_size,
+        sampling_ratio, _DTYPES[feats.dtype], rows, stream)
     cuda_build.check(status, "llvod_roi_align")
     roi_align.launches += 1
+    roi_align.body_launches[body] += 1
     return out
 
 
 roi_align.launches = 0
+roi_align.body_launches = dict.fromkeys(_BODIES.values(), 0)

@@ -4,7 +4,9 @@ Counting rule: each input byte read once and each output byte written once;
 2 FLOPs per multiply-add. Kernel A at the main path's shapes (300 queries,
 16 heads, head dim 64, 4200 memo + 300 current keys, bf16 q and K/V, f32
 bias and output), kernel C on the same keys as one slab, kernel B on one
-38 x 64 x 512 bf16 map with 300 rois and on 14 maps with 4200 rois.
+38 x 64 x 512 bf16 map with 300 rois, on 4 maps with 1200 rois (a batched
+step of 4 streams) and on 14 maps with 4200 rois (a memo fill), the map
+indices int64.
 """
 
 import pytest
@@ -17,11 +19,16 @@ A_BYTES = (300 * 16 * 64 * 2          # q
            + 4500 * 4                 # biases
            + 300 * 16 * 64 * 4)       # output
 B_BYTES = 38 * 64 * 512 * 2 + 300 * 4 * 4 + 300 * 7 * 7 * 512 * 2
+B_SERVE_BYTES = (4 * 38 * 64 * 512 * 2     # 4 maps
+                 + 1200 * 4 * 4            # rois
+                 + 1200 * 8                # int64 map index per roi
+                 + 1200 * 7 * 7 * 512 * 2)  # output
 
 
 def test_hand_counts():
     assert A_BYTES == 20_293_200
     assert B_BYTES == 17_547_968
+    assert B_SERVE_BYTES == 70_201_472
 
 
 @pytest.mark.parametrize("s,m1,m2", [(1, 4200, 300), (4, 4200, 300),
@@ -34,6 +41,7 @@ def test_attention_cost(s, m1, m2):
 
 @pytest.mark.parametrize("maps,rois,bind_bytes,want", [
     (1, 300, 0, B_BYTES),
+    (4, 1200, 8, B_SERVE_BYTES),
     (14, 4200, 8, 14 * 38 * 64 * 512 * 2 + 4200 * 16 + 4200 * 8
      + 4200 * 7 * 7 * 512 * 2),
 ])
@@ -52,5 +60,11 @@ def test_bounds_and_what_bounds_them():
     ms, by = cs.bound(*cs.roi_align_cost(14, 38, 64, 512, 4200, bind_bytes=8),
                       cs.F32_FLOP_PER_S)
     assert by == "bytes" and ms == pytest.approx(0.0733, abs=1e-4)
+    ms, by = cs.bound(*cs.roi_align_cost(4, 38, 64, 512, 1200, bind_bytes=8),
+                      cs.F32_FLOP_PER_S)
+    # 20.96 us of bytes against 14.4 us of f32 FMAs
+    assert by == "bytes" and ms == pytest.approx(70_201_472 / 3.35e9)
+    assert cs.roi_align_cost(4, 38, 64, 512, 1200, bind_bytes=8)[1] == \
+        963_379_200
     assert cs.bound(0, 989e9, cs.BF16_TENSOR_FLOP_PER_S) == (1.0,
                                                              "operations")

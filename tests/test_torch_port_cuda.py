@@ -8,9 +8,11 @@ file imports no jax, so it runs where JAX is absent:
 Tolerances: f32 inputs 1e-5 absolute on unit-scale outputs (summation order
 only); bf16 inputs go through the same f32 arithmetic in both versions, so
 they get the same bound (kernel A) or one bf16 rounding of the output
-(kernel B, 1e-2 relative). Kernels A and C in bf16 take the tensor-core
-(``mma``) body: exact bf16 products summed in f32, and P split into two
-bf16 parts (about 16 bits), so they keep the 1e-5 bound.
+(kernel B, 1e-2 relative and absolute). Kernels A and C in bf16 take the
+tensor-core (``mma``) body: exact bf16 products summed in f32, and P split
+into two bf16 parts (about 16 bits), so they keep the 1e-5 bound. Kernel
+B's cases count the launches of its gather bodies (``gather7x2``,
+``gather14x2``).
 """
 
 import numpy as np
@@ -209,30 +211,124 @@ def _rois(dev, n, h, w, seed=0):
     return torch.as_tensor(r, dtype=torch.float32, device=dev)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)])
-def test_roi_align_kernel_matches_plain(dev, dtype, tol):
-    g = torch.Generator(device="cpu").manual_seed(1)
-    feat = torch.randn(38, 64, 512, generator=g).to(dev, dtype)
-    rois = _rois(dev, 300, 38, 64)
-    before = roi_align.launches
-    got = roi_align(feat, rois, 1 / 16)
+def _edge_rois(dev, h, w):
+    """Rois whose sample positions fall exactly on the range's edges: in
+    map coordinates (stride 16, half-pixel offset) zero-width and zero-height
+    rois at -1, 0, size - 1 and size on each axis, and just outside at
+    -1.0625 and size + 0.0625 (their samples contribute 0); rois with
+    corners at those values; then fully outside, zero area, whole map."""
+    img = lambda v: (v + 0.5) * 16  # noqa: E731  map coordinate -> image
+    rows = []
+    for axis, size in ((0, w), (1, h)):
+        for v in (-1.0, 0.0, size - 1.0, float(size), -1.0625, size + 0.0625):
+            r = [img(2.0), img(3.0), img(5.5), img(7.25)]
+            r[axis] = r[axis + 2] = img(v)
+            rows.append(r)
+    rows += [[img(-1.0), img(-1.0), img(w), img(h)],
+             [img(0.0), img(0.0), img(w - 1.0), img(h - 1.0)],
+             [img(-1.0), img(0.0), img(w - 1.0), img(h)],
+             [-200.0, -200.0, -100.0, -120.0],   # fully outside
+             [50.0, 40.0, 50.0, 40.0],           # zero area
+             [0.0, 0.0, w * 16.0, h * 16.0]]     # whole map
+    return torch.tensor(rows, dtype=torch.float32, device=dev)
+
+
+_ROI_TOL = {torch.float32: (0.0, 1e-5),     # summation order only
+            torch.bfloat16: (1e-2, 1e-2)}   # one rounding of the output
+
+
+def _roi_check(feats, rois, binds=None, out_size=7):
+    """One kernel-B launch on the body for (out_size, 2), counted once in
+    ``launches`` and in that body's ``body_launches``, against the plain
+    version at the dtype's tolerance. Returns the kernel's output."""
+    body = f"gather{out_size}x2"
+    before, bodies = roi_align.launches, dict(roi_align.body_launches)
+    got = roi_align(feats, rois, 1 / 16, batch_inds=binds, out_size=out_size)
     torch.cuda.synchronize()
     assert roi_align.launches == before + 1
-    want = roi_align(feat, rois, 1 / 16, impl="plain")
-    assert got.dtype == dtype and got.shape == (300, 7, 7, 512)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert roi_align.body_launches == {
+        k: v + (k == body) for k, v in bodies.items()}
+    want = roi_align(feats, rois, 1 / 16, batch_inds=binds, out_size=out_size,
+                     impl="plain")
+    assert got.dtype == feats.dtype
+    assert got.shape == (rois.shape[0], out_size, out_size, feats.shape[-1])
+    rtol, atol = _ROI_TOL[feats.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_matches_plain(dev, dtype):
+    """One 38 x 64 x 512 map and 300 rois, the single-stream shape."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    feat = torch.randn(38, 64, 512, generator=g).to(dev, dtype)
+    got = _roi_check(feat, _rois(dev, 300, 38, 64))
     assert got[0].abs().max().item() == 0.0
 
 
-def test_roi_align_batched_kernel_matches_plain(dev):
+@pytest.mark.parametrize("out_size", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [40, 256, 512])
+def test_roi_align_batched_kernel_matches_plain(dev, c, dtype, out_size):
+    """A batch of maps with per-roi int64 indices, some out of range
+    (clamped to [0, B - 1]); int32 indices give the same output."""
     g = torch.Generator(device="cpu").manual_seed(2)
-    feats = torch.randn(5, 20, 30, 40, generator=g).to(dev)
+    feats = torch.randn(5, 20, 30, c, generator=g).to(dev, dtype)
     rois = _rois(dev, 200, 20, 30, seed=3)
-    binds = torch.randint(0, 5, (200,), generator=g).to(dev)
-    got = roi_align(feats, rois, 1 / 16, batch_inds=binds)
-    want = roi_align(feats, rois, 1 / 16, batch_inds=binds, impl="plain")
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    binds = torch.randint(0, 5, (200,), generator=g)
+    binds[:8] = torch.tensor([-3, -1, 5, 6, 1000, 0, 4, -(2 ** 40)])
+    binds = binds.to(dev)
+    got = _roi_check(feats, rois, binds, out_size)
+    clamped = roi_align(feats, rois, 1 / 16, batch_inds=binds.clamp(0, 4),
+                        out_size=out_size)
+    torch.testing.assert_close(got, clamped, rtol=0, atol=0)
+    small = binds.clamp(-(2 ** 31), 2 ** 31 - 1).to(torch.int32)
+    torch.testing.assert_close(
+        roi_align(feats, rois, 1 / 16, batch_inds=small, out_size=out_size),
+        got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_edge_rois(dev, dtype, out_size):
+    """Samples exactly at -1, 0, size - 1 and size, and just beyond; fully
+    outside rois give 0, zero-area and whole-map rois match."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    feat = torch.randn(20, 30, 64, generator=g).to(dev, dtype)
+    rois = _edge_rois(dev, 20, 30)
+    got = _roi_check(feat, rois, out_size=out_size)
+    for i in (4, 5, 10, 11, 15):  # beyond -1 or size on an axis; outside
+        assert got[i].abs().max().item() == 0.0
+    for i in (0, 1, 2, 3, 6, 7, 8, 9):  # on the edges: in range
+        assert got[i].abs().max().item() > 0.0
+
+
+def test_roi_align_no_rois_no_launch(dev):
+    feats = torch.randn(2, 20, 30, 64, device=dev)
+    before, bodies = roi_align.launches, dict(roi_align.body_launches)
+    out = roi_align(feats, torch.zeros(0, 4, device=dev), 1 / 16,
+                    batch_inds=torch.zeros(0, dtype=torch.int64, device=dev))
+    assert out.shape == (0, 7, 7, 64)
+    assert roi_align.launches == before
+    assert roi_align.body_launches == bodies
+
+
+def test_roi_align_rejects_what_no_body_takes(dev):
+    feat = torch.randn(20, 30, 64, device=dev)
+    rois = _rois(dev, 10, 20, 30)
+    before = roi_align.launches
+    with pytest.raises(ValueError):  # no (5, 3) body
+        roi_align(feat, rois, 1 / 16, out_size=5, sampling_ratio=3)
+    with pytest.raises(ValueError):  # 36 bf16 channels: not 16-byte vectors
+        roi_align(feat[..., :36].bfloat16().contiguous(), rois, 1 / 16)
+    with pytest.raises(ValueError):  # a map that starts off a 16-byte line
+        roi_align(feat.reshape(-1)[1:1 + 20 * 30 * 60].view(20, 30, 60),
+                  rois, 1 / 16)
+    with pytest.raises(ValueError):  # a batch of maps needs batch_inds
+        roi_align(feat.expand(2, -1, -1, -1).contiguous(), rois, 1 / 16)
+    with pytest.raises(TypeError):
+        roi_align(feat.half(), rois, 1 / 16)
+    assert roi_align.launches == before
 
 
 def test_small_stream_kernel_path_matches_plain(dev):

@@ -16,7 +16,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.ops.roi_align_pallas import (
     roi_align_pallas as jax_roi_align_pallas,
 )
 from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
+    _roi_align_body,
     roi_align,
+    roi_align_plain,
 )
 
 torch.set_num_threads(1)
@@ -93,3 +95,52 @@ def test_output_dtype_follows_features():
 def test_rejects_unknown_impl():
     with pytest.raises(ValueError):
         roi_align(torch.zeros(4, 4, 2), torch.zeros(1, 4), 1.0, impl="xla")
+
+
+@pytest.mark.parametrize("out_size,sr,body", [(7, 2, "gather7x2"),
+                                              (14, 2, "gather14x2")])
+def test_kernel_body_by_size(out_size, sr, body):
+    assert _roi_align_body(out_size, sr) == body
+
+
+@pytest.mark.parametrize("out_size,sr", [(5, 3), (7, 1), (14, 3), (7, 0),
+                                         (2, 7)])
+def test_no_kernel_body_raises(out_size, sr):
+    with pytest.raises(ValueError):
+        _roi_align_body(out_size, sr)
+
+
+def test_kernel_path_never_falls_back_to_plain():
+    """A tensor on neither the CPU nor a card reaches the kernel path, which
+    raises: for a size with no body first, then for the device."""
+    feat = torch.zeros(4, 4, 8, device="meta")
+    rois = torch.zeros(2, 4, device="meta")
+    with pytest.raises(ValueError):
+        roi_align(feat, rois, 1.0, out_size=5, sampling_ratio=3)
+    with pytest.raises(RuntimeError):
+        roi_align(feat, rois, 1.0)
+
+
+def test_plain_needs_batch_inds_for_a_batch_of_maps():
+    rois = torch.tensor([[0.0, 0.0, 40.0, 50.0]])
+    with pytest.raises(ValueError):
+        roi_align_plain(torch.zeros(2, 5, 7, 4), rois, 1.0 / STRIDE)
+    one = torch.randn(1, 5, 7, 4)  # a batch of one map reads that map
+    torch.testing.assert_close(roi_align_plain(one, rois, 1.0 / STRIDE),
+                               roi_align_plain(one[0], rois, 1.0 / STRIDE),
+                               rtol=0, atol=0)
+
+
+def test_int32_and_int64_batch_inds_agree():
+    rng = np.random.RandomState(4)
+    feats = torch.from_numpy(rng.randn(3, 8, 11, 6).astype(np.float32))
+    rois = torch.from_numpy(_rois(rng, 9, 8, 11))
+    binds = rng.randint(-2, 5, rois.shape[0])  # some out of range: clamped
+    got64 = roi_align(feats, rois, 1.0 / STRIDE,
+                      batch_inds=torch.from_numpy(binds.astype(np.int64)))
+    got32 = roi_align(feats, rois, 1.0 / STRIDE,
+                      batch_inds=torch.from_numpy(binds.astype(np.int32)))
+    torch.testing.assert_close(got32, got64, rtol=0, atol=0)
+    clamped = roi_align(feats, rois, 1.0 / STRIDE,
+                        batch_inds=torch.from_numpy(np.clip(binds, 0, 2)))
+    torch.testing.assert_close(got64, clamped, rtol=0, atol=0)
