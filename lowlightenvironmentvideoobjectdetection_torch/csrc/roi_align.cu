@@ -3,7 +3,7 @@
 // Replaces the TPU kernel ops/roi_align_pallas.py::roi_align_pallas
 // (_kernel) of the JAX package, and serves the batched gather form
 // ops/roi_align.py::roi_align as well: one entry takes B maps and a per-roi
-// map index (int32 or int64, read as given; clamped to [0, B - 1]).
+// int64 map index, read as given and clamped to [0, B - 1].
 //
 // Semantics (ops/roi_align.py:24-45 of the JAX package): sample positions
 // y = y1 + (p + (s + 0.5) / sr) * roi_h / out, samples below -1 or above the
@@ -37,8 +37,7 @@
 //   repeated corners are shared through one SM's L1. The roi's per-axis
 //   sample table (corner offsets and weights, 16 bytes a sample) is computed
 //   once per block into shared memory and read back as warp-uniform
-//   broadcasts. `rows` < out splits a roi over several blocks of that many
-//   output rows each (for measuring the mapping; the wrapper takes all).
+//   broadcasts.
 // - Positions round with __fmul_rn / __fadd_rn: FMA contraction moved
 //   samples by an ulp against the plain version.
 
@@ -126,9 +125,9 @@ struct Vec<__nv_bfloat16> {
 template <typename T, int OUT, int SR>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 roi_align_gather(const T* __restrict__ feat, const float* __restrict__ rois,
-                 const void* __restrict__ binds, int bind_bytes,
-                 T* __restrict__ out, int B, int H, int W, int C,
-                 float spatial_scale, float offset, int rows) {
+                 const long long* __restrict__ binds, T* __restrict__ out,
+                 int B, int H, int W, int C, float spatial_scale,
+                 float offset) {
   constexpr int kV = Vec<T>::kN;
   constexpr int kPts = OUT * SR;
   __shared__ Sample ys[kPts], xs[kPts];
@@ -152,22 +151,15 @@ roi_align_gather(const T* __restrict__ feat, const float* __restrict__ rois,
     }
   }
 
-  long long b = 0;
-  if (bind_bytes == 8) {
-    b = static_cast<const long long*>(binds)[n];
-  } else if (bind_bytes == 4) {
-    b = static_cast<const int*>(binds)[n];
-  }
+  long long b = binds ? binds[n] : 0;
   b = b < 0 ? 0 : (b >= B ? B - 1 : b);
   const T* f = feat + static_cast<size_t>(b) * H * W * C;
   T* o = out + static_cast<size_t>(n) * OUT * OUT * C;
   __syncthreads();
 
   const int lanes = C / kV;
-  const int row0 = blockIdx.y * rows;
-  const int items = lanes * min(rows, OUT - row0);
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int p = row0 + it / lanes;
+  for (int it = threadIdx.x; it < lanes * OUT; it += blockDim.x) {
+    const int p = it / lanes;
     const int c = (it % lanes) * kV;
     Sample sy[SR];
 #pragma unroll
@@ -209,32 +201,29 @@ roi_align_gather(const T* __restrict__ feat, const float* __restrict__ rois,
 }
 
 template <typename T, int OUT, int SR>
-int launch(const void* feat, const float* rois, const void* binds,
-           int bind_bytes, void* out, int B, int H, int W, int C, int N,
-           float spatial_scale, float offset, int rows, cudaStream_t s) {
+int launch(const void* feat, const float* rois, const long long* binds,
+           void* out, int B, int H, int W, int C, int N, float spatial_scale,
+           float offset, cudaStream_t s) {
   const int lanes = C / Vec<T>::kN;
-  rows = rows < 1 ? OUT : std::min(rows, OUT);
-  const int threads = std::min(kMaxThreads, (lanes * rows + 31) / 32 * 32);
-  const dim3 grid(N, (OUT + rows - 1) / rows);
-  roi_align_gather<T, OUT, SR><<<grid, threads, 0, s>>>(
-      static_cast<const T*>(feat), rois, binds, bind_bytes,
-      static_cast<T*>(out), B, H, W, C, spatial_scale, offset, rows);
+  const int threads = std::min(kMaxThreads, (lanes * OUT + 31) / 32 * 32);
+  roi_align_gather<T, OUT, SR><<<N, threads, 0, s>>>(
+      static_cast<const T*>(feat), rois, binds, static_cast<T*>(out), B, H, W,
+      C, spatial_scale, offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_body(int out_size, int sr, const void* feat, const float* rois,
-                const void* binds, int bind_bytes, void* out, int B, int H,
-                int W, int C, int N, float spatial_scale, float offset,
-                int rows, cudaStream_t s) {
+                const long long* binds, void* out, int B, int H, int W, int C,
+                int N, float spatial_scale, float offset, cudaStream_t s) {
   if (C % Vec<T>::kN != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (out_size == 7 && sr == 2) {
-    return launch<T, 7, 2>(feat, rois, binds, bind_bytes, out, B, H, W, C, N,
-                           spatial_scale, offset, rows, s);
+    return launch<T, 7, 2>(feat, rois, binds, out, B, H, W, C, N,
+                           spatial_scale, offset, s);
   }
   if (out_size == 14 && sr == 2) {
-    return launch<T, 14, 2>(feat, rois, binds, bind_bytes, out, B, H, W, C,
-                            N, spatial_scale, offset, rows, s);
+    return launch<T, 14, 2>(feat, rois, binds, out, B, H, W, C, N,
+                            spatial_scale, offset, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -243,31 +232,25 @@ int launch_body(int out_size, int sr, const void* feat, const float* rois,
 
 // dtype: 0 = float32, 1 = bfloat16 (features and output); C a multiple of
 // 16 bytes of channels and feat / out 16-byte aligned. binds: the per-roi
-// map index, bind_bytes 8 (int64) or 4 (int32), or null with bind_bytes 0
-// (every roi reads map 0). (out_size, sr) is (7, 2) or (14, 2). rows: output
-// rows per block (< 1: all of them, one block per roi). Returns
-// cudaGetLastError() after the launch.
+// int64 map index, or null (every roi reads map 0). (out_size, sr) is (7, 2)
+// or (14, 2). One thread block per roi. Returns cudaGetLastError() after the
+// launch.
 extern "C" int llvod_roi_align(const void* feat, const void* rois,
-                               const void* binds, int bind_bytes, void* out,
-                               int B, int H, int W, int C, int N,
-                               float spatial_scale, float offset,
-                               int out_size, int sr, int dtype, int rows,
+                               const void* binds, void* out, int B, int H,
+                               int W, int C, int N, float spatial_scale,
+                               float offset, int out_size, int sr, int dtype,
                                void* stream) {
   if (N == 0) return 0;
-  if ((binds == nullptr) != (bind_bytes == 0) ||
-      (bind_bytes != 0 && bind_bytes != 4 && bind_bytes != 8)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
+  const long long* b = static_cast<const long long*>(binds);
   if (dtype == 0) {
-    return launch_body<float>(out_size, sr, feat, r, binds, bind_bytes, out,
-                              B, H, W, C, N, spatial_scale, offset, rows, s);
+    return launch_body<float>(out_size, sr, feat, r, b, out, B, H, W, C, N,
+                              spatial_scale, offset, s);
   }
   if (dtype == 1) {
-    return launch_body<__nv_bfloat16>(out_size, sr, feat, r, binds,
-                                      bind_bytes, out, B, H, W, C, N,
-                                      spatial_scale, offset, rows, s);
+    return launch_body<__nv_bfloat16>(out_size, sr, feat, r, b, out, B, H, W,
+                                      C, N, spatial_scale, offset, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

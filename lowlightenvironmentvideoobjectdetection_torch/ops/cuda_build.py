@@ -31,10 +31,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # feat, rois, binds, bind_bytes, out, B, H, W, C, N, spatial_scale,
-    # offset, out_size, sampling_ratio, dtype, rows, stream
-    "llvod_roi_align": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _I,
-                        _I, _I, _I, _P),
+    # feat, rois, binds, out, B, H, W, C, N, spatial_scale, offset,
+    # out_size, sampling_ratio, dtype, stream
+    "llvod_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                        _I, _P),
     # q, k1, v1, k2, v2, b1, b2, out, S, N, NB, M1, M2, q_dtype, kv_dtype,
     # body, stream
     "llvod_selsa_attention_2slab": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -22,7 +22,6 @@ import torch
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BIND_DTYPES = {torch.int32: 4, torch.int64: 8}
 _BODIES = {(7, 2): "gather7x2", (14, 2): "gather14x2"}
 _OFFSET = 0.5  # aligned=True
 _CHUNK = 64  # rois per gather step of the plain version (bounds its memory)
@@ -134,11 +133,10 @@ def roi_align(
 
 
 def _roi_align_cuda(feats, rois, spatial_scale, batch_inds, out_size,
-                    sampling_ratio, rows=0):
+                    sampling_ratio):
     """Check the operands and launch the kernel's body for (out_size,
-    sampling_ratio). ``rows``: output rows per thread block, 0 for all of
-    them (one block per roi); ``tools/roi_align_times.py`` measures the
-    others."""
+    sampling_ratio). The kernel reads int64 map indices in place; int32
+    ones are widened here (no caller of the main path passes them)."""
     body = _roi_align_body(out_size, sampling_ratio)
     if feats.device.type != "cuda":
         raise RuntimeError(f"roi_align: no kernel for device {feats.device}")
@@ -162,16 +160,15 @@ def _roi_align_cuda(feats, rois, spatial_scale, batch_inds, out_size,
         raise TypeError("roi_align kernel: rois must be float32 on the map's "
                         "device")
     rois_c = rois.contiguous()
-    binds, bind_bytes = None, 0
+    binds = None
     if batch_inds is not None:
         if batch_inds.shape != (n,) or batch_inds.device != feats.device:
             raise ValueError("roi_align kernel: batch_inds must be [N] on the "
                              "map's device")
-        if batch_inds.dtype not in _BIND_DTYPES:
+        if batch_inds.dtype not in (torch.int32, torch.int64):
             raise TypeError("roi_align kernel: batch_inds must be int32 or "
                             "int64")
-        binds, bind_bytes = batch_inds.contiguous(), _BIND_DTYPES[
-            batch_inds.dtype]
+        binds = batch_inds.to(torch.int64).contiguous()
     elif b != 1:
         raise ValueError("roi_align: batch_inds required for a batch of maps")
     out = torch.empty((n, out_size, out_size, c), dtype=feats.dtype,
@@ -182,9 +179,9 @@ def _roi_align_cuda(feats, rois, spatial_scale, batch_inds, out_size,
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     status = lib.llvod_roi_align(
         maps.data_ptr(), rois_c.data_ptr(),
-        binds.data_ptr() if binds is not None else None, bind_bytes,
-        out.data_ptr(), b, h, w, c, n, float(spatial_scale), _OFFSET, out_size,
-        sampling_ratio, _DTYPES[feats.dtype], rows, stream)
+        binds.data_ptr() if binds is not None else None, out.data_ptr(), b,
+        h, w, c, n, float(spatial_scale), _OFFSET, out_size, sampling_ratio,
+        _DTYPES[feats.dtype], stream)
     cuda_build.check(status, "llvod_roi_align")
     roi_align.launches += 1
     roi_align.body_launches[body] += 1

@@ -14,7 +14,9 @@ steps:
 - step: 15 unstaged steps, synchronised after each; median and all;
 - device: ``torch.profiler`` over 3 windows of 4 steps; busy time is the
   union of the device events' intervals, idle share 1 - busy / wall, and
-  device time by kernel name (kernel A is ``selsa_attn``, B ``roi_align``).
+  device time by kernel name (kernel A is ``selsa_attn``, B ``roi_align``),
+  and of the kernel that starts next after each kernel-B launch (the first
+  FC of the head, which reads B's output).
 
 Prints the card's name and power limit and one JSON line per S, and with
 ``--out`` writes them all to that file. Needs a CUDA device; fails without
@@ -98,7 +100,7 @@ def device_windows(step, states):
     over WINDOWS profiled windows of WINDOW_STEPS steps."""
     from torch.profiler import ProfilerActivity, profile
 
-    out, by_name = [], defaultdict(float)
+    out, by_name, after = [], defaultdict(float), defaultdict(float)
     for _ in range(WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -114,8 +116,12 @@ def device_windows(step, states):
             raise RuntimeError("the profiler recorded no device events")
         busy = union_ms([(e.time_range.start, e.time_range.end)
                          for e in dev])
-        for e in dev:
-            by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+        dev.sort(key=lambda e: e.time_range.start)
+        for i, e in enumerate(dev):
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            by_name[e.name] += ms
+            if i and "roi_align" in dev[i - 1].name:
+                after[e.name] += ms
         out.append(dict(busy_ms_per_step=busy / WINDOW_STEPS,
                         wall_ms_per_step=wall / WINDOW_STEPS,
                         idle_share=1.0 - busy / wall))
@@ -124,6 +130,8 @@ def device_windows(step, states):
     kernel = {key: sum(v for n, v in by_name.items() if key in n) / steps
               for key in ("selsa_attn", "roi_align")}
     return states, out, dict(top=[(n, v / steps) for n, v in top],
+                             after_roi_align={n: v / steps
+                                              for n, v in after.items()},
                              **{f"{k}_ms_per_step": v
                                 for k, v in kernel.items()})
 
