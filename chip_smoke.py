@@ -25,9 +25,18 @@ per head stage, all on the tensor-core body, and one kernel-B launch per
 memo fill and per batched step, all on the 7x7 gather body) and
 ``single_slab`` (kernel C on the path: the SELSA stages built from the
 head's public methods with ``attend_cached`` over the concatenated memo and
-current K/V, against ``forward_cached_stream_kv``). Then one JSON line of
-kernel summaries, and a last line ``{"ok": true, "device": {...}}``. Any
-failure exits non-zero.
+current K/V, against ``forward_cached_stream_kv``), ``train`` (full-width
+SELSA R50-DC5 training at the JAX training default, bf16 compute with f32
+parameters, one sample of a key and 2 reference frames, through
+``train_model`` and ``Trainer``: 2 warm-up and 8 timed steps, each launching
+kernel B twice on the 7x7 gather body and kernel D, RoIAlign's backward,
+twice; frozen parameters bit-identical, the others changed) and
+``train_agree`` (f32, TF32 off: one loss and every gradient at full width
+through the kernels and through the plain RoIAlign, with the same
+uniforms). The ``kernels`` phase also holds kernel D against the plain
+backward (torch autograd in f32, cast) at the training shapes, and kernel
+B at them. Then one JSON line of kernel summaries, and a last line
+``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -52,10 +61,26 @@ ROI_BF16_TOL = 1e-2     # bf16 output: one rounding (rtol and atol)
 AGREE_TOL = 1e-3        # f32 head outputs, kernel path vs plain path
 STREAM_FRAMES = 10      # streamed after frame 0
 SERVE_S, SERVE_T = 4, 8  # streams and frames per clip of the serve phase
-# kernel B's shapes on the main path: (name, maps, rois); 300 proposals a map
+# kernel B's shapes on the main paths: (name, maps, rois); 300 proposals a
+# map when streaming, 256 sampled key rois and 300 proposals a reference map
+# when training
 ROI_SHAPES = (("single", 1, 300),
               (f"serve_s{SERVE_S}", SERVE_S, SERVE_S * 300),
-              ("memo_fill", 14, 4200))
+              ("memo_fill", 14, 4200),
+              ("train_key", 1, 256),
+              ("train_refs", 2, 600))
+# kernel D's shapes on the training path, the reference maps' first
+ROI_GRAD_SHAPES = (("train_refs", 2, 600), ("train_key", 1, 256))
+ROI_GRAD_F32_REL = 1e-5    # of max |grad|: the atomic order varies per run
+ROI_GRAD_BF16_RTOL = 2.0 ** -7  # one bf16 rounding of the f32 sum
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+TRAIN_LOSS_RTOL = 1e-5     # train_agree: the f32 loss, kernels vs plain
+TRAIN_GRAD_REL = 1e-4      # train_agree: of each leaf's max |grad| ...
+TRAIN_GRAD_FLOOR = 1e-6    # ... and at least this of the largest of any
+FROZEN = ("backbone.conv1", "backbone.bn1", "backbone.layer1_")
+# zero gradient in exact arithmetic (softmax ignores a constant per query):
+# these biases may stay at their initial 0
+ZERO_GRAD = ".ref_fc_embed.bias"
 SERVE_STEPS = 3         # per-frame batched steps after the clips
 AGREE_S, AGREE_T = 2, 3  # serve_agree: streams, frames (roll every 2nd)
 SET_BOX_TOL = 5e-3      # px; detections as sets, f32 (as the CPU tests)
@@ -90,6 +115,20 @@ def roi_align_cost(n_maps, h, w, c, n_rois, feat_bytes=2, bind_bytes=0,
     nbytes = (n_maps * h * w * c * feat_bytes + 16 * n_rois
               + bind_bytes * n_rois + feat_bytes * out_elems)
     return nbytes, 8 * sampling_ratio ** 2 * out_elems
+
+
+def roi_align_backward_cost(n_maps, h, w, c, n_rois, feat_bytes=2,
+                            bind_bytes=0, out_size=7, sampling_ratio=2):
+    """(bytes, FLOPs, atomic adds) of kernel D: grad_out in the feature
+    dtype, the f32 rois and the per-roi map index read once, the maps'
+    gradient in the feature dtype written once; each corner of each
+    sub-sample of an output element is one atomic add of a product (2
+    FLOPs)."""
+    out_elems = n_rois * out_size * out_size * c
+    atomics = 4 * sampling_ratio ** 2 * out_elems
+    nbytes = (feat_bytes * out_elems + 16 * n_rois + bind_bytes * n_rois
+              + n_maps * h * w * c * feat_bytes)
+    return nbytes, 2 * atomics, atomics
 
 
 def bound(nbytes, flops, flop_per_s):
@@ -241,6 +280,63 @@ def roi_align_kernels(dev, g, roi_align, errs):
         times[name] = roi_align_times(roi_align, maps, rois, binds,
                                       errs[f"roi_align_{name}_bfloat16"])
     entry = times.pop("single")
+    entry.update(times)
+    return entry
+
+
+def roi_grad_kernels(dev, g, roi_align, roi_align_backward, errs):
+    """Kernel D at each of ROI_GRAD_SHAPES, f32 and bf16: one launch on the
+    7x7 scatter body against the plain backward (torch autograd through
+    the plain version in f32, cast to the feature dtype), errors into
+    ``errs``; then the bf16 times beside the plain backward's and the
+    bound. Returns the reference maps' entry with the key map's under its
+    name."""
+    times = {}
+    for name, n_maps, n_rois in ROI_GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            maps, rois, binds = roi_inputs(dev, dtype, g, n_maps, n_rois)
+            if n_maps == 1:  # the key map: one map, no indices
+                maps, binds = maps[0], None
+            grad_out = torch.randn((n_rois, 7, 7, maps.shape[-1]),
+                                   generator=g).to(dev, dtype)
+            f = maps.detach().float().clone().requires_grad_()
+            out = roi_align(f, rois, 1 / 16, batch_inds=binds, impl="plain")
+
+            def plain():
+                return torch.autograd.grad(out, f, grad_out.float(),
+                                           retain_graph=True)[0].to(dtype)
+
+            def kernel():
+                return roi_align_backward(grad_out, rois, binds, maps.shape,
+                                          1 / 16)
+
+            n_body = roi_align_backward.body_launches["scatter7x2"]
+            got = kernel()
+            if roi_align_backward.body_launches["scatter7x2"] != n_body + 1:
+                raise AssertionError(f"roi_align_backward {name}: not the "
+                                     "scatter7x2 body")
+            want = plain()
+            atol = ROI_GRAD_F32_REL * want.float().abs().max().item()
+            check_close(f"roi_align_backward {name}", got, want,
+                        0.0 if dtype == torch.float32 else ROI_GRAD_BF16_RTOL,
+                        atol)
+            tag = f"roi_align_backward_{name}_{str(dtype)[6:]}"
+            errs[tag] = max_err(got, want)
+            errs[tag + "_max_abs_grad"] = want.float().abs().max().item()
+        ms, plain_ms, _ = compare_times(kernel, plain)
+        full = maps if maps.ndim == 4 else maps[None]
+        nbytes, flops, atomics = roi_align_backward_cost(
+            *full.shape, n_rois, maps.element_size(),
+            0 if binds is None else binds.element_size())
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+        times[name] = dict(
+            max_abs_err=errs[f"roi_align_backward_{name}_bfloat16"], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms, library_ms=None,
+            library_note=NO_LIBRARY_ROI_ALIGN, bytes=nbytes, flops=flops,
+            atomic_adds=atomics, maps=full.shape[0], rois=n_rois)
+        del maps, rois, grad_out, f, out
+    entry = times.pop("train_refs")
     entry.update(times)
     return entry
 
@@ -598,6 +694,158 @@ def single_slab(model, memo, frame, shape, kernels):
     return counts
 
 
+def seeded_model(S, cfg, dev):
+    model = S.SelsaDetector(cfg)
+    S.init_params(model, torch.Generator().manual_seed(0))
+    return model.to(dev)
+
+
+def train(dev, smi, S, kernels):
+    """Full-width SELSA R50-DC5 training at the JAX training default (the
+    default ``SelsaConfig``: bf16 compute, f32 parameters, 608x1024, 30
+    classes, key proposals 6000 -> 600, reference proposals 2000 -> 300,
+    256 sampled rois; SGD lr 0.01 with the mmcv warmup, momentum 0.9,
+    masked decay 1e-4, clip 35) through ``train_model``: TRAIN_WARMUP +
+    TRAIN_STEPS steps on one sample (batch of 1). Checks the launches per
+    step, the frozen parameters and that the others moved; times the steps
+    and the key frame's proposal NMS alone. Returns the launch counts
+    (attention A, RoIAlign B, attention C, RoIAlign D)."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.train import (
+        train_model)
+    from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (  # noqa: E501
+        rpn_head as rpn)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        train_sample)
+    cfg = S.SelsaConfig()
+    model = seeded_model(S, cfg, dev)
+    anchors = S.make_anchors(cfg, dev)
+    sample = train_sample(cfg, dev, seed=2)
+    batch = type(sample)(*(f[None] for f in sample))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    stamps, losses = [], []
+
+    def on_step(state, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(metrics["loss"])
+
+    def loss_fn(m, smp, generator):
+        return S.selsa_loss(m, smp, anchors, generator=generator)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    state = train_model(loss_fn, model, [batch] * n_steps, n_steps, seed=0,
+                        log_interval=n_steps + 1, on_step=on_step)
+    counts = [k.launches for k in kernels]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    if counts != [0, 2 * n_steps, 0, 2 * n_steps]:
+        raise AssertionError(f"train: launch counts (A, B, C, D) {counts} for "
+                             f"{n_steps} steps")
+    check_bodies("train roi_align", kernels[1], gather7x2=2 * n_steps,
+                 gather14x2=0)
+    check_bodies("train roi_align_backward", kernels[3],
+                 scatter7x2=2 * n_steps, scatter14x2=0)
+    if state.step != n_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: step {state.step}, losses {losses}")
+    frozen, unchanged = 0, []
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[n])
+        if n.startswith(FROZEN):
+            frozen += 1
+            if not same:
+                raise AssertionError(f"train: frozen {n} changed")
+        elif same:
+            unchanged.append(n)
+    if not frozen or any(not n.endswith(ZERO_GRAD) for n in unchanged):
+        raise AssertionError(f"train: {frozen} frozen; unchanged {unchanged}")
+
+    # the key frame's proposal NMS (k = 6000) and the references' alone
+    with torch.no_grad():
+        cls, reg = model.rpn_forward(model.extract_feat(sample.imgs))
+        nms_ms = {}
+        for name, c, r, shape, pre, post in (
+                ("key", cls[0], reg[0], sample.img_shape, cfg.train_nms_pre,
+                 cfg.train_nms_post),
+                ("refs", cls[1:], reg[1:], sample.img_shape.expand(2, 2),
+                 cfg.test_nms_pre, cfg.test_nms_post)):
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                rpn.rpn_proposals(c, r, anchors, shape, nms_pre=pre,
+                                  nms_post=post, iou_threshold=cfg.rpn_nms_iou)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t) * 1e3)
+            nms_ms[name] = statistics.median(runs)
+    med = statistics.median(step_ms[TRAIN_WARMUP:])
+    phase("train", card=smi, steps=n_steps, warmup_steps=TRAIN_WARMUP,
+          loss_per_step=losses, step_ms=step_ms, median_step_ms=med,
+          steps_per_s=1e3 / med, peak_mem_gb=peak / 2**30,
+          key_nms_ms=nms_ms["key"], refs_nms_ms=nms_ms["refs"],
+          key_nms_share=nms_ms["key"] / med, launches=dict(
+              attention=counts[0], roi_align=counts[1],
+              attention_1slab=counts[2], roi_align_backward=counts[3]),
+          frozen_params=frozen, unchanged_params=unchanged)
+    del model, state, before
+    return counts
+
+
+def train_agree(dev, S, roi_align, roi_align_backward):
+    """f32, TF32 off: one loss and every parameter's gradient at full width
+    through kernels B and D and through the plain RoIAlign (``impl=
+    "plain"``), with the same uniforms. The loss within TRAIN_LOSS_RTOL;
+    each leaf within TRAIN_GRAD_REL of its max |grad|, at least
+    TRAIN_GRAD_FLOOR of the largest of any leaf."""
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        train_sample)
+    cfg = S.SelsaConfig(compute_dtype=torch.float32)
+    model = seeded_model(S, cfg, dev)
+    anchors = S.make_anchors(cfg, dev)
+    sample = train_sample(cfg, dev, seed=3)
+    uniforms = S.draw_loss_uniforms(cfg, 8, torch.Generator().manual_seed(3),
+                                    dev)
+
+    def run(impl):
+        model.zero_grad(set_to_none=True)
+        loss, _ = S.selsa_loss(model, sample, anchors, uniforms=uniforms,
+                               impl=impl)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    reset_counts(roi_align, roi_align_backward)
+    lk, gk = run(None)
+    if (roi_align.launches, roi_align_backward.launches) != (2, 2):
+        raise AssertionError("train_agree: kernel path launches "
+                             f"{roi_align.launches}, "
+                             f"{roi_align_backward.launches}")
+    lp, gp = run("plain")
+    if set(gk) != set(gp):
+        raise AssertionError("train_agree: different leaves have gradients")
+    floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item() for g in gp.values())
+    worst, worst_leaf = 0.0, None
+    for n, want in gp.items():
+        tol = max(TRAIN_GRAD_REL * want.abs().max().item(), floor)
+        ratio = max_err(gk[n], want) / tol
+        if ratio > worst:
+            worst, worst_leaf = ratio, n
+    loss_rel = abs(lk - lp) / abs(lp)
+    phase("train_agree", loss_kernel=lk, loss_plain=lp, loss_rel_err=loss_rel,
+          loss_rtol=TRAIN_LOSS_RTOL, leaves=len(gp),
+          worst_grad_err_over_tol=worst, worst_leaf=worst_leaf,
+          grad_tolerance=dict(rel_to_leaf_max=TRAIN_GRAD_REL,
+                              floor_rel_to_global_max=TRAIN_GRAD_FLOOR))
+    if loss_rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train_agree: loss {lk} against {lp}")
+    if worst > 1.0:
+        raise AssertionError(f"train_agree: gradient of {worst_leaf} off by "
+                             f"{worst} tolerances")
+
+
 def main() -> int:
     # ---- device
     if not torch.cuda.is_available():
@@ -613,7 +861,7 @@ def main() -> int:
         selsa_fused_attention_2slab_hm as attention,
         selsa_fused_attention_hm as attention1)
     from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
-        roi_align)
+        roi_align, roi_align_backward)
     kernels_on_path = (attention, roi_align, attention1)
 
     dev = torch.device("cuda")
@@ -654,6 +902,8 @@ def main() -> int:
                                            errs["attention_bfloat16"])
 
     summary["roi_align"] = roi_align_kernels(dev, g, roi_align, errs)
+    summary["roi_align_backward"] = roi_grad_kernels(
+        dev, g, roi_align, roi_align_backward, errs)
 
     # kernel C alone, and against kernel A on the same keys split in two
     for dtype in (torch.float32, torch.bfloat16):
@@ -698,7 +948,9 @@ def main() -> int:
     phase("kernels", card=smi, max_abs_err=errs, bf16_times=summary,
           tolerances=dict(attention_atol=ATTN_ATOL, library_atol=LIBRARY_TOL,
                           roi_f32_atol=ROI_F32_ATOL,
-                          roi_bf16_rtol_atol=ROI_BF16_TOL))
+                          roi_bf16_rtol_atol=ROI_BF16_TOL,
+                          roi_grad_f32_atol_rel_to_max=ROI_GRAD_F32_REL,
+                          roi_grad_bf16_rtol=ROI_GRAD_BF16_RTOL))
 
     # ---- stream: full-width SELSA R50-DC5, default config (bf16)
     rng = np.random.RandomState(0)
@@ -798,6 +1050,16 @@ def main() -> int:
                                           kernels_on_path)):
         summary[name]["launches"] += n
     add_bodies(summary["roi_align"], roi_align)
+    del model, memo, frame
+
+    # training: kernel D joins the path
+    train_kernels = kernels_on_path + (roi_align_backward,)
+    counts = train(dev, smi, S, train_kernels)
+    for name, n in zip(names + ("roi_align_backward",), counts):
+        summary[name]["launches"] = summary[name].get("launches", 0) + n
+    add_bodies(summary["roi_align"], roi_align)
+    add_bodies(summary["roi_align_backward"], roi_align_backward)
+    train_agree(dev, S, roi_align, roi_align_backward)
 
     tpu_ops = "lowlightenvironmentvideoobjectdetection_tpu/ops/"
     kernels = [
@@ -812,6 +1074,11 @@ def main() -> int:
              source=f"{PKG}/csrc/selsa_attention.cu",
              replaces=tpu_ops + "fused_attention.py:53",
              **summary["attention_1slab"]),
+        dict(name="roi_align_backward", route="cuda",
+             source=f"{PKG}/csrc/roi_align.cu",
+             replaces="backward of kernel B (JAX: autodiff of "
+                      "ops/roi_align.py)",
+             **summary["roi_align_backward"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,114 @@
+"""Target assignment and random sampling with static shapes, the
+counterpart of the JAX package's ``core/assigners.py`` (``max_iou_assign``,
+``random_sample_masks``, ``random_sample_gather``): mmdet's MaxIoUAssigner
+and RandomSampler as fixed-size masks and gathers.
+
+The samplers take their uniforms as an argument ([2, N] for the masks: the
+positives' and the negatives' ranks; [3, N] for the gather: those and the
+tiebreak), so a test can feed them the JAX package's ``jax.random`` draws.
+Sorts are stable, as ``jnp.argsort``, so ties (the 2.0 and 1e9 fillers)
+fall in index order on both sides.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .boxes import bbox_overlaps
+
+
+class AssignResult(NamedTuple):
+    """assigned_gt_inds [N]: -1 ignored, 0 negative, k > 0 matched to gt
+    k - 1. max_overlaps [N]: best IoU with a valid gt. labels [N]: the
+    matched gt's label, -1 where not positive."""
+
+    assigned_gt_inds: torch.Tensor
+    max_overlaps: torch.Tensor
+    labels: torch.Tensor
+
+
+def max_iou_assign(boxes: torch.Tensor, gt_boxes: torch.Tensor,
+                   gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                   pos_iou_thr: float, neg_iou_thr: float,
+                   min_pos_iou: float = 0.0,
+                   box_valid: Optional[torch.Tensor] = None) -> AssignResult:
+    """Assign each of N boxes [N, 4] to one of G padded gts [G, 4]:
+    negatives below ``neg_iou_thr``, positives from ``pos_iou_thr``, then
+    each valid gt claims every box tying its own best IoU (at least
+    ``min_pos_iou`` and above 0), later gts overriding earlier ones (mmdet's
+    low-quality matching with ``gt_max_assign_all``). Invalid gts and boxes
+    take IoU -1."""
+    n, g = boxes.shape[0], gt_boxes.shape[0]
+    overlaps = bbox_overlaps(gt_boxes, boxes)  # [G, N]
+    overlaps = torch.where(gt_valid[:, None], overlaps, -1.0)
+    if box_valid is not None:
+        overlaps = torch.where(box_valid[None, :], overlaps, -1.0)
+    max_overlaps = overlaps.amax(dim=0)
+    argmax = torch.argmax(overlaps, dim=0)  # the first of equal maxima
+
+    assigned = torch.full((n,), -1, dtype=torch.long, device=boxes.device)
+    assigned = torch.where((max_overlaps >= 0) & (max_overlaps < neg_iou_thr),
+                           0, assigned)
+    assigned = torch.where(max_overlaps >= pos_iou_thr, argmax + 1, assigned)
+
+    gt_max = overlaps.amax(dim=1)  # [G]
+    claim_ok = gt_valid & (gt_max >= min_pos_iou)
+    claim = ((overlaps == gt_max[:, None]) & claim_ok[:, None]
+             & (gt_max[:, None] > 0))
+    gt_ids = torch.arange(1, g + 1, device=boxes.device)
+    claimed = torch.where(claim, gt_ids[:, None], 0).amax(dim=0)
+    assigned = torch.where(claimed > 0, claimed, assigned)
+
+    labels = torch.where(assigned > 0,
+                         gt_labels[(assigned - 1).clamp(0, g - 1)].long(), -1)
+    return AssignResult(assigned, max_overlaps, labels)
+
+
+def _rank_by_random(mask: torch.Tensor, uniforms: torch.Tensor
+                    ) -> torch.Tensor:
+    """The rank (0-based) of each True element among the True elements in
+    the order of ``uniforms``; N + 1 for False elements."""
+    n = mask.shape[0]
+    order = torch.sort(torch.where(mask, uniforms, 2.0), stable=True).indices
+    ranks = torch.empty_like(order)
+    ranks[order] = torch.arange(n, device=mask.device)
+    return torch.where(mask, ranks, n + 1)
+
+
+class SampleMasks(NamedTuple):
+    pos_mask: torch.Tensor  # [N] bool, sampled positives
+    neg_mask: torch.Tensor  # [N] bool, sampled negatives
+
+
+def random_sample_masks(assign: AssignResult, uniforms: torch.Tensor,
+                        num: int, pos_fraction: float) -> SampleMasks:
+    """RandomSampler as masks: up to ``num * pos_fraction`` positives in
+    the order of ``uniforms[0]``, then negatives in the order of
+    ``uniforms[1]`` up to ``num`` in all."""
+    is_pos = assign.assigned_gt_inds > 0
+    is_neg = assign.assigned_gt_inds == 0
+    pos_mask = is_pos & (_rank_by_random(is_pos, uniforms[0])
+                         < int(num * pos_fraction))
+    num_neg = num - pos_mask.sum()
+    neg_mask = is_neg & (_rank_by_random(is_neg, uniforms[1]) < num_neg)
+    return SampleMasks(pos_mask, neg_mask)
+
+
+class SampleResult(NamedTuple):
+    inds: torch.Tensor  # [num] indices into the candidate boxes
+    is_pos: torch.Tensor  # [num] bool
+    is_valid: torch.Tensor  # [num] bool: a sampled positive or negative
+
+
+def random_sample_gather(assign: AssignResult, uniforms: torch.Tensor,
+                         num: int, pos_fraction: float) -> SampleResult:
+    """RandomSampler as ``num`` gather indices: the sampled boxes of
+    ``random_sample_masks(uniforms[:2])`` in the order of ``uniforms[2]``,
+    then unsampled boxes in index order, flagged invalid."""
+    masks = random_sample_masks(assign, uniforms[:2], num, pos_fraction)
+    sel = masks.pos_mask | masks.neg_mask
+    priority = torch.where(sel, uniforms[2], 1e9)
+    inds = torch.sort(priority, stable=True).indices[:num]
+    return SampleResult(inds, masks.pos_mask[inds], sel[inds])

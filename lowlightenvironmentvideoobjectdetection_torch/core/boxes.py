@@ -1,5 +1,8 @@
-"""DeltaXYWH box decoding, the counterpart of ``core/boxes.py::delta2bbox``
-in the JAX package (mmdet ``delta2bbox`` semantics)."""
+"""Box geometry, the counterpart of the JAX package's ``core/boxes.py``:
+IoU overlaps and the DeltaXYWH coder (mmdet ``bbox2delta`` /
+``delta2bbox`` semantics, zero means). The operations run in the JAX
+functions' order, so equal inputs give equal IoUs: ``max_iou_assign``
+compares them with ``==``."""
 
 from __future__ import annotations
 
@@ -10,6 +13,48 @@ import torch
 
 # log-space clip of dw, dh (mmdet's wh_ratio_clip of 16 / 1000)
 MAX_RATIO = abs(math.log(16.0 / 1000.0))
+
+
+def bbox_area(boxes: torch.Tensor) -> torch.Tensor:
+    """Area of [..., 4] boxes, width and height clamped at 0."""
+    w = (boxes[..., 2] - boxes[..., 0]).clamp_min(0.0)
+    h = (boxes[..., 3] - boxes[..., 1]).clamp_min(0.0)
+    return w * h
+
+
+def bbox_overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """IoU of [..., N, 4] against [..., M, 4] -> [..., N, M]."""
+    iw = (torch.minimum(boxes1[..., :, None, 2], boxes2[..., None, :, 2])
+          - torch.maximum(boxes1[..., :, None, 0], boxes2[..., None, :, 0])
+          ).clamp_min(0.0)
+    ih = (torch.minimum(boxes1[..., :, None, 3], boxes2[..., None, :, 3])
+          - torch.maximum(boxes1[..., :, None, 1], boxes2[..., None, :, 1])
+          ).clamp_min(0.0)
+    inter = iw * ih
+    union = (bbox_area(boxes1)[..., :, None] + bbox_area(boxes2)[..., None, :]
+             - inter)
+    return inter / union.clamp_min(eps)
+
+
+def bbox2delta(proposals: torch.Tensor, gt: torch.Tensor,
+               stds: Sequence[float] = (1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Encode gt boxes as (dx, dy, dw, dh) / stds against [..., 4]
+    proposals; zero-size proposals and gts are clamped to 1e-6 so padded
+    rows stay finite."""
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = (proposals[..., 2] - proposals[..., 0]).clamp_min(1e-6)
+    ph = (proposals[..., 3] - proposals[..., 1]).clamp_min(1e-6)
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                          torch.log(gw.clamp_min(1e-6) / pw),
+                          torch.log(gh.clamp_min(1e-6) / ph)], dim=-1)
+    return deltas / torch.tensor(stds, dtype=deltas.dtype,
+                                 device=deltas.device)
 
 
 def delta2bbox(

@@ -1,0 +1,50 @@
+"""Detection losses, the counterpart of the JAX package's ``core/losses.py``
+(``smooth_l1_loss``, ``softmax_cross_entropy``, ``binary_cross_entropy``,
+``accuracy``): per-element ``weight`` and an ``avg_factor`` (clamped to at
+least 1), so masked fixed-size samples reduce as mmdet's dynamic lists do.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _reduce(loss, weight=None, avg_factor=None):
+    if weight is not None:
+        loss = loss * weight
+    if avg_factor is None:
+        return loss.mean()
+    return loss.sum() / torch.as_tensor(avg_factor, dtype=loss.dtype,
+                                        device=loss.device).clamp_min(1.0)
+
+
+def smooth_l1_loss(pred, target, beta=1.0, weight=None, avg_factor=None):
+    diff = (pred - target).abs()
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
+                       diff - 0.5 * beta)
+    return _reduce(loss, weight, avg_factor)
+
+
+def softmax_cross_entropy(logits, labels, weight=None, avg_factor=None):
+    """Cross entropy with integer labels, clamped into range; padded rows
+    carry weight 0."""
+    safe = labels.long().clamp(0, logits.shape[-1] - 1)
+    logp = F.log_softmax(logits, dim=-1)
+    loss = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return _reduce(loss, weight, avg_factor)
+
+
+def binary_cross_entropy(logits, labels, weight=None, avg_factor=None):
+    """Sigmoid cross entropy with {0, 1} labels, in the stable form."""
+    labels = labels.to(logits.dtype)
+    loss = (torch.maximum(logits, torch.zeros_like(logits)) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+    return _reduce(loss, weight, avg_factor)
+
+
+def accuracy(logits, labels, mask=None):
+    correct = (torch.argmax(logits, dim=-1) == labels).float()
+    if mask is not None:
+        return (correct * mask).sum() / mask.sum().clamp_min(1.0)
+    return correct.mean()

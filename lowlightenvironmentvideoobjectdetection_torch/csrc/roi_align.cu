@@ -1,4 +1,6 @@
-// RoIAlign (avg mode, aligned) over NHWC feature maps, for Hopper (sm_90a).
+// RoIAlign (avg mode, aligned) over NHWC feature maps and its gradient
+// with respect to the maps, for Hopper (sm_90a): kernel B (forward) and
+// kernel D (backward), below.
 //
 // Replaces the TPU kernel ops/roi_align_pallas.py::roi_align_pallas
 // (_kernel) of the JAX package, and serves the batched gather form
@@ -40,6 +42,32 @@
 //   broadcasts.
 // - Positions round with __fmul_rn / __fadd_rn: FMA contraction moved
 //   samples by an ulp against the plain version.
+//
+// Kernel D ("scatter" body, llvod_roi_align_backward) is the backward of
+// kernel B with respect to the maps; no TPU kernel corresponds to it (the
+// JAX package takes this gradient by autodiff of ops/roi_align.py). For
+// grad_out [N, out, out, C] in the feature dtype, each sub-sample's four
+// corners receive grad_out[bin] / sr^2 * w_y * w_x (in that order, as torch
+// autograd through the plain version multiplies); out-of-range samples give
+// nothing, and clamped corners that fall on one pixel both add, as the
+// forward sums them. As mmcv's RoIAlign, there is no gradient for the rois.
+//
+// What bounds it on the H100: the atomic adds through L2, not HBM. At the
+// training step's reference rois (2 maps of 38 x 64 x 512, 600 rois) it
+// makes N * 49 * 16 * C = 2.4e8 f32 atomic adds (4.8e8 FLOPs, 7.2 us at
+// 67 TFLOP/s) and must move 35.1 MB (grad_out 30.1 MB in bf16, the map
+// gradient 5.0 MB written once, the rois): 10.5 us at 3.35 TB/s, the least
+// time. Each warp's atomic instruction covers 32 consecutive f32 (128 bytes,
+// four sectors), so the rate is set by how many sector atomics L2 retires,
+// far below either bound.
+//
+// The design (simple and right first): one block per roi, threads over
+// (output row, channel), so consecutive lanes add to consecutive channels;
+// the roi's sample table in shared memory as in the forward, with the same
+// __fmul_rn / __fadd_rn positions; each thread loads one grad_out element
+// per bin and issues the 16 weighted atomic adds (skipping zero weights)
+// into a zeroed f32 buffer that the wrapper allocates and, for bf16 maps,
+// casts once at the end.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -200,6 +228,107 @@ roi_align_gather(const T* __restrict__ feat, const float* __restrict__ rois,
   }
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+constexpr int kScatterThreads = 512;
+
+template <typename T, int OUT, int SR>
+__global__ void __launch_bounds__(kScatterThreads)
+roi_align_scatter(const T* __restrict__ grad_out,
+                  const float* __restrict__ rois,
+                  const long long* __restrict__ binds,
+                  float* __restrict__ grad, int B, int H, int W, int C,
+                  float spatial_scale, float offset) {
+  constexpr int kPts = OUT * SR;
+  __shared__ Sample ys[kPts], xs[kPts];
+
+  const int n = blockIdx.x;
+  const float* r = rois + 4 * n;
+  const float x1 = __fsub_rn(__fmul_rn(r[0], spatial_scale), offset);
+  const float y1 = __fsub_rn(__fmul_rn(r[1], spatial_scale), offset);
+  const float x2 = __fsub_rn(__fmul_rn(r[2], spatial_scale), offset);
+  const float y2 = __fsub_rn(__fmul_rn(r[3], spatial_scale), offset);
+  const float bin_w = (x2 - x1) / static_cast<float>(OUT);
+  const float bin_h = (y2 - y1) / static_cast<float>(OUT);
+  for (int i = threadIdx.x; i < 2 * kPts; i += blockDim.x) {
+    const int j = i < kPts ? i : i - kPts;
+    const float sub = (static_cast<float>(j % SR) + 0.5f) /
+                      static_cast<float>(SR);
+    if (i < kPts) {
+      ys[j] = axis_sample(y1, bin_h, j / SR, sub, H, W * C);
+    } else {
+      xs[j] = axis_sample(x1, bin_w, j / SR, sub, W, C);
+    }
+  }
+
+  long long b = binds ? binds[n] : 0;
+  b = b < 0 ? 0 : (b >= B ? B - 1 : b);
+  float* g = grad + static_cast<size_t>(b) * H * W * C;
+  const T* go = grad_out + static_cast<size_t>(n) * OUT * OUT * C;
+  __syncthreads();
+
+  for (int it = threadIdx.x; it < OUT * C; it += blockDim.x) {
+    const int p = it / C;
+    const int c = it % C;
+    Sample sy[SR];
+#pragma unroll
+    for (int k = 0; k < SR; ++k) sy[k] = ys[p * SR + k];
+#pragma unroll 1
+    for (int q = 0; q < OUT; ++q) {
+      // the mean's 1 / sr^2 first, then the corner weight: the plain
+      // version's product, bit for bit
+      const float v = to_float(go[(p * OUT + q) * C + c]) *
+                      (1.0f / static_cast<float>(SR * SR));
+#pragma unroll
+      for (int ky = 0; ky < SR; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < SR; ++kx) {
+          const Sample sx = xs[q * SR + kx];
+          const float w[4] = {sy[ky].w0 * sx.w0, sy[ky].w0 * sx.w1,
+                              sy[ky].w1 * sx.w0, sy[ky].w1 * sx.w1};
+          const int o[4] = {sy[ky].o0 + sx.o0, sy[ky].o0 + sx.o1,
+                            sy[ky].o1 + sx.o0, sy[ky].o1 + sx.o1};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (w[k] != 0.0f) atomicAdd(g + o[k] + c, w[k] * v);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int OUT, int SR>
+int launch_scatter(const void* grad_out, const float* rois,
+                   const long long* binds, float* grad, int B, int H, int W,
+                   int C, int N, float spatial_scale, float offset,
+                   cudaStream_t s) {
+  const int threads = std::min(kScatterThreads, (OUT * C + 31) / 32 * 32);
+  roi_align_scatter<T, OUT, SR><<<N, threads, 0, s>>>(
+      static_cast<const T*>(grad_out), rois, binds, grad, B, H, W, C,
+      spatial_scale, offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_scatter_body(int out_size, int sr, const void* grad_out,
+                        const float* rois, const long long* binds,
+                        float* grad, int B, int H, int W, int C, int N,
+                        float spatial_scale, float offset, cudaStream_t s) {
+  if (out_size == 7 && sr == 2) {
+    return launch_scatter<T, 7, 2>(grad_out, rois, binds, grad, B, H, W, C,
+                                   N, spatial_scale, offset, s);
+  }
+  if (out_size == 14 && sr == 2) {
+    return launch_scatter<T, 14, 2>(grad_out, rois, binds, grad, B, H, W, C,
+                                    N, spatial_scale, offset, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, int OUT, int SR>
 int launch(const void* feat, const float* rois, const long long* binds,
            void* out, int B, int H, int W, int C, int N, float spatial_scale,
@@ -251,6 +380,33 @@ extern "C" int llvod_roi_align(const void* feat, const void* rois,
   if (dtype == 1) {
     return launch_body<__nv_bfloat16>(out_size, sr, feat, r, b, out, B, H, W,
                                       C, N, spatial_scale, offset, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel D. dtype: 0 = float32, 1 = bfloat16 (grad_out); grad: a zeroed
+// float32 [B, H, W, C] buffer that receives the maps' gradient. binds and
+// (out_size, sr) as for llvod_roi_align. One thread block per roi. Returns
+// cudaGetLastError() after the launch.
+extern "C" int llvod_roi_align_backward(const void* grad_out,
+                                        const void* rois, const void* binds,
+                                        void* grad, int B, int H, int W,
+                                        int C, int N, float spatial_scale,
+                                        float offset, int out_size, int sr,
+                                        int dtype, void* stream) {
+  if (N == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rois);
+  const long long* b = static_cast<const long long*>(binds);
+  float* g = static_cast<float*>(grad);
+  if (dtype == 0) {
+    return launch_scatter_body<float>(out_size, sr, grad_out, r, b, g, B, H,
+                                      W, C, N, spatial_scale, offset, s);
+  }
+  if (dtype == 1) {
+    return launch_scatter_body<__nv_bfloat16>(out_size, sr, grad_out, r, b,
+                                              g, B, H, W, C, N,
+                                              spatial_scale, offset, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

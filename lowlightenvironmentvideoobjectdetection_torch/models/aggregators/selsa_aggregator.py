@@ -1,10 +1,12 @@
-"""SELSA cross-frame attention aggregator (streaming form), the counterpart
-of the JAX package's ``models/aggregators/selsa_aggregator.py``
-(``project_q``, ``project_kv_hm``, ``attend_cached``, ``attend_cached2``).
+"""SELSA cross-frame attention aggregator, the counterpart of the JAX
+package's ``models/aggregators/selsa_aggregator.py``: the joint form
+(``forward``, training: plain matmul and softmax attention from the key
+rois to the reference rois) and the streaming form (``project_q``,
+``project_kv_hm``, ``attend_cached``, ``attend_cached2``).
 
-Every method also takes a leading stream axis S (the counterpart of
-``jax.vmap`` over it): projections keep the leading axes, and the attention
-runs all S streams in one kernel launch."""
+Every streaming method also takes a leading stream axis S (the counterpart
+of ``jax.vmap`` over it): projections keep the leading axes, and the
+attention runs all S streams in one kernel launch."""
 
 from __future__ import annotations
 
@@ -53,6 +55,23 @@ class SelsaAggregator(nn.Module):
     def _split(self, t: torch.Tensor) -> torch.Tensor:
         nb = self.num_attention_blocks
         return t.reshape(*t.shape[:-1], nb, self.in_channels // nb)
+
+    def forward(self, x: torch.Tensor, ref_x: torch.Tensor,
+                ref_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Joint attention, x [N, C] over ref_x [M, C] with ref_mask [M]
+        (True = a real roi): 16-head scaled dot products, masked keys at
+        -1e30, softmax over the M keys, then the output FC. Returns [N, C]
+        for the caller's residual add."""
+        hd = self.in_channels // self.num_attention_blocks
+        q = self._split(self.fc_embed(x)).transpose(0, 1)  # [nb, N, hd]
+        k = self._split(self.ref_fc_embed(ref_x)).permute(1, 2, 0)
+        w = torch.matmul(q, k) / hd ** 0.5  # [nb, N, M]
+        if ref_mask is not None:
+            w = torch.where(ref_mask, w, -1e30)
+        w = torch.softmax(w, dim=-1)
+        v = self._split(self.ref_fc(ref_x)).transpose(0, 1)  # [nb, M, hd]
+        agg = torch.matmul(w, v).transpose(0, 1)  # [N, nb, hd]
+        return self.fc(agg.reshape(-1, self.in_channels))
 
     def _merge(self, agg: torch.Tensor) -> torch.Tensor:
         """[..., N, nb, hd] attention output -> fc([..., N, C])."""

@@ -5,7 +5,8 @@ Convolutions run NCHW in the module's compute ``dtype``; weights are cast
 per use, as flax does, so a model whose weights were cast ahead of time
 (``cast_for_inference``) computes the same numbers. Only the plain 7x7/2
 stem: the JAX package's space-to-depth and packed stems are the same math
-arranged for the TPU.
+arranged for the TPU. ``frozen_stages`` detaches the stem's output and each
+frozen stage's output, where the JAX package stops the gradient.
 """
 
 from __future__ import annotations
@@ -39,15 +40,17 @@ class Conv2d(nn.Conv2d):
 class FrozenBatchNorm(nn.Module):
     """BN with frozen statistics: y = x * scale + shift, where
     scale = gamma / sqrt(var + eps) and shift = beta - mean * scale are
-    computed in f32 and then cast to the compute dtype."""
+    computed in f32 and then cast to the compute dtype. gamma (``weight``)
+    and beta (``bias``) are parameters, as in the JAX package, where the
+    unfrozen stages train them; the statistics are buffers."""
 
     eps = 1e-5
 
     def __init__(self, channels: int, dtype=torch.float32):
         super().__init__()
         self.compute_dtype = dtype
-        self.register_buffer("weight", torch.ones(channels))
-        self.register_buffer("bias", torch.zeros(channels))
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
@@ -93,19 +96,22 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Multi-stage ResNet. Input [N, C, H, W]; returns the stage outputs
-    selected by ``out_indices`` (duplicates allowed), NCHW."""
+    selected by ``out_indices`` (duplicates allowed), NCHW. With
+    ``frozen_stages`` k >= 0 no gradient reaches the stem or stages 1..k."""
 
     def __init__(self, depth: int = 50, in_channels: int = 3,
                  base_channels: int = 64,
                  strides: Sequence[int] = (1, 2, 2, 2),
                  dilations: Sequence[int] = (1, 1, 1, 1),
-                 out_indices: Sequence[int] = (3,), dtype=torch.float32):
+                 out_indices: Sequence[int] = (3,), frozen_stages: int = -1,
+                 dtype=torch.float32):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise ValueError(f"ResNet depth {depth}: only bottleneck depths "
                              f"{sorted(ARCH_SETTINGS)}")
         stage_blocks = ARCH_SETTINGS[depth]
         self.out_indices = tuple(out_indices)
+        self.frozen_stages = frozen_stages
         self.compute_dtype = dtype
         self.conv1 = Conv2d(in_channels, base_channels, 7, stride=2, padding=3,
                             bias=False, dtype=dtype)
@@ -132,9 +138,13 @@ class ResNet(nn.Module):
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
         x = F.relu(self.bn1(self.conv1(x.to(self.compute_dtype))))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        if self.frozen_stages >= 0:
+            x = x.detach()
         outs = []
-        for names in self.stages:
+        for i, names in enumerate(self.stages):
             for name in names:
                 x = getattr(self, name)(x)
+            if self.frozen_stages >= i + 1:
+                x = x.detach()
             outs.append(x)
         return tuple(outs[i] for i in self.out_indices)

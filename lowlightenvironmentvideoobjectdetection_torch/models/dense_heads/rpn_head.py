@@ -1,6 +1,7 @@
-"""RPN head and static-shape proposal generation, the counterpart of the JAX
-package's ``models/dense_heads/rpn_head.py`` (``RPNHead``, ``Proposals``,
-``rpn_proposals``) at one level (the DC5 detectors have one)."""
+"""RPN head, its loss and static-shape proposal generation, the counterpart
+of the JAX package's ``models/dense_heads/rpn_head.py`` (``RPNHead``,
+``RPNLossOut``, ``rpn_loss``, ``Proposals``, ``rpn_proposals``) at one level
+(the DC5 detectors have one)."""
 
 from __future__ import annotations
 
@@ -10,8 +11,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...core import boxes as box_ops, nms as nms_ops
+from ...core import assigners, boxes as box_ops, losses, nms as nms_ops
 from ..backbones.resnet import Conv2d
+
+# the reference RPN train config: 256 anchors sampled at half positives;
+# IoU 0.7 positive, 0.3 negative and low-quality floor; SmoothL1 beta 1/9
+RPN_NUM_SAMPLES, RPN_POS_FRACTION = 256, 0.5
+RPN_POS_IOU, RPN_NEG_IOU, RPN_MIN_POS_IOU = 0.7, 0.3, 0.3
+RPN_BETA = 1.0 / 9.0
 
 
 class RPNHead(nn.Module):
@@ -34,6 +41,43 @@ class RPNHead(nn.Module):
         h = F.relu(self.rpn_conv(x.permute(0, 3, 1, 2)))
         return (self.rpn_cls(h).permute(0, 2, 3, 1),
                 self.rpn_reg(h).permute(0, 2, 3, 1))
+
+
+class RPNLossOut(NamedTuple):
+    loss_cls: torch.Tensor
+    loss_bbox: torch.Tensor
+
+
+def rpn_loss(cls: torch.Tensor, reg: torch.Tensor, anchors: torch.Tensor,
+             gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+             uniforms: torch.Tensor, img_shape) -> RPNLossOut:
+    """Single-image RPN loss from cls [H, W, A] and reg [H, W, 4A]: anchors
+    fully inside ``img_shape`` (h, w) are assigned to the gts, 256 are
+    sampled with ``uniforms`` [2, H*W*A] (``random_sample_masks``), then
+    sigmoid cross entropy over the sample and SmoothL1 on the positives'
+    deltas, both averaged over the sample size."""
+    cls_all = cls.reshape(-1).float()
+    reg_all = reg.reshape(-1, 4).float()
+    h, w = img_shape[0], img_shape[1]
+    valid = ((anchors[:, 0] >= 0) & (anchors[:, 1] >= 0)
+             & (anchors[:, 2] <= w) & (anchors[:, 3] <= h))
+    g = gt_boxes.shape[0]
+    assign = assigners.max_iou_assign(
+        anchors, gt_boxes, torch.zeros(g, dtype=torch.long,
+                                       device=anchors.device),
+        gt_valid, RPN_POS_IOU, RPN_NEG_IOU, RPN_MIN_POS_IOU, box_valid=valid)
+    masks = assigners.random_sample_masks(assign, uniforms, RPN_NUM_SAMPLES,
+                                          RPN_POS_FRACTION)
+    pos_w = masks.pos_mask.float()
+    cls_w = pos_w + masks.neg_mask.float()
+    avg = cls_w.sum()
+    loss_cls = losses.binary_cross_entropy(cls_all, pos_w, weight=cls_w,
+                                           avg_factor=avg)
+    matched = gt_boxes[(assign.assigned_gt_inds - 1).clamp(0, g - 1)]
+    targets = box_ops.bbox2delta(anchors, matched)
+    loss_bbox = losses.smooth_l1_loss(reg_all, targets, beta=RPN_BETA,
+                                      weight=pos_w[:, None], avg_factor=avg)
+    return RPNLossOut(loss_cls, loss_bbox)
 
 
 class Proposals(NamedTuple):

@@ -1,19 +1,20 @@
-"""Second-stage Shared2FC bbox head with per-FC SELSA aggregation (streaming
-form) and its decode, the counterpart of the JAX package's
-``models/roi_heads/bbox_head.py`` (``ref_transform_kv``,
-``forward_cached_stream_kv``, ``bbox_decode``). The streaming forward and
-the decode also take a leading stream axis S (the counterpart of
-``jax.vmap`` over them)."""
+"""Second-stage Shared2FC bbox head with per-FC SELSA aggregation, its
+training targets and loss, and its decode, the counterpart of the JAX
+package's ``models/roi_heads/bbox_head.py`` (the joint ``__call__`` as
+``forward``, ``ref_transform_kv``, ``forward_cached_stream_kv``,
+``BBoxTargets``, ``bbox_targets``, ``BBoxLossOut``, ``bbox_loss``,
+``bbox_decode``). The streaming forward and the decode also take a leading
+stream axis S (the counterpart of ``jax.vmap`` over them)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...core import boxes as box_ops, nms as nms_ops
+from ...core import assigners, boxes as box_ops, losses, nms as nms_ops
 from ..aggregators.selsa_aggregator import Linear, SelsaAggregator
 
 BBOX_STDS = (0.2, 0.2, 0.2, 0.2)
@@ -43,6 +44,19 @@ class Shared2FCBBoxHead(nn.Module):
 
     def _stage(self, i: int):
         return getattr(self, f"shared_fc{i}"), getattr(self, f"aggregator{i}")
+
+    def forward(self, x: torch.Tensor, ref_x: torch.Tensor,
+                ref_mask: Optional[torch.Tensor] = None):
+        """Joint forward (training): key rois x [N, 7, 7, C] attend over the
+        reference rois ref_x [M, 7, 7, C] (ref_mask [M]) after each shared
+        FC. Returns (cls_score [N, C+1], bbox_pred [N, 4C])."""
+        x, ref_x = x.flatten(-3), ref_x.flatten(-3)
+        for i in range(self.num_shared_fcs):
+            fc, agg = self._stage(i)
+            x, ref_x = fc(x), fc(ref_x)
+            x = F.relu(x + agg(x, ref_x, ref_mask))
+            ref_x = F.relu(ref_x)
+        return self.fc_cls(x), self.fc_reg(x)
 
     def ref_transform_kv(self, ref_x: torch.Tensor):
         """Per-stage head-major (k, v) [nb, M, hd] of the reference rois: the
@@ -79,6 +93,70 @@ class Shared2FCBBoxHead(nn.Module):
                 q, ref_kvs[i][0], ref_kvs[i][1], ck, cv, ref_mask, self_mask,
                 impl=impl))
         return (self.fc_cls(x), self.fc_reg(x)), tuple(cur_kvs)
+
+
+class BBoxTargets(NamedTuple):
+    rois: torch.Tensor  # [num, 4] sampled proposals
+    labels: torch.Tensor  # [num] int64, num_classes = background
+    label_weights: torch.Tensor  # [num]
+    bbox_targets: torch.Tensor  # [num, 4]
+    bbox_weights: torch.Tensor  # [num]
+    is_pos: torch.Tensor  # [num] bool
+
+
+# the reference RoI-head train config: 256 rois at a quarter positives, IoU
+# 0.5 for positives, negatives and the low-quality floor
+ROI_POS_FRACTION, ROI_IOU = 0.25, 0.5
+
+
+def bbox_targets(proposals, proposal_valid, gt_boxes, gt_labels, gt_valid,
+                 uniforms: torch.Tensor, num_classes: int = 30,
+                 num_samples: int = 256) -> BBoxTargets:
+    """Assign and sample the RoI head's rois for one image. The gts join
+    the candidates ahead of the proposals (add_gt_as_proposals), so
+    ``uniforms`` is [3, G + P] (``random_sample_gather``). Negatives take
+    label ``num_classes``; regression targets are deltas with stds 0.2 on
+    the positives and 0 elsewhere."""
+    cand = torch.cat([gt_boxes, proposals])
+    cand_valid = torch.cat([gt_valid, proposal_valid])
+    assign = assigners.max_iou_assign(cand, gt_boxes, gt_labels, gt_valid,
+                                      ROI_IOU, ROI_IOU, ROI_IOU,
+                                      box_valid=cand_valid)
+    sample = assigners.random_sample_gather(assign, uniforms, num_samples,
+                                            ROI_POS_FRACTION)
+    rois = cand[sample.inds]
+    matched = (assign.assigned_gt_inds[sample.inds] - 1).clamp(
+        0, gt_boxes.shape[0] - 1)
+    pos = sample.is_pos
+    labels = torch.where(pos, gt_labels[matched].long(), num_classes)
+    tgt = box_ops.bbox2delta(rois, gt_boxes[matched], stds=BBOX_STDS)
+    tgt = torch.where(pos[:, None], tgt, 0.0)
+    return BBoxTargets(rois, labels, sample.is_valid.float(), tgt,
+                       pos.float(), pos)
+
+
+class BBoxLossOut(NamedTuple):
+    loss_cls: torch.Tensor
+    loss_bbox: torch.Tensor
+    acc: torch.Tensor
+
+
+def bbox_loss(cls_score, bbox_pred, targets: BBoxTargets,
+              num_classes: int = 30) -> BBoxLossOut:
+    """Softmax cross entropy over C + 1 classes and SmoothL1 (beta 1) on
+    the target class's deltas, both averaged over the sampled rois."""
+    avg = targets.label_weights.sum().clamp_min(1.0)
+    logits = cls_score.float()
+    loss_cls = losses.softmax_cross_entropy(
+        logits, targets.labels, weight=targets.label_weights, avg_factor=avg)
+    pred = bbox_pred.reshape(-1, num_classes, 4).float()
+    idx = targets.labels.clamp(0, num_classes - 1)
+    pred = torch.gather(pred, 1, idx[:, None, None].expand(-1, 1, 4))[:, 0]
+    loss_bbox = losses.smooth_l1_loss(
+        pred, targets.bbox_targets, beta=1.0,
+        weight=targets.bbox_weights[:, None], avg_factor=avg)
+    acc = losses.accuracy(logits, targets.labels, targets.label_weights)
+    return BBoxLossOut(loss_cls, loss_bbox, acc)
 
 
 def bbox_decode(rois, cls_score, bbox_pred, img_shape,

@@ -1,8 +1,9 @@
-"""SELSA video object detector, streaming inference: the counterpart of the
-JAX package's ``models/vid/selsa.py`` (``SelsaConfig``, ``SelsaDetector``,
-``VideoState``, ``make_anchors``, ``empty_video_state``,
-``init_video_state``, ``inference_step``, ``inference_clip``,
-``inference_clip_batch``, ``init_params``).
+"""SELSA video object detector, training loss and streaming inference: the
+counterpart of the JAX package's ``models/vid/selsa.py`` (``SelsaConfig``,
+``SelsaDetector``, ``TrainBatch``, ``selsa_loss``, ``VideoState``,
+``make_anchors``, ``empty_video_state``, ``init_video_state``,
+``inference_step``, ``inference_clip``, ``inference_clip_batch``,
+``init_params``).
 
 Multi-stream serving: a ``VideoState`` with a leading stream axis S on every
 leaf holds S independent memos, and ``inference_step_batch`` (the
@@ -12,8 +13,9 @@ the S maps and one attention launch per head stage. The single-stream
 functions are its S = 1 case.
 
 Feature maps cross module boundaries NHWC, as in the JAX package; the convs
-inside run NCHW views of them. RoIAlign (kernel B) and the two-slab SELSA
-attention (kernel A) launch hand-written CUDA kernels on CUDA tensors.
+inside run NCHW views of them. RoIAlign (kernel B, and kernel D for its
+gradient) and the two-slab SELSA attention (kernel A) launch hand-written
+CUDA kernels on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..roi_heads import bbox_head as bh
 @dataclasses.dataclass(frozen=True)
 class SelsaConfig:
     """Static configuration; field names and defaults follow the JAX
-    ``SelsaConfig`` (the inference subset)."""
+    ``SelsaConfig`` (the subset the port runs)."""
 
     depth: int = 50
     num_classes: int = 30
@@ -47,11 +49,16 @@ class SelsaConfig:
     stride: int = 16
     pad_h: int = 608
     pad_w: int = 1024
+    train_nms_pre: int = 6000
+    train_nms_post: int = 600
     test_nms_pre: int = 2000
     test_nms_post: int = 300
     rpn_nms_iou: float = 0.7
     det_nms_pre: int = 2048
+    num_roi_samples: int = 256
     num_ref_frames: int = 14
+    # stem and stages 1..frozen_stages take no gradient (-1: none frozen)
+    frozen_stages: int = 1
     compute_dtype: torch.dtype = torch.bfloat16
     # bbox-head dtype (None = follow compute_dtype); also the memo's dtype
     head_dtype: Optional[torch.dtype] = None
@@ -84,7 +91,8 @@ class SelsaDetector(nn.Module):
         self.cfg = c = cfg
         self.backbone = ResNet(
             depth=c.depth, strides=(1, 2, 2, 1), dilations=(1, 1, 1, 2),
-            out_indices=(3,), dtype=c.compute_dtype)
+            out_indices=(3,), frozen_stages=c.frozen_stages,
+            dtype=c.compute_dtype)
         self.neck = ChannelMapper(2048, c.neck_channels, 3,
                                   dtype=c.compute_dtype)
         self.rpn_head = rpn.RPNHead(c.neck_channels, c.neck_channels,
@@ -104,7 +112,8 @@ class SelsaDetector(nn.Module):
     def roi_feats(self, neck_feat, rois, batch_inds=None,
                   impl: Optional[str] = None):
         """7x7 RoIAlign at the model stride (aligned, sampling_ratio 2) over
-        [h, w, C] or [S, h, w, C] maps; kernel B on CUDA tensors."""
+        [h, w, C] or [S, h, w, C] maps; kernel B on CUDA tensors, kernel D
+        for the maps' gradient."""
         return roi_align(neck_feat, rois.float(), 1.0 / self.cfg.stride,
                          batch_inds=batch_inds, out_size=7, sampling_ratio=2,
                          impl=impl)
@@ -153,6 +162,102 @@ def cast_for_inference(model: SelsaDetector) -> SelsaDetector:
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             mod.to(mod.compute_dtype)
     return model
+
+
+class TrainBatch(NamedTuple):
+    """One video training sample: a key frame and R reference frames."""
+
+    imgs: torch.Tensor  # [1+R, H, W, 3] normalized, padded; index 0 = key
+    img_shape: torch.Tensor  # [2] (h, w) of the unpadded content
+    gt_boxes: torch.Tensor  # [G, 4] key-frame gts (padded)
+    gt_labels: torch.Tensor  # [G] int64
+    gt_valid: torch.Tensor  # [G] bool
+
+
+class LossUniforms(NamedTuple):
+    """The uniforms [0, 1) that ``selsa_loss`` samples with: the RPN
+    sampler's ranks over the anchors and the RoI sampler's ranks and
+    tiebreak over the gts and key proposals (``core/assigners.py``)."""
+
+    rpn: torch.Tensor  # [2, A]
+    roi: torch.Tensor  # [3, G + train_nms_post]
+
+
+def draw_loss_uniforms(cfg: SelsaConfig, num_gts: int,
+                       generator: torch.Generator, device=None
+                       ) -> LossUniforms:
+    """``LossUniforms`` drawn from ``generator`` (on its device), moved to
+    ``device``."""
+    h, w = cfg.feat_hw
+    a = h * w * cfg.num_base_anchors
+    gdev = generator.device
+    return LossUniforms(
+        torch.rand((2, a), generator=generator, device=gdev).to(device),
+        torch.rand((3, num_gts + cfg.train_nms_post), generator=generator,
+                   device=gdev).to(device))
+
+
+def selsa_loss(model: SelsaDetector, batch: TrainBatch, anchors: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               uniforms: Optional[LossUniforms] = None,
+               impl: Optional[str] = None):
+    """Single-sample SELSA training loss (mmtracking's SELSA forward_train):
+    the RPN loss on the key frame; proposals on the key frame (train NMS
+    window) and on each reference frame (test window); sampled RoI targets
+    on the key frame; RoIAlign of the key rois and of all reference
+    proposals; the joint SELSA head and its loss. Returns (total, metrics).
+
+    The samplers use ``uniforms``, or else draw them from ``generator``.
+    The proposals carry no gradient, as in the original (mmdet detaches
+    the RPN outputs before decoding, and RoIAlign has no roi gradient);
+    the JAX package differentiates through them (ROADMAP fault F6).
+    ``impl="plain"`` runs RoIAlign's plain version (for comparisons
+    only)."""
+    cfg = model.cfg
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("selsa_loss: pass uniforms or a generator")
+        uniforms = draw_loss_uniforms(cfg, batch.gt_boxes.shape[0], generator,
+                                      anchors.device)
+    neck = model.extract_feat(batch.imgs)
+    cls_all, reg_all = model.rpn_forward(neck)
+    rpn_losses = rpn.rpn_loss(cls_all[0], reg_all[0], anchors,
+                              batch.gt_boxes, batch.gt_valid, uniforms.rpn,
+                              batch.img_shape)
+    num_refs = batch.imgs.shape[0] - 1
+    with torch.no_grad():  # F6: no gradient through the proposals
+        key_props = rpn.rpn_proposals(
+            cls_all[0], reg_all[0], anchors, batch.img_shape,
+            nms_pre=cfg.train_nms_pre, nms_post=cfg.train_nms_post,
+            iou_threshold=cfg.rpn_nms_iou)
+        ref_props = rpn.rpn_proposals(
+            cls_all[1:], reg_all[1:], anchors,
+            batch.img_shape.expand(num_refs, 2), nms_pre=cfg.test_nms_pre,
+            nms_post=cfg.test_nms_post, iou_threshold=cfg.rpn_nms_iou)
+    tgts = bh.bbox_targets(key_props.boxes, key_props.valid, batch.gt_boxes,
+                           batch.gt_labels, batch.gt_valid, uniforms.roi,
+                           num_classes=cfg.num_classes,
+                           num_samples=cfg.num_roi_samples)
+    key_feats = model.roi_feats(neck[0], tgts.rois, impl=impl)
+    binds = torch.arange(num_refs, device=neck.device).repeat_interleave(
+        cfg.test_nms_post)
+    ref_feats = model.roi_feats(neck[1:], ref_props.boxes.reshape(-1, 4),
+                                binds, impl=impl)
+    cls_score, bbox_pred = model.bbox_head(key_feats, ref_feats,
+                                           ref_props.valid.reshape(-1))
+    roi_losses = bh.bbox_loss(cls_score, bbox_pred, tgts,
+                              num_classes=cfg.num_classes)
+    total = (rpn_losses.loss_cls + rpn_losses.loss_bbox
+             + roi_losses.loss_cls + roi_losses.loss_bbox)
+    metrics = {
+        "loss": total,
+        "loss_rpn_cls": rpn_losses.loss_cls,
+        "loss_rpn_bbox": rpn_losses.loss_bbox,
+        "loss_cls": roi_losses.loss_cls,
+        "loss_bbox": roi_losses.loss_bbox,
+        "acc": roi_losses.acc,
+    }
+    return total, metrics
 
 
 class VideoState(NamedTuple):

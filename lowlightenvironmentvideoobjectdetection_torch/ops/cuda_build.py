@@ -35,6 +35,10 @@ SIGNATURES = {
     # out_size, sampling_ratio, dtype, stream
     "llvod_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                         _I, _P),
+    # grad_out, rois, binds, grad (f32), B, H, W, C, N, spatial_scale,
+    # offset, out_size, sampling_ratio, dtype, stream
+    "llvod_roi_align_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                 _I, _I, _I, _P),
     # q, k1, v1, k2, v2, b1, b2, out, S, N, NB, M1, M2, q_dtype, kv_dtype,
     # body, stream
     "llvod_selsa_attention_2slab": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -1,16 +1,25 @@
 """RoIAlign (avg mode) over NHWC maps: the plain torch version and the CUDA
-kernel ``csrc/roi_align.cu`` behind one entry.
+kernels ``csrc/roi_align.cu`` behind one entry.
 
 Counterpart of the JAX package's ``ops/roi_align.py`` (``roi_align_matmul``
 and the batched ``roi_align``) and of its TPU kernel
 ``ops/roi_align_pallas.py::roi_align_pallas``, in the form every caller uses:
-``aligned=True`` (half-pixel offset). A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises.
+``aligned=True`` (half-pixel offset). A CPU tensor takes the plain version
+(under torch autograd); a CUDA tensor launches the kernels or raises.
 
-The kernel has one gather body per (out_size, sampling_ratio) it is compiled
-for (``_roi_align_body``): ``gather7x2`` (the box head's 7x7) and
-``gather14x2`` (the mask heads' 14x14). ``roi_align.launches`` counts the
-launches, ``roi_align.body_launches`` the launches per body.
+On CUDA tensors the forward is kernel B and the gradient of the maps is
+kernel D (``roi_align_backward``), joined by a ``torch.autograd.Function``.
+As mmcv's RoIAlign, the op gives no gradient for the rois, so ``roi_align``
+raises where the rois require one: the JAX package differentiates its
+sample weights with respect to the rois (ROADMAP fault F6), the original
+and the port do not.
+
+Each kernel has one body per (out_size, sampling_ratio) it is compiled for
+(``_roi_align_body``): B gathers (``gather7x2`` for the box head's 7x7,
+``gather14x2`` for the mask heads' 14x14), D scatters (``scatter7x2``,
+``scatter14x2``). ``roi_align.launches`` and
+``roi_align_backward.launches`` count the launches, their
+``body_launches`` the launches per body.
 """
 
 from __future__ import annotations
@@ -22,16 +31,19 @@ import torch
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BODIES = {(7, 2): "gather7x2", (14, 2): "gather14x2"}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}  # channels per 16-byte vector
+_BODIES = {(7, 2): "7x2", (14, 2): "14x2"}
 _OFFSET = 0.5  # aligned=True
 _CHUNK = 64  # rois per gather step of the plain version (bounds its memory)
 
 
-def _roi_align_body(out_size: int, sampling_ratio: int) -> str:
-    """The kernel body for an output size and sampling ratio; raises
-    ``ValueError`` for a pair the kernel is not compiled for."""
+def _roi_align_body(out_size: int, sampling_ratio: int,
+                    kind: str = "gather") -> str:
+    """The body of kernel B (``kind="gather"``) or D (``"scatter"``) for an
+    output size and sampling ratio; raises ``ValueError`` for a pair the
+    kernels are not compiled for."""
     try:
-        return _BODIES[(out_size, sampling_ratio)]
+        return kind + _BODIES[(out_size, sampling_ratio)]
     except KeyError:
         raise ValueError(
             f"roi_align kernel: no body for out_size={out_size}, "
@@ -102,8 +114,8 @@ def roi_align_plain(
         m = e - s
         acc = acc.reshape(m, out_size, sr, out_size, sr, c).mean(dim=(2, 4))
         outs.append(acc.to(feats.dtype))
-    if not outs:
-        return feats.new_zeros((0, out_size, out_size, c))
+    if not outs:  # no rois: an empty output still in the autograd graph
+        return flat[:0].reshape(0, out_size, out_size, c)
     return torch.cat(outs)
 
 
@@ -117,52 +129,106 @@ def roi_align(
     impl: Optional[str] = None,
 ) -> torch.Tensor:
     """RoIAlign over one map [H, W, C] or a batch [B, H, W, C] (with
-    ``batch_inds``). Returns [N, out_size, out_size, C] in the feature dtype.
+    ``batch_inds``). Returns [N, out_size, out_size, C] in the feature dtype,
+    differentiable with respect to ``feats`` only: rois that require a
+    gradient raise ``ValueError`` (detach them).
 
-    CPU tensors take ``roi_align_plain``; CUDA tensors launch the kernel's
-    body for (out_size, sampling_ratio), (7, 2) or (14, 2), and raise
-    ``ValueError`` for any other pair. ``impl="plain"`` forces the plain
-    version (for comparisons only)."""
+    CPU tensors take ``roi_align_plain``; CUDA tensors launch kernel B's
+    body for (out_size, sampling_ratio), (7, 2) or (14, 2), and kernel D's
+    for the gradient, and raise ``ValueError`` for any other pair.
+    ``impl="plain"`` forces the plain version (for comparisons only)."""
     if impl not in (None, "plain"):
         raise ValueError(f"unknown impl {impl!r}")
+    if rois.requires_grad and torch.is_grad_enabled():
+        raise ValueError("roi_align: no gradient for the rois; detach them")
     if impl == "plain" or feats.device.type == "cpu":
         return roi_align_plain(feats, rois, spatial_scale, batch_inds,
                                out_size, sampling_ratio)
-    return _roi_align_cuda(feats, rois, spatial_scale, batch_inds, out_size,
+    _, rois_c, binds = _check(feats.device, feats.dtype, feats.shape, rois,
+                              batch_inds, out_size, sampling_ratio)
+    if torch.is_grad_enabled() and feats.requires_grad:
+        return _RoIAlign.apply(feats, rois_c, binds, spatial_scale, out_size,
+                               sampling_ratio)
+    return _roi_align_cuda(feats, rois_c, binds, spatial_scale, out_size,
                            sampling_ratio)
 
 
-def _roi_align_cuda(feats, rois, spatial_scale, batch_inds, out_size,
+class _RoIAlign(torch.autograd.Function):
+    """Kernel B forward, kernel D backward (the maps' gradient only), on
+    operands that ``_check`` passed."""
+
+    @staticmethod
+    def forward(ctx, feats, rois, binds, spatial_scale, out_size,
+                sampling_ratio):
+        ctx.save_for_backward(rois, binds)
+        ctx.args = (feats.shape, spatial_scale, out_size, sampling_ratio)
+        return _roi_align_cuda(feats, rois, binds, spatial_scale, out_size,
+                               sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois_c, binds = ctx.saved_tensors
+        shape, spatial_scale, out_size, sampling_ratio = ctx.args
+        grad = roi_align_backward(grad_out.contiguous(), rois_c, binds,
+                                  shape, spatial_scale, out_size,
+                                  sampling_ratio)
+        return grad, None, None, None, None, None
+
+
+def _roi_align_cuda(feats, rois, binds, spatial_scale, out_size,
                     sampling_ratio):
-    """Check the operands and launch the kernel's body for (out_size,
-    sampling_ratio). The kernel reads int64 map indices in place; int32
-    ones are widened here (no caller of the main path passes them)."""
+    """Launch kernel B's body for (out_size, sampling_ratio) on operands
+    that ``_check`` passed."""
+    if not feats.is_contiguous() or feats.data_ptr() % 16:
+        raise ValueError("roi_align kernel: the maps must be contiguous on a "
+                         "16-byte boundary")
+    maps = feats.view((-1,) + tuple(feats.shape[-3:]))
+    out = torch.empty((rois.shape[0], out_size, out_size, maps.shape[-1]),
+                      dtype=feats.dtype, device=feats.device)
+    if out.shape[0] == 0:
+        return out
     body = _roi_align_body(out_size, sampling_ratio)
-    if feats.device.type != "cuda":
-        raise RuntimeError(f"roi_align: no kernel for device {feats.device}")
-    if feats.dtype not in _DTYPES:
-        raise TypeError(f"roi_align: feature dtype {feats.dtype} not supported")
-    if feats.ndim not in (3, 4) or rois.ndim != 2 or rois.shape[-1] != 4:
-        raise ValueError(f"roi_align: bad shapes {feats.shape}, {rois.shape}")
-    maps = feats if feats.ndim == 4 else feats[None]
-    if not maps.is_contiguous():
-        raise ValueError("roi_align kernel: feature map must be contiguous")
-    b, h, w, c = maps.shape
-    vec = 16 // maps.element_size()  # channels per 16-byte load
-    if c % vec or maps.data_ptr() % 16:
-        raise ValueError(f"roi_align kernel: {c} channels of {maps.dtype} "
-                         "must be whole 16-byte vectors on a 16-byte "
-                         "boundary")
+    lib = cuda_build.load_library()
+    status = lib.llvod_roi_align(
+        maps.data_ptr(), rois.data_ptr(), _ptr(binds), out.data_ptr(),
+        *maps.shape, out.shape[0], float(spatial_scale), _OFFSET, out_size,
+        sampling_ratio, _DTYPES[feats.dtype], _stream(feats))
+    cuda_build.check(status, "llvod_roi_align")
+    roi_align.launches += 1
+    roi_align.body_launches[body] += 1
+    return out
+
+
+def _check(device, dtype, feat_shape, rois, batch_inds, out_size,
+           sampling_ratio):
+    """Check what kernels B and D take: maps of ``feat_shape`` ([H, W, C]
+    or [B, H, W, C]) in ``dtype`` on ``device``, float32 rois [N, 4] and
+    map indices [N]. Returns the map shape as (B, H, W, C), the rois
+    contiguous and the map indices as int64 (or None). The kernels read
+    int64 map indices in place; int32 ones are widened here (no caller of
+    the main path passes them)."""
+    _roi_align_body(out_size, sampling_ratio)
+    if device.type != "cuda":
+        raise RuntimeError(f"roi_align: no kernel for device {device}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"roi_align: feature dtype {dtype} not supported")
+    if len(feat_shape) not in (3, 4) or rois.ndim != 2 or rois.shape[-1] != 4:
+        raise ValueError(f"roi_align: bad shapes {tuple(feat_shape)}, "
+                         f"{tuple(rois.shape)}")
+    shape = (1,) * (4 - len(feat_shape)) + tuple(feat_shape)
+    b, h, w, c = shape
+    if c % _VEC[dtype]:
+        raise ValueError(f"roi_align kernel: {c} channels of {dtype} must be "
+                         "whole 16-byte vectors")
     if h * w * c >= 2 ** 31:
         raise ValueError("roi_align kernel: a map of 2^31 elements or more")
     n = rois.shape[0]
-    if rois.device != feats.device or rois.dtype != torch.float32:
+    if rois.device != device or rois.dtype != torch.float32:
         raise TypeError("roi_align kernel: rois must be float32 on the map's "
                         "device")
-    rois_c = rois.contiguous()
     binds = None
     if batch_inds is not None:
-        if batch_inds.shape != (n,) or batch_inds.device != feats.device:
+        if batch_inds.shape != (n,) or batch_inds.device != device:
             raise ValueError("roi_align kernel: batch_inds must be [N] on the "
                              "map's device")
         if batch_inds.dtype not in (torch.int32, torch.int64):
@@ -171,22 +237,53 @@ def _roi_align_cuda(feats, rois, spatial_scale, batch_inds, out_size,
         binds = batch_inds.to(torch.int64).contiguous()
     elif b != 1:
         raise ValueError("roi_align: batch_inds required for a batch of maps")
-    out = torch.empty((n, out_size, out_size, c), dtype=feats.dtype,
-                      device=feats.device)
-    if n == 0:
-        return out
-    lib = cuda_build.load_library()
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    status = lib.llvod_roi_align(
-        maps.data_ptr(), rois_c.data_ptr(),
-        binds.data_ptr() if binds is not None else None, out.data_ptr(), b,
-        h, w, c, n, float(spatial_scale), _OFFSET, out_size, sampling_ratio,
-        _DTYPES[feats.dtype], stream)
-    cuda_build.check(status, "llvod_roi_align")
-    roi_align.launches += 1
-    roi_align.body_launches[body] += 1
-    return out
+    return shape, rois.contiguous(), binds
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
+                       batch_inds: Optional[torch.Tensor], feat_shape,
+                       spatial_scale: float, out_size: int = 7,
+                       sampling_ratio: int = 2) -> torch.Tensor:
+    """Kernel D: the gradient of RoIAlign with respect to maps of shape
+    ``feat_shape`` ([H, W, C] or [B, H, W, C]), from ``grad_out``
+    [N, out_size, out_size, C] in the feature dtype. Each sub-sample's four
+    corners receive grad * w_y * w_x / sampling_ratio^2 by f32 atomic adds
+    into a zeroed f32 buffer, cast once to the feature dtype. CUDA tensors
+    only (the CPU takes torch autograd through ``roi_align_plain``); raises
+    for an (out_size, sampling_ratio) pair with no body, as kernel B."""
+    shape, rois_c, binds = _check(grad_out.device, grad_out.dtype, feat_shape,
+                                  rois, batch_inds, out_size, sampling_ratio)
+    n = rois_c.shape[0]
+    want = (n, out_size, out_size, shape[-1])
+    if tuple(grad_out.shape) != want or not grad_out.is_contiguous():
+        raise ValueError(f"roi_align_backward: grad_out must be contiguous "
+                         f"{list(want)}, got {list(grad_out.shape)}")
+    acc = torch.zeros(shape, dtype=torch.float32, device=grad_out.device)
+    if n:
+        body = _roi_align_body(out_size, sampling_ratio, "scatter")
+        lib = cuda_build.load_library()
+        status = lib.llvod_roi_align_backward(
+            grad_out.data_ptr(), rois_c.data_ptr(), _ptr(binds),
+            acc.data_ptr(), *shape, n, float(spatial_scale), _OFFSET,
+            out_size, sampling_ratio, _DTYPES[grad_out.dtype],
+            _stream(grad_out))
+        cuda_build.check(status, "llvod_roi_align_backward")
+        roi_align_backward.launches += 1
+        roi_align_backward.body_launches[body] += 1
+    return acc.to(grad_out.dtype).reshape(feat_shape)
 
 
 roi_align.launches = 0
-roi_align.body_launches = dict.fromkeys(_BODIES.values(), 0)
+roi_align.body_launches = dict.fromkeys(
+    ("gather" + b for b in _BODIES.values()), 0)
+roi_align_backward.launches = 0
+roi_align_backward.body_launches = dict.fromkeys(
+    ("scatter" + b for b in _BODIES.values()), 0)

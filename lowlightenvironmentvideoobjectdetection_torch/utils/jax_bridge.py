@@ -12,7 +12,9 @@ the leaf renamed:
 - ``bias`` -> ``bias``; FrozenBN ``scale`` -> ``weight``;
 - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
-Any other collection or leaf raises. ``video_state_from_jax`` turns a JAX
+Any other collection or leaf raises. ``grads_from_jax`` maps a JAX gradient
+tree (the structure of ``params``) the same way, so gradients compare leaf
+by leaf with the port's ``.grad``. ``video_state_from_jax`` turns a JAX
 ``VideoState`` (single or batched) into the port's. Needs numpy only.
 """
 
@@ -64,6 +66,12 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"two leaves map to {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def grads_from_jax(grads: Mapping) -> Dict[str, torch.Tensor]:
+    """A gradient tree with the structure of the ``params`` collection ->
+    port parameter name -> gradient in the port's layout."""
+    return from_jax_variables({"params": grads})
 
 
 def _tensor(a) -> torch.Tensor:

@@ -12,7 +12,11 @@ they get the same bound (kernel A) or one bf16 rounding of the output
 tensor-core (``mma``) body: exact bf16 products summed in f32, and P split
 into two bf16 parts (about 16 bits), so they keep the 1e-5 bound. Kernel
 B's cases count the launches of its gather bodies (``gather7x2``,
-``gather14x2``).
+``gather14x2``). Kernel D (RoIAlign's backward, bodies ``scatter7x2`` and
+``scatter14x2``) is held against torch autograd through the plain version
+in f32, cast to the feature dtype: f32 to 1e-5 of the largest |grad| (the
+order of the atomic adds changes from run to run), bf16 within one bf16
+rounding (rtol 2^-7) plus that atol.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (
 )
 from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
     roi_align,
+    roi_align_backward,
 )
 
 pytestmark = pytest.mark.cuda
@@ -401,3 +406,131 @@ def test_small_batched_serve_step_kernel_path_matches_plain(dev):
     assert states.next_slot.tolist() == [1, 1]
     torch.testing.assert_close(states.ref_kv[1][0][:, :, 0],
                                got.cur_kvs[1][0], rtol=0, atol=1e-6)
+
+
+def _plain_backward(feats, rois, binds, grad_out, out_size):
+    """Torch autograd through the plain version, in f32, cast to the
+    feature dtype (autograd in bf16 would sum in bf16)."""
+    f = feats.detach().float().clone().requires_grad_()
+    out = roi_align(f, rois, 1 / 16, batch_inds=binds, out_size=out_size,
+                    impl="plain")
+    out.backward(grad_out.float())
+    return f.grad.to(feats.dtype)
+
+
+def _grad_check(feats, rois, binds=None, out_size=7, seed=0):
+    """One kernel-D launch on the body for (out_size, 2), counted once,
+    against the plain backward; then the same gradient through autograd
+    (kernel B forward, kernel D backward, one launch each). Returns the
+    kernel's gradient."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n, c = rois.shape[0], feats.shape[-1]
+    grad_out = torch.randn(n, out_size, out_size, c, generator=g).to(
+        feats.device, feats.dtype)
+    body = f"scatter{out_size}x2"
+    before = dict(roi_align_backward.body_launches)
+    got = roi_align_backward(grad_out, rois, binds, feats.shape, 1 / 16,
+                             out_size)
+    torch.cuda.synchronize()
+    assert roi_align_backward.body_launches == {
+        k: v + (k == body and n > 0) for k, v in before.items()}
+    want = _plain_backward(feats, rois, binds, grad_out, out_size)
+    assert got.dtype == feats.dtype and got.shape == feats.shape
+    atol = 1e-5 * max(float(want.float().abs().max()), 1.0)
+    rtol = 0.0 if feats.dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+    f = feats.detach().clone().requires_grad_()
+    b0, d0 = roi_align.launches, roi_align_backward.launches
+    roi_align(f, rois, 1 / 16, batch_inds=binds, out_size=out_size
+              ).backward(grad_out)
+    torch.cuda.synchronize()
+    assert (roi_align.launches - b0, roi_align_backward.launches - d0) == (
+        (1, 1) if n else (0, 0))
+    torch.testing.assert_close(f.grad.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    return got
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_edge_rois(dev, dtype, out_size):
+    """Samples at -1, 0, size - 1 and size, just beyond, fully outside,
+    zero-area and whole-map rois; rois outside the map add nothing."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    feat = torch.randn(20, 30, 64, generator=g).to(dev, dtype)
+    rois = _edge_rois(dev, 20, 30)
+    _grad_check(feat, rois, out_size=out_size)
+    outside = roi_align_backward(
+        torch.ones(1, out_size, out_size, 64, device=dev, dtype=dtype),
+        rois[-3:-2], None, feat.shape, 1 / 16, out_size)
+    assert outside.abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [40, 256, 512])
+def test_roi_align_backward_batched_matches_plain(dev, c, dtype, out_size):
+    """A batch of maps with int64 map indices, some out of range (clamped
+    to [0, B - 1]); int32 indices give the same gradient."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    feats = torch.randn(5, 20, 30, c, generator=g).to(dev, dtype)
+    rois = _rois(dev, 200, 20, 30, seed=9)
+    binds = torch.randint(0, 5, (200,), generator=g)
+    binds[:8] = torch.tensor([-3, -1, 5, 6, 1000, 0, 4, -(2 ** 40)])
+    binds = binds.to(dev)
+    got = _grad_check(feats, rois, binds, out_size)
+    small = binds.clamp(-(2 ** 31), 2 ** 31 - 1).to(torch.int32)
+    g32 = roi_align_backward(
+        torch.randn(200, out_size, out_size, c, generator=torch.Generator(
+        ).manual_seed(0)).to(dev, dtype), rois, small, feats.shape, 1 / 16,
+        out_size)
+    g64 = roi_align_backward(
+        torch.randn(200, out_size, out_size, c, generator=torch.Generator(
+        ).manual_seed(0)).to(dev, dtype), rois, binds, feats.shape, 1 / 16,
+        out_size)
+    atol = 1e-5 * float(got.float().abs().max())
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(g32.float(), g64.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_training_shapes(dev, dtype):
+    """The training step's shapes at C = 512: the key map with 256 rois and
+    2 reference maps with 600 rois."""
+    g = torch.Generator(device="cpu").manual_seed(10)
+    _grad_check(torch.randn(38, 64, 512, generator=g).to(dev, dtype),
+                _rois(dev, 256, 38, 64, seed=11))
+    _grad_check(torch.randn(2, 38, 64, 512, generator=g).to(dev, dtype),
+                _rois(dev, 600, 38, 64, seed=12),
+                torch.arange(2, device=dev).repeat_interleave(300))
+
+
+def test_roi_align_backward_no_rois_no_launch(dev):
+    feats = torch.randn(2, 20, 30, 64, device=dev)
+    got = _grad_check(feats, torch.zeros(0, 4, device=dev),
+                      torch.zeros(0, dtype=torch.int64, device=dev))
+    assert not got.any()
+
+
+def test_roi_align_backward_rejects(dev):
+    """No body for (5, 3), bad grad_out shapes, rois that require grad: all
+    raise, with no launch."""
+    feat = torch.randn(20, 30, 64, device=dev)
+    rois = _rois(dev, 10, 20, 30)
+    before = roi_align_backward.launches
+    grad_out = torch.randn(10, 7, 7, 64, device=dev)
+    with pytest.raises(ValueError):
+        roi_align_backward(torch.randn(10, 5, 5, 64, device=dev), rois, None,
+                           feat.shape, 1 / 16, 5, 3)
+    with pytest.raises(ValueError):
+        roi_align_backward(grad_out[:, :6], rois, None, feat.shape, 1 / 16)
+    with pytest.raises(ValueError):
+        roi_align_backward(grad_out.transpose(1, 2), rois, None, feat.shape,
+                           1 / 16)
+    with pytest.raises(TypeError):
+        roi_align_backward(grad_out.half(), rois, None, feat.shape, 1 / 16)
+    with pytest.raises(ValueError):
+        roi_align(feat.requires_grad_(), rois.requires_grad_(), 1 / 16)
+    assert roi_align_backward.launches == before

@@ -176,7 +176,8 @@ def test_prepare_frames_matches_jax(hw, pad):
 
 def test_port_imports_no_jax():
     """Every module of the port imports in a fresh interpreter without
-    bringing in jax or the JAX package."""
+    bringing in jax, flax, optax, orbax or the JAX package (the card's
+    machine has none of them)."""
     mods = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                   port.__name__ + ".")]
     assert len(mods) > 15, mods
@@ -184,7 +185,7 @@ def test_port_imports_no_jax():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
             "'lowlightenvironmentvideoobjectdetection_tpu')]\n"
             "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))

@@ -1,8 +1,10 @@
 """Port parity: RoIAlign (plain torch version of kernel B) against the JAX
 package's ``roi_align_matmul``, batched ``roi_align`` and the Pallas
 ``roi_align_pallas`` in interpret mode, with out-of-image, edge and
-zero-area rois. f32, atol 1e-5."""
+zero-area rois; its gradient with respect to the maps (the plain version
+of kernel D) against ``jax.grad``. f32, atol 1e-5."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -144,3 +146,72 @@ def test_int32_and_int64_batch_inds_agree():
     clamped = roi_align(feats, rois, 1.0 / STRIDE,
                         batch_inds=torch.from_numpy(np.clip(binds, 0, 2)))
     torch.testing.assert_close(got64, clamped, rtol=0, atol=0)
+
+
+def _feature_grad(feats, rois, binds, w):
+    """The port's gradient of sum(roi_align(feats) * w) over the maps."""
+    f = torch.from_numpy(feats).requires_grad_()
+    out = roi_align(f, torch.from_numpy(rois), 1.0 / STRIDE,
+                    batch_inds=None if binds is None
+                    else torch.from_numpy(binds))
+    (out * torch.from_numpy(w)).sum().backward()
+    return f.grad.numpy()
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_feature_gradient_matches_jax_grad(batched):
+    """The plain version's gradient with respect to the maps (torch
+    autograd) against ``jax.grad`` of the JAX ``roi_align`` with the rois
+    held constant: a single map and a batch of maps. f32, atol 1e-5
+    (summation order)."""
+    rng = np.random.RandomState(5 + batched)
+    h, w, c = 8, 11, 6
+    feats = rng.randn(*((3,) if batched else ()), h, w, c).astype(np.float32)
+    rois = _rois(rng, 19, h, w)
+    binds = (rng.randint(0, 3, rois.shape[0]).astype(np.int32) if batched
+             else None)
+    wts = rng.randn(rois.shape[0], 7, 7, c).astype(np.float32)
+
+    def f(x):
+        out = jax_roi_align(x, jnp.asarray(rois), 1.0 / STRIDE,
+                            batch_inds=None if binds is None
+                            else jnp.asarray(binds))
+        return jnp.sum(out * wts)
+
+    want = np.asarray(jax.grad(f)(jnp.asarray(feats)))
+    got = _feature_grad(feats, rois, binds, wts)
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_rois_that_require_grad_raise():
+    """No gradient for the rois (mmcv's semantics, not the JAX package's):
+    rois that require one raise, on every device; detached rois pass."""
+    feat = torch.randn(6, 7, 4, requires_grad=True)
+    rois = torch.tensor([[0.0, 0.0, 40.0, 50.0]], requires_grad=True)
+    with pytest.raises(ValueError):
+        roi_align(feat, rois, 1.0 / STRIDE)
+    with pytest.raises(ValueError):
+        roi_align(feat.detach().to("meta"), rois.detach().to("meta")
+                  .requires_grad_(), 1.0 / STRIDE)
+    out = roi_align(feat, rois.detach(), 1.0 / STRIDE)
+    assert out.requires_grad
+    with torch.no_grad():  # no graph, nothing to differentiate
+        roi_align(feat, rois, 1.0 / STRIDE)
+
+
+def test_backward_kernel_body_by_size():
+    assert _roi_align_body(7, 2, "scatter") == "scatter7x2"
+    assert _roi_align_body(14, 2, "scatter") == "scatter14x2"
+    with pytest.raises(ValueError):
+        _roi_align_body(5, 3, "scatter")
+
+
+def test_no_rois_stay_in_the_autograd_graph():
+    """Zero rois give an empty output that back-propagates a zero gradient
+    (the card's kernel path does the same without a launch)."""
+    feat = torch.randn(5, 6, 8, requires_grad=True)
+    out = roi_align(feat, torch.zeros(0, 4), 1.0 / STRIDE)
+    assert out.shape == (0, 7, 7, 8) and out.requires_grad
+    out.sum().backward()
+    assert feat.grad is not None and not feat.grad.any()
