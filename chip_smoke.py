@@ -33,19 +33,30 @@ kernel B twice on the 7x7 gather body and kernel D, RoIAlign's backward,
 twice; frozen parameters bit-identical, the others changed) and
 ``train_agree`` (f32, TF32 off: one loss and every gradient at full width
 through the kernels and through the plain RoIAlign, with the same
-uniforms). The ``kernels`` phase also holds kernel D against the plain
-backward (torch autograd in f32, cast) at the training shapes, and kernel
-B at them. Then one JSON line of kernel summaries, and a last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+uniforms). The ``kernels`` phase also holds kernel B at the training
+shapes, and kernel D against its plain version and torch autograd (f32,
+cast) at the training shapes, on the ``train`` phase's own rois (rebuilt
+from its sample) and over a footprint sweep (600 square rois of 0 to 512
+px, and 128 px stacked on one spot), timed eagerly and from a CUDA graph;
+the sweep prints a ``kernel_d_sweep`` line. Then one JSON line of kernel
+summaries, and a last line ``{"ok": true, "device": {...}}``. Any failure
+exits non-zero.
+
+    python3 chip_smoke.py --roi-grad-times ROOT
+
+runs kernel D's cases alone with the package of the checkout at ROOT (for
+comparing two commits in one call) and prints their JSON line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,6 +84,13 @@ ROI_SHAPES = (("single", 1, 300),
 ROI_GRAD_SHAPES = (("train_refs", 2, 600), ("train_key", 1, 256))
 ROI_GRAD_F32_REL = 1e-5    # of max |grad|: the atomic order varies per run
 ROI_GRAD_BF16_RTOL = 2.0 ** -7  # one bf16 rounding of the f32 sum
+# kernel D's footprint sweep: ROI_GRAD_SWEEP_N square rois of one size (image
+# px) on the 2 reference maps, at random positions or all on one spot
+ROI_GRAD_SWEEP_N = 600
+ROI_GRAD_SWEEP = (("square_0px", 0.0, False), ("square_32px", 32.0, False),
+                  ("square_128px", 128.0, False),
+                  ("square_512px", 512.0, False),
+                  ("stacked_128px", 128.0, True))
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 TRAIN_LOSS_RTOL = 1e-5     # train_agree: the f32 loss, kernels vs plain
 TRAIN_GRAD_REL = 1e-4      # train_agree: of each leaf's max |grad| ...
@@ -155,6 +173,31 @@ def timed(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed twice after a warm-up replay, timed by CUDA events (no
+    host time between the calls, which an eager loop of short calls
+    measures instead)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (2 * iters)
 
 
 def compare_times(kernel, plain, library=None):
@@ -284,60 +327,196 @@ def roi_align_kernels(dev, g, roi_align, errs):
     return entry
 
 
-def roi_grad_kernels(dev, g, roi_align, roi_align_backward, errs):
-    """Kernel D at each of ROI_GRAD_SHAPES, f32 and bf16: one launch on the
-    7x7 scatter body against the plain backward (torch autograd through
-    the plain version in f32, cast to the feature dtype), errors into
-    ``errs``; then the bf16 times beside the plain backward's and the
-    bound. Returns the reference maps' entry with the key map's under its
-    name."""
+def footprint(ops, rois, h, w):
+    """Kernel D's adds per roi and channel on 7x7 bins, sr 2, as means over
+    the rois: ``adds``, one for each nonzero corner weight of a y sample
+    times one of an x sample (the form that adds every product to global
+    memory), and ``pixels``, the distinct rows times distinct columns those
+    land on (one add per pixel once a roi's footprint is reduced)."""
+    r = rois.float() * (1 / 16) - 0.5
+    x1, y1, x2, y2 = r.unbind(-1)
+    per_axis = []
+    for lo, length, size in ((y1, y2 - y1, h), (x1, x2 - x1, w)):
+        i0, i1, w0, w1 = ops._axis_samples(lo, length, size, 7, 2)
+        nz = torch.cat([w0, w1], 1) != 0
+        hit = torch.zeros(rois.shape[0], size, dtype=torch.int32,
+                          device=rois.device)
+        hit.scatter_add_(1, torch.cat([i0, i1], 1), nz.int())
+        per_axis.append((nz.sum(1), (hit > 0).sum(1)))
+    (ey, dy), (ex, dx) = per_axis
+    return dict(adds=(ey * ex).float().mean().item(),
+                pixels=(dy * dx).float().mean().item())
+
+
+def roi_grad_case(name, ops, plain_backward, maps_shape, rois, binds, g,
+                  errs, dtypes=(torch.float32, torch.bfloat16),
+                  time_plain=True):
+    """Kernel D on one set of rois over zeroed maps of ``maps_shape``
+    ([H, W, C] with ``binds`` None, or [B, H, W, C]): for each dtype one
+    launch on the scatter7x2 body against torch autograd through the plain
+    RoIAlign in f32, cast (f32 atol ROI_GRAD_F32_REL x max |grad|; bf16
+    also rtol ROI_GRAD_BF16_RTOL), and against ``plain_backward`` (the
+    explicit plain version) at the same tolerances unless it is None;
+    errors into ``errs``. Then the bf16 times: the kernel, and with
+    ``time_plain`` the plain version (autograd where ``plain_backward`` is
+    None) in the turns plain, kernel, kernel, plain and autograd alone; the
+    kernel's device time from a CUDA graph (``graph_ms``); the bound from
+    the shapes and the footprint. Returns the times' entry."""
+    n, c = rois.shape[0], maps_shape[-1]
+    backward = ops.roi_align_backward
+    f = torch.zeros(maps_shape, device=rois.device, requires_grad=True)
+    out = ops.roi_align(f, rois, 1 / 16, batch_inds=binds, impl="plain")
+    for dtype in dtypes:
+        grad_out = torch.randn((n, 7, 7, c), generator=g).to(rois.device,
+                                                             dtype)
+
+        def autograd():
+            return torch.autograd.grad(out, f, grad_out.float(),
+                                       retain_graph=True)[0].to(dtype)
+
+        def kernel():
+            return backward(grad_out, rois, binds, maps_shape, 1 / 16)
+
+        def plain():
+            return plain_backward(grad_out, rois, binds, maps_shape, 1 / 16)
+
+        n_body = backward.body_launches["scatter7x2"]
+        got = kernel()
+        if backward.body_launches["scatter7x2"] != n_body + 1:
+            raise AssertionError(f"roi_align_backward {name}: not the "
+                                 "scatter7x2 body")
+        want = autograd()
+        atol = ROI_GRAD_F32_REL * want.float().abs().max().item()
+        rtol = 0.0 if dtype == torch.float32 else ROI_GRAD_BF16_RTOL
+        check_close(f"roi_align_backward {name}", got, want, rtol, atol)
+        tag = f"roi_align_backward_{name}_{str(dtype)[6:]}"
+        errs[tag] = max_err(got, want)
+        errs[tag + "_max_abs_grad"] = want.float().abs().max().item()
+        if plain_backward is not None:
+            p = plain()
+            check_close(f"roi_align_backward {name} vs plain", got, p, rtol,
+                        atol)
+            errs[tag + "_vs_plain"] = max_err(got, p)
+    entry = dict(max_abs_err=errs[tag])
+    if time_plain:
+        entry["ms"], entry["plain_ms"], _ = compare_times(
+            kernel, autograd if plain_backward is None else plain)
+        entry["autograd_ms"] = timed(autograd)
+    else:
+        entry["ms"] = timed(kernel)
+    entry["graph_ms"] = graph_ms(kernel)
+    full = maps_shape if len(maps_shape) == 4 else (1,) + tuple(maps_shape)
+    nbytes, flops, atomics = roi_align_backward_cost(
+        *full, n, grad_out.element_size(),
+        0 if binds is None else binds.element_size())
+    bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    entry.update(bound_ms=bound_ms, bound_by=bound_by,
+                 share_of_bound=bound_ms / entry["ms"], library_ms=None,
+                 library_note=NO_LIBRARY_ROI_ALIGN, bytes=nbytes, flops=flops,
+                 atomic_adds=atomics, maps=full[0], rois=n,
+                 per_roi_and_channel=footprint(ops, rois, *full[1:3]))
+    return entry
+
+
+def train_rois(dev, S):
+    """The rois of the ``train`` phase's first step, rebuilt as
+    ``tools/train_profile.py`` stages it: the seeded full-width model, the
+    sample ``train_sample(cfg, dev, seed=2)`` and step 0's generator of
+    ``train_model(..., seed=0)``. Returns (key rois [256, 4], reference
+    boxes [600, 4], their map indices, the map shape, padded counts)."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.train import (
+        step_generators)
+    from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (  # noqa: E501
+        rpn_head as rpn)
+    from lowlightenvironmentvideoobjectdetection_torch.models.roi_heads import (  # noqa: E501
+        bbox_head as bh)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        train_sample)
+    cfg = S.SelsaConfig()
+    model = seeded_model(S, cfg, dev)
+    anchors = S.make_anchors(cfg, dev)
+    sample = train_sample(cfg, dev, seed=2)
+    u = S.draw_loss_uniforms(cfg, sample.gt_boxes.shape[0],
+                             step_generators(0, 0, 1)[0], dev)
+    with torch.no_grad():
+        neck = model.extract_feat(sample.imgs)
+        cls, reg = model.rpn_forward(neck)
+        key = rpn.rpn_proposals(cls[0], reg[0], anchors, sample.img_shape,
+                                nms_pre=cfg.train_nms_pre,
+                                nms_post=cfg.train_nms_post,
+                                iou_threshold=cfg.rpn_nms_iou)
+        refs = rpn.rpn_proposals(cls[1:], reg[1:], anchors,
+                                 sample.img_shape.expand(2, 2),
+                                 nms_pre=cfg.test_nms_pre,
+                                 nms_post=cfg.test_nms_post,
+                                 iou_threshold=cfg.rpn_nms_iou)
+        tgts = bh.bbox_targets(key.boxes, key.valid, sample.gt_boxes,
+                               sample.gt_labels, sample.gt_valid, u.roi,
+                               num_classes=cfg.num_classes,
+                               num_samples=cfg.num_roi_samples)
+    key_rois = tgts.rois.float().contiguous()
+    ref_rois = refs.boxes.reshape(-1, 4).float().contiguous()
+    binds = torch.arange(2, device=dev).repeat_interleave(cfg.test_nms_post)
+
+    def zero_area(r):
+        return int(((r[:, 2] <= r[:, 0]) | (r[:, 3] <= r[:, 1])).sum())
+
+    padded = dict(key_not_sampled=int((tgts.label_weights == 0).sum()),
+                  key_zero_area=zero_area(key_rois),
+                  refs_invalid=int((~refs.valid).sum()),
+                  refs_zero_area=zero_area(ref_rois))
+    shape = tuple(neck.shape[1:])
+    del model, neck, cls, reg
+    return key_rois, ref_rois, binds, shape, padded
+
+
+def roi_grad_kernels(dev, g, ops, plain_backward, S, errs, smi):
+    """Kernel D: at each of ROI_GRAD_SHAPES on ``test_rois``, on the
+    training step's own rois (``train_rois``) and over the footprint sweep
+    ROI_GRAD_SWEEP (bf16, the kernel's time only), each through
+    ``roi_grad_case``; prints the sweep's line. Returns the reference maps'
+    entry with the others under their names."""
     times = {}
     for name, n_maps, n_rois in ROI_GRAD_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            maps, rois, binds = roi_inputs(dev, dtype, g, n_maps, n_rois)
-            if n_maps == 1:  # the key map: one map, no indices
-                maps, binds = maps[0], None
-            grad_out = torch.randn((n_rois, 7, 7, maps.shape[-1]),
-                                   generator=g).to(dev, dtype)
-            f = maps.detach().float().clone().requires_grad_()
-            out = roi_align(f, rois, 1 / 16, batch_inds=binds, impl="plain")
-
-            def plain():
-                return torch.autograd.grad(out, f, grad_out.float(),
-                                           retain_graph=True)[0].to(dtype)
-
-            def kernel():
-                return roi_align_backward(grad_out, rois, binds, maps.shape,
-                                          1 / 16)
-
-            n_body = roi_align_backward.body_launches["scatter7x2"]
-            got = kernel()
-            if roi_align_backward.body_launches["scatter7x2"] != n_body + 1:
-                raise AssertionError(f"roi_align_backward {name}: not the "
-                                     "scatter7x2 body")
-            want = plain()
-            atol = ROI_GRAD_F32_REL * want.float().abs().max().item()
-            check_close(f"roi_align_backward {name}", got, want,
-                        0.0 if dtype == torch.float32 else ROI_GRAD_BF16_RTOL,
-                        atol)
-            tag = f"roi_align_backward_{name}_{str(dtype)[6:]}"
-            errs[tag] = max_err(got, want)
-            errs[tag + "_max_abs_grad"] = want.float().abs().max().item()
-        ms, plain_ms, _ = compare_times(kernel, plain)
-        full = maps if maps.ndim == 4 else maps[None]
-        nbytes, flops, atomics = roi_align_backward_cost(
-            *full.shape, n_rois, maps.element_size(),
-            0 if binds is None else binds.element_size())
-        bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
-        times[name] = dict(
-            max_abs_err=errs[f"roi_align_backward_{name}_bfloat16"], ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            share_of_bound=bound_ms / ms, library_ms=None,
-            library_note=NO_LIBRARY_ROI_ALIGN, bytes=nbytes, flops=flops,
-            atomic_adds=atomics, maps=full.shape[0], rois=n_rois)
-        del maps, rois, grad_out, f, out
+        rois = test_rois(dev, n_rois, 38, 64, g)
+        binds = (None if n_maps == 1 else  # the key map: no indices
+                 torch.arange(n_maps, device=dev).repeat_interleave(
+                     n_rois // n_maps))
+        shape = (38, 64, 512) if n_maps == 1 else (n_maps, 38, 64, 512)
+        times[name] = roi_grad_case(name, ops, plain_backward, shape, rois,
+                                    binds, g, errs)
+    key_rois, ref_rois, binds, (h, w, c), padded = train_rois(dev, S)
+    times["train_key_rois"] = roi_grad_case(
+        "train_key_rois", ops, plain_backward, (h, w, c), key_rois, None, g,
+        errs)
+    times["train_refs_rois"] = roi_grad_case(
+        "train_refs_rois", ops, plain_backward, (2, h, w, c), ref_rois, binds,
+        g, errs)
+    sweep = {}
+    binds = torch.arange(2, device=dev).repeat_interleave(
+        ROI_GRAD_SWEEP_N // 2)
+    for name, size, stacked in ROI_GRAD_SWEEP:
+        x1 = torch.rand(ROI_GRAD_SWEEP_N, generator=g) * (w * 16 - size)
+        y1 = torch.rand(ROI_GRAD_SWEEP_N, generator=g) * (h * 16 - size)
+        if stacked:
+            x1, y1 = x1[:1].expand_as(x1), y1[:1].expand_as(y1)
+        rois = torch.stack([x1, y1, x1 + size, y1 + size], 1).to(dev)
+        sweep[name] = roi_grad_case(
+            f"sweep_{name}", ops, plain_backward, (2, h, w, c), rois, binds,
+            g, errs, dtypes=(torch.bfloat16,), time_plain=False)
+    phase("kernel_d_sweep", card=smi, rois=ROI_GRAD_SWEEP_N, maps=2,
+          ms={k: v["ms"] for k, v in sweep.items()},
+          graph_ms={k: v["graph_ms"] for k, v in sweep.items()},
+          per_roi_and_channel={k: v["per_roi_and_channel"]
+                               for k, v in sweep.items()},
+          train_rois_ms={k: times[k]["ms"] for k in ("train_key_rois",
+                                                     "train_refs_rois")},
+          train_rois_graph_ms={k: times[k]["graph_ms"]
+                               for k in ("train_key_rois",
+                                         "train_refs_rois")},
+          train_rois_padded=padded)
     entry = times.pop("train_refs")
-    entry.update(times)
+    entry.update(times, sweep=sweep, train_rois_padded=padded)
     return entry
 
 
@@ -846,24 +1025,44 @@ def train_agree(dev, S, roi_align, roi_align_backward):
                              f"{worst} tolerances")
 
 
+def roi_grad_times(root, dev, smi) -> int:
+    """``--roi-grad-times ROOT``: kernel D's cases of the ``kernels`` phase
+    alone (``roi_grad_kernels``), with the package of the checkout at ROOT,
+    so that two commits compare in one call: unpack the earlier one with
+    ``git archive`` and run both in the turns parent, change, change,
+    parent. Prints the sweep's line and one JSON line of kernel D's
+    entry."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S)
+    from lowlightenvironmentvideoobjectdetection_torch.ops import (
+        cuda_build, roi_align as roi_ops)
+    if not Path(roi_ops.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {roi_ops.__file__}, not from {root}")
+    t0 = time.perf_counter()
+    cuda_build.build()
+    phase("build", seconds=round(time.perf_counter() - t0, 3), root=str(root))
+    errs = {}
+    # a checkout from before the explicit plain version compares with
+    # autograd alone
+    entry = roi_grad_kernels(dev, torch.Generator().manual_seed(0), roi_ops,
+                             getattr(roi_ops, "roi_align_backward_plain",
+                                     None), S, errs, smi)
+    print(json.dumps(dict(root=str(root), roi_align_backward=entry,
+                          max_abs_err=errs)), flush=True)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--roi-grad-times", metavar="ROOT",
+                    help="only kernel D's cases, with the package at ROOT")
+    args = ap.parse_args()
     # ---- device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
-        init_model, inference_vid)
-    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
-        selsa as S)
-    from lowlightenvironmentvideoobjectdetection_torch.ops import cuda_build
-    from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (  # noqa: E501
-        _attention_body as attention_body,
-        selsa_fused_attention_2slab_hm as attention,
-        selsa_fused_attention_hm as attention1)
-    from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
-        roi_align, roi_align_backward)
-    kernels_on_path = (attention, roi_align, attention1)
-
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -873,6 +1072,21 @@ def main() -> int:
     phase("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
+    if args.roi_grad_times:
+        return roi_grad_times(args.roi_grad_times, dev, smi)
+
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        init_model, inference_vid)
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S)
+    from lowlightenvironmentvideoobjectdetection_torch.ops import (
+        cuda_build, roi_align as roi_ops)
+    from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (  # noqa: E501
+        _attention_body as attention_body,
+        selsa_fused_attention_2slab_hm as attention,
+        selsa_fused_attention_hm as attention1)
+    roi_align, roi_align_backward = roi_ops.roi_align, roi_ops.roi_align_backward
+    kernels_on_path = (attention, roi_align, attention1)
 
     # ---- build
     t0 = time.perf_counter()
@@ -903,7 +1117,7 @@ def main() -> int:
 
     summary["roi_align"] = roi_align_kernels(dev, g, roi_align, errs)
     summary["roi_align_backward"] = roi_grad_kernels(
-        dev, g, roi_align, roi_align_backward, errs)
+        dev, g, roi_ops, roi_ops.roi_align_backward_plain, S, errs, smi)
 
     # kernel C alone, and against kernel A on the same keys split in two
     for dtype in (torch.float32, torch.bfloat16):

@@ -45,29 +45,51 @@
 //
 // Kernel D ("scatter" body, llvod_roi_align_backward) is the backward of
 // kernel B with respect to the maps; no TPU kernel corresponds to it (the
-// JAX package takes this gradient by autodiff of ops/roi_align.py). For
-// grad_out [N, out, out, C] in the feature dtype, each sub-sample's four
-// corners receive grad_out[bin] / sr^2 * w_y * w_x (in that order, as torch
-// autograd through the plain version multiplies); out-of-range samples give
-// nothing, and clamped corners that fall on one pixel both add, as the
-// forward sums them. As mmcv's RoIAlign, there is no gradient for the rois.
+// JAX package takes this gradient by autodiff of ops/roi_align.py). The
+// forward is separable, pooled = Ay F Ax^T with per-roi [out, H] and
+// [out, W] matrices (the sr mean folded in), so for grad_out G [out, out, C]
+// of one roi the maps' gradient is dF = Ay^T G Ax. Out-of-range samples give
+// nothing, clamped corners that fall on one pixel both add (as the forward
+// sums them), map indices clamp to [0, B - 1], and as in mmcv's RoIAlign
+// there is no gradient for the rois.
 //
-// What bounds it on the H100: the atomic adds through L2, not HBM. At the
-// training step's reference rois (2 maps of 38 x 64 x 512, 600 rois) it
-// makes N * 49 * 16 * C = 2.4e8 f32 atomic adds (4.8e8 FLOPs, 7.2 us at
-// 67 TFLOP/s) and must move 35.1 MB (grad_out 30.1 MB in bf16, the map
-// gradient 5.0 MB written once, the rois): 10.5 us at 3.35 TB/s, the least
-// time. Each warp's atomic instruction covers 32 consecutive f32 (128 bytes,
-// four sectors), so the rate is set by how many sector atomics L2 retires,
-// far below either bound.
+// What bounds it on the H100: the atomic adds that L2 retires, not HBM. The
+// least time of the function at the training step's reference rois (2 maps
+// of 38 x 64 x 512, 600 rois, bf16) is its 35.1 MB (grad_out 30.1 MB, the
+// maps' gradient 5.0 MB written once, the rois) over 3.35 TB/s, 10.5 us.
+// Adding every corner product to global memory, as this kernel first did,
+// is up to 4 sr^2 out^2 = 784 f32 atomic adds per roi and channel (2.4e8 at
+// that shape); they took 0.39 ms whatever the rois' size (square rois of 0
+// to 512 image px, 600 of them), so L2's rate of atomic operations, not
+// same-address adds inside a roi, set the pace.
 //
-// The design (simple and right first): one block per roi, threads over
-// (output row, channel), so consecutive lanes add to consecutive channels;
-// the roi's sample table in shared memory as in the forward, with the same
-// __fmul_rn / __fadd_rn positions; each thread loads one grad_out element
-// per bin and issues the 16 weighted atomic adds (skipping zero weights)
-// into a zeroed f32 buffer that the wrapper allocates and, for bf16 maps,
-// casts once at the end.
+// The design: reduce each roi's footprint on chip, then add each pixel of it
+// once. A roi touches at most 2 out sr distinct rows and as many columns
+// (28 at 7x7, sr 2), about ceil(s) + 2 of each for a roi s feature pixels
+// wide, so the global adds per roi and channel fall from 784 to (ceil(s) +
+// 2)^2, capped at 784 for rois wider than about 26 pixels (416 image px),
+// whose samples are a pixel or more apart and seldom share an address. One
+// route serves every roi; no window has to fit a tile.
+// - One block per (roi, slice of 64 channels, 32 for the 14x2 body): 4,800
+//   blocks of 128 threads at 600 rois, C = 512. The block builds the roi's
+//   sample tables (the forward's __fmul_rn / __fadd_rn positions), stages
+//   its grad_out slice in shared memory as f32 (16-byte loads: 8 bf16 or 4
+//   f32), and lists each axis's distinct pixels with the summed weight of
+//   every bin on them (Ay, Ax over slots, the 1 / sr of the mean on each).
+// - Thread (column slot, 4 channels) holds T[p] = sum_q Ax[q][col] G[p][q]
+//   for every row bin p in registers (out x 4 floats), then for each
+//   distinct row adds sum_p Ay[p][row] T[p] to the maps' gradient with one
+//   16-byte red.global.add.v4.f32 (sm_90, REDG.E.ADD.F32x4): one
+//   instruction where four scalar atomic adds were.
+// - The sum is f32 in a zeroed buffer that the wrapper allocates and, for
+//   bf16 maps, casts once at the end.
+// - nvcc -Xptxas -v: 56 registers and 15,024 B of shared memory for the
+//   7x2 body, 96 and 33,168 B for the 14x2 body, no spills.
+// What bounds it now: still L2's atomic rate, per 32-byte sector. Rois of
+// 512 image px (784 distinct pixels) take as long as before, 0.34-0.35 ms
+// at 600 rois; on the training step's own rois (about 100 pixels a roi)
+// the two launches take about 0.1 ms against 0.53 ms (chip_smoke.py,
+// H100 80GB HBM3 at 700 W).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -228,12 +250,32 @@ roi_align_gather(const T* __restrict__ feat, const float* __restrict__ rois,
   }
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Kernel D's blocks: one per (roi, slice of kScatterChannels channels).
+// 64 channels for the 7x2 body fill 132 SMs even at 256 rois (2,048 blocks
+// at C = 512); the 14x2 body halves the slice, so its grad_out stage (196
+// bins) stays at 25 KB of shared memory.
+constexpr int kScatterThreads = 128;
+
+template <int OUT>
+__host__ __device__ constexpr int scatter_channels() {
+  return OUT <= 7 ? 64 : 32;
 }
 
-constexpr int kScatterThreads = 512;
+// One (sample, corner) entry of an axis: e = 2 * sample + corner.
+__device__ __forceinline__ void entry(const Sample* s, int e, int& o,
+                                      float& w) {
+  const Sample x = s[e >> 1];
+  o = (e & 1) ? x.o1 : x.o0;
+  w = (e & 1) ? x.w1 : x.w0;
+}
+
+// 16 bytes of f32 added to global memory in one reduction (sm_90, PTX 8.1:
+// REDG.E.ADD.F32x4); each of the four adds is atomic on its own.
+__device__ __forceinline__ void red_add_v4(float* p, const float (&v)[4]) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(p), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
 
 template <typename T, int OUT, int SR>
 __global__ void __launch_bounds__(kScatterThreads)
@@ -243,9 +285,21 @@ roi_align_scatter(const T* __restrict__ grad_out,
                   float* __restrict__ grad, int B, int H, int W, int C,
                   float spatial_scale, float offset) {
   constexpr int kPts = OUT * SR;
-  __shared__ Sample ys[kPts], xs[kPts];
+  constexpr int kEnt = 2 * kPts;  // (sample, corner) entries of an axis
+  constexpr int kCS = scatter_channels<OUT>();
+  constexpr int kLanes = kCS / 4;  // threads over a pixel's 16-byte vectors
+  constexpr int kRows = kScatterThreads / kLanes;
+  constexpr int kV = Vec<T>::kN;
+  static_assert(kEnt <= 64, "two entries a lane in one warp");
+  __shared__ Sample smp[2][kPts];        // y, then x
+  __shared__ int slot[2][kEnt];          // entry -> its pixel's slot, or -1
+  __shared__ int offs[2][kEnt];          // slot -> element offset
+  __shared__ int count[2];               // distinct rows, distinct columns
+  __shared__ float wts[2][OUT][kEnt];    // [axis][bin][slot], 1 / SR folded
+  __shared__ float4 gs[OUT * OUT * kLanes];  // grad_out's slice in f32
 
   const int n = blockIdx.x;
+  const int c0 = blockIdx.y * kCS;
   const float* r = rois + 4 * n;
   const float x1 = __fsub_rn(__fmul_rn(r[0], spatial_scale), offset);
   const float y1 = __fsub_rn(__fmul_rn(r[1], spatial_scale), offset);
@@ -258,45 +312,129 @@ roi_align_scatter(const T* __restrict__ grad_out,
     const float sub = (static_cast<float>(j % SR) + 0.5f) /
                       static_cast<float>(SR);
     if (i < kPts) {
-      ys[j] = axis_sample(y1, bin_h, j / SR, sub, H, W * C);
+      smp[0][j] = axis_sample(y1, bin_h, j / SR, sub, H, W * C);
     } else {
-      xs[j] = axis_sample(x1, bin_w, j / SR, sub, W, C);
+      smp[1][j] = axis_sample(x1, bin_w, j / SR, sub, W, C);
     }
   }
-
-  long long b = binds ? binds[n] : 0;
-  b = b < 0 ? 0 : (b >= B ? B - 1 : b);
-  float* g = grad + static_cast<size_t>(b) * H * W * C;
-  const T* go = grad_out + static_cast<size_t>(n) * OUT * OUT * C;
+  // grad_out's [OUT, OUT, kCS] slice in f32, read as 16-byte vectors
+  const T* go = grad_out + static_cast<size_t>(n) * OUT * OUT * C + c0;
+  const int vecs = min(kCS, C - c0) / kV;
+  for (int i = threadIdx.x; i < OUT * OUT * vecs; i += blockDim.x) {
+    const int bin = i / vecs, v = i - bin * vecs;
+    float x[kV];
+    Vec<T>::load(go + static_cast<size_t>(bin) * C + v * kV, x);
+#pragma unroll
+    for (int k = 0; k < kV / 4; ++k) {
+      gs[bin * kLanes + v * (kV / 4) + k] =
+          make_float4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
+    }
+  }
   __syncthreads();
 
-  for (int it = threadIdx.x; it < OUT * C; it += blockDim.x) {
-    const int p = it / C;
-    const int c = it % C;
-    Sample sy[SR];
+  // Warp a lists axis a's distinct pixels: an entry with a nonzero weight
+  // takes the slot of the first such entry on its pixel; slots number the
+  // first entries in order.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < 2) {
+    const Sample* s = smp[warp];
+    int first[2], off[2];
 #pragma unroll
-    for (int k = 0; k < SR; ++k) sy[k] = ys[p * SR + k];
-#pragma unroll 1
-    for (int q = 0; q < OUT; ++q) {
-      // the mean's 1 / sr^2 first, then the corner weight: the plain
-      // version's product, bit for bit
-      const float v = to_float(go[(p * OUT + q) * C + c]) *
-                      (1.0f / static_cast<float>(SR * SR));
-#pragma unroll
-      for (int ky = 0; ky < SR; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < SR; ++kx) {
-          const Sample sx = xs[q * SR + kx];
-          const float w[4] = {sy[ky].w0 * sx.w0, sy[ky].w0 * sx.w1,
-                              sy[ky].w1 * sx.w0, sy[ky].w1 * sx.w1};
-          const int o[4] = {sy[ky].o0 + sx.o0, sy[ky].o0 + sx.o1,
-                            sy[ky].o1 + sx.o0, sy[ky].o1 + sx.o1};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (w[k] != 0.0f) atomicAdd(g + o[k] + c, w[k] * v);
+    for (int h = 0; h < 2; ++h) {
+      const int e = lane + 32 * h;
+      first[h] = -1;
+      off[h] = 0;
+      if (e < kEnt) {
+        float w;
+        entry(s, e, off[h], w);
+        if (w != 0.0f) {
+          first[h] = e;
+          for (int k = 0; k < e; ++k) {
+            int ok;
+            float wk;
+            entry(s, k, ok, wk);
+            if (wk != 0.0f && ok == off[h]) {
+              first[h] = k;
+              break;
+            }
           }
         }
       }
+    }
+    const unsigned m0 = __ballot_sync(~0u, first[0] == lane);
+    const unsigned m1 = __ballot_sync(~0u, first[1] == lane + 32);
+    const auto rank = [&](int e) {
+      return e < 32 ? __popc(m0 & ((1u << e) - 1u))
+                    : __popc(m0) + __popc(m1 & ((1u << (e - 32)) - 1u));
+    };
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = lane + 32 * h;
+      if (e < kEnt) slot[warp][e] = first[h] < 0 ? -1 : rank(first[h]);
+      if (first[h] == e) offs[warp][rank(e)] = off[h];
+    }
+    if (lane == 0) count[warp] = __popc(m0) + __popc(m1);
+  }
+  __syncthreads();
+
+  // The separable weights: wts[a][p][slot], the corner weights of bin p's
+  // SR samples on that pixel, summed in entry order, times 1 / SR (the
+  // mean's 1 / SR^2, one factor per axis).
+  for (int i = threadIdx.x; i < 2 * OUT * kEnt; i += blockDim.x) {
+    const int a = i / (OUT * kEnt), p = (i / kEnt) % OUT, sl = i % kEnt;
+    if (sl >= count[a]) continue;
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 2 * SR; ++k) {
+      const int e = p * 2 * SR + k;
+      int o;
+      float w;
+      entry(smp[a], e, o, w);
+      if (slot[a][e] == sl) acc += w;
+    }
+    wts[a][p][sl] = acc * (1.0f / static_cast<float>(SR));
+  }
+  __syncthreads();
+
+  // Thread (row, lane) owns 4 channels of the distinct columns row,
+  // row + kRows, ...: T[p] = sum_q Ax[q][col] G[p][q] in registers (bins
+  // with no weight on the column skipped), then for every distinct row
+  // dF = sum_p Ay[p][row] T[p], one 16-byte reduction a pixel.
+  const int cl = threadIdx.x % kLanes, row = threadIdx.x / kLanes;
+  const int c = c0 + 4 * cl;
+  if (c >= C) return;
+  long long b = binds ? binds[n] : 0;
+  b = b < 0 ? 0 : (b >= B ? B - 1 : b);
+  float* g = grad + static_cast<size_t>(b) * H * W * C + c;
+  const int ny = count[0], nx = count[1];
+  for (int sx = row; sx < nx; sx += kRows) {
+    float t[OUT][4];
+#pragma unroll
+    for (int p = 0; p < OUT; ++p) {
+      t[p][0] = t[p][1] = t[p][2] = t[p][3] = 0.0f;
+    }
+    for (int q = 0; q < OUT; ++q) {
+      const float ax = wts[1][q][sx];
+      if (ax == 0.0f) continue;
+#pragma unroll
+      for (int p = 0; p < OUT; ++p) {
+        const float4 v = gs[(p * OUT + q) * kLanes + cl];
+        t[p][0] = fmaf(ax, v.x, t[p][0]);
+        t[p][1] = fmaf(ax, v.y, t[p][1]);
+        t[p][2] = fmaf(ax, v.z, t[p][2]);
+        t[p][3] = fmaf(ax, v.w, t[p][3]);
+      }
+    }
+    float* gx = g + offs[1][sx];
+    for (int sy = 0; sy < ny; ++sy) {
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int p = 0; p < OUT; ++p) {
+        const float ay = wts[0][p][sy];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = fmaf(ay, t[p][k], v[k]);
+      }
+      red_add_v4(gx + offs[0][sy], v);
     }
   }
 }
@@ -306,8 +444,9 @@ int launch_scatter(const void* grad_out, const float* rois,
                    const long long* binds, float* grad, int B, int H, int W,
                    int C, int N, float spatial_scale, float offset,
                    cudaStream_t s) {
-  const int threads = std::min(kScatterThreads, (OUT * C + 31) / 32 * 32);
-  roi_align_scatter<T, OUT, SR><<<N, threads, 0, s>>>(
+  constexpr int kCS = scatter_channels<OUT>();
+  const dim3 grid(N, (C + kCS - 1) / kCS);
+  roi_align_scatter<T, OUT, SR><<<grid, kScatterThreads, 0, s>>>(
       static_cast<const T*>(grad_out), rois, binds, grad, B, H, W, C,
       spatial_scale, offset);
   return static_cast<int>(cudaGetLastError());
@@ -318,6 +457,7 @@ int launch_scatter_body(int out_size, int sr, const void* grad_out,
                         const float* rois, const long long* binds,
                         float* grad, int B, int H, int W, int C, int N,
                         float spatial_scale, float offset, cudaStream_t s) {
+  if (C % Vec<T>::kN != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (out_size == 7 && sr == 2) {
     return launch_scatter<T, 7, 2>(grad_out, rois, binds, grad, B, H, W, C,
                                    N, spatial_scale, offset, s);
@@ -385,9 +525,10 @@ extern "C" int llvod_roi_align(const void* feat, const void* rois,
 }
 
 // Kernel D. dtype: 0 = float32, 1 = bfloat16 (grad_out); grad: a zeroed
-// float32 [B, H, W, C] buffer that receives the maps' gradient. binds and
-// (out_size, sr) as for llvod_roi_align. One thread block per roi. Returns
-// cudaGetLastError() after the launch.
+// float32 [B, H, W, C] buffer that receives the maps' gradient; grad_out
+// 16-byte aligned. binds, C and (out_size, sr) as for llvod_roi_align. One
+// thread block per roi and slice of channels. Returns cudaGetLastError()
+// after the launch.
 extern "C" int llvod_roi_align_backward(const void* grad_out,
                                         const void* rois, const void* binds,
                                         void* grad, int B, int H, int W,

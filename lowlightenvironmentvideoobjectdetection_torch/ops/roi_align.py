@@ -8,7 +8,9 @@ and the batched ``roi_align``) and of its TPU kernel
 (under torch autograd); a CUDA tensor launches the kernels or raises.
 
 On CUDA tensors the forward is kernel B and the gradient of the maps is
-kernel D (``roi_align_backward``), joined by a ``torch.autograd.Function``.
+kernel D (``roi_align_backward``), joined by a ``torch.autograd.Function``;
+kernel D's plain version is ``roi_align_backward_plain``, which
+``roi_align_backward`` takes for CPU tensors.
 As mmcv's RoIAlign, the op gives no gradient for the rois, so ``roi_align``
 raises where the rois require one: the JAX package differentiates its
 sample weights with respect to the rois (ROADMAP fault F6), the original
@@ -248,24 +250,83 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _axis_weights(lo, length, size: int, out_size: int, sr: int):
+    """The separable weights along one axis over a window of each roi's
+    pixels: ([n, out_size, extent] per-bin weights, the sr samples' corner
+    weights summed at their pixels with the mean's 1 / sr folded in,
+    [n] first pixel of each window); ``extent`` spans the widest roi."""
+    i0, i1, w0, w1 = _axis_samples(lo, length, size, out_size, sr)
+    first = i0.min(1).values  # the high corner is never below the low one
+    extent = int((i1.max(1).values - first).max()) + 1
+    a = torch.zeros(lo.shape[0], out_size * sr, extent, device=lo.device)
+    a.scatter_add_(2, (i0 - first[:, None])[..., None], w0[..., None])
+    a.scatter_add_(2, (i1 - first[:, None])[..., None], w1[..., None])
+    a = a.view(lo.shape[0], out_size, sr, extent).sum(2) * (1.0 / sr)
+    return a, first
+
+
+def roi_align_backward_plain(grad_out: torch.Tensor, rois: torch.Tensor,
+                             batch_inds: Optional[torch.Tensor], feat_shape,
+                             spatial_scale: float, out_size: int = 7,
+                             sampling_ratio: int = 2) -> torch.Tensor:
+    """Plain torch version of kernel D, with ``roi_align_backward``'s
+    signature: the maps' gradient in the separable form the kernel uses.
+    Per roi, ``_axis_weights`` gives Ay [out, window rows] and Ax [out,
+    window columns]; T = Ax-contraction of grad_out over the column bins,
+    then dF = Ay^T T over the row bins, both in f32, added to the maps with
+    ``index_add_`` (64 rois at a time) and cast once to grad_out's dtype.
+    Samples out of range add nothing, map indices clamp to [0, B - 1]."""
+    b, h, w, c = (1,) * (4 - len(feat_shape)) + tuple(feat_shape)
+    if batch_inds is None and b != 1:
+        raise ValueError("roi_align: batch_inds required for a batch of maps")
+    dev = grad_out.device
+    acc = torch.zeros(b * h * w, c, dtype=torch.float32, device=dev)
+    r = rois.float() * spatial_scale - _OFFSET
+    x1, y1, x2, y2 = r.unbind(-1)
+    base = (torch.zeros(rois.shape[0], dtype=torch.long, device=dev)
+            if batch_inds is None
+            else batch_inds.long().clamp(0, b - 1) * (h * w))
+    for s in range(0, rois.shape[0], _CHUNK):
+        e = min(s + _CHUNK, rois.shape[0])
+        ay, ylo = _axis_weights(y1[s:e], (y2 - y1)[s:e], h, out_size,
+                                sampling_ratio)
+        ax, xlo = _axis_weights(x1[s:e], (x2 - x1)[s:e], w, out_size,
+                                sampling_ratio)
+        t = torch.einsum("nqx,npqc->npxc", ax, grad_out[s:e].float())
+        d = torch.einsum("npy,npxc->nyxc", ay, t)
+        ys = ylo[:, None] + torch.arange(ay.shape[-1], device=dev)
+        xs = xlo[:, None] + torch.arange(ax.shape[-1], device=dev)
+        inside = (ys < h)[:, :, None] & (xs < w)[:, None, :]
+        idx = base[s:e, None, None] + ys[:, :, None] * w + xs[:, None, :]
+        acc.index_add_(0, idx[inside], d[inside])
+    return acc.to(grad_out.dtype).reshape(feat_shape)
+
+
 def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
                        batch_inds: Optional[torch.Tensor], feat_shape,
                        spatial_scale: float, out_size: int = 7,
                        sampling_ratio: int = 2) -> torch.Tensor:
     """Kernel D: the gradient of RoIAlign with respect to maps of shape
     ``feat_shape`` ([H, W, C] or [B, H, W, C]), from ``grad_out``
-    [N, out_size, out_size, C] in the feature dtype. Each sub-sample's four
-    corners receive grad * w_y * w_x / sampling_ratio^2 by f32 atomic adds
-    into a zeroed f32 buffer, cast once to the feature dtype. CUDA tensors
-    only (the CPU takes torch autograd through ``roi_align_plain``); raises
-    for an (out_size, sampling_ratio) pair with no body, as kernel B."""
+    [N, out_size, out_size, C] in the feature dtype, accumulated in a
+    zeroed f32 buffer and cast once to the feature dtype. Each roi's
+    footprint is reduced on chip in the separable form of
+    ``roi_align_backward_plain``, which CPU tensors take; then one 16-byte
+    atomic add per pixel and 4 channels. Raises for an (out_size,
+    sampling_ratio) pair with no body, as kernel B."""
+    if grad_out.device.type == "cpu":
+        return roi_align_backward_plain(grad_out, rois, batch_inds,
+                                        feat_shape, spatial_scale, out_size,
+                                        sampling_ratio)
     shape, rois_c, binds = _check(grad_out.device, grad_out.dtype, feat_shape,
                                   rois, batch_inds, out_size, sampling_ratio)
     n = rois_c.shape[0]
     want = (n, out_size, out_size, shape[-1])
-    if tuple(grad_out.shape) != want or not grad_out.is_contiguous():
+    if (tuple(grad_out.shape) != want or not grad_out.is_contiguous()
+            or grad_out.data_ptr() % 16):
         raise ValueError(f"roi_align_backward: grad_out must be contiguous "
-                         f"{list(want)}, got {list(grad_out.shape)}")
+                         f"{list(want)} on a 16-byte boundary, got "
+                         f"{list(grad_out.shape)}")
     acc = torch.zeros(shape, dtype=torch.float32, device=grad_out.device)
     if n:
         body = _roi_align_body(out_size, sampling_ratio, "scatter")

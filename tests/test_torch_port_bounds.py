@@ -68,3 +68,26 @@ def test_bounds_and_what_bounds_them():
         963_379_200
     assert cs.bound(0, 989e9, cs.BF16_TENSOR_FLOP_PER_S) == (1.0,
                                                              "operations")
+
+
+@pytest.mark.parametrize("roi,adds,pixels", [
+    # zero area on a pixel centre: every sample on one pixel, the high
+    # corners' weights 0
+    ((40.0, 40.0, 40.0, 40.0), 14 * 14, 1),
+    # zero area between pixel centres: both corners of every sample weigh
+    # 1/2, on 2 x 2 pixels
+    ((48.0, 48.0, 48.0, 48.0), 28 * 28, 4),
+    # outside the map: no adds
+    ((-200.0, -200.0, -100.0, -120.0), 0, 0),
+])
+def test_kernel_d_footprint_hand_counts(roi, adds, pixels):
+    """Kernel D's adds per roi and channel, one per nonzero corner weight
+    of a y sample times one of an x sample, and the distinct pixels they
+    land on (7x7 bins, sr 2, stride 16, a 38 x 64 map)."""
+    import torch
+
+    from lowlightenvironmentvideoobjectdetection_torch.ops import (
+        roi_align as ops,
+    )
+    got = cs.footprint(ops, torch.tensor([roi]), 38, 64)
+    assert got == dict(adds=adds, pixels=pixels)

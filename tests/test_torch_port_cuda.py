@@ -14,9 +14,10 @@ into two bf16 parts (about 16 bits), so they keep the 1e-5 bound. Kernel
 B's cases count the launches of its gather bodies (``gather7x2``,
 ``gather14x2``). Kernel D (RoIAlign's backward, bodies ``scatter7x2`` and
 ``scatter14x2``) is held against torch autograd through the plain version
-in f32, cast to the feature dtype: f32 to 1e-5 of the largest |grad| (the
-order of the atomic adds changes from run to run), bf16 within one bf16
-rounding (rtol 2^-7) plus that atol.
+in f32, cast to the feature dtype, and against its explicit plain version
+``roi_align_backward_plain`` (the same separable sums in f32, cast): f32 to
+1e-5 of the largest |grad| (the order of the atomic adds changes from run
+to run), bf16 within one bf16 rounding (rtol 2^-7) plus that atol.
 """
 
 import numpy as np
@@ -30,6 +31,7 @@ from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (
 from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
     roi_align,
     roi_align_backward,
+    roi_align_backward_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -420,9 +422,10 @@ def _plain_backward(feats, rois, binds, grad_out, out_size):
 
 def _grad_check(feats, rois, binds=None, out_size=7, seed=0):
     """One kernel-D launch on the body for (out_size, 2), counted once,
-    against the plain backward; then the same gradient through autograd
-    (kernel B forward, kernel D backward, one launch each). Returns the
-    kernel's gradient."""
+    against the plain backward (autograd) and the explicit plain version
+    ``roi_align_backward_plain`` at the same tolerances; then the same
+    gradient through autograd (kernel B forward, kernel D backward, one
+    launch each). Returns the kernel's gradient."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     n, c = rois.shape[0], feats.shape[-1]
     grad_out = torch.randn(n, out_size, out_size, c, generator=g).to(
@@ -439,6 +442,11 @@ def _grad_check(feats, rois, binds=None, out_size=7, seed=0):
     atol = 1e-5 * max(float(want.float().abs().max()), 1.0)
     rtol = 0.0 if feats.dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    plain = roi_align_backward_plain(grad_out, rois, binds, feats.shape,
+                                     1 / 16, out_size)
+    assert plain.dtype == feats.dtype and plain.shape == feats.shape
+    torch.testing.assert_close(got.float(), plain.float(), rtol=rtol,
                                atol=atol)
 
     f = feats.detach().clone().requires_grad_()
@@ -507,6 +515,30 @@ def test_roi_align_backward_training_shapes(dev, dtype):
                 torch.arange(2, device=dev).repeat_interleave(300))
 
 
+@pytest.mark.parametrize("kind", ["zero_area", "stacked", "wide"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_footprints(dev, dtype, kind):
+    """Kernel D's footprint reduction on 2 maps of 38 x 64 x 512: 300
+    zero-area rois (1-4 pixels each, at random spots), 300 rois of 128 px
+    stacked on one spot (every roi on the same 90 pixels), and 300 rois of
+    400-600 px (up to 28 x 28 distinct pixels, samples a pixel or more
+    apart)."""
+    rng = np.random.RandomState(13)
+    size = {"zero_area": 0.0, "stacked": 128.0, "wide": 0.0}[kind]
+    x1 = rng.uniform(0, 1024 - 600 if kind == "wide" else 1024 - size, 300)
+    y1 = rng.uniform(0, 8 if kind == "wide" else 608 - size, 300)
+    if kind == "stacked":
+        x1[:], y1[:] = x1[0], y1[0]
+    sw = rng.uniform(400, 600, 300) if kind == "wide" else size
+    r = np.stack([x1, y1, x1 + sw, y1 + (600 if kind == "wide" else size)],
+                 1)
+    rois = torch.as_tensor(r, dtype=torch.float32, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(14)
+    feats = torch.randn(2, 38, 64, 512, generator=g).to(dev, dtype)
+    _grad_check(feats, rois, torch.arange(2, device=dev).repeat_interleave(
+        150))
+
+
 def test_roi_align_backward_no_rois_no_launch(dev):
     feats = torch.randn(2, 20, 30, 64, device=dev)
     got = _grad_check(feats, torch.zeros(0, 4, device=dev),
@@ -531,6 +563,11 @@ def test_roi_align_backward_rejects(dev):
                            1 / 16)
     with pytest.raises(TypeError):
         roi_align_backward(grad_out.half(), rois, None, feat.shape, 1 / 16)
+    with pytest.raises(ValueError):  # off a 16-byte boundary
+        roi_align_backward(
+            torch.randn(10 * 7 * 7 * 64 + 1, device=dev)[1:].view(10, 7, 7,
+                                                                  64),
+            rois, None, feat.shape, 1 / 16)
     with pytest.raises(ValueError):
         roi_align(feat.requires_grad_(), rois.requires_grad_(), 1 / 16)
     assert roi_align_backward.launches == before

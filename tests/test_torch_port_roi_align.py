@@ -1,8 +1,9 @@
 """Port parity: RoIAlign (plain torch version of kernel B) against the JAX
 package's ``roi_align_matmul``, batched ``roi_align`` and the Pallas
 ``roi_align_pallas`` in interpret mode, with out-of-image, edge and
-zero-area rois; its gradient with respect to the maps (the plain version
-of kernel D) against ``jax.grad``. f32, atol 1e-5."""
+zero-area rois; its gradient with respect to the maps (torch autograd
+through the plain version, and kernel D's plain version
+``roi_align_backward_plain``) against ``jax.grad``. f32, atol 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,8 @@ from lowlightenvironmentvideoobjectdetection_tpu.ops.roi_align_pallas import (
 from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
     _roi_align_body,
     roi_align,
+    roi_align_backward,
+    roi_align_backward_plain,
     roi_align_plain,
 )
 
@@ -198,6 +201,86 @@ def test_rois_that_require_grad_raise():
     assert out.requires_grad
     with torch.no_grad():  # no graph, nothing to differentiate
         roi_align(feat, rois, 1.0 / STRIDE)
+
+
+def _edge_rois(h, w):
+    """Rois whose samples fall exactly on -1, 0, size - 1 and size, or just
+    beyond (-1.0625, size + 0.0625), on each axis, in image coordinates."""
+    img = lambda v: (v + 0.5) * STRIDE  # noqa: E731  map -> image
+    rows = []
+    for axis, size in ((0, w), (1, h)):
+        for v in (-1.0, 0.0, size - 1.0, float(size), -1.0625, size + 0.0625):
+            r = [img(2.0), img(3.0), img(5.5), img(7.25)]
+            r[axis] = r[axis + 2] = img(v)
+            rows.append(r)
+    rows += [[img(-1.0), img(-1.0), img(w), img(h)],
+             [img(0.0), img(0.0), img(w - 1.0), img(h - 1.0)]]
+    return np.asarray(rows, np.float32)
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+@pytest.mark.parametrize("case", ["single", "batched", "edges"])
+def test_backward_plain_matches_autograd_and_jax_grad(case, out_size):
+    """Kernel D's plain version (the separable form, ``index_add_``)
+    against torch autograd through ``roi_align_plain`` and against
+    ``jax.grad`` of the JAX ``roi_align`` with the rois held constant: a
+    single map with out-of-image, edge, zero-area and zero-width rois, a
+    batch of maps with out-of-range map indices (clamped), and rois whose
+    samples fall exactly on the range's edges. f32, atol 1e-5 (summation
+    order); the incoming gradient is scaled to keep max |grad| near 1-10."""
+    rng = np.random.RandomState(11 + out_size + len(case))
+    h, w, c = 9, 13, 6
+    batched = case == "batched"
+    feats = rng.randn(*((3,) if batched else ()), h, w, c).astype(np.float32)
+    rois = _edge_rois(h, w) if case == "edges" else _rois(rng, 19, h, w)
+    binds = (rng.randint(-2, 5, rois.shape[0]).astype(np.int32) if batched
+             else None)
+    wts = (0.25 * rng.randn(rois.shape[0], out_size, out_size, c)
+           ).astype(np.float32)
+    tb = None if binds is None else torch.from_numpy(binds)
+    got = roi_align_backward_plain(torch.from_numpy(wts),
+                                   torch.from_numpy(rois), tb, feats.shape,
+                                   1.0 / STRIDE, out_size, 2)
+    assert got.dtype == torch.float32 and got.shape == feats.shape
+
+    f = torch.from_numpy(feats).requires_grad_()
+    out = roi_align_plain(f, torch.from_numpy(rois), 1.0 / STRIDE, tb,
+                          out_size, 2)
+    (out * torch.from_numpy(wts)).sum().backward()
+    np.testing.assert_allclose(got.numpy(), f.grad.numpy(), rtol=0,
+                               atol=ATOL)
+
+    def fn(x):
+        out = jax_roi_align(x, jnp.asarray(rois), 1.0 / STRIDE,
+                            out_size=out_size,
+                            batch_inds=None if binds is None
+                            else jnp.asarray(np.clip(binds, 0, 2)))
+        return jnp.sum(out * wts)
+
+    want = np.asarray(jax.grad(fn)(jnp.asarray(feats)))
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def test_backward_on_cpu_takes_the_plain_version():
+    """``roi_align_backward`` on CPU tensors is its plain version, bf16
+    grad_out summed in f32 and cast once; it counts no launch."""
+    rng = np.random.RandomState(3)
+    rois = torch.from_numpy(_rois(rng, 9, 8, 11))
+    grad_out = torch.from_numpy(
+        rng.randn(rois.shape[0], 7, 7, 8).astype(np.float32))
+    before = roi_align_backward.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        got = roi_align_backward(grad_out.to(dtype), rois, None, (8, 11, 8),
+                                 1.0 / STRIDE)
+        want = roi_align_backward_plain(grad_out.to(dtype), rois, None,
+                                        (8, 11, 8), 1.0 / STRIDE)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert roi_align_backward.launches == before
+    with pytest.raises(ValueError):  # a batch of maps needs batch_inds
+        roi_align_backward_plain(grad_out, rois, None, (2, 8, 11, 8),
+                                 1.0 / STRIDE)
 
 
 def test_backward_kernel_body_by_size():
