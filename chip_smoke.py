@@ -38,7 +38,17 @@ shapes, and kernel D against its plain version and torch autograd (f32,
 cast) at the training shapes, on the ``train`` phase's own rois (rebuilt
 from its sample) and over a footprint sweep (600 square rois of 0 to 512
 px, and 128 px stacked on one spot), timed eagerly and from a CUDA graph;
-the sweep prints a ``kernel_d_sweep`` line. Then one JSON line of kernel
+the sweep prints a ``kernel_d_sweep`` line. Then the paper's method:
+``darkfarm_train`` (full-width ``darkfarm_loss`` at the canonical
+low-light config without its aggregator, TemporalRoIAlign and 3 shared
+FCs, through ``train_model``: kernels B and D twice a step, the frozen
+teacher and stages bit-identical, the stage times of the teacher, the
+feature loss and TemporalRoIAlign), ``darkfarm_agree`` (its f32 loss and
+gradients through the kernels against the plain RoIAlign, TemporalRoIAlign's
+top-k flips counted and pinned), ``troi_serve`` (``serve`` at the temporal
+config, three kernel-A launches a step) and ``troi_stream`` (streaming
+with TemporalRoIAlign against 14 reference maps: its time, split and bound,
+the roll of the maps, f32 agreement). Then one JSON line of kernel
 summaries, and a last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero.
 
@@ -96,6 +106,11 @@ TRAIN_LOSS_RTOL = 1e-5     # train_agree: the f32 loss, kernels vs plain
 TRAIN_GRAD_REL = 1e-4      # train_agree: of each leaf's max |grad| ...
 TRAIN_GRAD_FLOOR = 1e-6    # ... and at least this of the largest of any
 FROZEN = ("backbone.conv1", "backbone.bn1", "backbone.layer1_")
+# the darkfarm model: the detector's frozen stages and the whole teacher
+DARKFARM_FROZEN = tuple("selsa." + f for f in FROZEN) + ("cleaner.",)
+DARKFARM_STAGED = 5     # darkfarm_train: staged steps for the stage times
+# streaming with TemporalRoIAlign and 3 shared FCs (troi_stream)
+TROI_CFG = dict(roi_extractor="temporal", num_shared_fcs=3, num_classes=8)
 # zero gradient in exact arithmetic (softmax ignores a constant per query):
 # these biases may stay at their initial 0
 ZERO_GRAD = ".ref_fc_embed.bias"
@@ -560,10 +575,11 @@ def roi_inputs(dev, dtype, g, n_maps, n_rois):
     return maps, test_rois(dev, n_rois, 38, 64, g), binds
 
 
-def add_bodies(entry, kernel):
-    """Add the kernel's launches per body to ``entry["body_launches"]``."""
+def add_bodies(entry, launches):
+    """Add launches per body (a kernel's ``body_launches``) to
+    ``entry["body_launches"]``."""
     total = entry.setdefault("body_launches", {})
-    for body, n in kernel.body_launches.items():
+    for body, n in launches.items():
         total[body] = total.get(body, 0) + n
 
 
@@ -627,17 +643,20 @@ def match_sets(got, want):
     return out
 
 
-def serve(dev, smi, init_model, S, kernels):
-    """Full-width SELSA R50-DC5 at the default config (bf16), SERVE_S
-    streams: memos from each stream's own 14 reference frames, two clips of
-    SERVE_T frames through ``make_serve_step`` (the first warms up), then
-    SERVE_STEPS per-frame steps that roll the memo. Returns the model, one
-    stream's memo, one more prepared frame and its image shape."""
+def serve(dev, smi, init_model, S, kernels, label="serve", **cfg_kwargs):
+    """Full-width SELSA R50-DC5 at the default config (bf16; ``cfg_kwargs``
+    change it), SERVE_S streams: memos from each stream's own 14 reference
+    frames, two clips of SERVE_T frames through ``make_serve_step`` (the
+    first warms up), then SERVE_STEPS per-frame steps that roll the memo.
+    Each batched step launches kernel A once per shared FC, on the
+    tensor-core body. Prints the phase ``label``. Returns the model, the
+    streams' memos, the final batched memo, one more prepared frame and
+    its image shape."""
     from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
         prepare_frames)
     from lowlightenvironmentvideoobjectdetection_torch.parallel.serve import (
         make_serve_step)
-    model = init_model("SELSA", seed=0, device=dev)
+    model = init_model("SELSA", seed=0, device=dev, **cfg_kwargs)
     m, cfg, anchors = model.model, model.cfg, model.anchors
     rng = np.random.RandomState(1)
     refs = rng.randint(0, 256, (SERVE_S, cfg.num_ref_frames) + RAW_HW + (3,)
@@ -681,26 +700,28 @@ def serve(dev, smi, init_model, S, kernels):
     counts = [k.launches for k in kernels]
     peak = torch.cuda.max_memory_allocated()
     n_steps = 2 * SERVE_T + SERVE_STEPS
-    if counts != [2 * n_steps, SERVE_S + n_steps, 0]:
-        raise AssertionError(f"serve: launch counts (A, B, C) {counts} for "
+    n_attn = cfg.num_shared_fcs * n_steps
+    if counts != [n_attn, SERVE_S + n_steps, 0]:
+        raise AssertionError(f"{label}: launch counts (A, B, C) {counts} for "
                              f"{n_steps} batched steps of {SERVE_S} streams")
-    check_bodies("serve attention", kernels[0], fma=0, mma=2 * n_steps)
-    check_bodies("serve roi_align", kernels[1], gather7x2=SERVE_S + n_steps,
-                 gather14x2=0)
+    check_bodies(f"{label} attention", kernels[0], fma=0, mma=n_attn)
+    check_bodies(f"{label} roi_align", kernels[1],
+                 gather7x2=SERVE_S + n_steps, gather14x2=0)
     for d, lead in ((dets, (SERVE_S, SERVE_T)), (fdets, (SERVE_S,))):
         if (d.boxes.shape != lead + (100, 4) or d.scores.shape != lead + (100,)
                 or d.labels.shape != lead + (100,)
                 or d.valid.shape != lead + (100,)
                 or not torch.isfinite(d.boxes).all()
                 or not torch.isfinite(d.scores).all()):
-            raise AssertionError("serve: bad DetResult")
+            raise AssertionError(f"{label}: bad DetResult")
     if states.next_slot.tolist() != [SERVE_STEPS % cfg.num_ref_frames] * SERVE_S:
-        raise AssertionError(f"serve: memo slots {states.next_slot.tolist()}")
+        raise AssertionError(f"{label}: memo slots "
+                             f"{states.next_slot.tolist()}")
     for k, v in states.ref_kv:
         if not (torch.isfinite(k).all() and torch.isfinite(v).all()):
-            raise AssertionError("serve: non-finite memo")
+            raise AssertionError(f"{label}: non-finite memo")
     med = statistics.median(step_ms)
-    phase("serve", card=smi, streams=SERVE_S, frames_per_clip=SERVE_T,
+    phase(label, card=smi, streams=SERVE_S, frames_per_clip=SERVE_T,
           memo_fill_ms=fill_ms, warmup_clip_ms=clip_ms[0],
           clip_ms=clip_ms[1], clip_frames_per_s=SERVE_S * SERVE_T
           / (clip_ms[1] / 1e3), clip_ms_per_batched_step=clip_ms[1] / SERVE_T,
@@ -711,7 +732,7 @@ def serve(dev, smi, init_model, S, kernels):
           attention_launches_per_body=dict(kernels[0].body_launches),
           batched_steps=n_steps,
           detections_per_frame=dets.valid.sum(-1).tolist())
-    return model, memos[0], frames[0, -1], shapes[0]
+    return model, memos, states, frames[0, -1], shapes[0]
 
 
 def serve_agree(m32, dev, g, S, attention):
@@ -879,18 +900,73 @@ def seeded_model(S, cfg, dev):
     return model.to(dev)
 
 
+def train_steps(name, model, batch, loss_fn, kernels, frozen):
+    """TRAIN_WARMUP + TRAIN_STEPS steps of ``loss_fn(model, sample,
+    generator)`` on ``batch`` (one sample, a batch of 1) through
+    ``train_model``. Checks two launches a step of kernel B on the 7x7
+    gather body and of kernel D on scatter7x2 and none of A and C, the step
+    count and finite metrics, that the parameters under the ``frozen``
+    prefixes stayed bit-identical and that the others moved (but ZERO_GRAD
+    biases). Returns the run: the launch counts (A, B, C, D), B's and D's
+    launches per body, the step ms, each step's metrics, the peak memory in
+    GiB and the names of the frozen and of the unchanged parameters."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.train import (
+        train_model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    stamps, metrics = [], []
+
+    def on_step(state, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append(m)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    state = train_model(loss_fn, model, [batch] * n_steps, n_steps, seed=0,
+                        log_interval=n_steps + 1, on_step=on_step)
+    run = dict(counts=[k.launches for k in kernels],
+               bodies=dict(roi_align=dict(kernels[1].body_launches),
+                           roi_align_backward=dict(kernels[3].body_launches)),
+               step_ms=[(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)],
+               metrics=metrics,
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    if run["counts"] != [0, 2 * n_steps, 0, 2 * n_steps]:
+        raise AssertionError(f"{name}: launch counts (A, B, C, D) "
+                             f"{run['counts']} for {n_steps} steps")
+    check_bodies(f"{name} roi_align", kernels[1], gather7x2=2 * n_steps,
+                 gather14x2=0)
+    check_bodies(f"{name} roi_align_backward", kernels[3],
+                 scatter7x2=2 * n_steps, scatter14x2=0)
+    if state.step != n_steps or not all(
+            np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"{name}: step {state.step}, metrics {metrics}")
+    run["frozen"], run["unchanged"] = [], []
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[n])
+        if n.startswith(frozen):
+            run["frozen"].append(n)
+            if not same:
+                raise AssertionError(f"{name}: frozen {n} changed")
+        elif same:
+            run["unchanged"].append(n)
+    if not run["frozen"] or any(not n.endswith(ZERO_GRAD)
+                                for n in run["unchanged"]):
+        raise AssertionError(f"{name}: {len(run['frozen'])} frozen; "
+                             f"unchanged {run['unchanged']}")
+    return run
+
+
 def train(dev, smi, S, kernels):
     """Full-width SELSA R50-DC5 training at the JAX training default (the
     default ``SelsaConfig``: bf16 compute, f32 parameters, 608x1024, 30
     classes, key proposals 6000 -> 600, reference proposals 2000 -> 300,
     256 sampled rois; SGD lr 0.01 with the mmcv warmup, momentum 0.9,
-    masked decay 1e-4, clip 35) through ``train_model``: TRAIN_WARMUP +
-    TRAIN_STEPS steps on one sample (batch of 1). Checks the launches per
-    step, the frozen parameters and that the others moved; times the steps
-    and the key frame's proposal NMS alone. Returns the launch counts
-    (attention A, RoIAlign B, attention C, RoIAlign D)."""
-    from lowlightenvironmentvideoobjectdetection_torch.apis.train import (
-        train_model)
+    masked decay 1e-4, clip 35) through ``train_steps``; times the key
+    frame's proposal NMS alone. Returns the launch counts (attention A,
+    RoIAlign B, attention C, RoIAlign D)."""
     from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (  # noqa: E501
         rpn_head as rpn)
     from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
@@ -900,48 +976,11 @@ def train(dev, smi, S, kernels):
     anchors = S.make_anchors(cfg, dev)
     sample = train_sample(cfg, dev, seed=2)
     batch = type(sample)(*(f[None] for f in sample))
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    stamps, losses = [], []
-
-    def on_step(state, metrics):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        losses.append(metrics["loss"])
 
     def loss_fn(m, smp, generator):
         return S.selsa_loss(m, smp, anchors, generator=generator)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(*kernels)
-    t0 = time.perf_counter()
-    state = train_model(loss_fn, model, [batch] * n_steps, n_steps, seed=0,
-                        log_interval=n_steps + 1, on_step=on_step)
-    counts = [k.launches for k in kernels]
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
-    if counts != [0, 2 * n_steps, 0, 2 * n_steps]:
-        raise AssertionError(f"train: launch counts (A, B, C, D) {counts} for "
-                             f"{n_steps} steps")
-    check_bodies("train roi_align", kernels[1], gather7x2=2 * n_steps,
-                 gather14x2=0)
-    check_bodies("train roi_align_backward", kernels[3],
-                 scatter7x2=2 * n_steps, scatter14x2=0)
-    if state.step != n_steps or not all(np.isfinite(losses)):
-        raise AssertionError(f"train: step {state.step}, losses {losses}")
-    frozen, unchanged = 0, []
-    for n, p in model.named_parameters():
-        same = torch.equal(p.detach(), before[n])
-        if n.startswith(FROZEN):
-            frozen += 1
-            if not same:
-                raise AssertionError(f"train: frozen {n} changed")
-        elif same:
-            unchanged.append(n)
-    if not frozen or any(not n.endswith(ZERO_GRAD) for n in unchanged):
-        raise AssertionError(f"train: {frozen} frozen; unchanged {unchanged}")
-
+    run = train_steps("train", model, batch, loss_fn, kernels, FROZEN)
     # the key frame's proposal NMS (k = 6000) and the references' alone
     with torch.no_grad():
         cls, reg = model.rpn_forward(model.extract_feat(sample.imgs))
@@ -960,17 +999,36 @@ def train(dev, smi, S, kernels):
                 torch.cuda.synchronize()
                 runs.append((time.perf_counter() - t) * 1e3)
             nms_ms[name] = statistics.median(runs)
-    med = statistics.median(step_ms[TRAIN_WARMUP:])
-    phase("train", card=smi, steps=n_steps, warmup_steps=TRAIN_WARMUP,
-          loss_per_step=losses, step_ms=step_ms, median_step_ms=med,
-          steps_per_s=1e3 / med, peak_mem_gb=peak / 2**30,
+    counts = run["counts"]
+    med = statistics.median(run["step_ms"][TRAIN_WARMUP:])
+    phase("train", card=smi, steps=len(run["step_ms"]),
+          warmup_steps=TRAIN_WARMUP,
+          loss_per_step=[m["loss"] for m in run["metrics"]],
+          step_ms=run["step_ms"], median_step_ms=med,
+          steps_per_s=1e3 / med, peak_mem_gb=run["peak_gb"],
           key_nms_ms=nms_ms["key"], refs_nms_ms=nms_ms["refs"],
           key_nms_share=nms_ms["key"] / med, launches=dict(
               attention=counts[0], roi_align=counts[1],
               attention_1slab=counts[2], roi_align_backward=counts[3]),
-          frozen_params=frozen, unchanged_params=unchanged)
-    del model, state, before
+          frozen_params=len(run["frozen"]),
+          unchanged_params=run["unchanged"])
+    del model
     return counts
+
+
+def grad_agreement(gk, gp):
+    """(worst error over tolerance, its leaf) of the gradients ``gk``
+    against ``gp``, at train_agree's tolerances."""
+    if set(gk) != set(gp):
+        raise AssertionError("different leaves have gradients")
+    floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item() for g in gp.values())
+    worst, worst_leaf = 0.0, None
+    for n, want in gp.items():
+        ratio = max_err(gk[n], want) / max(
+            TRAIN_GRAD_REL * want.abs().max().item(), floor)
+        if ratio > worst:
+            worst, worst_leaf = ratio, n
+    return worst, worst_leaf
 
 
 def train_agree(dev, S, roi_align, roi_align_backward):
@@ -1003,15 +1061,7 @@ def train_agree(dev, S, roi_align, roi_align_backward):
                              f"{roi_align.launches}, "
                              f"{roi_align_backward.launches}")
     lp, gp = run("plain")
-    if set(gk) != set(gp):
-        raise AssertionError("train_agree: different leaves have gradients")
-    floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item() for g in gp.values())
-    worst, worst_leaf = 0.0, None
-    for n, want in gp.items():
-        tol = max(TRAIN_GRAD_REL * want.abs().max().item(), floor)
-        ratio = max_err(gk[n], want) / tol
-        if ratio > worst:
-            worst, worst_leaf = ratio, n
+    worst, worst_leaf = grad_agreement(gk, gp)
     loss_rel = abs(lk - lp) / abs(lp)
     phase("train_agree", loss_kernel=lk, loss_plain=lp, loss_rel_err=loss_rel,
           loss_rtol=TRAIN_LOSS_RTOL, leaves=len(gp),
@@ -1023,6 +1073,359 @@ def train_agree(dev, S, roi_align, roi_align_backward):
     if worst > 1.0:
         raise AssertionError(f"train_agree: gradient of {worst_leaf} off by "
                              f"{worst} tolerances")
+
+
+class TopKPin:
+    """Stands in for TemporalRoIAlign's ``top_k`` (in the module
+    ``temporal_roi_align``) inside a ``with`` block, for the agree phases:
+    records each call's indices; given ``pinned`` (another run's recorded
+    indices, call by call) it returns the values at those indices instead
+    of its own choice and counts the rows where its own choice differs. Such
+    a top-k flip is a near-tie that the two paths' roundings order
+    differently: it moves a RoI pixel's gathered features by the distance
+    between two map pixels, which no rounding tolerance covers."""
+
+    def __init__(self, module, pinned=None):
+        self.module, self.orig = module, module.top_k
+        self.pinned, self.indices, self.flips = pinned, [], 0
+
+    def __enter__(self):
+        self.module.top_k = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.top_k = self.orig
+
+    def __call__(self, x, k):
+        vals, idx = self.orig(x, k)
+        self.indices.append(idx)
+        if self.pinned is None:
+            return vals, idx
+        want = self.pinned[len(self.indices) - 1]
+        self.flips += int((idx.sort(1).values != want.sort(1).values)
+                          .any(1).sum())
+        return x.gather(1, want), want
+
+
+def darkfarm_train(dev, smi, kernels):
+    """The paper's distillation at full width: ``darkfarm_loss`` at the
+    canonical low-light config without its aggregator (``DARKFARM`` of
+    ``tools/train_profile.py``: 8 classes, stages (0, 1, 2, 3, 3), L1
+    feature loss, TemporalRoIAlign, 3 shared FCs; bf16 compute, f32
+    parameters, 608x1024) on one sample of a key and 2 reference (noise,
+    clean) pairs of 6 channels with 8 gts, through ``train_steps`` as the
+    ``train`` phase, the whole cleaner among the frozen parameters; then
+    DARKFARM_STAGED staged steps (``staged_step``: the cleaner's forward,
+    the feature loss and TemporalRoIAlign among the stages). Returns the
+    launch counts (A, B, C, D) of the ``train_steps`` run and B's and D's
+    launches per body there."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa_darkfarm as D)
+    from lowlightenvironmentvideoobjectdetection_torch.parallel.train import (
+        make_optimizer)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        DARKFARM, darkfarm_sample, staged_step)
+    model, anchors = D.make_darkfarm(
+        DARKFARM, torch.Generator().manual_seed(0), device=dev)
+    sample = darkfarm_sample(DARKFARM, dev, seed=2)
+    batch = type(sample)(*(f[None] for f in sample))
+
+    def loss_fn(m, smp, generator):
+        return D.darkfarm_loss(m, smp, anchors, generator=generator)
+
+    run = train_steps("darkfarm_train", model, batch, loss_fn, kernels,
+                      DARKFARM_FROZEN)
+    n_cleaner = sum(n.startswith("cleaner.") for n in run["frozen"])
+    if not n_cleaner:
+        raise AssertionError("darkfarm_train: no cleaner parameters")
+
+    # host-clock stages (synchronised after each), the teacher's among them
+    opt = make_optimizer(model)
+    opt_state = opt.init(dict(model.named_parameters()))
+    gen = torch.Generator().manual_seed(5)
+    stages = {}
+    for _ in range(DARKFARM_STAGED):
+        opt_state, times = staged_step(model, opt, opt_state, sample, anchors,
+                                       gen)
+        for k, v in times.items():
+            stages.setdefault(k, []).append(v)
+    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+    timed_ms = run["step_ms"][TRAIN_WARMUP:]
+    med = statistics.median(timed_ms)
+    q = statistics.quantiles(timed_ms, n=4)
+    counts = run["counts"]
+    phase("darkfarm_train", card=smi, steps=len(run["step_ms"]),
+          warmup_steps=TRAIN_WARMUP,
+          loss_per_step=[m["loss"] for m in run["metrics"]],
+          last_step_metrics=run["metrics"][-1], step_ms=run["step_ms"],
+          median_step_ms=med, step_ms_min_max=[min(timed_ms), max(timed_ms)],
+          step_ms_quartiles=[q[0], q[2]], steps_per_s=1e3 / med,
+          peak_mem_gb=run["peak_gb"], staged_steps=DARKFARM_STAGED,
+          stage_ms=stage_ms,
+          cleaner_forward_ms=stage_ms["cleaner forward (teacher)"],
+          feature_loss_ms=stage_ms["feature loss"],
+          troi_ms=stage_ms["TemporalRoIAlign (2 maps)"],
+          launches=dict(attention=counts[0], roi_align=counts[1],
+                        attention_1slab=counts[2],
+                        roi_align_backward=counts[3]),
+          frozen_params=len(run["frozen"]), cleaner_params=n_cleaner,
+          unchanged_params=run["unchanged"])
+    del model
+    return counts, run["bodies"]
+
+
+def darkfarm_agree(dev, roi_align, roi_align_backward):
+    """f32, TF32 off: one ``darkfarm_loss`` at the ``darkfarm_train``
+    config and every parameter's gradient through kernels B and D and
+    through the plain RoIAlign, with the same uniforms, at train_agree's
+    tolerances. TemporalRoIAlign's top-k choices of both runs are compared
+    (``troi_topk_flips``); where any differ, the plain run is repeated with
+    the kernel run's choices pinned (``TopKPin``) and that run is held to
+    the tolerances, the unpinned one reported."""
+    import dataclasses
+
+    from lowlightenvironmentvideoobjectdetection_torch.models.roi_heads import (  # noqa: E501
+        temporal_roi_align as troi)
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S, selsa_darkfarm as D)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        DARKFARM, darkfarm_sample)
+    cfg = dataclasses.replace(DARKFARM, selsa=dataclasses.replace(
+        DARKFARM.selsa, compute_dtype=torch.float32))
+    model, anchors = D.make_darkfarm(cfg, torch.Generator().manual_seed(0),
+                                     device=dev)
+    sample = darkfarm_sample(cfg, dev, seed=3)
+    uniforms = S.draw_loss_uniforms(cfg.selsa, 8,
+                                    torch.Generator().manual_seed(3), dev)
+
+    def run(impl, pinned=None):
+        model.zero_grad(set_to_none=True)
+        with TopKPin(troi, pinned) as pin:
+            loss, _ = D.darkfarm_loss(model, sample, anchors,
+                                      uniforms=uniforms, impl=impl)
+            loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters()
+                             if p.grad is not None}, pin
+
+    reset_counts(roi_align, roi_align_backward)
+    lk, gk, pk = run(None)
+    if (roi_align.launches, roi_align_backward.launches) != (2, 2):
+        raise AssertionError("darkfarm_agree: kernel path launches "
+                             f"{roi_align.launches}, "
+                             f"{roi_align_backward.launches}")
+    lp, gp, _ = run("plain")
+    unpinned = dict(loss_rel_err=abs(lk - lp) / abs(lp))
+    unpinned["worst_grad_err_over_tol"], unpinned["worst_leaf"] = \
+        grad_agreement(gk, gp)
+    lq, gq, probe = run("plain", pinned=pk.indices)
+    flips = probe.flips
+    if flips:  # hold the run with the kernel path's choices
+        lp, gp = lq, gq
+    del gq
+    worst, worst_leaf = grad_agreement(gk, gp)
+    loss_rel = abs(lk - lp) / abs(lp)
+    phase("darkfarm_agree", loss_kernel=lk, loss_plain=lp,
+          loss_rel_err=loss_rel, loss_rtol=TRAIN_LOSS_RTOL, leaves=len(gp),
+          worst_grad_err_over_tol=worst, worst_leaf=worst_leaf,
+          troi_topk_flips=flips, troi_topk_rows=sum(
+              i.shape[0] for i in pk.indices),
+          held_with=("the kernel run's top-k choices" if flips
+                     else "each run's own top-k choices"),
+          unpinned=unpinned,
+          grad_tolerance=dict(rel_to_leaf_max=TRAIN_GRAD_REL,
+                              floor_rel_to_global_max=TRAIN_GRAD_FLOOR))
+    if loss_rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"darkfarm_agree: loss {lk} against {lp}")
+    if worst > 1.0:
+        raise AssertionError(f"darkfarm_agree: gradient of {worst_leaf} off "
+                             f"by {worst} tolerances")
+
+
+def troi_cost(n_maps, h, w, c, n_rois, feat_bytes=2, k=2, out_size=7):
+    """(bytes, FLOPs) of TemporalRoIAlign's most-similar RoI align over
+    ``n_maps`` reference maps: the roi features and the maps read once, the
+    f32 output [maps, N, 7, 7, C] written once; 2 FLOPs per multiply-add of
+    the similarity (each RoI pixel against every map pixel) and of the
+    weighted gather of k pixels."""
+    q = n_rois * out_size * out_size
+    nbytes = (feat_bytes * (q * c + n_maps * h * w * c)
+              + 4 * n_maps * q * c)
+    return nbytes, 2 * n_maps * q * c * (h * w + k)
+
+
+def troi_stream(dev, smi, init_model, inference_vid, S, kernels, g):
+    """Streaming with TemporalRoIAlign and 3 shared FCs (``TROI_CFG``,
+    bf16): the memo of 14 reference frames, their neck maps among it, from
+    ``inference_vid`` at frame 0, then STREAM_FRAMES more frames; TROI alone
+    on one frame's proposals (host clock, synchronised; also its
+    most-similar RoI align alone, and the similarity products alone) for
+    its share of the step and its bound; SERVE_S streams through ``serve``
+    (phase ``troi_serve``), memos from ``init_video_state`` stacked, whose
+    per-frame steps roll the maps too. Each step launches kernel A three
+    times (once per shared FC), on the tensor-core body, and kernel B once,
+    on the 7x7 gather body. Then f32 (TF32 off): one frame through the
+    kernel path and the plain path against a memo of 14 frames, top-k flips
+    counted and pinned as in ``darkfarm_agree``. Returns the launch counts
+    (A, B, C) of the bf16 runs and A's and B's launches per body there."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (  # noqa: E501
+        rpn_head as rpn)
+    from lowlightenvironmentvideoobjectdetection_torch.models.roi_heads import (  # noqa: E501
+        temporal_roi_align as troi)
+    attention, roi_align, attention1 = kernels
+    model = init_model("SELSA", seed=0, device=dev, **TROI_CFG)
+    m, cfg, anchors = model.model, model.cfg, model.anchors
+    rng = np.random.RandomState(3)
+    frames = rng.randint(0, 256, (STREAM_FRAMES + 1,) + RAW_HW + (3,)
+                         ).astype(np.uint8)
+    refs = rng.randint(0, 256, (cfg.num_ref_frames,) + RAW_HW + (3,)
+                       ).astype(np.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    lat = []
+    for fid in range(STREAM_FRAMES + 1):
+        t = time.perf_counter()
+        out = inference_vid(model, frames[fid], fid,
+                            ref_frames=refs if fid == 0 else None)
+        lat.append((time.perf_counter() - t) * 1e3)
+        res = out["bbox_results"]
+        if len(res) != cfg.num_classes or any(
+                r.ndim != 2 or r.shape[1] != 5 or not np.isfinite(r).all()
+                for r in res):
+            raise AssertionError("troi_stream: bad per-class results")
+    peak = torch.cuda.max_memory_allocated()
+    nframes = STREAM_FRAMES + 1
+    counts = [k.launches for k in kernels]
+    if counts != [3 * nframes, nframes + 1, 0]:
+        raise AssertionError(f"troi_stream: launch counts (A, B, C) {counts} "
+                             f"for {nframes} frames")
+    check_bodies("troi_stream attention", attention, fma=0, mma=3 * nframes)
+    check_bodies("troi_stream roi_align", roi_align, gather7x2=nframes + 1,
+                 gather14x2=0)
+    bodies = dict(attention=dict(attention.body_launches),
+                  roi_align=dict(roi_align.body_launches))
+    st = model.state
+    h, w = cfg.feat_hw
+    if (len(st.ref_kv) != 3 or st.ref_maps is None
+            or st.ref_maps.shape != (cfg.num_ref_frames, h, w,
+                                     cfg.neck_channels)
+            or st.ref_maps.dtype != torch.bfloat16
+            or not torch.isfinite(st.ref_maps).all()):
+        raise AssertionError("troi_stream: bad memo")
+    med = statistics.median(lat[1:])
+
+    # TemporalRoIAlign alone on one frame's proposals against the memo
+    with torch.no_grad():
+        imgs, shape, _ = prepare_frames(frames[-1:], cfg.pad_h, cfg.pad_w,
+                                        device=dev)
+        neck = m.extract_feat(imgs)
+        cls, reg = m.rpn_forward(neck)
+        props = rpn.rpn_proposals(cls[0], reg[0], anchors, shape,
+                                  nms_pre=cfg.test_nms_pre,
+                                  nms_post=cfg.test_nms_post,
+                                  iou_threshold=cfg.rpn_nms_iou)
+        rf = m.roi_feats(neck[0], props.boxes)
+        q = troi._l2_normalize(rf.float()).reshape(-1, rf.shape[-1])
+        maps = st.ref_maps.float()
+
+        def similarity():
+            with troi._no_tf32():
+                for ref in maps:
+                    q @ troi._l2_normalize(ref.reshape(-1, q.shape[1])).T
+
+        parts = dict(
+            troi=lambda: m.troi(rf, st.ref_maps),
+            most_similar=lambda: m.troi.most_similar_roi_align(rf.float(),
+                                                               maps),
+            similarity=similarity)
+        part_ms = {}
+        for name, fn in parts.items():
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t) * 1e3)
+            part_ms[name] = statistics.median(runs)
+    troi_ms = part_ms["troi"]
+    nbytes, flops = troi_cost(cfg.num_ref_frames, h, w, cfg.neck_channels,
+                              rf.shape[0], rf.element_size())
+    troi_bound_ms, troi_bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    del model, st, neck, rf, q, maps
+
+    # SERVE_S streams through make_serve_step, memos (maps included) from
+    # init_video_state, stacked; the roll writes the maps of its slots
+    _, memos, states, _, _ = serve(dev, smi, init_model, S, kernels,
+                                   label="troi_serve", **TROI_CFG)
+    serve_counts = [k.launches for k in kernels]
+    rolled = [bool((states.ref_maps[s, :SERVE_STEPS]
+                    != memos[s].ref_maps[:SERVE_STEPS]).any())
+              for s in range(SERVE_S)]
+    if not all(rolled) or not torch.equal(
+            states.ref_maps[:, SERVE_STEPS:],
+            torch.stack([mm.ref_maps[SERVE_STEPS:] for mm in memos])):
+        raise AssertionError("troi_serve: the roll did not write the maps of "
+                             "its slots alone")
+    del memos, states
+    for name, kern in (("attention", attention), ("roi_align", roi_align)):
+        bodies[name] = {b: bodies[name][b] + c
+                        for b, c in kern.body_launches.items()}
+    counts = [a + b for a, b in zip(counts, serve_counts)]
+
+    # f32 agreement, the kernel path against the plain path
+    m32 = init_model("SELSA", seed=0, device=dev,
+                     compute_dtype=torch.float32, **TROI_CFG)
+    hw = (cfg.pad_h, cfg.pad_w, 3)
+    ref_imgs = torch.randn((cfg.num_ref_frames,) + hw, generator=g).to(dev)
+    frame = torch.randn(hw, generator=g).to(dev)
+    shape = torch.tensor([float(cfg.pad_h), float(cfg.pad_w)], device=dev)
+    state = S.init_video_state(m32.model, ref_imgs, shape, m32.anchors)
+    reset_counts(attention)
+    with TopKPin(troi) as pk:
+        got = S.stream_head(m32.model, state, frame, shape, m32.anchors)
+    check_bodies("troi_stream agree attention", attention, mma=0, fma=3)
+    with TopKPin(troi, pk.indices) as probe:
+        pinned = S.stream_head(m32.model, state, frame, shape, m32.anchors,
+                               impl="plain")
+    own = S.stream_head(m32.model, state, frame, shape, m32.anchors,
+                        impl="plain")
+    flips = probe.flips
+    want = pinned if flips else own
+    unpinned = dict(cls_score_max_abs_err=max_err(got.cls_score,
+                                                  own.cls_score),
+                    bbox_pred_max_abs_err=max_err(got.bbox_pred,
+                                                  own.bbox_pred))
+    if not torch.equal(got.proposals.boxes, want.proposals.boxes):
+        raise AssertionError("troi_stream agree: proposals differ")
+    errs = dict(cls_score_max_abs_err=max_err(got.cls_score, want.cls_score),
+                bbox_pred_max_abs_err=max_err(got.bbox_pred, want.bbox_pred))
+    del m32, state, ref_imgs
+    phase("troi_stream", card=smi, frames=nframes, frame0_ms=lat[0],
+          median_frame_ms=med, frames_per_s=1e3 / med, frame_ms=lat[1:],
+          peak_mem_gb=peak / 2**30, troi_ms=troi_ms,
+          troi_share_of_frame=troi_ms / med, troi_bound_ms=troi_bound_ms,
+          troi_bound_by=troi_bound_by, troi_flops=flops, troi_bytes=nbytes,
+          troi_most_similar_ms=part_ms["most_similar"],
+          troi_similarity_ms=part_ms["similarity"],
+          troi_rois=int(props.boxes.shape[0]),
+          launches=dict(attention=counts[0], roi_align=counts[1],
+                        attention_1slab=counts[2]),
+          launches_per_body=bodies,
+          agree=dict(rtol_atol=AGREE_TOL, troi_topk_flips=flips,
+                     troi_topk_rows=sum(i.shape[0] for i in pk.indices),
+                     held_with=("the kernel run's top-k choices" if flips
+                                else "each run's own top-k choices"),
+                     valid_rois=int(got.proposals.valid.sum()),
+                     unpinned=unpinned, **errs))
+    check_close("troi_stream agree cls_score", got.cls_score, want.cls_score,
+                AGREE_TOL, AGREE_TOL)
+    check_close("troi_stream agree bbox_pred", got.bbox_pred, want.bbox_pred,
+                AGREE_TOL, AGREE_TOL)
+    return counts, bodies
 
 
 def roi_grad_times(root, dev, smi) -> int:
@@ -1193,7 +1596,7 @@ def main() -> int:
     check_bodies("stream attention", attention, fma=0, mma=n_attn)
     check_bodies("stream roi_align", roi_align, gather7x2=n_roi,
                  gather14x2=0)
-    add_bodies(summary["roi_align"], roi_align)
+    add_bodies(summary["roi_align"], roi_align.body_launches)
     for res in results:
         if len(res) != cfg.num_classes or sum(len(r) for r in res) > 100:
             raise AssertionError("bad per-class result shapes")
@@ -1255,15 +1658,17 @@ def main() -> int:
 
     # launches in the JSON line: the stream, serve and single_slab paths
     names = ("attention", "roi_align", "attention_1slab")
-    model, memo, frame, shape = serve(dev, smi, init_model, S,
-                                      kernels_on_path)
+    model, memos, _, frame, shape = serve(dev, smi, init_model, S,
+                                          kernels_on_path)
+    memo = memos[0]
+    del memos
     for name, kern in zip(names, kernels_on_path):
         summary[name]["launches"] += kern.launches
-    add_bodies(summary["roi_align"], roi_align)
+    add_bodies(summary["roi_align"], roi_align.body_launches)
     for name, n in zip(names, single_slab(model, memo, frame, shape,
                                           kernels_on_path)):
         summary[name]["launches"] += n
-    add_bodies(summary["roi_align"], roi_align)
+    add_bodies(summary["roi_align"], roi_align.body_launches)
     del model, memo, frame
 
     # training: kernel D joins the path
@@ -1271,10 +1676,30 @@ def main() -> int:
     counts = train(dev, smi, S, train_kernels)
     for name, n in zip(names + ("roi_align_backward",), counts):
         summary[name]["launches"] = summary[name].get("launches", 0) + n
-    add_bodies(summary["roi_align"], roi_align)
-    add_bodies(summary["roi_align_backward"], roi_align_backward)
+    add_bodies(summary["roi_align"], roi_align.body_launches)
+    add_bodies(summary["roi_align_backward"],
+               roi_align_backward.body_launches)
     train_agree(dev, S, roi_align, roi_align_backward)
 
+    # the paper's distillation, and streaming with TemporalRoIAlign
+    counts, bodies = darkfarm_train(dev, smi, train_kernels)
+    for name, n in zip(names + ("roi_align_backward",), counts):
+        summary[name]["launches"] += n
+    for name in ("roi_align", "roi_align_backward"):
+        add_bodies(summary[name], bodies[name])
+    darkfarm_agree(dev, roi_align, roi_align_backward)
+    counts, bodies = troi_stream(dev, smi, init_model, inference_vid, S,
+                                 kernels_on_path, g)
+    for name, n in zip(names, counts):
+        summary[name]["launches"] += n
+    add_bodies(summary["roi_align"], bodies["roi_align"])
+
+    for name, entry in summary.items():
+        if sum(entry.get("body_launches", {}).values()) not in (
+                0, entry["launches"]):
+            raise AssertionError(f"{name}: launches per body "
+                                 f"{entry['body_launches']} do not add up "
+                                 f"to {entry['launches']}")
     tpu_ops = "lowlightenvironmentvideoobjectdetection_tpu/ops/"
     kernels = [
         dict(name="selsa_fused_attention_2slab_hm", route="cuda",

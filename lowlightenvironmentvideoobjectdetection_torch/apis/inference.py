@@ -31,9 +31,13 @@ class VIDModel:
     ``ref_method``: 'adaptive' keeps the frame-0 memo for the whole video;
     'fix' rolls each streamed frame's own K/V into it every
     ``frame_stride`` frames. ``state_dict`` None gives seeded random weights
-    (``init_params`` with a CPU generator seeded by ``seed``). ``device``
-    None builds on the card and raises without one; pass ``device="cpu"``
-    for the CPU."""
+    (``init_params`` with a CPU generator seeded by ``seed``); of a darkfarm
+    state dict (``SelsaDarkfarmDetector``'s) it takes the ``selsa.``
+    entries, the detector, as the clean branch plays no part at test time.
+    The config comes from ``cfg_kwargs`` (``SelsaConfig`` fields, e.g.
+    ``roi_extractor="temporal", num_shared_fcs=3``). ``device`` None builds
+    on the card and raises without one; pass ``device="cpu"`` for the
+    CPU."""
 
     def __init__(self, model_type: str = "SELSA", state_dict=None,
                  seed: int = 0, ref_method: str = "adaptive",
@@ -49,7 +53,7 @@ class VIDModel:
         if state_dict is None:
             S.init_params(model, torch.Generator().manual_seed(seed))
         else:
-            model.load_state_dict(state_dict, strict=True)
+            model.load_state_dict(detector_state(state_dict), strict=True)
         self.model = S.cast_for_inference(model.to(self.device).eval())
         self.anchors = S.make_anchors(self.cfg, self.device)
         self.ref_method = ref_method
@@ -89,7 +93,7 @@ class VIDModel:
         """Pad an already resized and normalized image to the bucket, keeping
         the model's input channels."""
         cfg = self.cfg
-        keep = min(img.shape[-1], 3)
+        keep = min(img.shape[-1], cfg.backbone_in_channels)
         canvas = np.zeros((cfg.pad_h, cfg.pad_w, keep), np.float32)
         h, w = min(img.shape[0], cfg.pad_h), min(img.shape[1], cfg.pad_w)
         canvas[:h, :w] = img[:h, :w, :keep]
@@ -120,12 +124,24 @@ class VIDModel:
         return dict(bbox_results=result_to_per_class(dets, cfg.num_classes))
 
 
+def detector_state(state_dict: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """A SELSA detector's state dict: as given, or the ``selsa.`` entries of
+    a darkfarm one (without the cleaner's)."""
+    if not any(k.startswith("selsa.") for k in state_dict):
+        return state_dict
+    return {k[len("selsa."):]: v for k, v in state_dict.items()
+            if k.startswith("selsa.")}
+
+
 def init_model(model_type: str = "SELSA", checkpoint=None, **kwargs
                ) -> VIDModel:
-    """Build a VIDModel; ``checkpoint`` is a saved port ``state_dict``."""
+    """Build a VIDModel; ``checkpoint`` is a saved port ``state_dict`` (a
+    SELSA or darkfarm model's) or a ``TrainState`` checkpoint of
+    ``utils/checkpoint.py``, whose model it takes."""
     if checkpoint is not None:
-        kwargs["state_dict"] = torch.load(checkpoint, map_location="cpu",
-                                          weights_only=True)
+        sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        kwargs["state_dict"] = sd.get("model", sd)
     return VIDModel(model_type=model_type, **kwargs)
 
 

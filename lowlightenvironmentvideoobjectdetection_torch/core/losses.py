@@ -1,7 +1,8 @@
 """Detection losses, the counterpart of the JAX package's ``core/losses.py``
-(``smooth_l1_loss``, ``softmax_cross_entropy``, ``binary_cross_entropy``,
-``accuracy``): per-element ``weight`` and an ``avg_factor`` (clamped to at
-least 1), so masked fixed-size samples reduce as mmdet's dynamic lists do.
+(``smooth_l1_loss``, ``l1_loss``, ``mse_loss``, ``softmax_cross_entropy``,
+``binary_cross_entropy``, ``accuracy``): per-element ``weight`` and an
+``avg_factor`` (clamped to at least 1), so masked fixed-size samples reduce
+as mmdet's dynamic lists do; without either, a plain mean.
 """
 
 from __future__ import annotations
@@ -24,6 +25,14 @@ def smooth_l1_loss(pred, target, beta=1.0, weight=None, avg_factor=None):
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
                        diff - 0.5 * beta)
     return _reduce(loss, weight, avg_factor)
+
+
+def l1_loss(pred, target, weight=None, avg_factor=None):
+    return _reduce((pred - target).abs(), weight, avg_factor)
+
+
+def mse_loss(pred, target, weight=None, avg_factor=None):
+    return _reduce((pred - target).square(), weight, avg_factor)
 
 
 def softmax_cross_entropy(logits, labels, weight=None, avg_factor=None):

@@ -24,17 +24,18 @@ class Shared2FCBBoxHead(nn.Module):
     """Shared FCs, each followed by a SELSA aggregator, then cls/reg linears.
 
     RoI features enter as [N, 7, 7, C]; their row-major flatten is the
-    (7, 7, C) row order of the first FC's input, as in the JAX head."""
+    (7, 7, C) row order of the first FC's input, as in the JAX head. Plain
+    SELSA has 2 shared FCs, the TemporalRoIAlign configurations 3."""
 
     fc_out_channels = 1024
     num_attention_blocks = 16
-    num_shared_fcs = 2
 
     def __init__(self, in_features: int, num_classes: int = 30,
-                 dtype=torch.float32):
+                 num_shared_fcs: int = 2, dtype=torch.float32):
         super().__init__()
         c = self.fc_out_channels
-        for i in range(self.num_shared_fcs):
+        self.num_shared_fcs = num_shared_fcs
+        for i in range(num_shared_fcs):
             self.add_module(f"shared_fc{i}", Linear(
                 in_features if i == 0 else c, c, dtype=dtype))
             self.add_module(f"aggregator{i}", SelsaAggregator(

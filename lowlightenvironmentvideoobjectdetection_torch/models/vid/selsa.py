@@ -13,9 +13,14 @@ the S maps and one attention launch per head stage. The single-stream
 functions are its S = 1 case.
 
 Feature maps cross module boundaries NHWC, as in the JAX package; the convs
-inside run NCHW views of them. RoIAlign (kernel B, and kernel D for its
-gradient) and the two-slab SELSA attention (kernel A) launch hand-written
-CUDA kernels on CUDA tensors.
+inside run NCHW views of them (the backbone's stage outputs stay NCHW).
+RoIAlign (kernel B, and kernel D for its gradient) and the two-slab SELSA
+attention (kernel A) launch hand-written CUDA kernels on CUDA tensors.
+
+With ``roi_extractor="temporal"`` the key-frame rois go through
+TemporalRoIAlign against the reference frames' neck maps: in the loss
+against the batch's reference frames, when streaming against the maps the
+memo keeps (``VideoState.ref_maps``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ..backbones.resnet import FrozenBatchNorm, ResNet
 from ..dense_heads import rpn_head as rpn
 from ..necks.channel_mapper import ChannelMapper
 from ..roi_heads import bbox_head as bh
+from ..roi_heads.temporal_roi_align import TemporalRoIAlign
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +69,23 @@ class SelsaConfig:
     # bbox-head dtype (None = follow compute_dtype); also the memo's dtype
     head_dtype: Optional[torch.dtype] = None
     input_packed: int = 0
+    # backbone stages returned by ``extract_feats`` (duplicates allowed; the
+    # last feeds the neck), e.g. (0, 1, 2, 3, 3) for the feature losses
+    out_indices: Tuple[int, ...] = (3,)
+    backbone_in_channels: int = 3  # 4 for RAW (RGGB) input
+    # key-roi extractor: 'single' (plain RoIAlign) or 'temporal'
+    # (TemporalRoIAlign over the reference maps); reference rois stay plain
+    roi_extractor: str = "single"
+    troi_similar_points: int = 2
+    troi_attention_blocks: int = 4
+    num_shared_fcs: int = 2  # 3 in the TemporalRoIAlign configurations
 
     def __post_init__(self):
         if self.input_packed:
             raise ValueError("input_packed is a TPU host contract; the port "
                              "takes unpacked frames (input_packed=0)")
+        if self.roi_extractor not in ("single", "temporal"):
+            raise ValueError(f"unknown roi_extractor {self.roi_extractor!r}")
 
     @property
     def feat_hw(self) -> Tuple[int, int]:
@@ -84,26 +102,37 @@ class SelsaConfig:
 
 
 class SelsaDetector(nn.Module):
-    """Backbone + neck + RPN + SELSA bbox head."""
+    """Backbone + neck + RPN + SELSA bbox head (+ TemporalRoIAlign)."""
 
     def __init__(self, cfg: SelsaConfig = SelsaConfig()):
         super().__init__()
         self.cfg = c = cfg
         self.backbone = ResNet(
-            depth=c.depth, strides=(1, 2, 2, 1), dilations=(1, 1, 1, 2),
-            out_indices=(3,), frozen_stages=c.frozen_stages,
+            depth=c.depth, in_channels=c.backbone_in_channels,
+            strides=(1, 2, 2, 1), dilations=(1, 1, 1, 2),
+            out_indices=c.out_indices, frozen_stages=c.frozen_stages,
             dtype=c.compute_dtype)
-        self.neck = ChannelMapper(2048, c.neck_channels, 3,
-                                  dtype=c.compute_dtype)
+        self.neck = ChannelMapper(256 * 2 ** c.out_indices[-1],
+                                  c.neck_channels, 3, dtype=c.compute_dtype)
         self.rpn_head = rpn.RPNHead(c.neck_channels, c.neck_channels,
                                     c.num_base_anchors, dtype=c.compute_dtype)
         self.bbox_head = bh.Shared2FCBBoxHead(
-            7 * 7 * c.neck_channels, c.num_classes, dtype=c.bbox_head_dtype)
+            7 * 7 * c.neck_channels, c.num_classes,
+            num_shared_fcs=c.num_shared_fcs, dtype=c.bbox_head_dtype)
+        if c.roi_extractor == "temporal":
+            self.troi = TemporalRoIAlign(
+                c.neck_channels, c.troi_similar_points,
+                c.troi_attention_blocks, dtype=c.compute_dtype)
+
+    def extract_feats(self, imgs: torch.Tensor):
+        """imgs: [T, H, W, Cin] normalized -> (the backbone stages of
+        ``cfg.out_indices``, NCHW; the neck feature [T, h, w, C])."""
+        stages = self.backbone(imgs.permute(0, 3, 1, 2))
+        return stages, self.neck(stages[-1]).permute(0, 2, 3, 1).contiguous()
 
     def extract_feat(self, imgs: torch.Tensor) -> torch.Tensor:
-        """imgs: [T, H, W, 3] normalized -> neck feature [T, h, w, C]."""
-        stage = self.backbone(imgs.permute(0, 3, 1, 2))[-1]
-        return self.neck(stage).permute(0, 2, 3, 1).contiguous()
+        """imgs: [T, H, W, Cin] normalized -> neck feature [T, h, w, C]."""
+        return self.extract_feats(imgs)[1]
 
     def rpn_forward(self, neck_feat: torch.Tensor):
         """[T, h, w, C] -> (cls [T, h, w, A], reg [T, h, w, 4A])."""
@@ -117,6 +146,16 @@ class SelsaDetector(nn.Module):
         return roi_align(neck_feat, rois.float(), 1.0 / self.cfg.stride,
                          batch_inds=batch_inds, out_size=7, sampling_ratio=2,
                          impl=impl)
+
+    def roi_feats_troi(self, neck_feat, rois, ref_maps, batch_inds=None,
+                       impl: Optional[str] = None):
+        """Key-frame roi features: the plain RoIAlign on ``neck_feat``, then
+        TemporalRoIAlign against the reference maps ``ref_maps`` [R, h, w, C]
+        (batched: rois of S maps in map order, [S, R, h, w, C])."""
+        rf = self.roi_feats(neck_feat, rois, batch_inds, impl=impl)
+        if ref_maps is not None and ref_maps.ndim == 5:
+            rf = rf.reshape(ref_maps.shape[0], -1, *rf.shape[1:])
+        return self.troi(rf, ref_maps)
 
 
 def make_anchors(cfg: SelsaConfig, device=None) -> torch.Tensor:
@@ -197,6 +236,17 @@ def draw_loss_uniforms(cfg: SelsaConfig, num_gts: int,
                    device=gdev).to(device))
 
 
+def loss_uniforms(cfg: SelsaConfig, num_gts: int, anchors: torch.Tensor,
+                  generator: Optional[torch.Generator],
+                  uniforms: Optional[LossUniforms]) -> LossUniforms:
+    """``uniforms``, or else ``LossUniforms`` drawn from ``generator``."""
+    if uniforms is not None:
+        return uniforms
+    if generator is None:
+        raise ValueError("pass uniforms or a generator")
+    return draw_loss_uniforms(cfg, num_gts, generator, anchors.device)
+
+
 def selsa_loss(model: SelsaDetector, batch: TrainBatch, anchors: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                uniforms: Optional[LossUniforms] = None,
@@ -204,8 +254,10 @@ def selsa_loss(model: SelsaDetector, batch: TrainBatch, anchors: torch.Tensor,
     """Single-sample SELSA training loss (mmtracking's SELSA forward_train):
     the RPN loss on the key frame; proposals on the key frame (train NMS
     window) and on each reference frame (test window); sampled RoI targets
-    on the key frame; RoIAlign of the key rois and of all reference
-    proposals; the joint SELSA head and its loss. Returns (total, metrics).
+    on the key frame; RoIAlign of the key rois (TemporalRoIAlign against
+    the reference maps with ``roi_extractor="temporal"``) and of all
+    reference proposals; the joint SELSA head and its loss. Returns (total,
+    metrics).
 
     The samplers use ``uniforms``, or else draw them from ``generator``.
     The proposals carry no gradient, as in the original (mmdet detaches
@@ -213,18 +265,24 @@ def selsa_loss(model: SelsaDetector, batch: TrainBatch, anchors: torch.Tensor,
     the JAX package differentiates through them (ROADMAP fault F6).
     ``impl="plain"`` runs RoIAlign's plain version (for comparisons
     only)."""
-    cfg = model.cfg
-    if uniforms is None:
-        if generator is None:
-            raise ValueError("selsa_loss: pass uniforms or a generator")
-        uniforms = draw_loss_uniforms(cfg, batch.gt_boxes.shape[0], generator,
-                                      anchors.device)
+    uniforms = loss_uniforms(model.cfg, batch.gt_boxes.shape[0], anchors,
+                             generator, uniforms)
     neck = model.extract_feat(batch.imgs)
+    return detection_loss(model, neck, batch, anchors, uniforms, impl=impl)
+
+
+def detection_loss(model: SelsaDetector, neck: torch.Tensor, batch,
+                   anchors: torch.Tensor, uniforms: LossUniforms,
+                   impl: Optional[str] = None, total=0.0):
+    """``selsa_loss`` from the neck features [1+R, h, w, C] on: ``batch``
+    gives ``img_shape`` and the gts. The four losses are added to
+    ``total`` in order. Returns (total, metrics)."""
+    cfg = model.cfg
     cls_all, reg_all = model.rpn_forward(neck)
     rpn_losses = rpn.rpn_loss(cls_all[0], reg_all[0], anchors,
                               batch.gt_boxes, batch.gt_valid, uniforms.rpn,
                               batch.img_shape)
-    num_refs = batch.imgs.shape[0] - 1
+    num_refs = neck.shape[0] - 1
     with torch.no_grad():  # F6: no gradient through the proposals
         key_props = rpn.rpn_proposals(
             cls_all[0], reg_all[0], anchors, batch.img_shape,
@@ -238,7 +296,11 @@ def selsa_loss(model: SelsaDetector, batch: TrainBatch, anchors: torch.Tensor,
                            batch.gt_labels, batch.gt_valid, uniforms.roi,
                            num_classes=cfg.num_classes,
                            num_samples=cfg.num_roi_samples)
-    key_feats = model.roi_feats(neck[0], tgts.rois, impl=impl)
+    if cfg.roi_extractor == "temporal":
+        key_feats = model.roi_feats_troi(neck[0], tgts.rois, neck[1:],
+                                         impl=impl)
+    else:
+        key_feats = model.roi_feats(neck[0], tgts.rois, impl=impl)
     binds = torch.arange(num_refs, device=neck.device).repeat_interleave(
         cfg.test_nms_post)
     ref_feats = model.roi_feats(neck[1:], ref_props.boxes.reshape(-1, 4),
@@ -247,7 +309,7 @@ def selsa_loss(model: SelsaDetector, batch: TrainBatch, anchors: torch.Tensor,
                                            ref_props.valid.reshape(-1))
     roi_losses = bh.bbox_loss(cls_score, bbox_pred, tgts,
                               num_classes=cfg.num_classes)
-    total = (rpn_losses.loss_cls + rpn_losses.loss_bbox
+    total = (total + rpn_losses.loss_cls + rpn_losses.loss_bbox
              + roi_losses.loss_cls + roi_losses.loss_bbox)
     metrics = {
         "loss": total,
@@ -263,20 +325,26 @@ def selsa_loss(model: SelsaDetector, batch: TrainBatch, anchors: torch.Tensor,
 class VideoState(NamedTuple):
     """Streaming memo: per shared-FC stage the cached reference K/V, head
     major [nb, R, P, hd] for R reference frames; their validity [R, P]; the
-    fix-stride roll slot. Batched over S streams: [S, nb, R, P, hd],
-    [S, R, P] and an int64 tensor [S] of slots."""
+    fix-stride roll slot; with the temporal extractor the reference frames'
+    neck maps [R, h, w, C] in the compute dtype (None otherwise). Batched
+    over S streams: [S, nb, R, P, hd], [S, R, P], an int64 tensor [S] of
+    slots and [S, R, h, w, C]."""
 
     ref_kv: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     ref_valid: torch.Tensor
     next_slot: "int | torch.Tensor"
+    ref_maps: Optional[torch.Tensor] = None
 
 
 def empty_video_state(cfg: SelsaConfig, device=None,
                       generator: Optional[torch.Generator] = None
                       ) -> VideoState:
-    """A full-validity memo in the bbox head's dtype; zeros, or N(0, 0.1^2)
-    values from ``generator`` (drawn on the generator's device, then moved
-    to ``device``)."""
+    """A full-validity memo of ``cfg.num_shared_fcs`` K/V stages in the bbox
+    head's dtype; zeros, or N(0, 0.1^2) values from ``generator`` (drawn on
+    the generator's device, then moved to ``device``). It holds no
+    reference maps: the temporal extractor then passes the roi features
+    through, as in JAX. (The JAX ``empty_video_state`` gives 2 stages
+    whatever the config, ROADMAP fault F8.)"""
     head = bh.Shared2FCBBoxHead
     nb, c, dtype = head.num_attention_blocks, head.fc_out_channels, \
         cfg.bbox_head_dtype
@@ -289,7 +357,7 @@ def empty_video_state(cfg: SelsaConfig, device=None,
                             device=generator.device) * 0.1
                 ).to(device=device, dtype=dtype)
 
-    kv = tuple((one(), one()) for _ in range(head.num_shared_fcs))
+    kv = tuple((one(), one()) for _ in range(cfg.num_shared_fcs))
     valid = torch.ones((cfg.num_ref_frames, cfg.test_nms_post), dtype=torch.bool,
                        device=device)
     return VideoState(kv, valid, 0)
@@ -304,15 +372,19 @@ def stack_video_states(states: Sequence[VideoState]) -> VideoState:
     valid = torch.stack([st.ref_valid for st in states])
     slots = torch.tensor([int(st.next_slot) for st in states],
                          dtype=torch.int64, device=valid.device)
-    return VideoState(kv, valid, slots)
+    maps = (None if states[0].ref_maps is None
+            else torch.stack([st.ref_maps for st in states]))
+    return VideoState(kv, valid, slots, maps)
 
 
 def copy_video_state(state: VideoState) -> VideoState:
     """A copy that owns its memory (single or batched)."""
     slot = state.next_slot
+    maps = state.ref_maps
     return VideoState(tuple((k.clone(), v.clone()) for k, v in state.ref_kv),
                       state.ref_valid.clone(),
-                      slot.clone() if torch.is_tensor(slot) else slot)
+                      slot.clone() if torch.is_tensor(slot) else slot,
+                      None if maps is None else maps.clone())
 
 
 def _proposals(cfg, cls, reg, anchors, img_shape) -> rpn.Proposals:
@@ -325,8 +397,9 @@ def _proposals(cfg, cls, reg, anchors, img_shape) -> rpn.Proposals:
 @torch.no_grad()
 def init_video_state(model: SelsaDetector, ref_imgs: torch.Tensor, img_shape,
                      anchors: torch.Tensor) -> VideoState:
-    """Fill the memo from the reference frames ref_imgs [R, H, W, 3] (one
-    proposal NMS for all R)."""
+    """Fill the memo from the reference frames ref_imgs [R, H, W, Cin] (one
+    proposal NMS for all R); the temporal extractor also keeps their neck
+    maps."""
     cfg = model.cfg
     r = ref_imgs.shape[0]
     p = cfg.test_nms_post
@@ -340,7 +413,8 @@ def init_video_state(model: SelsaDetector, ref_imgs: torch.Tensor, img_shape,
     kvs = model.bbox_head.ref_transform_kv(rfeats)
     kvs = tuple((k.reshape(k.shape[0], r, p, -1), v.reshape(v.shape[0], r, p, -1))
                 for k, v in kvs)
-    return VideoState(kvs, props.valid, 0)
+    maps = neck if cfg.roi_extractor == "temporal" else None
+    return VideoState(kvs, props.valid, 0, maps)
 
 
 class StreamHead(NamedTuple):
@@ -351,6 +425,7 @@ class StreamHead(NamedTuple):
     cls_score: torch.Tensor  # [P, C+1]
     bbox_pred: torch.Tensor  # [P, 4C]
     cur_kvs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # [nb, P, hd]
+    neck: torch.Tensor  # [h, w, C], what the roll writes into ref_maps
 
 
 @torch.no_grad()
@@ -358,10 +433,12 @@ def stream_head_batch(model: SelsaDetector, states: VideoState,
                       frames: torch.Tensor, img_shapes: torch.Tensor,
                       anchors: torch.Tensor,
                       impl: Optional[str] = None) -> StreamHead:
-    """Backbone, neck, RPN and proposals, RoIAlign and the SELSA head for
-    one frame of each of S streams, frames [S, H, W, 3] and img_shapes
-    [S, 2], against the batched memo ``states``. ``impl="plain"`` runs both
-    kernels' plain versions (for comparisons only)."""
+    """Backbone, neck, RPN and proposals, RoIAlign (then TemporalRoIAlign
+    against each stream's own memo maps, with the temporal extractor) and
+    the SELSA head for one frame of each of S streams, frames
+    [S, H, W, Cin] and img_shapes [S, 2], against the batched memo
+    ``states``. ``impl="plain"`` runs both kernels' plain versions (for
+    comparisons only)."""
     cfg = model.cfg
     s = frames.shape[0]
     neck = model.extract_feat(frames)
@@ -369,31 +446,39 @@ def stream_head_batch(model: SelsaDetector, states: VideoState,
     props = _proposals(cfg, cls, reg, anchors, img_shapes)
     p = props.boxes.shape[1]
     binds = torch.arange(s, device=neck.device).repeat_interleave(p)
-    rfeats = model.roi_feats(neck, props.boxes.reshape(-1, 4), binds,
-                             impl=impl)
+    if cfg.roi_extractor == "temporal":
+        rfeats = model.roi_feats_troi(neck, props.boxes.reshape(-1, 4),
+                                      states.ref_maps, binds, impl=impl)
+    else:
+        rfeats = model.roi_feats(neck, props.boxes.reshape(-1, 4), binds,
+                                 impl=impl)
     ref_kvs = tuple((k.flatten(-3, -2), v.flatten(-3, -2))
                     for k, v in states.ref_kv)  # [S, nb, R*P, hd]
     (cls_score, bbox_pred), cur_kvs = model.bbox_head.forward_cached_stream_kv(
-        rfeats.reshape(s, p, *rfeats.shape[1:]), ref_kvs,
+        rfeats.reshape(s, p, *rfeats.shape[-3:]), ref_kvs,
         states.ref_valid.flatten(-2), props.valid, impl=impl)
-    return StreamHead(props, cls_score, bbox_pred, cur_kvs)
+    return StreamHead(props, cls_score, bbox_pred, cur_kvs, neck)
 
 
-def roll_memo(states: VideoState, cur_kvs, valid: torch.Tensor
-              ) -> VideoState:
+def roll_memo(states: VideoState, cur_kvs, valid: torch.Tensor,
+              neck: Optional[torch.Tensor] = None) -> VideoState:
     """The fix-stride roll of a batched memo: each stream's current K/V
-    cur_kvs [S, nb, P, hd] and proposal validity [S, P] replace its slot
-    ``next_slot[s]``. Writes the memo tensors in place (the JAX step returns
-    new arrays) to avoid copying the memo every frame; the returned state
-    shares them."""
+    cur_kvs [S, nb, P, hd], proposal validity [S, P] and, where the memo
+    keeps maps, neck map [S, h, w, C] replace its slot ``next_slot[s]``.
+    Writes the memo tensors in place (the JAX step returns new arrays) to
+    avoid copying the memo every frame; the returned state shares them."""
     ar = torch.arange(valid.shape[0], device=valid.device)
     slot = states.next_slot
     for (bk, bv), (ck, cv) in zip(states.ref_kv, cur_kvs):
         bk[ar, :, slot] = ck.to(bk.dtype)
         bv[ar, :, slot] = cv.to(bv.dtype)
     states.ref_valid[ar, slot] = valid
+    if states.ref_maps is not None:
+        if neck is None:
+            raise ValueError("roll_memo: the memo keeps maps; pass neck")
+        states.ref_maps[ar, slot] = neck.to(states.ref_maps.dtype)
     return VideoState(states.ref_kv, states.ref_valid,
-                      (slot + 1) % states.ref_valid.shape[1])
+                      (slot + 1) % states.ref_valid.shape[1], states.ref_maps)
 
 
 @torch.no_grad()
@@ -415,7 +500,7 @@ def inference_step_batch(model: SelsaDetector, states: VideoState,
                           img_shapes, roi_valid=props.valid,
                           scale_factor=scale_factors, nms_pre=cfg.det_nms_pre)
     if update_memo and do_update:
-        states = roll_memo(states, out.cur_kvs, props.valid)
+        states = roll_memo(states, out.cur_kvs, props.valid, out.neck)
     return states, dets
 
 
@@ -446,8 +531,10 @@ def _one_stream(state: VideoState) -> VideoState:
     batch writes the state's own tensors)."""
     slot = torch.tensor([state.next_slot], dtype=torch.int64,
                         device=state.ref_valid.device)
+    maps = state.ref_maps
     return VideoState(tuple((k[None], v[None]) for k, v in state.ref_kv),
-                      state.ref_valid[None], slot)
+                      state.ref_valid[None], slot,
+                      None if maps is None else maps[None])
 
 
 def _batch_of_one(x, like: torch.Tensor) -> Optional[torch.Tensor]:
@@ -466,7 +553,8 @@ def stream_head(model: SelsaDetector, state: VideoState, frame: torch.Tensor,
                             impl=impl)
     return StreamHead(rpn.Proposals(*(f[0] for f in out.proposals)),
                       out.cls_score[0], out.bbox_pred[0],
-                      tuple((k[0], v[0]) for k, v in out.cur_kvs))
+                      tuple((k[0], v[0]) for k, v in out.cur_kvs),
+                      out.neck[0])
 
 
 @torch.no_grad()
@@ -486,7 +574,8 @@ def inference_step(model: SelsaDetector, state: VideoState,
         do_update=do_update)
     if update_memo and do_update:
         state = VideoState(state.ref_kv, state.ref_valid,
-                           (state.next_slot + 1) % state.ref_valid.shape[0])
+                           (state.next_slot + 1) % state.ref_valid.shape[0],
+                           state.ref_maps)
     return state, DetResult(*(f[0] for f in dets))
 
 

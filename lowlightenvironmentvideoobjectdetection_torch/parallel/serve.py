@@ -20,6 +20,7 @@ from ..models.vid.selsa import (
     empty_video_state,
     inference_clip_batch,
     inference_step_batch,
+    stack_video_states,
 )
 from ..utils.device import resolve_device
 
@@ -27,20 +28,15 @@ from ..utils.device import resolve_device
 def batched_video_state(cfg, n_streams: int, device=None,
                         generator: Optional[torch.Generator] = None
                         ) -> VideoState:
-    """An S-stream memo: ``empty_video_state`` copied onto a leading stream
+    """An S-stream memo: ``empty_video_state`` stacked on a leading stream
     axis of every leaf (each stream owns its memory), ``next_slot`` an int64
-    tensor [S] of zeros. ``device`` None puts it on the card and raises
-    without one; pass ``device="cpu"`` for the CPU."""
+    tensor [S] of zeros. Like ``empty_video_state`` it holds no reference
+    maps; for the temporal extractor stack memos from ``init_video_state``
+    (``stack_video_states``). ``device`` None puts it on the card and
+    raises without one; pass ``device="cpu"`` for the CPU."""
     st = empty_video_state(cfg, device=resolve_device(device),
                            generator=generator)
-
-    def tile(a):
-        return a[None].repeat((n_streams,) + (1,) * a.ndim)
-
-    return VideoState(tuple((tile(k), tile(v)) for k, v in st.ref_kv),
-                      tile(st.ref_valid),
-                      torch.zeros((n_streams,), dtype=torch.int64,
-                                  device=st.ref_valid.device))
+    return stack_video_states([st] * n_streams)
 
 
 def make_serve_step(model, clip: bool = True, update_memo: bool = False,
@@ -70,12 +66,13 @@ def make_serve_step(model, clip: bool = True, update_memo: bool = False,
             update_memo=update_memo)
 
     def to_device(x):
-        return torch.as_tensor(x, device=device)
+        return None if x is None else torch.as_tensor(x, device=device)
 
     def shard_args(anchors, states, frames, img_shapes, scale_factors):
         st = VideoState(
             tuple((to_device(k), to_device(v)) for k, v in states.ref_kv),
-            to_device(states.ref_valid), to_device(states.next_slot))
+            to_device(states.ref_valid), to_device(states.next_slot),
+            to_device(states.ref_maps))
         return (to_device(anchors), st, to_device(frames),
                 to_device(img_shapes), to_device(scale_factors))
 

@@ -1,17 +1,23 @@
 """Where the time of a SELSA training step goes, on one NVIDIA GPU.
 
     python -m lowlightenvironmentvideoobjectdetection_torch.tools.train_profile \
-        [--out results.json]
+        [--darkfarm] [--out results.json]
 
 Full-width SELSA R50-DC5 at the JAX training default (the default
 ``SelsaConfig``: bf16 compute, f32 parameters, 608x1024, 30 classes, key
 proposals 6000 -> 600, reference proposals 2000 -> 300, 256 sampled rois),
 seeded random weights, one sample of a key and 2 reference frames of
-uniform noise with 8 gts, SGD as ``make_optimizer``. After 3 warm-up steps:
+uniform noise with 8 gts, SGD as ``make_optimizer``. With ``--darkfarm``,
+the paper's distillation instead (``darkfarm_loss``): the canonical
+low-light config without its aggregator (``DARKFARM``: 8 classes, stages
+``(0, 1, 2, 3, 3)``, L1 feature loss, TemporalRoIAlign, 3 shared FCs) on
+(noise, clean) pairs of the same frames, with the frozen ResCleaner
+teacher. After 3 warm-up steps:
 
-- stages: 10 steps of ``selsa_loss``'s stages, its backward and the
-  optimizer, with a ``torch.cuda.synchronize()`` after each; host clock,
-  the median of each;
+- stages: 10 steps of the loss's stages (with ``--darkfarm`` also the
+  cleaner's forward, the feature loss and TemporalRoIAlign), its backward
+  and the optimizer, with a ``torch.cuda.synchronize()`` after each; host
+  clock, the median of each;
 - step: 15 steps of ``Trainer.step``, synchronised after each;
 - device: ``torch.profiler`` over 3 windows of 4 steps: busy time (the
   union of the device events' intervals), idle share 1 - busy / wall, the
@@ -38,11 +44,18 @@ import torch
 from ..models.dense_heads import rpn_head as rpn
 from ..models.roi_heads import bbox_head as bh
 from ..models.vid import selsa as S
+from ..models.vid import selsa_darkfarm as D
 from ..parallel.train import Trainer, make_optimizer
 from .stage_profile import union_ms
 
 STAGED_STEPS, STEPS, WARMUP = 10, 15, 3
 WINDOWS, WINDOW_STEPS = 3, 4
+# the canonical low-light config without its aggregator
+# (configs/vid/llvod/llvod_l1234_fusion_add_i1234_rdb_taf_darkfarm.py)
+DARKFARM = D.DarkfarmConfig(
+    selsa=S.SelsaConfig(num_classes=8, out_indices=(0, 1, 2, 3, 3),
+                        roi_extractor="temporal", num_shared_fcs=3),
+    loss_type="l1")
 
 
 def train_sample(cfg, device, seed=0) -> S.TrainBatch:
@@ -62,10 +75,28 @@ def train_sample(cfg, device, seed=0) -> S.TrainBatch:
         t(np.ones(8, bool)))
 
 
+def darkfarm_sample(cfg: D.DarkfarmConfig, device, seed=0) -> D.DarkfarmBatch:
+    """``train_sample``'s frames as the clean half of each pair and a dark,
+    noisy copy (a third of the signal plus N(0, 0.1^2) noise) as the noisy
+    half: [3, H, W, 6], or 8 channels for RAW (``in_channels=4``, the
+    frames' first channel repeated)."""
+    smp = train_sample(cfg.selsa, device, seed)
+    clean = smp.imgs
+    if cfg.in_channels == 4:
+        clean = torch.cat([clean, clean[..., :1]], -1)
+    g = torch.Generator().manual_seed(seed + 1)
+    noise = clean / 3 + torch.randn(clean.shape, generator=g).to(device) * 0.1
+    return D.DarkfarmBatch(torch.cat([noise, clean], -1), smp.img_shape,
+                           smp.gt_boxes, smp.gt_labels, smp.gt_valid)
+
+
 def staged_step(model, opt, opt_state, sample, anchors, generator):
-    """``selsa_loss``, its backward and one optimizer update, synchronised
-    after each stage; returns the optimizer state and each stage's host
-    ms."""
+    """``selsa_loss`` (``darkfarm_loss`` for a ``SelsaDarkfarmDetector``
+    and its ``DarkfarmBatch``, noise branch), its backward and one optimizer
+    update, synchronised after each stage; returns the optimizer state and
+    each stage's host ms."""
+    darkfarm = isinstance(model, D.SelsaDarkfarmDetector)
+    top, model = model, model.selsa if darkfarm else model
     cfg = model.cfg
     times = {}
     t = time.perf_counter()
@@ -79,8 +110,20 @@ def staged_step(model, opt, opt_state, sample, anchors, generator):
 
     u = S.draw_loss_uniforms(cfg, sample.gt_boxes.shape[0], generator,
                              anchors.device)
-    neck = model.extract_feat(sample.imgs)
-    mark("backbone + neck")
+    feature_loss = 0.0
+    if darkfarm:
+        c = top.cfg.in_channels
+        stages, neck = model.extract_feats(sample.pair_imgs[..., :c])
+        mark("backbone + neck")
+        targets = top.cleaner(sample.pair_imgs[..., c:])
+        mark("cleaner forward (teacher)")
+        loss_fn = D.FEATURE_LOSSES[top.cfg.loss_type]
+        for s, tgt in zip(stages, targets):
+            feature_loss = feature_loss + loss_fn(s.float(), tgt.float())
+        mark("feature loss")
+    else:
+        neck = model.extract_feat(sample.imgs)
+        mark("backbone + neck")
     cls, reg = model.rpn_forward(neck)
     mark("RPN head")
     rpn_l = rpn.rpn_loss(cls[0], reg[0], anchors, sample.gt_boxes,
@@ -108,13 +151,16 @@ def staged_step(model, opt, opt_state, sample, anchors, generator):
         cfg.test_nms_post)
     rf = model.roi_feats(neck[1:], refs.boxes.reshape(-1, 4), binds)
     mark("RoIAlign (kernel B x 2)")
+    if cfg.roi_extractor == "temporal":
+        kf = model.troi(kf, neck[1:])
+        mark("TemporalRoIAlign (2 maps)")
     cs, bp = model.bbox_head(kf, rf, refs.valid.reshape(-1))
     roi_l = bh.bbox_loss(cs, bp, tgts, num_classes=cfg.num_classes)
     mark("SELSA head + loss")
-    (rpn_l.loss_cls + rpn_l.loss_bbox + roi_l.loss_cls
+    (feature_loss + rpn_l.loss_cls + rpn_l.loss_bbox + roi_l.loss_cls
      + roi_l.loss_bbox).backward()
     mark("backward (kernel D x 2)")
-    params = dict(model.named_parameters())
+    params = dict(top.named_parameters())
     opt_state, _ = opt.step(params, opt_state)
     for p in params.values():
         p.grad = None
@@ -157,19 +203,28 @@ def device_windows(step, state):
                                for k, v in kernels.items()})
 
 
-def profile_train(seed: int = 0) -> dict:
+def profile_train(seed: int = 0, darkfarm: bool = False) -> dict:
     dev = torch.device("cuda")
-    cfg = S.SelsaConfig()
-    model = S.SelsaDetector(cfg)
-    S.init_params(model, torch.Generator().manual_seed(seed))
-    model = model.to(dev)
-    anchors = S.make_anchors(cfg, dev)
-    sample = train_sample(cfg, dev, seed)
+    if darkfarm:
+        model, anchors = D.make_darkfarm(
+            DARKFARM, torch.Generator().manual_seed(seed), device=dev)
+        sample = darkfarm_sample(DARKFARM, dev, seed)
+
+        def loss_fn(m, smp, g):
+            return D.darkfarm_loss(m, smp, anchors, generator=g)
+    else:
+        cfg = S.SelsaConfig()
+        model = S.SelsaDetector(cfg)
+        S.init_params(model, torch.Generator().manual_seed(seed))
+        model = model.to(dev)
+        anchors = S.make_anchors(cfg, dev)
+        sample = train_sample(cfg, dev, seed)
+
+        def loss_fn(m, smp, g):
+            return S.selsa_loss(m, smp, anchors, generator=g)
     batch = type(sample)(*(f[None] for f in sample))
     gen = torch.Generator().manual_seed(seed)
-    trainer = Trainer(
-        lambda m, smp, g: S.selsa_loss(m, smp, anchors, generator=g),
-        make_optimizer(model))
+    trainer = Trainer(loss_fn, make_optimizer(model))
     state = trainer.init_state(model)
 
     def step(st):
@@ -205,6 +260,9 @@ def profile_train(seed: int = 0) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--darkfarm", action="store_true",
+                    help="profile darkfarm_loss at the canonical low-light "
+                         "config (DARKFARM) instead of selsa_loss")
     ap.add_argument("--out", help="also write the result to this JSON file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -216,7 +274,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    result = dict(card=smi, **profile_train())
+    result = dict(card=smi, darkfarm=args.darkfarm,
+                  **profile_train(darkfarm=args.darkfarm))
     print(json.dumps(result), flush=True)
     if args.out:
         out = Path(args.out)

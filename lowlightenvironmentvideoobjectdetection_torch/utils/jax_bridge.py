@@ -1,10 +1,11 @@
 """JAX (flax) variables -> port ``state_dict``.
 
-Takes the SELSA variable tree as nested dicts of numpy arrays
+Takes the SELSA (or darkfarm) variable tree as nested dicts of numpy arrays
 (``{"params": ..., "batch_stats": ...}``, e.g. ``jax.tree.map(np.asarray,
-variables)``) and returns a ``state_dict`` for ``SelsaDetector``. Module
-names match the flax names, so a leaf's key is its path joined by dots with
-the leaf renamed:
+variables)``) and returns a ``state_dict`` for ``SelsaDetector`` (or
+``SelsaDarkfarmDetector``, whose ``selsa`` and ``cleaner.resnet`` modules
+are named as the flax ones). Module names match the flax names, so a leaf's
+key is its path joined by dots with the leaf renamed:
 
 - conv ``kernel`` [kh, kw, in, out] -> ``weight`` [out, in, kh, kw];
 - dense ``kernel`` [in, out] -> ``weight`` [out, in] (``shared_fc0``'s
@@ -83,16 +84,17 @@ def _tensor(a) -> torch.Tensor:
 
 def video_state_from_jax(state) -> VideoState:
     """A JAX ``VideoState`` as numpy arrays (``ref_kv``, ``ref_valid``,
-    ``next_slot``; e.g. ``jax.tree.map(np.asarray, state)``) -> the port's
-    ``VideoState`` on the CPU, in the same layout. A 0-d ``next_slot``
-    gives a single-stream state (an int slot), a [S] one a batched state
-    (an int64 tensor). The TemporalRoIAlign maps (``ref_maps``) are not
-    ported and must be None."""
-    if getattr(state, "ref_maps", None) is not None:
-        raise ValueError("video state: ref_maps are not ported")
+    ``next_slot``, ``ref_maps``; e.g. ``jax.tree.map(np.asarray, state)``)
+    -> the port's ``VideoState`` on the CPU, in the same layout. A 0-d
+    ``next_slot`` gives a single-stream state (an int slot), a [S] one a
+    batched state (an int64 tensor). The TemporalRoIAlign maps stay NHWC,
+    [R, h, w, C] or [S, R, h, w, C], or None."""
     slot = np.asarray(state.next_slot)
     kv = tuple((_tensor(k), _tensor(v)) for k, v in state.ref_kv)
     valid = _tensor(state.ref_valid).bool()
+    maps = getattr(state, "ref_maps", None)
+    maps = None if maps is None else _tensor(maps)
     if slot.ndim == 0:
-        return VideoState(kv, valid, int(slot))
-    return VideoState(kv, valid, torch.from_numpy(slot.astype(np.int64)))
+        return VideoState(kv, valid, int(slot), maps)
+    return VideoState(kv, valid, torch.from_numpy(slot.astype(np.int64)),
+                      maps)
