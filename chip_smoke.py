@@ -48,9 +48,21 @@ gradients through the kernels against the plain RoIAlign, TemporalRoIAlign's
 top-k flips counted and pinned), ``troi_serve`` (``serve`` at the temporal
 config, three kernel-A launches a step) and ``troi_stream`` (streaming
 with TemporalRoIAlign against 14 reference maps: its time, split and bound,
-the roll of the maps, f32 agreement). Then one JSON line of kernel
-summaries, and a last line ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero.
+the roll of the maps, f32 agreement). Then the canonical config with its
+Denoising2Aggregator: ``agg_train`` (full-width ``darkfarm_loss`` with
+the aggregator and the dual ``_u`` / ``_d`` feature losses through
+``train_model``: kernels B and D twice and DCNv2's kernels E, F and G 12
+times a step, the teacher and the frozen stages bit-identical, every
+aggregator leaf changed, the aggregator's forward among the stage times)
+and ``agg_agree`` (its f32 loss and gradients through the kernels against
+the plain RoIAlign and DCN, with ``conv_offset`` perturbed so the offsets
+are fractional, their range printed; top-k flips pinned). The
+``kernels`` phase also holds E (the im2col), F (the input's gradient) and
+G (the offsets' and the mask's) at the aggregator's four stage shapes,
+f32 and bf16, against their plain versions and autograd, timed eagerly
+and from a CUDA graph. Then one JSON line of kernel summaries (A-G), and
+a last line ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero.
 
     python3 chip_smoke.py --roi-grad-times ROOT
 
@@ -111,9 +123,20 @@ DARKFARM_FROZEN = tuple("selsa." + f for f in FROZEN) + ("cleaner.",)
 DARKFARM_STAGED = 5     # darkfarm_train: staged steps for the stage times
 # streaming with TemporalRoIAlign and 3 shared FCs (troi_stream)
 TROI_CFG = dict(roi_extractor="temporal", num_shared_fcs=3, num_classes=8)
-# zero gradient in exact arithmetic (softmax ignores a constant per query):
-# these biases may stay at their initial 0
-ZERO_GRAD = ".ref_fc_embed.bias"
+# zero gradient in exact arithmetic (softmax ignores a constant per query,
+# and the TAF's softmax over the frames a constant per pixel): these biases
+# may stay at their initial 0
+ZERO_GRAD = (".ref_fc_embed.bias", "_taf.emb_conv2.bias")
+# DCNv2 (kernels E, F, G) at the aggregator's stage shapes, T = 3 frames of
+# 608x1024, G = 8: (name, channels, h, w)
+DCN_SHAPES = (("stage0", 64, 152, 256), ("stage1", 128, 76, 128),
+              ("stage2", 256, 38, 64), ("stage3", 512, 38, 64))
+DCN_FRAMES, DCN_GROUPS = 3, 8
+DCN_REL = 1e-5             # of max |value|: F's atomic order varies per run
+DCN_BF16_RTOL = 2.0 ** -7  # x's bf16 gradient: one rounding of the f32 sum
+# agg_agree: conv_offset perturbed so the offsets have this std (feature px)
+AGG_OFFSET_STD = 1.5
+NO_LIBRARY_DCN = "none (no torchvision): no PyTorch call computes DCNv2"
 SERVE_STEPS = 3         # per-frame batched steps after the clips
 AGREE_S, AGREE_T = 2, 3  # serve_agree: streams, frames (roll every 2nd)
 SET_BOX_TOL = 5e-3      # px; detections as sets, f32 (as the CPU tests)
@@ -162,6 +185,28 @@ def roi_align_backward_cost(n_maps, h, w, c, n_rois, feat_bytes=2,
     nbytes = (feat_bytes * out_elems + 16 * n_rois + bind_bytes * n_rois
               + n_maps * h * w * c * feat_bytes)
     return nbytes, 2 * atomics, atomics
+
+
+def dcn_cost(kernel, n, c, h, w, g, x_bytes=2):
+    """(bytes, FLOPs) of DCN kernel E, F or G at [n, c, h, w] with g deform
+    groups: E reads x, the f32 offsets and mask once and writes the f32
+    columns [n, 9c, hw] once, 8 FLOPs a column entry (4 corner products,
+    3 sums, the mask); F reads the columns' gradient, the offsets and the
+    mask and writes x's f32 gradient once, 9 FLOPs an entry (the mask, 4
+    products, 4 adds); G reads the columns' gradient, x, the offsets and the
+    mask and writes the offsets' and the mask's gradients, 23 FLOPs an entry
+    (the bilinear sum, the two corner-difference derivatives and the three
+    accumulations)."""
+    hw = h * w
+    cols = 4 * n * 9 * c * hw
+    coords = 4 * n * g * 27 * hw  # f32 offsets and mask (or their grads)
+    xb = n * c * hw * x_bytes
+    entries = n * 9 * c * hw
+    if kernel == "E":
+        return xb + coords + cols, 8 * entries
+    if kernel == "F":
+        return cols + coords + 4 * n * c * hw, 9 * entries
+    return cols + xb + 2 * coords, 23 * entries
 
 
 def bound(nbytes, flops, flop_per_s):
@@ -431,6 +476,102 @@ def roi_grad_case(name, ops, plain_backward, maps_shape, rois, binds, g,
                  atomic_adds=atomics, maps=full[0], rois=n,
                  per_roi_and_channel=footprint(ops, rois, *full[1:3]))
     return entry
+
+
+def dcn_inputs(dev, dtype, g, c, h, w):
+    """DCN operands at one stage shape: x [3, c, h, w], offsets of N(0,
+    2.5^2) px (many beyond 2 px, samples beyond the edges) with every 50th
+    pushed beyond the map, masks in (0, 1)."""
+    n, gr = DCN_FRAMES, DCN_GROUPS
+    x = torch.randn(n, c, h, w, generator=g).to(dev, dtype)
+    off = torch.randn(n, gr * 18, h, w, generator=g) * 2.5
+    off.view(-1)[::50] += float(h + w)
+    mask = torch.rand(n, gr * 9, h, w, generator=g)
+    return x, off.to(dev), mask.to(dev)
+
+
+def dcn_kernels(dev, g, ops, errs):
+    """Kernels E, F and G at each of DCN_SHAPES, f32 and bf16 x: E's
+    columns against ``deform_columns_plain`` (exact) and the whole forward
+    against ``modulated_deform_conv_plain`` (DCN_REL x max |out|); F and G
+    against ``modulated_deform_conv_backward_plain`` and torch autograd
+    through the plain columns (DCN_REL x max |grad|; x's bf16 gradient also
+    rtol DCN_BF16_RTOL); errors into ``errs``. Then at bf16 x each kernel
+    eagerly beside its plain version (turns plain, kernel, kernel, plain;
+    F's and G's plain version is the one plain backward that gives both)
+    and from a CUDA graph, with the bound. Returns {E, F, G: stage 0's
+    entry with the other stages under their names}."""
+    out = {k: {} for k in "EFG"}
+    for name, c, h, w in DCN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"dcn_{name}_{str(dtype)[6:]}"
+            x, off, mask = dcn_inputs(dev, dtype, g, c, h, w)
+            cols = ops.deform_columns(x, off, mask)
+            want = ops.deform_columns_plain(x, off, mask)
+            check_close(f"{tag} columns", cols, want, 0.0, 0.0)
+            errs[f"{tag}_columns"] = max_err(cols, want)
+            wt = (torch.randn(c, c, 3, 3, generator=g) / (3 * c ** 0.5)).to(
+                dev)
+            bias = torch.randn(c, generator=g).to(dev)
+            got = ops.modulated_deform_conv(x, off, mask, wt, bias)
+            ref = ops.modulated_deform_conv_plain(x, off, mask, wt, bias)
+            check_close(f"{tag} forward", got, ref, 0.0,
+                        DCN_REL * ref.abs().max().item())
+            errs[f"{tag}_forward"] = max_err(got, ref)
+            del got, ref, want
+            grad_cols = torch.randn(cols.shape, generator=g).to(dev)
+            got = ops.modulated_deform_conv_backward(grad_cols, x, off, mask)
+            plain = ops.modulated_deform_conv_backward_plain(grad_cols, x, off,
+                                                             mask)
+            xf = x.detach().float().requires_grad_()
+            o, m = off.clone().requires_grad_(), mask.clone().requires_grad_()
+            auto = torch.autograd.grad(ops.deform_columns_plain(xf, o, m),
+                                       (xf, o, m), grad_cols)
+            del xf, o, m
+            for part, k, p_, a in zip(("x", "offset", "mask"), got, plain,
+                                      auto):
+                atol = DCN_REL * a.abs().max().item()
+                rtol = DCN_BF16_RTOL if k.dtype == torch.bfloat16 else 0.0
+                check_close(f"{tag} grad {part}", k, p_, rtol, atol)
+                check_close(f"{tag} grad {part} vs autograd", k,
+                            a.to(k.dtype), rtol, atol)
+                errs[f"{tag}_grad_{part}"] = max_err(k, a.to(k.dtype))
+                errs[f"{tag}_grad_{part}_vs_plain"] = max_err(k, p_)
+            del got, plain, auto
+        # bf16 x, as the aggregator's training gives it
+        runs = dict(
+            E=(lambda: ops.deform_columns(x, off, mask),
+               lambda: ops.deform_columns_plain(x, off, mask)),
+            F=(lambda: ops.deform_col2im(grad_cols, x, off, mask),
+               lambda: ops.modulated_deform_conv_backward_plain(
+                   grad_cols, x, off, mask)),
+            G=(lambda: ops.deform_col2im_coord(grad_cols, x, off, mask),
+               lambda: ops.modulated_deform_conv_backward_plain(
+                   grad_cols, x, off, mask)))
+        errs_of = dict(E=f"{tag}_columns", F=f"{tag}_grad_x",
+                       G=f"{tag}_grad_offset")
+        for kern, (kernel, plain) in runs.items():
+            ms, plain_ms, _ = compare_times(kernel, plain)
+            nbytes, flops = dcn_cost(kern, DCN_FRAMES, c, h, w, DCN_GROUPS)
+            bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+            gms = graph_ms(kernel)
+            out[kern][name] = dict(
+                max_abs_err=errs[errs_of[kern]], ms=ms, graph_ms=gms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms,
+                graph_share_of_bound=bound_ms / gms, library_ms=None,
+                library_note=NO_LIBRARY_DCN, bytes=nbytes, flops=flops,
+                shape=[DCN_FRAMES, c, h, w], groups=DCN_GROUPS)
+            if kern != "E":
+                out[kern][name]["plain_note"] = (
+                    "the plain backward computes F's and G's outputs "
+                    "together")
+        del x, off, mask, cols, grad_cols
+    for kern, entries in out.items():
+        first = entries.pop("stage0")
+        first.update(entries)
+        out[kern] = first
+    return out
 
 
 def train_rois(dev, S):
@@ -900,16 +1041,19 @@ def seeded_model(S, cfg, dev):
     return model.to(dev)
 
 
-def train_steps(name, model, batch, loss_fn, kernels, frozen):
+def train_steps(name, model, batch, loss_fn, kernels, frozen,
+                per_step=(0, 2, 0, 2)):
     """TRAIN_WARMUP + TRAIN_STEPS steps of ``loss_fn(model, sample,
     generator)`` on ``batch`` (one sample, a batch of 1) through
-    ``train_model``. Checks two launches a step of kernel B on the 7x7
-    gather body and of kernel D on scatter7x2 and none of A and C, the step
-    count and finite metrics, that the parameters under the ``frozen``
-    prefixes stayed bit-identical and that the others moved (but ZERO_GRAD
-    biases). Returns the run: the launch counts (A, B, C, D), B's and D's
-    launches per body, the step ms, each step's metrics, the peak memory in
-    GiB and the names of the frozen and of the unchanged parameters."""
+    ``train_model``. Checks ``per_step`` launches a step of each of
+    ``kernels`` (A, B, C, D and, with the aggregator, E, F, G; by default
+    two of kernel B, on the 7x7 gather body, and of kernel D, on
+    scatter7x2, and none of A and C), the step count and finite metrics,
+    that the parameters under the ``frozen`` prefixes stayed bit-identical
+    and that the others moved (but ZERO_GRAD biases). Returns the run: the
+    launch counts, B's and D's launches per body, the step ms, each step's
+    metrics, the peak memory in GiB and the names of the frozen and of the
+    unchanged parameters."""
     from lowlightenvironmentvideoobjectdetection_torch.apis.train import (
         train_model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -933,13 +1077,13 @@ def train_steps(name, model, batch, loss_fn, kernels, frozen):
                step_ms=[(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)],
                metrics=metrics,
                peak_gb=torch.cuda.max_memory_allocated() / 2**30)
-    if run["counts"] != [0, 2 * n_steps, 0, 2 * n_steps]:
-        raise AssertionError(f"{name}: launch counts (A, B, C, D) "
-                             f"{run['counts']} for {n_steps} steps")
-    check_bodies(f"{name} roi_align", kernels[1], gather7x2=2 * n_steps,
-                 gather14x2=0)
+    if run["counts"] != [p * n_steps for p in per_step]:
+        raise AssertionError(f"{name}: launch counts {run['counts']} for "
+                             f"{n_steps} steps, want {per_step} a step")
+    check_bodies(f"{name} roi_align", kernels[1],
+                 gather7x2=per_step[1] * n_steps, gather14x2=0)
     check_bodies(f"{name} roi_align_backward", kernels[3],
-                 scatter7x2=2 * n_steps, scatter14x2=0)
+                 scatter7x2=per_step[3] * n_steps, scatter14x2=0)
     if state.step != n_steps or not all(
             np.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError(f"{name}: step {state.step}, metrics {metrics}")
@@ -1242,6 +1386,217 @@ def darkfarm_agree(dev, roi_align, roi_align_backward):
                              f"by {worst} tolerances")
 
 
+def agg_train(dev, smi, kernels):
+    """The canonical config at full width: ``darkfarm_loss`` at
+    ``AGGREGATOR`` of ``tools/train_profile.py`` (``SelsaNewDarkfarmDetect``:
+    8 classes, stages (0, 1, 2, 3, 3), L1 feature losses on the undenoised
+    and the denoised stages, the Denoising2Aggregator with RDBs and TAF,
+    TemporalRoIAlign, 3 shared FCs; bf16 compute, f32 parameters, 608x1024)
+    on one sample of a key and 2 reference pairs of 6 channels with 8 gts,
+    through ``train_steps``: per step 2 launches of B and D and 12 of E, F
+    and G (the TAF's 3 DCN calls at each of 4 stages; the forward keeps
+    its columns), the teacher and the frozen stages bit-identical, every
+    ``aggregator.`` leaf changed but ZERO_GRAD; then DARKFARM_STAGED staged
+    steps, the aggregator's forward among the stages. Returns the launch
+    counts (A-G) of the ``train_steps`` run and B's and D's launches per
+    body there."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa_darkfarm as D)
+    from lowlightenvironmentvideoobjectdetection_torch.parallel.train import (
+        make_optimizer)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        AGGREGATOR, darkfarm_sample, staged_step)
+    model, anchors = D.make_darkfarm(
+        AGGREGATOR, torch.Generator().manual_seed(0), device=dev)
+    sample = darkfarm_sample(AGGREGATOR, dev, seed=2)
+    batch = type(sample)(*(f[None] for f in sample))
+
+    def loss_fn(m, smp, generator):
+        return D.darkfarm_loss(m, smp, anchors, generator=generator)
+
+    # one DCN call per frame of the sample (key + 2 references) and TAF stage
+    n_dcn = sample.pair_imgs.shape[0] * len(AGGREGATOR.loss_stages)
+    run = train_steps("agg_train", model, batch, loss_fn, kernels,
+                      DARKFARM_FROZEN, per_step=(0, 2, 0, 2) + (n_dcn,) * 3)
+    agg = [n for n, _ in model.named_parameters()
+           if n.startswith("aggregator.")]
+    stuck = [n for n in run["unchanged"] if n.startswith("aggregator.")]
+    if not agg or any(not n.endswith(ZERO_GRAD) for n in stuck):
+        raise AssertionError(f"agg_train: {len(agg)} aggregator leaves, "
+                             f"unchanged {stuck}")
+    keys = set(run["metrics"][-1])
+    if not {f"loss_l1_{i}_{t}" for i in range(len(AGGREGATOR.loss_stages))
+            for t in "ud"} <= keys:
+        raise AssertionError(f"agg_train: metrics {sorted(keys)}")
+
+    opt = make_optimizer(model)
+    opt_state = opt.init(dict(model.named_parameters()))
+    gen = torch.Generator().manual_seed(5)
+    stages = {}
+    for _ in range(DARKFARM_STAGED):
+        opt_state, times = staged_step(model, opt, opt_state, sample, anchors,
+                                       gen)
+        for k, v in times.items():
+            stages.setdefault(k, []).append(v)
+    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+    timed_ms = run["step_ms"][TRAIN_WARMUP:]
+    med = statistics.median(timed_ms)
+    q = statistics.quantiles(timed_ms, n=4)
+    counts = run["counts"]
+    phase("agg_train", card=smi, steps=len(run["step_ms"]),
+          warmup_steps=TRAIN_WARMUP,
+          loss_per_step=[m["loss"] for m in run["metrics"]],
+          last_step_metrics=run["metrics"][-1], step_ms=run["step_ms"],
+          median_step_ms=med, step_ms_min_max=[min(timed_ms), max(timed_ms)],
+          step_ms_quartiles=[q[0], q[2]], steps_per_s=1e3 / med,
+          peak_mem_gb=run["peak_gb"], staged_steps=DARKFARM_STAGED,
+          stage_ms=stage_ms,
+          aggregator_forward_ms=stage_ms["aggregator forward"],
+          launches=dict(zip(("attention", "roi_align", "attention_1slab",
+                             "roi_align_backward", "dcn_im2col",
+                             "dcn_col2im", "dcn_col2im_coord"), counts)),
+          frozen_params=len(run["frozen"]), aggregator_params=len(agg),
+          aggregator_numel=sum(p.numel() for n, p in model.named_parameters()
+                               if n.startswith("aggregator.")),
+          unchanged_params=run["unchanged"])
+    del model
+    return counts, run["bodies"]
+
+
+class OffsetProbe:
+    """Forward hooks on every ``ModulatedDCNPack``'s ``conv_offset`` inside
+    a ``with`` block: records the offsets' (the first 18 of each group's 27
+    channels) min, max and std per call, and the share of sample positions
+    outside the map."""
+
+    def __init__(self, model):
+        from lowlightenvironmentvideoobjectdetection_torch.models.aggregators.denoising_aggregator import (  # noqa: E501
+            ModulatedDCNPack)
+        self.packs = [m for m in model.modules()
+                      if isinstance(m, ModulatedDCNPack)]
+        self.stats, self.handles = [], []
+
+    def hook(self, i, pack):
+        def record(_, __, om):
+            t, _, h, w = om.shape
+            off = om.detach().float().reshape(t, pack.groups, 27, h, w)[
+                :, :, :18]
+            ys = torch.arange(h, device=om.device).view(h, 1).float()
+            xs = torch.arange(w, device=om.device).view(1, w).float()
+            sy = off[:, :, :9] + ys
+            sx = off[:, :, 9:] + xs
+            outside = ((sy < -1) | (sy > h) | (sx < -1) | (sx > w)).float()
+            self.stats.append(dict(pack=i, min=off.min().item(),
+                                   max=off.max().item(), std=off.std().item(),
+                                   outside=outside.mean().item()))
+        return record
+
+    def __enter__(self):
+        self.stats = []
+        self.handles = [p.conv_offset.register_forward_hook(self.hook(i, p))
+                        for i, p in enumerate(self.packs)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def agg_agree(dev, kernels):
+    """f32, TF32 off: one ``darkfarm_loss`` at the ``agg_train`` config and
+    every parameter's gradient through the kernels (B, D and the DCN's E, F,
+    G) and through the plain versions (``impl="plain"``: RoIAlign and the
+    DCN), with the same uniforms, at train_agree's tolerances. Each
+    ``conv_offset`` is perturbed first (a seeded normal, rescaled so the
+    offsets' std is AGG_OFFSET_STD px; the zero init puts every sample on a
+    pixel), so most offsets are fractional within a few px and some
+    samples lie beyond the map; their range is printed. TemporalRoIAlign's
+    top-k choices are pinned as in ``darkfarm_agree``."""
+    import dataclasses
+
+    from lowlightenvironmentvideoobjectdetection_torch.models.roi_heads import (  # noqa: E501
+        temporal_roi_align as troi)
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S, selsa_darkfarm as D)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        AGGREGATOR, darkfarm_sample)
+    cfg = dataclasses.replace(AGGREGATOR, selsa=dataclasses.replace(
+        AGGREGATOR.selsa, compute_dtype=torch.float32))
+    model, anchors = D.make_darkfarm(cfg, torch.Generator().manual_seed(0),
+                                     device=dev)
+    sample = darkfarm_sample(cfg, dev, seed=3)
+    uniforms = S.draw_loss_uniforms(cfg.selsa, 8,
+                                    torch.Generator().manual_seed(3), dev)
+    probe = OffsetProbe(model)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in probe.packs:
+            w = p.conv_offset.weight
+            w.copy_(torch.randn(w.shape, generator=gen).to(dev))
+        with probe:  # the offsets' std at this scale, pack by pack
+            D.darkfarm_loss(model, sample, anchors, uniforms=uniforms)
+        for i, p in enumerate(probe.packs):
+            std = statistics.mean(st["std"] for st in probe.stats
+                                  if st["pack"] == i)
+            p.conv_offset.weight.mul_(AGG_OFFSET_STD / std)
+
+    def run(impl, pinned=None):
+        model.zero_grad(set_to_none=True)
+        with TopKPin(troi, pinned) as pin, probe:
+            loss, _ = D.darkfarm_loss(model, sample, anchors,
+                                      uniforms=uniforms, impl=impl)
+            loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters()
+                             if p.grad is not None}, pin
+
+    reset_counts(*kernels)
+    lk, gk, pk = run(None)
+    offsets = list(probe.stats)
+    counts = [k.launches for k in kernels]
+    n_dcn = sample.pair_imgs.shape[0] * len(cfg.loss_stages)
+    if counts != [2, 2] + [n_dcn] * 3:
+        raise AssertionError(f"agg_agree: kernel path launches (B, D, E, F, "
+                             f"G) {counts}")
+    lp, gp, _ = run("plain")
+    unpinned = dict(loss_rel_err=abs(lk - lp) / abs(lp))
+    unpinned["worst_grad_err_over_tol"], unpinned["worst_leaf"] = \
+        grad_agreement(gk, gp)
+    lq, gq, probe_pin = run("plain", pinned=pk.indices)
+    flips = probe_pin.flips
+    if flips:  # hold the run with the kernel path's choices
+        lp, gp = lq, gq
+    del gq
+    worst, worst_leaf = grad_agreement(gk, gp)
+    loss_rel = abs(lk - lp) / abs(lp)
+    agg_worst, agg_leaf = grad_agreement(
+        {n: g for n, g in gk.items() if n.startswith("aggregator.")},
+        {n: g for n, g in gp.items() if n.startswith("aggregator.")})
+    phase("agg_agree", loss_kernel=lk, loss_plain=lp, loss_rel_err=loss_rel,
+          loss_rtol=TRAIN_LOSS_RTOL, leaves=len(gp),
+          worst_grad_err_over_tol=worst, worst_leaf=worst_leaf,
+          aggregator_worst_grad_err_over_tol=agg_worst,
+          aggregator_worst_leaf=agg_leaf,
+          offsets=dict(min=min(st["min"] for st in offsets),
+                       max=max(st["max"] for st in offsets),
+                       std_per_call=[st["std"] for st in offsets],
+                       outside_share_per_call=[st["outside"]
+                                               for st in offsets]),
+          troi_topk_flips=flips, troi_topk_rows=sum(
+              i.shape[0] for i in pk.indices),
+          held_with=("the kernel run's top-k choices" if flips
+                     else "each run's own top-k choices"),
+          unpinned=unpinned,
+          grad_tolerance=dict(rel_to_leaf_max=TRAIN_GRAD_REL,
+                              floor_rel_to_global_max=TRAIN_GRAD_FLOOR))
+    if loss_rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"agg_agree: loss {lk} against {lp}")
+    if worst > 1.0:
+        raise AssertionError(f"agg_agree: gradient of {worst_leaf} off by "
+                             f"{worst} tolerances")
+    del model
+
+
 def troi_cost(n_maps, h, w, c, n_rois, feat_bytes=2, k=2, out_size=7):
     """(bytes, FLOPs) of TemporalRoIAlign's most-similar RoI align over
     ``n_maps`` reference maps: the roi features and the maps read once, the
@@ -1483,7 +1838,7 @@ def main() -> int:
     from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
         selsa as S)
     from lowlightenvironmentvideoobjectdetection_torch.ops import (
-        cuda_build, roi_align as roi_ops)
+        cuda_build, deform_conv as dcn_ops, roi_align as roi_ops)
     from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (  # noqa: E501
         _attention_body as attention_body,
         selsa_fused_attention_2slab_hm as attention,
@@ -1562,12 +1917,20 @@ def main() -> int:
         streams=SERVE_S, **attention_times(
             attention, args, errs[f"attention_s{SERVE_S}_bfloat16"]))
     del args, got, want, one
+
+    # DCNv2's kernels E, F and G at the aggregator's four stage shapes
+    dcn = dcn_kernels(dev, g, dcn_ops, errs)
+    dcn_names = ("dcn_im2col", "dcn_col2im", "dcn_col2im_coord")
+    for name, kern in zip(dcn_names, "EFG"):
+        summary[name] = dict(dcn[kern], launches=0)
     phase("kernels", card=smi, max_abs_err=errs, bf16_times=summary,
           tolerances=dict(attention_atol=ATTN_ATOL, library_atol=LIBRARY_TOL,
                           roi_f32_atol=ROI_F32_ATOL,
                           roi_bf16_rtol_atol=ROI_BF16_TOL,
                           roi_grad_f32_atol_rel_to_max=ROI_GRAD_F32_REL,
-                          roi_grad_bf16_rtol=ROI_GRAD_BF16_RTOL))
+                          roi_grad_bf16_rtol=ROI_GRAD_BF16_RTOL,
+                          dcn_atol_rel_to_max=DCN_REL,
+                          dcn_grad_x_bf16_rtol=DCN_BF16_RTOL))
 
     # ---- stream: full-width SELSA R50-DC5, default config (bf16)
     rng = np.random.RandomState(0)
@@ -1694,6 +2057,16 @@ def main() -> int:
         summary[name]["launches"] += n
     add_bodies(summary["roi_align"], bodies["roi_align"])
 
+    # the canonical config: the Denoising2Aggregator, DCNv2 joins the path
+    dcn_launchers = (dcn_ops.deform_columns, dcn_ops.deform_col2im,
+                    dcn_ops.deform_col2im_coord)
+    counts, bodies = agg_train(dev, smi, train_kernels + dcn_launchers)
+    for name, n in zip(names + ("roi_align_backward",) + dcn_names, counts):
+        summary[name]["launches"] += n
+    for name in ("roi_align", "roi_align_backward"):
+        add_bodies(summary[name], bodies[name])
+    agg_agree(dev, (roi_align, roi_align_backward) + dcn_launchers)
+
     for name, entry in summary.items():
         if sum(entry.get("body_launches", {}).values()) not in (
                 0, entry["launches"]):
@@ -1719,6 +2092,16 @@ def main() -> int:
                       "ops/roi_align.py)",
              **summary["roi_align_backward"]),
     ]
+    dcn_replaces = (tpu_ops + "deform_conv.py:28 (XLA; mmcv "
+                    "modulated_deform_conv2d)")
+    for name, what in zip(dcn_names, ("forward: the bilinear im2col",
+                                      "backward: the input's gradient",
+                                      "backward: the offsets' and the "
+                                      "mask's gradients")):
+        kernels.append(dict(name=name, route="cuda",
+                            source=f"{PKG}/csrc/deform_conv.cu",
+                            replaces=dcn_replaces, computes=what,
+                            **summary[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,7 +127,8 @@ class VIDModel:
 def detector_state(state_dict: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
     """A SELSA detector's state dict: as given, or the ``selsa.`` entries of
-    a darkfarm one (without the cleaner's)."""
+    a darkfarm one (without the cleaner's and the aggregator's: streaming
+    runs neither, as in the JAX package; ROADMAP F7)."""
     if not any(k.startswith("selsa.") for k in state_dict):
         return state_dict
     return {k[len("selsa."):]: v for k, v in state_dict.items()

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("roi_align.cu", "selsa_attention.cu")
+SOURCES = ("deform_conv.cu", "roi_align.cu", "selsa_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -31,6 +31,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
+    # x, offset, mask, cols, N, C, H, W, G, dtype, stream
+    "llvod_dcn_im2col": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # grad_cols, offset, mask, grad_x (f32), N, C, H, W, G, stream
+    "llvod_dcn_col2im": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # grad_cols, x, offset, mask, grad_offset, grad_mask, N, C, H, W, G,
+    # dtype, stream
+    "llvod_dcn_col2im_coord": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P),
     # feat, rois, binds, out, B, H, W, C, N, spatial_scale, offset,
     # out_size, sampling_ratio, dtype, stream
     "llvod_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I,

@@ -1,7 +1,7 @@
 """Where the time of a SELSA training step goes, on one NVIDIA GPU.
 
     python -m lowlightenvironmentvideoobjectdetection_torch.tools.train_profile \
-        [--darkfarm] [--out results.json]
+        [--darkfarm [--aggregator]] [--out results.json]
 
 Full-width SELSA R50-DC5 at the JAX training default (the default
 ``SelsaConfig``: bf16 compute, f32 parameters, 608x1024, 30 classes, key
@@ -12,17 +12,23 @@ the paper's distillation instead (``darkfarm_loss``): the canonical
 low-light config without its aggregator (``DARKFARM``: 8 classes, stages
 ``(0, 1, 2, 3, 3)``, L1 feature loss, TemporalRoIAlign, 3 shared FCs) on
 (noise, clean) pairs of the same frames, with the frozen ResCleaner
-teacher. After 3 warm-up steps:
+teacher. With ``--aggregator`` too, the canonical config itself
+(``AGGREGATOR``: ``SelsaNewDarkfarmDetect``, the Denoising2Aggregator with
+RDBs and TAF, the dual ``_u`` / ``_d`` feature losses). After 3 warm-up
+steps:
 
 - stages: 10 steps of the loss's stages (with ``--darkfarm`` also the
-  cleaner's forward, the feature loss and TemporalRoIAlign), its backward
-  and the optimizer, with a ``torch.cuda.synchronize()`` after each; host
-  clock, the median of each;
+  cleaner's forward, the feature loss and TemporalRoIAlign, with
+  ``--aggregator`` the aggregator's forward), its backward and the
+  optimizer, with a ``torch.cuda.synchronize()`` after each; host clock,
+  the median of each;
 - step: 15 steps of ``Trainer.step``, synchronised after each;
 - device: ``torch.profiler`` over 3 windows of 4 steps: busy time (the
   union of the device events' intervals), idle share 1 - busy / wall, the
-  10 kernels with the most device time, and kernels B (``roi_align_gather``)
-  and D (``roi_align_scatter``) per step.
+  10 kernels with the most device time, and per step the device ms of
+  kernels B (``roi_align_gather``), D (``roi_align_scatter``) and the DCN's
+  E (``dcn_im2col_gather``), F (``dcn_col2im_scatter``) and G
+  (``dcn_col2im_coord``).
 
 Prints the card's name and power limit and one JSON line, and with
 ``--out`` writes it to that file. Needs a CUDA device; fails without one.
@@ -31,6 +37,7 @@ Prints the card's name and power limit and one JSON line, and with
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -56,6 +63,11 @@ DARKFARM = D.DarkfarmConfig(
     selsa=S.SelsaConfig(num_classes=8, out_indices=(0, 1, 2, 3, 3),
                         roi_extractor="temporal", num_shared_fcs=3),
     loss_type="l1")
+# the canonical config (SelsaNewDarkfarmDetect): with its aggregator
+AGGREGATOR = dataclasses.replace(DARKFARM, with_aggregator=True)
+# device ms per step by kernel symbol
+KERNEL_SYMBOLS = ("roi_align_gather", "roi_align_scatter", "dcn_im2col_gather",
+                  "dcn_col2im_scatter", "dcn_col2im_coord")
 
 
 def train_sample(cfg, device, seed=0) -> S.TrainBatch:
@@ -112,14 +124,21 @@ def staged_step(model, opt, opt_state, sample, anchors, generator):
                              anchors.device)
     feature_loss = 0.0
     if darkfarm:
-        c = top.cfg.in_channels
+        dcfg = top.cfg
+        c = dcfg.in_channels
         stages, neck = model.extract_feats(sample.pair_imgs[..., :c])
         mark("backbone + neck")
+        denoised = None
+        if dcfg.with_aggregator:
+            denoised, neck = top.denoise_feats(stages, neck)
+            mark("aggregator forward")
         targets = top.cleaner(sample.pair_imgs[..., c:])
         mark("cleaner forward (teacher)")
-        loss_fn = D.FEATURE_LOSSES[top.cfg.loss_type]
-        for s, tgt in zip(stages, targets):
-            feature_loss = feature_loss + loss_fn(s.float(), tgt.float())
+        loss_fn = D.FEATURE_LOSSES[dcfg.loss_type]
+        for i, tgt in enumerate(targets):
+            for _, feats in D.feature_branches(dcfg, stages, denoised):
+                feature_loss = feature_loss + loss_fn(feats[i].float(),
+                                                      tgt.float())
         mark("feature loss")
     else:
         neck = model.extract_feat(sample.imgs)
@@ -197,18 +216,20 @@ def device_windows(step, state):
     steps = WINDOWS * WINDOW_STEPS
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     kernels = {key: sum(v for n, v in by_name.items() if key in n) / steps
-               for key in ("roi_align_gather", "roi_align_scatter")}
+               for key in KERNEL_SYMBOLS}
     return state, out, dict(top=[(n, v / steps) for n, v in top],
                             **{f"{k}_ms_per_step": v
                                for k, v in kernels.items()})
 
 
-def profile_train(seed: int = 0, darkfarm: bool = False) -> dict:
+def profile_train(seed: int = 0, darkfarm: bool = False,
+                  aggregator: bool = False) -> dict:
     dev = torch.device("cuda")
     if darkfarm:
+        dcfg = AGGREGATOR if aggregator else DARKFARM
         model, anchors = D.make_darkfarm(
-            DARKFARM, torch.Generator().manual_seed(seed), device=dev)
-        sample = darkfarm_sample(DARKFARM, dev, seed)
+            dcfg, torch.Generator().manual_seed(seed), device=dev)
+        sample = darkfarm_sample(dcfg, dev, seed)
 
         def loss_fn(m, smp, g):
             return D.darkfarm_loss(m, smp, anchors, generator=g)
@@ -263,8 +284,13 @@ def main() -> int:
     ap.add_argument("--darkfarm", action="store_true",
                     help="profile darkfarm_loss at the canonical low-light "
                          "config (DARKFARM) instead of selsa_loss")
+    ap.add_argument("--aggregator", action="store_true",
+                    help="with --darkfarm: the canonical config with its "
+                         "Denoising2Aggregator (AGGREGATOR)")
     ap.add_argument("--out", help="also write the result to this JSON file")
     args = ap.parse_args()
+    if args.aggregator and not args.darkfarm:
+        ap.error("--aggregator needs --darkfarm")
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -275,7 +301,9 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     result = dict(card=smi, darkfarm=args.darkfarm,
-                  **profile_train(darkfarm=args.darkfarm))
+                  aggregator=args.aggregator,
+                  **profile_train(darkfarm=args.darkfarm,
+                                  aggregator=args.aggregator))
     print(json.dumps(result), flush=True)
     if args.out:
         out = Path(args.out)

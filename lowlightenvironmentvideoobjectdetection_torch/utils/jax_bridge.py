@@ -11,6 +11,8 @@ key is its path joined by dots with the leaf renamed:
 - dense ``kernel`` [in, out] -> ``weight`` [out, in] (``shared_fc0``'s
   rows stay in the (7, 7, C) order of the [N, 7, 7, C] roi features);
 - ``bias`` -> ``bias``; FrozenBN ``scale`` -> ``weight``;
+- a ``ModulatedDCNPack``'s raw ``weight`` [3, 3, in, out] (under a
+  ``dcn_pack``) -> ``weight`` [out, in, 3, 3];
 - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
 Any other collection or leaf raises. ``grads_from_jax`` maps a JAX gradient
@@ -51,10 +53,14 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unknown variable collection {coll!r}")
         for path, leaf in _walk(tree):
             *mods, leaf_name = path
-            if leaf_name not in names or not mods:
-                raise KeyError(f"unconsumed leaf {coll}/{'/'.join(path)}")
             a = np.asarray(leaf, dtype=np.float32)
-            if leaf_name == "kernel":
+            if (coll == "params" and leaf_name == "weight" and mods
+                    and mods[-1] == "dcn_pack" and a.ndim == 4
+                    and a.shape[:2] == (3, 3)):
+                a = a.transpose(3, 2, 0, 1)  # the DCN's raw [3, 3, in, out]
+            elif leaf_name not in names or not mods:
+                raise KeyError(f"unconsumed leaf {coll}/{'/'.join(path)}")
+            elif leaf_name == "kernel":
                 if a.ndim == 4:
                     a = a.transpose(3, 2, 0, 1)
                 elif a.ndim == 2:
@@ -62,7 +68,7 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                 else:
                     raise ValueError(f"kernel {'/'.join(path)} has rank "
                                      f"{a.ndim}")
-            key = ".".join(mods + [names[leaf_name]])
+            key = ".".join(mods + [names.get(leaf_name, leaf_name)])
             if key in out:
                 raise KeyError(f"two leaves map to {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(a))

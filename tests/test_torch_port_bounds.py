@@ -6,7 +6,9 @@ Counting rule: each input byte read once and each output byte written once;
 bias and output), kernel C on the same keys as one slab, kernel B on one
 38 x 64 x 512 bf16 map with 300 rois, on 4 maps with 1200 rois (a batched
 step of 4 streams) and on 14 maps with 4200 rois (a memo fill), the map
-indices int64.
+indices int64. DCNv2's kernels E, F and G at the aggregator's stage 0
+(3 frames of 64 x 152 x 256, bf16 x, 8 deform groups, f32 offsets, mask,
+columns and gradients).
 """
 
 import pytest
@@ -91,3 +93,27 @@ def test_kernel_d_footprint_hand_counts(roi, adds, pixels):
     )
     got = cs.footprint(ops, torch.tensor([roi]), 38, 64)
     assert got == dict(adds=adds, pixels=pixels)
+
+
+DCN_HW = 152 * 256
+DCN_COLS = 4 * 3 * 9 * 64 * DCN_HW       # f32 columns [3, 576, hw]
+DCN_COORDS = 4 * 3 * 8 * 27 * DCN_HW     # f32 offsets (18) and mask (9)
+DCN_X = 2 * 3 * 64 * DCN_HW              # bf16 x
+
+
+@pytest.mark.parametrize("kernel,nbytes,per_entry", [
+    ("E", DCN_X + DCN_COORDS + DCN_COLS, 8),
+    ("F", DCN_COLS + DCN_COORDS + 4 * 3 * 64 * DCN_HW, 9),  # f32 grad_x
+    ("G", DCN_COLS + DCN_X + 2 * DCN_COORDS, 23),  # reads and gradients
+])
+def test_dcn_cost(kernel, nbytes, per_entry):
+    got_bytes, flops = cs.dcn_cost(kernel, 3, 64, 152, 256, 8)
+    assert got_bytes == nbytes
+    assert flops == per_entry * 3 * 9 * 64 * DCN_HW
+    ms, by = cs.bound(got_bytes, flops, cs.F32_FLOP_PER_S)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e9)
+
+
+def test_dcn_hand_counts():
+    assert DCN_X + DCN_COORDS + DCN_COLS == 384_761_856
+    assert DCN_COLS == 268_959_744  # the 269 MB of columns a call

@@ -18,12 +18,23 @@ in f32, cast to the feature dtype, and against its explicit plain version
 ``roi_align_backward_plain`` (the same separable sums in f32, cast): f32 to
 1e-5 of the largest |grad| (the order of the atomic adds changes from run
 to run), bf16 within one bf16 rounding (rtol 2^-7) plus that atol.
+DCNv2's kernels E (the im2col, ``deform_columns``), F (the input's gradient,
+``deform_col2im``) and G (the offsets' and the mask's, ``deform_col2im_coord``)
+are held against ``deform_columns_plain`` (the same roundings: exact but for
+the sign of a zero), the whole forward against
+``modulated_deform_conv_plain`` and F and G against
+``modulated_deform_conv_backward_plain`` and torch autograd through the
+plain version: f32 to 1e-5 of the largest |value| (F's atomic order varies),
+x's bf16 gradient within one bf16 rounding plus that atol.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from lowlightenvironmentvideoobjectdetection_torch.ops import (
+    deform_conv as dcn,
+)
 from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (
     selsa_fused_attention_2slab_hm as attention,
     selsa_fused_attention_hm as attention1,
@@ -571,3 +582,150 @@ def test_roi_align_backward_rejects(dev):
     with pytest.raises(ValueError):
         roi_align(feat.requires_grad_(), rois.requires_grad_(), 1 / 16)
     assert roi_align_backward.launches == before
+
+
+def _dcn_inputs(dev, n, c, h, w, g, dtype, offsets="random", seed=0):
+    """x, offset [N, G*18, h, w], mask in (0, 1): random offsets of a few
+    px (some samples beyond the edge and beyond 2 px), "zero", "integer"
+    (whole px up to 3) or "outside" (every sample beyond the map)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(n, c, h, w, generator=gen)
+    if offsets == "zero":
+        off = torch.zeros(n, g * 18, h, w)
+    elif offsets == "integer":
+        off = torch.randint(-3, 4, (n, g * 18, h, w), generator=gen).float()
+    elif offsets == "outside":
+        off = torch.full((n, g * 18, h, w), float(max(h, w) + 2))
+    else:
+        off = torch.randn(n, g * 18, h, w, generator=gen) * 2.5
+    mask = torch.rand(n, g * 9, h, w, generator=gen)
+    return x.to(dev, dtype), off.to(dev), mask.to(dev)
+
+
+def _dcn_check(x, off, mask, cout=24, seed=1):
+    """E against its plain version and the forward against the plain
+    forward; F and G against the plain backward and autograd through the
+    plain version; the autograd Function launches E once and F and G once
+    each. Returns the kernels' (grad_x, grad_offset, grad_mask)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    c = x.shape[1]
+    wt = (torch.randn(cout, c, 3, 3, generator=gen) / (3 * c ** 0.5)).to(
+        x.device)
+    bias = torch.randn(cout, generator=gen).to(x.device)
+    e0 = dcn.deform_columns.launches
+    cols = dcn.deform_columns(x, off, mask)
+    torch.cuda.synchronize()
+    assert dcn.deform_columns.launches == e0 + 1
+    want = dcn.deform_columns_plain(x, off, mask)
+    assert cols.dtype == torch.float32 and cols.shape == want.shape
+    torch.testing.assert_close(cols, want, rtol=0, atol=0)
+
+    grad_cols = torch.randn(cols.shape, generator=gen).to(x.device)
+    f0, g0 = dcn.deform_col2im.launches, dcn.deform_col2im_coord.launches
+    got = dcn.modulated_deform_conv_backward(grad_cols, x, off, mask)
+    torch.cuda.synchronize()
+    assert (dcn.deform_col2im.launches - f0,
+            dcn.deform_col2im_coord.launches - g0) == (1, 1)
+    plain = dcn.modulated_deform_conv_backward_plain(grad_cols, x, off, mask)
+    xf = x.detach().float().requires_grad_()
+    o, m = off.clone().requires_grad_(), mask.clone().requires_grad_()
+    auto = torch.autograd.grad(dcn.deform_columns_plain(xf, o, m), (xf, o, m),
+                               grad_cols)
+    for i, (k, p, a) in enumerate(zip(got, plain, auto)):
+        rtol = 2.0 ** -7 if i == 0 and x.dtype == torch.bfloat16 else 0.0
+        atol = 1e-5 * max(float(a.abs().max()), 1e-6)
+        assert k.dtype == p.dtype and k.shape == p.shape
+        torch.testing.assert_close(k.float(), p.float(), rtol=rtol, atol=atol)
+        torch.testing.assert_close(k.float(), a.to(k.dtype).float(),
+                                   rtol=rtol, atol=atol)
+
+    xr = x.detach().clone().requires_grad_()
+    orq, mrq = off.clone().requires_grad_(), mask.clone().requires_grad_()
+    wr, br = wt.clone().requires_grad_(), bias.clone().requires_grad_()
+    e0 = dcn.deform_columns.launches
+    out = dcn.modulated_deform_conv(xr, orq, mrq, wr, br)
+    ref = dcn.modulated_deform_conv_plain(x, off, mask, wt, bias)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    grad_out = torch.randn(out.shape, generator=gen).to(x.device)
+    out.backward(grad_out)
+    torch.cuda.synchronize()
+    assert dcn.deform_columns.launches == e0 + 1
+    gcols = torch.matmul(wt.reshape(cout, -1).t(),
+                         grad_out.reshape(x.shape[0], cout, -1))
+    want = dcn.modulated_deform_conv_backward_plain(gcols, x, off, mask)
+    for k, w_ in zip((xr.grad, orq.grad, mrq.grad), want):
+        rtol = 2.0 ** -7 if k.dtype == torch.bfloat16 else 0.0
+        torch.testing.assert_close(k.float(), w_.float(), rtol=rtol,
+                                   atol=1e-5 * float(w_.abs().max()))
+    wp, bp = wt.clone().requires_grad_(), bias.clone().requires_grad_()
+    dcn.modulated_deform_conv_plain(x, off, mask, wp, bp).backward(grad_out)
+    for k, w_ in ((wr.grad, wp.grad), (br.grad, bp.grad)):
+        torch.testing.assert_close(k, w_, rtol=0,
+                                   atol=1e-5 * float(w_.abs().max()))
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,g", [(2, 16, 9, 13, 8), (1, 8, 7, 5, 1),
+                                       (3, 64, 38, 64, 8),
+                                       (2, 32, 20, 17, 4)])
+def test_dcn_kernels_match_plain(dev, dtype, n, c, h, w, g):
+    _dcn_check(*_dcn_inputs(dev, n, c, h, w, g, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offsets", ["zero", "integer", "outside"])
+def test_dcn_kernels_edge_offsets(dev, dtype, offsets):
+    """Zero offsets (a plain conv times the mask), whole-pixel offsets
+    (every sample on a pixel: the one-sided offset gradient) and every
+    sample outside the map (zero columns, zero input gradient)."""
+    x, off, mask = _dcn_inputs(dev, 2, 16, 11, 14, 8, dtype, offsets)
+    gx, _, _ = _dcn_check(x, off, mask)
+    if offsets == "outside":
+        assert not dcn.deform_columns(x, off, mask).any()
+        assert not gx.any()
+
+
+def test_dcn_kernels_stage_shapes(dev):
+    """The aggregator's four stage shapes at T = 3 (stage 0 at 152 x 256):
+    one launch each of E, F and G against the plain versions, bf16 x."""
+    for c, h, w in ((64, 152, 256), (128, 76, 128), (256, 38, 64),
+                    (512, 38, 64)):
+        x, off, mask = _dcn_inputs(dev, 3, c, h, w, 8, torch.bfloat16)
+        cols = dcn.deform_columns(x, off, mask)
+        torch.testing.assert_close(cols, dcn.deform_columns_plain(x, off,
+                                                                  mask),
+                                   rtol=0, atol=0)
+        grad_cols = torch.randn_like(cols)
+        got = dcn.modulated_deform_conv_backward(grad_cols, x, off, mask)
+        want = dcn.modulated_deform_conv_backward_plain(grad_cols, x, off,
+                                                        mask)
+        for i, (k, p) in enumerate(zip(got, want)):
+            torch.testing.assert_close(
+                k.float(), p.float(), rtol=2.0 ** -7 if i == 0 else 0.0,
+                atol=1e-5 * float(p.float().abs().max()))
+        del cols, grad_cols, got, want
+
+
+def test_dcn_rejects(dev):
+    """f16 x, bf16 offsets, mismatched shapes and a bad grad_cols raise
+    with no launch."""
+    x, off, mask = _dcn_inputs(dev, 1, 16, 6, 7, 8, torch.float32)
+    before = (dcn.deform_columns.launches, dcn.deform_col2im.launches,
+              dcn.deform_col2im_coord.launches)
+    with pytest.raises(TypeError):
+        dcn.deform_columns(x.half(), off, mask)
+    with pytest.raises(TypeError):
+        dcn.deform_columns(x, off.bfloat16(), mask)
+    with pytest.raises(ValueError):
+        dcn.deform_columns(x[:, :12], off, mask)
+    with pytest.raises(ValueError):
+        dcn.deform_col2im(torch.zeros(1, 16 * 9, 41, device=dev), x, off,
+                          mask)
+    with pytest.raises(TypeError):
+        dcn.modulated_deform_conv(x.half(), off, mask,
+                                  torch.randn(4, 16, 3, 3, device=dev))
+    assert (dcn.deform_columns.launches, dcn.deform_col2im.launches,
+            dcn.deform_col2im_coord.launches) == before

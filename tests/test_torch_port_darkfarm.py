@@ -428,9 +428,30 @@ def test_frozen_mask_matches_jax(canonical):
         assert trainable != n.startswith(FROZEN), n
 
 
-def test_with_aggregator_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.3"):
-        TD.DarkfarmConfig(with_aggregator=True)
+def test_with_aggregator_builds_and_reports_dual_losses():
+    """``with_aggregator=True`` builds the Denoising2Aggregator over the
+    loss stages and ``darkfarm_loss`` reports each stage's feature loss on
+    the undenoised (``_u``) and denoised (``_d``) features; an unknown
+    ``dual_branch`` raises. (Parity with JAX:
+    ``tests/test_torch_port_aggregator_loss.py``.)"""
+    with pytest.raises(ValueError, match="dual_branch"):
+        TD.DarkfarmConfig(dual_branch="x")
+    tiny = dict(TINY, out_indices=(3, 3))
+    cfg = TD.DarkfarmConfig(
+        selsa=TS.SelsaConfig(compute_dtype=torch.float32, **tiny),
+        with_aggregator=True)
+    assert cfg.stage_channels == (2048,)
+    model, anchors = TD.make_darkfarm(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+    agg = model.aggregator
+    assert agg.num_stages == 1 and agg.stage0_conv2.out_channels == 32
+    batch = _port_batch(_batch(2), 0)
+    with torch.no_grad():
+        _, metrics = TD.darkfarm_loss(
+            model, batch, anchors, generator=torch.Generator().manual_seed(1))
+    assert {k for k in metrics if k.startswith("loss_l1")} == {
+        "loss_l1_0_u", "loss_l1_0_d"}
+    assert all(np.isfinite(v.item()) for v in metrics.values())
 
 
 def test_feature_losses_match_jax():
