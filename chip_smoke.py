@@ -192,8 +192,8 @@ def dcn_cost(kernel, n, c, h, w, g, x_bytes=2):
     groups: E reads x, the f32 offsets and mask once and writes the f32
     columns [n, 9c, hw] once, 8 FLOPs a column entry (4 corner products,
     3 sums, the mask); F reads the columns' gradient, the offsets and the
-    mask and writes x's f32 gradient once, 9 FLOPs an entry (the mask, 4
-    products, 4 adds); G reads the columns' gradient, x, the offsets and the
+    mask and writes x's gradient once in x's dtype, 9 FLOPs an entry (the
+    mask, 4 products, 4 adds); G reads the columns' gradient, x, the offsets and the
     mask and writes the offsets' and the mask's gradients, 23 FLOPs an entry
     (the bilinear sum, the two corner-difference derivatives and the three
     accumulations)."""
@@ -205,7 +205,7 @@ def dcn_cost(kernel, n, c, h, w, g, x_bytes=2):
     if kernel == "E":
         return xb + coords + cols, 8 * entries
     if kernel == "F":
-        return cols + coords + 4 * n * c * hw, 9 * entries
+        return cols + coords + xb, 9 * entries
     return cols + xb + 2 * coords, 23 * entries
 
 
@@ -552,7 +552,8 @@ def dcn_kernels(dev, g, ops, errs):
                        G=f"{tag}_grad_offset")
         for kern, (kernel, plain) in runs.items():
             ms, plain_ms, _ = compare_times(kernel, plain)
-            nbytes, flops = dcn_cost(kern, DCN_FRAMES, c, h, w, DCN_GROUPS)
+            nbytes, flops = dcn_cost(kern, DCN_FRAMES, c, h, w, DCN_GROUPS,
+                                     x.element_size())
             bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
             gms = graph_ms(kernel)
             out[kern][name] = dict(

@@ -35,7 +35,6 @@ import torch.nn as nn
 from ...core.anchors import AnchorGenerator
 from ...core.nms import DetResult
 from ...ops.roi_align import roi_align
-from ..aggregators.denoising_aggregator import ModulatedDCNPack
 from ..backbones.resnet import FrozenBatchNorm, ResNet
 from ..dense_heads import rpn_head as rpn
 from ..necks.channel_mapper import ChannelMapper
@@ -178,10 +177,10 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 def init_params(model: SelsaDetector, generator: torch.Generator
                 ) -> SelsaDetector:
     """Seeded init with flax's defaults: lecun-normal conv and dense kernels,
-    zero biases, FrozenBN scale 1, shift 0, mean 0, var 1; then each
-    ``ModulatedDCNPack`` its own (a zero ``conv_offset``, a uniform raw
-    ``weight``). The generator must live on the model's device (a CPU
-    generator for a CPU model)."""
+    zero biases, FrozenBN scale 1, shift 0, mean 0, var 1; then each module
+    with an ``init_flax`` (a DCN pack: a zero ``conv_offset``, a uniform raw
+    ``weight``) its own. The generator must live on the model's device (a
+    CPU generator for a CPU model)."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             _lecun_normal_(mod.weight, generator)
@@ -193,7 +192,7 @@ def init_params(model: SelsaDetector, generator: torch.Generator
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
     for mod in model.modules():  # after the convs: conv_offset is one
-        if isinstance(mod, ModulatedDCNPack):
+        if hasattr(mod, "init_flax"):
             mod.init_flax(generator)
     return model
 

@@ -103,7 +103,7 @@ DCN_X = 2 * 3 * 64 * DCN_HW              # bf16 x
 
 @pytest.mark.parametrize("kernel,nbytes,per_entry", [
     ("E", DCN_X + DCN_COORDS + DCN_COLS, 8),
-    ("F", DCN_COLS + DCN_COORDS + 4 * 3 * 64 * DCN_HW, 9),  # f32 grad_x
+    ("F", DCN_COLS + DCN_COORDS + DCN_X, 9),  # grad_x in bf16, as x
     ("G", DCN_COLS + DCN_X + 2 * DCN_COORDS, 23),  # reads and gradients
 ])
 def test_dcn_cost(kernel, nbytes, per_entry):
