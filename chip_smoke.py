@@ -59,15 +59,19 @@ the plain RoIAlign and DCN, with ``conv_offset`` perturbed so the offsets
 are fractional, their range printed; top-k flips pinned). The
 ``kernels`` phase also holds E (the im2col), F (the input's gradient) and
 G (the offsets' and the mask's) at the aggregator's four stage shapes,
-f32 and bf16, against their plain versions and autograd, timed eagerly
+f32 and bf16, at three offset scales (0, 1.5 px and 2.5 px with some
+beyond the map), against their plain versions and autograd, timed eagerly
 and from a CUDA graph. Then one JSON line of kernel summaries (A-G), and
 a last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero.
 
     python3 chip_smoke.py --roi-grad-times ROOT
+    python3 chip_smoke.py --dcn-times ROOT
 
-runs kernel D's cases alone with the package of the checkout at ROOT (for
-comparing two commits in one call) and prints their JSON line.
+run kernel D's cases, or DCNv2's (E, F, G at every offset scale, and the
+tile, margin and chunk variants of F and the staging of E where the package
+has them), alone with the package of the checkout at ROOT (for comparing two
+commits in one call) and print their JSON line.
 """
 
 from __future__ import annotations
@@ -136,6 +140,15 @@ DCN_REL = 1e-5             # of max |value|: F's atomic order varies per run
 DCN_BF16_RTOL = 2.0 ** -7  # x's bf16 gradient: one rounding of the f32 sum
 # agg_agree: conv_offset perturbed so the offsets have this std (feature px)
 AGG_OFFSET_STD = 1.5
+# the DCN kernels' offsets: (name, std in px, every 50th pushed beyond the
+# map): 0 as in a step near the zero init, agg_agree's std, and PR 8's cases
+DCN_OFFSETS = (("std0", 0.0, False), ("std1.5", AGG_OFFSET_STD, False),
+               ("std2.5", 2.5, True))
+# timed by --dcn-times: kernel F's (rows, margin, chunk) and kernel E's
+# staging (margin, chunk) beside their defaults
+DCN_F_VARIANTS = ((8, 3, 8), (8, 1, 8), (8, 7, 8), (8, 3, 4), (8, 3, 16),
+                  (4, 3, 8))
+DCN_E_STAGING = ((1, 8), (3, 8))
 NO_LIBRARY_DCN = "none (no torchvision): no PyTorch call computes DCNv2"
 SERVE_STEPS = 3         # per-frame batched steps after the clips
 AGREE_S, AGREE_T = 2, 3  # serve_agree: streams, frames (roll every 2nd)
@@ -478,96 +491,189 @@ def roi_grad_case(name, ops, plain_backward, maps_shape, rois, binds, g,
     return entry
 
 
-def dcn_inputs(dev, dtype, g, c, h, w):
+def dcn_inputs(dev, dtype, g, c, h, w, std=2.5, push=True):
     """DCN operands at one stage shape: x [3, c, h, w], offsets of N(0,
-    2.5^2) px (many beyond 2 px, samples beyond the edges) with every 50th
-    pushed beyond the map, masks in (0, 1)."""
+    std^2) px (at 2.5 many beyond 2 px, samples beyond the edges), with
+    ``push`` every 50th pushed beyond the map, masks in (0, 1)."""
     n, gr = DCN_FRAMES, DCN_GROUPS
     x = torch.randn(n, c, h, w, generator=g).to(dev, dtype)
-    off = torch.randn(n, gr * 18, h, w, generator=g) * 2.5
-    off.view(-1)[::50] += float(h + w)
+    off = torch.randn(n, gr * 18, h, w, generator=g) * std
+    if push:
+        off.view(-1)[::50] += float(h + w)
     mask = torch.rand(n, gr * 9, h, w, generator=g)
     return x, off.to(dev), mask.to(dev)
 
 
-def dcn_kernels(dev, g, ops, errs):
-    """Kernels E, F and G at each of DCN_SHAPES, f32 and bf16 x: E's
-    columns against ``deform_columns_plain`` (exact) and the whole forward
-    against ``modulated_deform_conv_plain`` (DCN_REL x max |out|); F and G
-    against ``modulated_deform_conv_backward_plain`` and torch autograd
-    through the plain columns (DCN_REL x max |grad|; x's bf16 gradient also
-    rtol DCN_BF16_RTOL); errors into ``errs``. Then at bf16 x each kernel
-    eagerly beside its plain version (turns plain, kernel, kernel, plain;
-    F's and G's plain version is the one plain backward that gives both)
-    and from a CUDA graph, with the bound. Returns {E, F, G: stage 0's
-    entry with the other stages under their names}."""
+def dcn_check(ops, tag, x, off, mask, g, errs):
+    """One case of kernels E, F and G: E's columns against
+    ``deform_columns_plain`` (exact) and the whole forward against
+    ``modulated_deform_conv_plain`` (DCN_REL x max |out|); F and G against
+    ``modulated_deform_conv_backward_plain`` and torch autograd through the
+    plain columns (DCN_REL x max |grad|; x's bf16 gradient also rtol
+    DCN_BF16_RTOL); errors into ``errs`` under ``tag``. Returns the
+    columns' gradient it used."""
+    dev, c = x.device, x.shape[1]
+    cols = ops.deform_columns(x, off, mask)
+    want = ops.deform_columns_plain(x, off, mask)
+    check_close(f"{tag} columns", cols, want, 0.0, 0.0)
+    errs[f"{tag}_columns"] = max_err(cols, want)
+    wt = (torch.randn(c, c, 3, 3, generator=g) / (3 * c ** 0.5)).to(dev)
+    bias = torch.randn(c, generator=g).to(dev)
+    got = ops.modulated_deform_conv(x, off, mask, wt, bias)
+    ref = ops.modulated_deform_conv_plain(x, off, mask, wt, bias)
+    check_close(f"{tag} forward", got, ref, 0.0,
+                DCN_REL * ref.abs().max().item())
+    errs[f"{tag}_forward"] = max_err(got, ref)
+    del got, ref, want
+    grad_cols = torch.randn(cols.shape, generator=g).to(dev)
+    del cols
+    got = ops.modulated_deform_conv_backward(grad_cols, x, off, mask)
+    plain = ops.modulated_deform_conv_backward_plain(grad_cols, x, off, mask)
+    xf = x.detach().float().requires_grad_()
+    o, m = off.clone().requires_grad_(), mask.clone().requires_grad_()
+    auto = torch.autograd.grad(ops.deform_columns_plain(xf, o, m),
+                               (xf, o, m), grad_cols)
+    del xf, o, m
+    for part, k, p_, a in zip(("x", "offset", "mask"), got, plain, auto):
+        atol = DCN_REL * a.abs().max().item()
+        rtol = DCN_BF16_RTOL if k.dtype == torch.bfloat16 else 0.0
+        check_close(f"{tag} grad {part}", k, p_, rtol, atol)
+        check_close(f"{tag} grad {part} vs autograd", k, a.to(k.dtype), rtol,
+                    atol)
+        errs[f"{tag}_grad_{part}"] = max_err(k, a.to(k.dtype))
+        errs[f"{tag}_grad_{part}_vs_plain"] = max_err(k, p_)
+    return grad_cols
+
+
+def window_misses(ops, off, h, w, geo):
+    """The share of kernel F's in-map corners that lie outside their
+    tile's shared window (added to global memory directly) under the
+    geometry ``geo``, and the share of corners outside the map."""
+    n, hw = off.shape[0], h * w
+    o = off.float().reshape(n, -1, 2, 9, hw)
+    k = torch.arange(9, device=off.device)
+    p = torch.arange(hw, device=off.device)
+    py, px = p // w, p % w
+    y0 = torch.floor((py + (k // 3 - 1)[:, None]).float() + o[:, :, 0])
+    x0 = torch.floor((px + (k % 3 - 1)[:, None]).float() + o[:, :, 1])
+    ty0 = (py // geo.rows) * geo.rows
+    tx0 = (px // ops.TILE_W) * ops.TILE_W
+    side = geo.window[1] - ops.TILE_W >> 1
+    inside = outside = total = 0
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        cy, cx = y0 + dy, x0 + dx
+        in_map = (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
+        in_win = ((cy >= ty0 - geo.margin - 1)
+                  & (cy < ty0 - geo.margin - 1 + geo.window[0])
+                  & (cx >= tx0 - side) & (cx < tx0 - side + geo.window[1]))
+        inside += int(in_map.sum())
+        outside += int((in_map & ~in_win).sum())
+        total += in_map.numel()
+    return dict(outside_window=outside / max(inside, 1),
+                outside_map=1 - inside / total)
+
+
+def dcn_variants(ops, x, off, mask, grad_cols, want_gx):
+    """Device ms (``graph_ms``) of kernel F at the geometries of
+    DCN_F_VARIANTS and of kernel E staging x's window in shared memory at
+    DCN_E_STAGING, each checked first (E exact against its default, F
+    against ``want_gx`` at DCN_REL x max |grad| and DCN_BF16_RTOL)."""
+    n, c, h, w = x.shape
+    g = mask.shape[1] // 9
+    times = {}
+    atol = DCN_REL * want_gx.float().abs().max().item()
+    for rows, margin, chunk in DCN_F_VARIANTS:
+        geo = ops.col2im_geometry(c, g, h, n, rows=rows, margin=margin,
+                                  chunk=chunk)
+        name = f"F_rows{rows}_margin{margin}_chunk{geo.chunk}"
+
+        def f_kernel():
+            return ops.deform_col2im(grad_cols, x, off, mask, geometry=geo)
+
+        check_close(name, f_kernel(), want_gx, DCN_BF16_RTOL, atol)
+        times[name] = dict(graph_ms=graph_ms(f_kernel),
+                           smem_bytes=geo.smem_bytes,
+                           **window_misses(ops, off, h, w, geo))
+    cols = ops.deform_columns(x, off, mask)
+    for margin, chunk in ((-1, 0),) + DCN_E_STAGING:
+        name = ("E_direct" if margin < 0
+                else f"E_staged_margin{margin}_chunk{chunk}")
+
+        def e_kernel():
+            return ops.deform_columns(x, off, mask, staging=(margin, chunk))
+
+        check_close(name, e_kernel(), cols, 0.0, 0.0)
+        times[name] = dict(graph_ms=graph_ms(e_kernel))
+    return times
+
+
+def dcn_kernels(dev, g, ops, errs, variants=False):
+    """Kernels E, F and G at each of DCN_SHAPES and each offset scale of
+    DCN_OFFSETS, f32 and bf16 x, through ``dcn_check``. Then at bf16 x, as
+    the aggregator's training gives it: E and F at every offset scale
+    eagerly and from a CUDA graph; at the scale that pushes offsets beyond
+    the map (PR 8's cases, drawn from ``g``; the others from their own
+    generators) also G, and each beside its plain version in the turns
+    plain, kernel, kernel, plain (F's and G's plain version is the one
+    plain backward that gives both); each with the bound. With
+    ``variants``, also ``dcn_variants`` at every scale. Returns {E, F, G:
+    stage 0's entry with the other stages under their names, each stage's
+    entry with the times at every scale under ``offsets``}."""
     out = {k: {} for k in "EFG"}
     for name, c, h, w in DCN_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            tag = f"dcn_{name}_{str(dtype)[6:]}"
-            x, off, mask = dcn_inputs(dev, dtype, g, c, h, w)
-            cols = ops.deform_columns(x, off, mask)
-            want = ops.deform_columns_plain(x, off, mask)
-            check_close(f"{tag} columns", cols, want, 0.0, 0.0)
-            errs[f"{tag}_columns"] = max_err(cols, want)
-            wt = (torch.randn(c, c, 3, 3, generator=g) / (3 * c ** 0.5)).to(
-                dev)
-            bias = torch.randn(c, generator=g).to(dev)
-            got = ops.modulated_deform_conv(x, off, mask, wt, bias)
-            ref = ops.modulated_deform_conv_plain(x, off, mask, wt, bias)
-            check_close(f"{tag} forward", got, ref, 0.0,
-                        DCN_REL * ref.abs().max().item())
-            errs[f"{tag}_forward"] = max_err(got, ref)
-            del got, ref, want
-            grad_cols = torch.randn(cols.shape, generator=g).to(dev)
-            got = ops.modulated_deform_conv_backward(grad_cols, x, off, mask)
-            plain = ops.modulated_deform_conv_backward_plain(grad_cols, x, off,
-                                                             mask)
-            xf = x.detach().float().requires_grad_()
-            o, m = off.clone().requires_grad_(), mask.clone().requires_grad_()
-            auto = torch.autograd.grad(ops.deform_columns_plain(xf, o, m),
-                                       (xf, o, m), grad_cols)
-            del xf, o, m
-            for part, k, p_, a in zip(("x", "offset", "mask"), got, plain,
-                                      auto):
-                atol = DCN_REL * a.abs().max().item()
-                rtol = DCN_BF16_RTOL if k.dtype == torch.bfloat16 else 0.0
-                check_close(f"{tag} grad {part}", k, p_, rtol, atol)
-                check_close(f"{tag} grad {part} vs autograd", k,
-                            a.to(k.dtype), rtol, atol)
-                errs[f"{tag}_grad_{part}"] = max_err(k, a.to(k.dtype))
-                errs[f"{tag}_grad_{part}_vs_plain"] = max_err(k, p_)
-            del got, plain, auto
-        # bf16 x, as the aggregator's training gives it
-        runs = dict(
-            E=(lambda: ops.deform_columns(x, off, mask),
-               lambda: ops.deform_columns_plain(x, off, mask)),
-            F=(lambda: ops.deform_col2im(grad_cols, x, off, mask),
-               lambda: ops.modulated_deform_conv_backward_plain(
-                   grad_cols, x, off, mask)),
-            G=(lambda: ops.deform_col2im_coord(grad_cols, x, off, mask),
-               lambda: ops.modulated_deform_conv_backward_plain(
-                   grad_cols, x, off, mask)))
-        errs_of = dict(E=f"{tag}_columns", F=f"{tag}_grad_x",
-                       G=f"{tag}_grad_offset")
-        for kern, (kernel, plain) in runs.items():
-            ms, plain_ms, _ = compare_times(kernel, plain)
-            nbytes, flops = dcn_cost(kern, DCN_FRAMES, c, h, w, DCN_GROUPS,
-                                     x.element_size())
-            bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
-            gms = graph_ms(kernel)
-            out[kern][name] = dict(
-                max_abs_err=errs[errs_of[kern]], ms=ms, graph_ms=gms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                share_of_bound=bound_ms / ms,
-                graph_share_of_bound=bound_ms / gms, library_ms=None,
-                library_note=NO_LIBRARY_DCN, bytes=nbytes, flops=flops,
-                shape=[DCN_FRAMES, c, h, w], groups=DCN_GROUPS)
-            if kern != "E":
-                out[kern][name]["plain_note"] = (
-                    "the plain backward computes F's and G's outputs "
-                    "together")
-        del x, off, mask, cols, grad_cols
+        for scale, std, push in DCN_OFFSETS:
+            gen = g if push else torch.Generator().manual_seed(int(10 * std))
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = (f"dcn_{name}" + ("" if push else f"_{scale}")
+                       + f"_{str(dtype)[6:]}")
+                x, off, mask = dcn_inputs(dev, dtype, gen, c, h, w, std, push)
+                grad_cols = dcn_check(ops, tag, x, off, mask, gen, errs)
+            runs = dict(
+                E=(lambda: ops.deform_columns(x, off, mask),
+                   lambda: ops.deform_columns_plain(x, off, mask)),
+                F=(lambda: ops.deform_col2im(grad_cols, x, off, mask),
+                   lambda: ops.modulated_deform_conv_backward_plain(
+                       grad_cols, x, off, mask)),
+                G=(lambda: ops.deform_col2im_coord(grad_cols, x, off, mask),
+                   lambda: ops.modulated_deform_conv_backward_plain(
+                       grad_cols, x, off, mask)))
+            errs_of = dict(E=f"{tag}_columns", F=f"{tag}_grad_x",
+                           G=f"{tag}_grad_offset")
+            for kern, (kernel, plain) in runs.items():
+                if kern == "G" and not push:
+                    continue
+                nbytes, flops = dcn_cost(kern, DCN_FRAMES, c, h, w,
+                                         DCN_GROUPS, x.element_size())
+                bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+                if push:
+                    ms, plain_ms, _ = compare_times(kernel, plain)
+                else:
+                    ms, plain_ms = timed(kernel), None
+                gms = graph_ms(kernel)
+                entry = out[kern].setdefault(name, dict(offsets={}))
+                entry["offsets"][scale] = dict(
+                    ms=ms, graph_ms=gms, share_of_bound=bound_ms / ms,
+                    graph_share_of_bound=bound_ms / gms)
+                if push:
+                    entry.update(
+                        max_abs_err=errs[errs_of[kern]], ms=ms, graph_ms=gms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, share_of_bound=bound_ms / ms,
+                        graph_share_of_bound=bound_ms / gms, library_ms=None,
+                        library_note=NO_LIBRARY_DCN, bytes=nbytes,
+                        flops=flops, shape=[DCN_FRAMES, c, h, w],
+                        groups=DCN_GROUPS, offset_std=std)
+                    if kern != "E":
+                        entry["plain_note"] = (
+                            "the plain backward computes F's and G's "
+                            "outputs together")
+            if variants:
+                want_gx = ops.modulated_deform_conv_backward_plain(
+                    grad_cols, x, off, mask)[0]
+                out["F"][name].setdefault("variants", {})[scale] = \
+                    dcn_variants(ops, x, off, mask, grad_cols, want_gx)
+                del want_gx
+            del x, off, mask, grad_cols
     for kern, entries in out.items():
         first = entries.pop("stage0")
         first.update(entries)
@@ -1813,10 +1919,37 @@ def roi_grad_times(root, dev, smi) -> int:
     return 0
 
 
+def dcn_times(root, dev, smi) -> int:
+    """``--dcn-times ROOT``: DCNv2's cases of the ``kernels`` phase alone
+    (``dcn_kernels``), with the package of the checkout at ROOT, so that two
+    commits compare in one call (unpack the earlier one with ``git archive``
+    and run both in the turns parent, change, change, parent); with the
+    variants (``dcn_variants``) where the package has ``col2im_geometry``.
+    Prints one JSON line of E's, F's and G's entries."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from lowlightenvironmentvideoobjectdetection_torch.ops import (
+        cuda_build, deform_conv as dcn_ops)
+    if not Path(dcn_ops.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {dcn_ops.__file__}, not from {root}")
+    t0 = time.perf_counter()
+    cuda_build.build()
+    phase("build", seconds=round(time.perf_counter() - t0, 3), root=str(root))
+    errs = {}
+    out = dcn_kernels(dev, torch.Generator().manual_seed(0), dcn_ops, errs,
+                      variants=hasattr(dcn_ops, "col2im_geometry"))
+    print(json.dumps(dict(root=str(root), card=smi, dcn=out,
+                          max_abs_err=errs)), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--roi-grad-times", metavar="ROOT",
                     help="only kernel D's cases, with the package at ROOT")
+    ap.add_argument("--dcn-times", metavar="ROOT",
+                    help="only DCNv2's cases (E, F, G), with the package at "
+                         "ROOT")
     args = ap.parse_args()
     # ---- device
     if not torch.cuda.is_available():
@@ -1833,6 +1966,8 @@ def main() -> int:
           cuda=torch.version.cuda)
     if args.roi_grad_times:
         return roi_grad_times(args.roi_grad_times, dev, smi)
+    if args.dcn_times:
+        return dcn_times(args.dcn_times, dev, smi)
 
     from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
         init_model, inference_vid)
@@ -2095,11 +2230,12 @@ def main() -> int:
     ]
     dcn_replaces = (tpu_ops + "deform_conv.py:28 (XLA; mmcv "
                     "modulated_deform_conv2d)")
-    for name, what in zip(dcn_names, ("forward: the bilinear im2col",
-                                      "backward: the input's gradient",
-                                      "backward: the offsets' and the "
-                                      "mask's gradients")):
-        kernels.append(dict(name=name, route="cuda",
+    for name, body, what in zip(
+            dcn_names, ("dcn_im2col_tile", "dcn_col2im_tile",
+                        "dcn_col2im_coord"),
+            ("forward: the bilinear im2col", "backward: the input's gradient",
+             "backward: the offsets' and the mask's gradients")):
+        kernels.append(dict(name=name, body=body, route="cuda",
                             source=f"{PKG}/csrc/deform_conv.cu",
                             replaces=dcn_replaces, computes=what,
                             **summary[name]))

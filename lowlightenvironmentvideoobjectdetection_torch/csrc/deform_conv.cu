@@ -28,19 +28,49 @@
 // aggregator's stage 0, 3 frames of 64 x 152 x 256); F reads the columns'
 // gradient and adds into x's gradient; G reads the columns' gradient and x
 // and writes the offsets' and the mask's gradients. Their arithmetic is a
-// few operations per column element, far below the bytes' time, and the
-// gathers of x's corners hit L1 and L2 (neighbouring pixels share corners).
+// few operations per column element, far below the bytes' time.
 //
-// The design is the simple one: one thread per column entry for E and F,
-// with the index decomposed so that neighbouring threads take neighbouring
-// pixels (coalesced loads of the offsets and the mask, coalesced stores of
-// the columns); F adds its four products with f32 atomics into a zeroed f32
-// buffer that the wrapper casts once (kernel D's first scheme); G takes one
-// thread per (image, group, tap, pixel) and loops over the group's channels,
-// so the sums over channels need no atomics. Positions and the forward's
-// products and sums round with __fadd_rn / __fsub_rn / __fmul_rn: nvcc would
-// contract a + b * c into an FMA, and an ulp at an integer position moves
-// floor, and with it the cell whose corners take the offsets' gradient.
+// A sample (its position, corners and weights) depends on the image, the
+// deform group, the tap and the pixel, not on the channel. The first E and
+// F took one thread per column entry: each recomputed its sample, with
+// three 64-bit divisions, for every one of the group's C / G channels, and
+// F added each of its 4 corner products to global memory with a scalar f32
+// atomic, up to 2.7e8 a call at stage 0, paced by L2's atomic rate (2.83 ms
+// against a bound of 0.115 ms). Both now compute a sample once and reuse it
+// over the group's channels, on 3-D grids that need no 64-bit division:
+//
+// - Kernel E: one block per (image, deform group, tile of 4 x 32 output
+//   pixels); 9 warps, warp k takes tap k, each lane 4 consecutive pixels of
+//   one row. A thread computes its 4 samples once, then for each of the
+//   group's channels gathers their corners and writes the 4 columns with
+//   one 16-byte streaming store (st.global.cs.v4.f32: the columns do not
+//   fit L2); scalar stores where the 4 are not 16-byte aligned or run off
+//   the map's row.
+// - Kernel F: one block per (image, deform group, tile of TH x 32 output
+//   pixels, chunk of the group's channels). The block zeroes an f32 window
+//   of x's gradient in shared memory, the tile plus a margin: TH + 2 + 2R
+//   rows and 32 + 2 ceil4(R + 1) columns (aligned to 16 bytes) for each
+//   channel of the chunk. Each thread takes one pixel and loops over the 9
+//   taps: it reads dy, dx and m once, computes the sample once, then for
+//   each channel reads grad_cols (a warp reads a row's 128 bytes) and adds
+//   grad_col * m * w into each in-map corner with a shared-memory atomic; a
+//   corner outside the window (an offset beyond R pixels) goes straight to
+//   global memory with a global atomic. Then the block adds its window into
+//   the zeroed f32 buffer with red.global.add.v4.f32, 4 pixels along x an
+//   instruction, skipping vectors that stayed zero (scalar atomics where W
+//   is not a multiple of 4). Windows of neighbouring tiles overlap, so the
+//   flush stays atomic. The global atomic operations per channel and tile
+//   fall from up to 9 x 4 x TH x 32 scalar adds to at most (TH + 2 + 2R)
+//   (32 + 2 ceil4(R + 1)) / 4 vector adds.
+// The wrapper (ops/deform_conv.py) chooses TH, R and the chunk and gives the
+// shared memory's bytes; the entry checks that they agree.
+//
+// G takes one thread per (image, group, tap, pixel) and loops over the
+// group's channels, so the sums over channels need no atomics. Positions
+// and the forward's products and sums round with __fadd_rn / __fsub_rn /
+// __fmul_rn: nvcc would contract a + b * c into an FMA, and an ulp at an
+// integer position moves floor, and with it the cell whose corners take the
+// offsets' gradient.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,7 +78,13 @@
 namespace {
 
 constexpr int kTaps = 9;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;           // kernel G
+constexpr int kTileW = 32;              // E and F: a tile row is a warp
+constexpr int kImRows = 4;              // E: 4 rows of 8 lanes x 4 pixels
+constexpr int kImThreads = kTaps * 32;  // E: one warp a tap
+constexpr int kColMaxRows = 8;          // F: TH x 32 threads, TH <= 8
+constexpr int kColChunk = 8;            // F: the chunk its inner loop unrolls
+constexpr int kMaxGrid = 65535;         // gridDim.y and gridDim.z
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -57,12 +93,15 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 
 // The bilinear sample of tap k at output pixel (py, px): each corner's pixel
 // offset in the map (0 outside), its weight (0 outside) and in-map flag, in
-// the order (y0, x0), (y0, x1), (y1, x0), (y1, x1); and the fractional parts.
+// the order (y0, x0), (y0, x1), (y1, x0), (y1, x1); the fractional parts;
+// and the top-left corner's row and column, clamped to [-2, H] and [-2, W]
+// (exact wherever a corner lies in the map).
 struct Sample {
   int o[4];
   float w[4];
   bool ok[4];
   float ly, lx;
+  int y0, x0;
 };
 
 __device__ __forceinline__ Sample sample_at(float dy, float dx, int py,
@@ -88,78 +127,256 @@ __device__ __forceinline__ Sample sample_at(float dy, float dx, int py,
                      : 0;
     s.w[j] = s.ok[j] ? wt[j] : 0.0f;
   }
+  s.y0 = static_cast<int>(fminf(fmaxf(y0, -2.0f), static_cast<float>(H)));
+  s.x0 = static_cast<int>(fminf(fmaxf(x0, -2.0f), static_cast<float>(W)));
   return s;
 }
 
-// One column entry's coordinates: i = ((n * C + c) * 9 + k) * HW + p.
-struct Entry {
-  long long n;
-  int c, k, p;
-};
+__host__ __device__ __forceinline__ int ceil4(int v) { return (v + 3) & ~3; }
 
-__device__ __forceinline__ Entry entry_of(long long i, int C, int HW) {
-  Entry e;
-  e.p = static_cast<int>(i % HW);
-  long long r = i / HW;
-  e.k = static_cast<int>(r % kTaps);
-  r /= kTaps;
-  e.c = static_cast<int>(r % C);
-  e.n = r / C;
-  return e;
+// Kernel E's shared window when it stages x (margin >= 0): the tile's 4
+// rows and 32 columns plus margin + 1 on each side, f32.
+__host__ __device__ __forceinline__ int im_window_h(int margin) {
+  return kImRows + 2 * (margin + 1);
+}
+__host__ __device__ __forceinline__ int im_window_w(int margin) {
+  return kTileW + 2 * (margin + 1);
 }
 
-// Kernel E: one thread per column entry.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dcn_im2col_gather(const T* __restrict__ x,
-                      const float* __restrict__ offset,
-                      const float* __restrict__ mask,
-                      float* __restrict__ cols, int C, int H, int W, int G,
-                      long long total) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int HW = H * W;
-  const Entry e = entry_of(i, C, HW);
-  const long long og = e.n * G + e.c / (C / G);
-  const float* off = offset + og * 2 * kTaps * HW;
-  const float dy = off[e.k * HW + e.p];
-  const float dx = off[(kTaps + e.k) * HW + e.p];
-  const float m = mask[(og * kTaps + e.k) * HW + e.p];
-  const Sample s = sample_at(dy, dx, e.p / W, e.p % W, e.k, H, W);
-  const T* xc = x + (e.n * C + e.c) * HW;
-  float val = 0.0f;
+// Kernel F's shared window: TH rows plus margin + 1 on each side, and 32
+// columns plus ceil4(margin + 1) on each side, so that its columns start
+// on a multiple of 4 pixels (tiles start on multiples of 32).
+__host__ __device__ __forceinline__ int col_window_h(int rows, int margin) {
+  return rows + 2 * (margin + 1);
+}
+__host__ __device__ __forceinline__ int col_window_w(int margin) {
+  return kTileW + 2 * ceil4(margin + 1);
+}
+
+// Kernel E: block (tile x, tile y, image * G + group), 9 warps; warp k takes
+// tap k, lane l the 4 pixels from column 4 (l % 8) of row l / 8. With
+// margin >= 0 the block stages x's window for chunk channels at a time in
+// shared memory as f32 and gathers the corners inside it from there (kStage);
+// with margin < 0 every corner comes from global memory (through L1).
+template <typename T, bool kStage>
+__global__ void __launch_bounds__(kImThreads, 3)
+    dcn_im2col_tile(const T* __restrict__ x, const float* __restrict__ offset,
+                    const float* __restrict__ mask, float* __restrict__ cols,
+                    int C, int H, int W, int G, int margin, int chunk) {
+  extern __shared__ float win[];
+  const int k = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty0 = blockIdx.y * kImRows, tx0 = blockIdx.x * kTileW;
+  const int py = ty0 + (lane >> 3), px0 = tx0 + (lane & 7) * 4;
+  const int n = blockIdx.z / G, g = blockIdx.z - n * G;
+  const int HW = H * W, cpg = C / G;
+  constexpr bool stage = kStage;
+  const int WH = im_window_h(margin), WW = im_window_w(margin);
+  const int wy0 = ty0 - margin - 1, wx0 = tx0 - margin - 1;
+  const float* off = offset + static_cast<long long>(blockIdx.z) * 2 * kTaps * HW;
+  const float* msk = mask + static_cast<long long>(blockIdx.z) * kTaps * HW;
+  Sample s[4];
+  float m[4];
+  int widx[4][4];  // each corner's index in the window, or -1
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (s.ok[j]) val = __fadd_rn(val, __fmul_rn(to_float(xc[s.o[j]]), s.w[j]));
+  for (int i = 0; i < 4; ++i) {
+    const int px = px0 + i;
+    if (py < H && px < W) {
+      const int p = py * W + px;
+      s[i] = sample_at(off[k * HW + p], off[(kTaps + k) * HW + p], py, px, k,
+                       H, W);
+      m[i] = msk[k * HW + p];
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s[i].ok[q] = false;
+      s[i].y0 = s[i].x0 = 0;
+      m[i] = 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int ry = s[i].y0 + (q >> 1) - wy0, rx = s[i].x0 + (q & 1) - wx0;
+      widx[i][q] = stage && s[i].ok[q] && ry >= 0 && ry < WH && rx >= 0 &&
+                           rx < WW
+                       ? ry * WW + rx
+                       : -1;
+    }
   }
-  cols[i] = __fmul_rn(val, m);
+  const long long c0 = static_cast<long long>(n) * C + g * cpg;
+  const T* xg = x + c0 * HW;
+  float* out = cols + (c0 * kTaps + k) * HW + py * W + px0;
+  const bool vec = py < H && px0 + 3 < W && (HW & 3) == 0 &&
+                   ((py * W + px0) & 3) == 0;
+  const int step = stage ? chunk : cpg;
+  for (int j0 = 0; j0 < cpg; j0 += step) {
+    const int cc = min(step, cpg - j0);
+    if (stage) {
+      __syncthreads();  // the previous chunk's gathers are done
+      for (int i = threadIdx.x; i < cc * WH * WW; i += blockDim.x) {
+        const int r = i / WW, wx = i - r * WW;
+        const int jc = r / WH, wy = r - jc * WH;
+        const int gy = wy0 + wy, gx = wx0 + wx;
+        win[i] = gy >= 0 && gy < H && gx >= 0 && gx < W
+                     ? to_float(xg[(j0 + jc) * HW + gy * W + gx])
+                     : 0.0f;
+      }
+      __syncthreads();
+    }
+    for (int jc = 0; jc < cc; ++jc) {
+      const T* xc = xg + (j0 + jc) * HW;
+      const float* wc = win + jc * WH * WW;
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float val = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (s[i].ok[q]) {
+            const float xv =
+                widx[i][q] >= 0 ? wc[widx[i][q]] : to_float(xc[s[i].o[q]]);
+            val = __fadd_rn(val, __fmul_rn(xv, s[i].w[q]));
+          }
+        }
+        v[i] = __fmul_rn(val, m[i]);
+      }
+      float* o = out + (j0 + jc) * kTaps * HW;
+      if (vec) {
+        __stcs(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2],
+                                                         v[3]));
+      } else if (py < H) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (px0 + i < W) __stcs(o + i, v[i]);
+        }
+      }
+    }
+  }
 }
 
-// Kernel F: one thread per column entry adds grad_col * m * w into each
-// in-map corner of x's gradient (f32 atomics; the result is unused, so they
-// compile to reductions).
-__global__ void __launch_bounds__(kThreads)
-    dcn_col2im_scatter(const float* __restrict__ grad_cols,
-                       const float* __restrict__ offset,
-                       const float* __restrict__ mask, float* grad_x, int C,
-                       int H, int W, int G, long long total) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int HW = H * W;
-  const Entry e = entry_of(i, C, HW);
-  const long long og = e.n * G + e.c / (C / G);
-  const float* off = offset + og * 2 * kTaps * HW;
-  const float dy = off[e.k * HW + e.p];
-  const float dx = off[(kTaps + e.k) * HW + e.p];
-  const float m = mask[(og * kTaps + e.k) * HW + e.p];
-  const Sample s = sample_at(dy, dx, e.p / W, e.p % W, e.k, H, W);
-  const float gm = __fmul_rn(grad_cols[i], m);
-  float* gx = grad_x + (e.n * C + e.c) * HW;
+// 16 bytes of f32 added to global memory in one reduction (sm_90, PTX 8.1:
+// REDG.E.ADD.F32x4); each of the four adds is atomic on its own.
+__device__ __forceinline__ void red_add_v4(float* p, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(p), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// v[t] <- v[(t + r) % n] for 0 <= r < n, n a power of 2, in registers: a
+// rotation by each set bit of r.
+template <int n>
+__device__ __forceinline__ void rotate(float (&v)[n], int r) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (s.ok[j]) atomicAdd(gx + s.o[j], __fmul_rn(gm, s.w[j]));
+  for (int b = 1; b < n; b <<= 1) {
+    float u[n];
+#pragma unroll
+    for (int t = 0; t < n; ++t) u[t] = v[(t + b) % n];
+#pragma unroll
+    for (int t = 0; t < n; ++t) v[t] = (r & b) ? u[t] : v[t];
+  }
+}
+
+// Kernel F's adds for one sample and channel jc of the chunk: gm * w into
+// each in-map corner, in the shared window or, outside it, in grad_x.
+__device__ __forceinline__ void add_corners(const Sample& s,
+                                            const int (&widx)[4], float gm,
+                                            float* win, float* gx, int jc,
+                                            int plane, int HW) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (!s.ok[q]) continue;
+    const float a = __fmul_rn(gm, s.w[q]);
+    if (widx[q] >= 0) {
+      atomicAdd(win + jc * plane + widx[q], a);
+    } else {
+      atomicAdd(gx + jc * HW + s.o[q], a);
+    }
+  }
+}
+
+// Kernel F: block (tile x, tile y, (image * G + group) * chunks + chunk) of
+// TH x 32 threads, one a pixel; x's gradient summed in a shared window of
+// chunk channels (see the head of this file), then flushed into grad_x.
+__global__ void __launch_bounds__(kColMaxRows * kTileW)
+    dcn_col2im_tile(const float* __restrict__ grad_cols,
+                    const float* __restrict__ offset,
+                    const float* __restrict__ mask, float* grad_x, int C,
+                    int H, int W, int G, int margin, int chunk, int chunks) {
+  extern __shared__ float4 win4[];
+  float* win = reinterpret_cast<float*>(win4);
+  const int rows = blockDim.x / kTileW;
+  const int WH = col_window_h(rows, margin), WW = col_window_w(margin);
+  const int plane = WH * WW;  // a multiple of 4
+  const int ty0 = blockIdx.y * rows, tx0 = blockIdx.x * kTileW;
+  const int wy0 = ty0 - margin - 1, wx0 = tx0 - ceil4(margin + 1);
+  const int ng = blockIdx.z / chunks;
+  const int j0 = (blockIdx.z - ng * chunks) * chunk;
+  const int n = ng / G, g = ng - n * G;
+  const int HW = H * W, cpg = C / G;
+  const int cc = min(chunk, cpg - j0);
+  for (int i = threadIdx.x; i < cc * plane / 4; i += blockDim.x) {
+    win4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __syncthreads();
+  const long long c0 = static_cast<long long>(n) * C + g * cpg + j0;
+  const int py = ty0 + threadIdx.x / kTileW, px = tx0 + threadIdx.x % kTileW;
+  if (py < H && px < W) {
+    const int p = py * W + px;
+    const float* off = offset + static_cast<long long>(ng) * 2 * kTaps * HW;
+    const float* msk = mask + static_cast<long long>(ng) * kTaps * HW;
+    const float* gc = grad_cols + c0 * kTaps * HW + p;
+    float* gx = grad_x + c0 * HW;
+    for (int k = 0; k < kTaps; ++k) {
+      const Sample s = sample_at(off[k * HW + p], off[(kTaps + k) * HW + p],
+                                 py, px, k, H, W);
+      const float m = msk[k * HW + p];
+      int widx[4];  // the corner's index in the window, or -1
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ry = s.y0 + (q >> 1) - wy0, rx = s.x0 + (q & 1) - wx0;
+        widx[q] = ry >= 0 && ry < WH && rx >= 0 && rx < WW ? ry * WW + rx
+                                                           : -1;
+      }
+      if (cc == kColChunk) {
+        // the chunk's 8 loads at once; lane l adds channel (t + l) % 8 at
+        // step t, so the lanes that add to one channel's plane together are
+        // 8 pixels apart and seldom retry a shared atomic on one corner
+        float g8[kColChunk];
+#pragma unroll
+        for (int t = 0; t < kColChunk; ++t) g8[t] = gc[(t * kTaps + k) * HW];
+        const int r = threadIdx.x % kColChunk;
+        rotate(g8, r);
+#pragma unroll
+        for (int t = 0; t < kColChunk; ++t) {
+          add_corners(s, widx, __fmul_rn(g8[t], m), win, gx,
+                      (t + r) % kColChunk, plane, HW);
+        }
+      } else {
+        for (int jc = 0; jc < cc; ++jc) {
+          add_corners(s, widx, __fmul_rn(gc[(jc * kTaps + k) * HW], m), win,
+                      gx, jc, plane, HW);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if ((W & 3) == 0) {  // whole 16-byte vectors: wx0 and W are multiples of 4
+    const int WW4 = WW / 4;
+    for (int i = threadIdx.x; i < cc * WH * WW4; i += blockDim.x) {
+      const int r = i / WW4, q = i - r * WW4;
+      const int jc = r / WH, gy = wy0 + r - jc * WH, gxc = wx0 + 4 * q;
+      if (gy < 0 || gy >= H || gxc < 0 || gxc >= W) continue;
+      const float4 v = win4[i];
+      if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) {
+        red_add_v4(grad_x + (c0 + jc) * HW + gy * W + gxc, v);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < cc * plane; i += blockDim.x) {
+      const int r = i / WW, gxc = wx0 + i - r * WW;
+      const int jc = r / WH, gy = wy0 + r - jc * WH;
+      if (gy < 0 || gy >= H || gxc < 0 || gxc >= W || win[i] == 0.0f) {
+        continue;
+      }
+      atomicAdd(grad_x + (c0 + jc) * HW + gy * W + gxc, win[i]);
+    }
   }
 }
 
@@ -223,47 +440,103 @@ bool bad_shape(int N, int C, int H, int W, int G) {
   return N < 0 || C <= 0 || H <= 0 || W <= 0 || G <= 0 || C % G != 0;
 }
 
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
+// Dynamic shared memory above the default 48 KB must be allowed per kernel.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <typename T>
+int launch_im2col(const T* x, const float* o, const float* m, float* out,
+                  int C, int H, int W, int G, int margin, int chunk,
+                  int smem_bytes, dim3 grid, cudaStream_t s) {
+  if (margin < 0) {
+    dcn_im2col_tile<T, false><<<grid, kImThreads, 0, s>>>(
+        x, o, m, out, C, H, W, G, margin, chunk);
+  } else {
+    const cudaError_t e = allow_smem(dcn_im2col_tile<T, true>, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dcn_im2col_tile<T, true><<<grid, kImThreads, smem_bytes, s>>>(
+        x, o, m, out, C, H, W, G, margin, chunk);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Kernel E. dtype: 0 = float32, 1 = bfloat16 (x); offset, mask and cols
-// float32, contiguous. Returns cudaGetLastError() after the launch.
+// float32, contiguous. margin < 0: corners from global memory, chunk and
+// smem_bytes 0; margin >= 0: x staged in shared memory chunk channels at a
+// time, smem_bytes = chunk * (4 + 2 (margin + 1)) * (32 + 2 (margin + 1))
+// * 4. Returns cudaGetLastError() after the launch.
 extern "C" int llvod_dcn_im2col(const void* x, const void* offset,
                                 const void* mask, void* cols, int N, int C,
-                                int H, int W, int G, int dtype,
-                                void* stream) {
-  if (bad_shape(N, C, H, W, G)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(N) * C * kTaps * H * W;
-  if (total == 0) return 0;
+                                int H, int W, int G, int dtype, int margin,
+                                int chunk, int smem_bytes, void* stream) {
+  if (bad_shape(N, C, H, W, G)) return kInvalid;
+  const long long ng = static_cast<long long>(N) * G;
+  const int tiles_y = (H + kImRows - 1) / kImRows;
+  if (ng > kMaxGrid || tiles_y > kMaxGrid) return kInvalid;
+  const int want = margin < 0 ? 0
+                              : chunk * im_window_h(margin) *
+                                    im_window_w(margin) * 4;
+  if (smem_bytes != want || (margin >= 0 && chunk < 1)) return kInvalid;
+  if (ng == 0) return 0;
+  const dim3 grid((W + kTileW - 1) / kTileW, tiles_y,
+                  static_cast<unsigned int>(ng));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* o = static_cast<const float*>(offset);
   const float* m = static_cast<const float*>(mask);
   float* out = static_cast<float*>(cols);
   if (dtype == 0) {
-    dcn_im2col_gather<float><<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const float*>(x), o, m, out, C, H, W, G, total);
-  } else if (dtype == 1) {
-    dcn_im2col_gather<__nv_bfloat16><<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), o, m, out, C, H, W, G, total);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_im2col(static_cast<const float*>(x), o, m, out, C, H, W, G,
+                         margin, chunk, smem_bytes, grid, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return launch_im2col(static_cast<const __nv_bfloat16*>(x), o, m, out, C,
+                         H, W, G, margin, chunk, smem_bytes, grid, s);
+  }
+  return kInvalid;
 }
 
 // Kernel F. grad_cols, offset, mask float32; grad_x a zeroed float32
-// [N, C, H, W] buffer that receives x's gradient. Returns cudaGetLastError()
-// after the launch.
+// [N, C, H, W] buffer that receives x's gradient. Tiles of tile_h x 32
+// pixels (1 <= tile_h <= 8), a window margin of margin >= 0 pixels, chunk
+// channels a block (at most C / G); smem_bytes = chunk * (tile_h + 2
+// (margin + 1)) * (32 + 2 ceil4(margin + 1)) * 4. Returns
+// cudaGetLastError() after the launch.
 extern "C" int llvod_dcn_col2im(const void* grad_cols, const void* offset,
                                 const void* mask, void* grad_x, int N, int C,
-                                int H, int W, int G, void* stream) {
-  if (bad_shape(N, C, H, W, G)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(N) * C * kTaps * H * W;
-  if (total == 0) return 0;
-  dcn_col2im_scatter<<<blocks_for(total), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+                                int H, int W, int G, int tile_h, int margin,
+                                int chunk, int smem_bytes, void* stream) {
+  if (bad_shape(N, C, H, W, G)) return kInvalid;
+  if (tile_h < 1 || tile_h > kColMaxRows || margin < 0 || chunk < 1 ||
+      chunk > C / G) {
+    return kInvalid;
+  }
+  const int chunks = (C / G + chunk - 1) / chunk;
+  const long long z = static_cast<long long>(N) * G * chunks;
+  const int tiles_y = (H + tile_h - 1) / tile_h;
+  if (z > kMaxGrid || tiles_y > kMaxGrid) return kInvalid;
+  if (smem_bytes != chunk * col_window_h(tile_h, margin) *
+                        col_window_w(margin) * 4) {
+    return kInvalid;
+  }
+  if (z == 0) return 0;
+  const cudaError_t e = allow_smem(dcn_col2im_tile, smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((W + kTileW - 1) / kTileW, tiles_y,
+                  static_cast<unsigned int>(z));
+  dcn_col2im_tile<<<grid, tile_h * kTileW, smem_bytes,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(grad_cols), static_cast<const float*>(offset),
       static_cast<const float*>(mask), static_cast<float*>(grad_x), C, H, W,
-      G, total);
+      G, margin, chunk, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

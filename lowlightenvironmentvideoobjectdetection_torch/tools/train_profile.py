@@ -27,7 +27,7 @@ steps:
   union of the device events' intervals), idle share 1 - busy / wall, the
   10 kernels with the most device time, and per step the device ms of
   kernels B (``roi_align_gather``), D (``roi_align_scatter``) and the DCN's
-  E (``dcn_im2col_gather``), F (``dcn_col2im_scatter``) and G
+  E (``dcn_im2col_tile``), F (``dcn_col2im_tile``) and G
   (``dcn_col2im_coord``).
 
 Prints the card's name and power limit and one JSON line, and with
@@ -66,8 +66,8 @@ DARKFARM = D.DarkfarmConfig(
 # the canonical config (SelsaNewDarkfarmDetect): with its aggregator
 AGGREGATOR = dataclasses.replace(DARKFARM, with_aggregator=True)
 # device ms per step by kernel symbol
-KERNEL_SYMBOLS = ("roi_align_gather", "roi_align_scatter", "dcn_im2col_gather",
-                  "dcn_col2im_scatter", "dcn_col2im_coord")
+KERNEL_SYMBOLS = ("roi_align_gather", "roi_align_scatter", "dcn_im2col_tile",
+                  "dcn_col2im_tile", "dcn_col2im_coord")
 
 
 def train_sample(cfg, device, seed=0) -> S.TrainBatch:

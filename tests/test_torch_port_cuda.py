@@ -587,7 +587,10 @@ def test_roi_align_backward_rejects(dev):
 def _dcn_inputs(dev, n, c, h, w, g, dtype, offsets="random", seed=0):
     """x, offset [N, G*18, h, w], mask in (0, 1): random offsets of a few
     px (some samples beyond the edge and beyond 2 px), "zero", "integer"
-    (whole px up to 3) or "outside" (every sample beyond the map)."""
+    (whole px up to 3), "outside" (every sample beyond the map), "far"
+    (N(0, 8^2) px: most corners beyond kernel F's window margin, so its
+    global adds run) or "one_spot" (every sample at one point near the
+    map's middle, inside one tile's window: F's shared adds contend)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(n, c, h, w, generator=gen)
     if offsets == "zero":
@@ -596,6 +599,18 @@ def _dcn_inputs(dev, n, c, h, w, g, dtype, offsets="random", seed=0):
         off = torch.randint(-3, 4, (n, g * 18, h, w), generator=gen).float()
     elif offsets == "outside":
         off = torch.full((n, g * 18, h, w), float(max(h, w) + 2))
+    elif offsets == "far":
+        off = torch.randn(n, g * 18, h, w, generator=gen) * 8.0
+    elif offsets == "one_spot":
+        k = torch.arange(9)
+        py = torch.arange(h).float()[None, :, None] + (k // 3 - 1)[:, None,
+                                                                  None]
+        px = torch.arange(w).float()[None, None, :] + (k % 3 - 1)[:, None,
+                                                                 None]
+        dy = (h // 2 + 0.3) - py.expand(9, h, w)
+        dx = (w // 2 + 0.6) - px.expand(9, h, w)
+        off = torch.stack([dy, dx]).reshape(1, 1, 18, h, w).expand(
+            n, g, 18, h, w).reshape(n, g * 18, h, w)
     else:
         off = torch.randn(n, g * 18, h, w, generator=gen) * 2.5
     mask = torch.rand(n, g * 9, h, w, generator=gen)
@@ -670,22 +685,63 @@ def _dcn_check(x, off, mask, cout=24, seed=1):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c,h,w,g", [(2, 16, 9, 13, 8), (1, 8, 7, 5, 1),
                                        (3, 64, 38, 64, 8),
-                                       (2, 32, 20, 17, 4)])
+                                       (2, 32, 20, 17, 4),
+                                       (2, 12, 19, 45, 4)])
 def test_dcn_kernels_match_plain(dev, dtype, n, c, h, w, g):
+    """Random offsets; the last shape has h and w that no tile divides, W
+    not a multiple of 4 (E's and F's scalar stores and adds) and deform
+    groups of 3 channels."""
     _dcn_check(*_dcn_inputs(dev, n, c, h, w, g, dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("offsets", ["zero", "integer", "outside"])
+@pytest.mark.parametrize("offsets", ["zero", "integer", "outside", "far",
+                                     "one_spot"])
 def test_dcn_kernels_edge_offsets(dev, dtype, offsets):
     """Zero offsets (a plain conv times the mask), whole-pixel offsets
-    (every sample on a pixel: the one-sided offset gradient) and every
-    sample outside the map (zero columns, zero input gradient)."""
-    x, off, mask = _dcn_inputs(dev, 2, 16, 11, 14, 8, dtype, offsets)
+    (every sample on a pixel: the one-sided offset gradient), every sample
+    outside the map (zero columns, zero input gradient), offsets far beyond
+    F's window margin, and one image whose samples all land on one
+    point."""
+    n = 1 if offsets == "one_spot" else 2
+    x, off, mask = _dcn_inputs(dev, n, 16, 11, 14, 8, dtype, offsets)
     gx, _, _ = _dcn_check(x, off, mask)
     if offsets == "outside":
         assert not dcn.deform_columns(x, off, mask).any()
         assert not gx.any()
+
+
+@pytest.mark.parametrize("offsets", ["random", "far", "one_spot"])
+@pytest.mark.parametrize("rows,margin,chunk", [(8, 0, 1), (1, 7, 16),
+                                               (4, 2, 3), (8, 3, 8)])
+def test_dcn_col2im_geometries(dev, offsets, rows, margin, chunk):
+    """Kernel F at other tiles, window margins and channel chunks (for
+    timing them) gives the plain backward's x gradient: a chunk of 3 of 16
+    channels leaves a partial last chunk, a margin of 0 sends most corners
+    to the global adds; W = 36 flushes 16-byte vectors."""
+    x, off, mask = _dcn_inputs(dev, 2, 16, 21, 36, 2, torch.float32, offsets)
+    geo = dcn.col2im_geometry(16, 2, 21, 2, rows=rows, margin=margin,
+                              chunk=chunk)
+    assert geo.chunk * geo.chunks >= 8 > geo.chunk * (geo.chunks - 1)
+    grad_cols = torch.randn(2, 16 * 9, 21 * 36, device=dev)
+    got = dcn.deform_col2im(grad_cols, x, off, mask, geometry=geo)
+    want = dcn.modulated_deform_conv_backward_plain(grad_cols, x, off,
+                                                    mask)[0]
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("margin,chunk", [(0, 1), (1, 8), (3, 5)])
+def test_dcn_im2col_staged_is_exact(dev, dtype, margin, chunk):
+    """Kernel E staging x's window in shared memory gives the plain
+    columns bit for bit, corners beyond the window read from global
+    memory."""
+    for offsets in ("random", "far"):
+        x, off, mask = _dcn_inputs(dev, 2, 16, 19, 45, 2, dtype, offsets)
+        torch.testing.assert_close(
+            dcn.deform_columns(x, off, mask, staging=(margin, chunk)),
+            dcn.deform_columns_plain(x, off, mask), rtol=0, atol=0)
 
 
 def test_dcn_kernels_stage_shapes(dev):

@@ -242,3 +242,45 @@ def test_dcn_entry_rejects():
         tdcn.modulated_deform_conv(x[:, :7], off, mask, wt[:, :7])
     with pytest.raises(ValueError):
         tdcn.modulated_deform_conv(x, off, mask, wt[:, :4])
+
+
+# (images, channels, h, w, deform groups): the aggregator's four stage
+# shapes at T = 3 and the card tests' odd shapes
+GEOMETRY_SHAPES = [(3, 64, 152, 256, 8), (3, 128, 76, 128, 8),
+                   (3, 256, 38, 64, 8), (3, 512, 38, 64, 8),
+                   (2, 12, 19, 45, 4), (1, 8, 7, 5, 1), (2, 16, 9, 13, 8),
+                   (2, 32, 20, 17, 4)]
+
+
+@pytest.mark.parametrize("n,c,h,w,g", GEOMETRY_SHAPES)
+def test_col2im_geometry_fits(n, c, h, w, g):
+    """Kernel F's launch geometry: its shared window fits a block's 227 KB
+    with room for two blocks an SM, the chunks cover the group's channels
+    with no empty chunk, the window's columns come in 16-byte vectors, and
+    the grid stays within its limits."""
+    geo = tdcn.col2im_geometry(c, g, h, n)
+    cpg = c // g
+    wh, ww = geo.window
+    assert geo.smem_bytes == geo.chunk * wh * ww * 4
+    assert geo.smem_bytes <= 227 * 1024
+    assert 2 * (geo.smem_bytes + 1024) <= 228 * 1024
+    assert 1 <= geo.chunk <= cpg
+    assert geo.chunk * (geo.chunks - 1) < cpg <= geo.chunk * geo.chunks
+    assert ww % 4 == 0 and (ww - tdcn.TILE_W) // 2 % 4 == 0
+    assert wh == geo.rows + 2 * (geo.margin + 1)
+    assert (ww - tdcn.TILE_W) // 2 >= geo.margin + 1
+    assert n * g * geo.chunks <= tdcn.GRID_LIMIT
+    assert -(-h // geo.rows) <= tdcn.GRID_LIMIT
+
+
+def test_col2im_geometry_rejects():
+    """A window beyond a block's shared memory, a grid beyond its limit
+    and a tile the kernel does not take raise ValueError."""
+    with pytest.raises(ValueError):
+        tdcn.col2im_geometry(4096, 1, margin=40, chunk=512)
+    with pytest.raises(ValueError):
+        tdcn.col2im_geometry(64, 64, 8, n=2048)
+    with pytest.raises(ValueError):
+        tdcn.col2im_geometry(64, 8, rows=9)
+    with pytest.raises(ValueError):
+        tdcn.col2im_geometry(64, 8, margin=-1)
