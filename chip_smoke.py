@@ -68,10 +68,10 @@ non-zero.
     python3 chip_smoke.py --roi-grad-times ROOT
     python3 chip_smoke.py --dcn-times ROOT
 
-run kernel D's cases, or DCNv2's (E, F, G at every offset scale, and the
-tile, margin and chunk variants of F and the staging of E where the package
-has them), alone with the package of the checkout at ROOT (for comparing two
-commits in one call) and print their JSON line.
+run kernel D's cases, or DCNv2's (E, F, G at every offset scale, and F's
+tile, margin and chunk variants where the package has them), alone with the
+package of the checkout at ROOT (for comparing two commits in one call) and
+print their JSON line.
 """
 
 from __future__ import annotations
@@ -144,11 +144,9 @@ AGG_OFFSET_STD = 1.5
 # map): 0 as in a step near the zero init, agg_agree's std, and PR 8's cases
 DCN_OFFSETS = (("std0", 0.0, False), ("std1.5", AGG_OFFSET_STD, False),
                ("std2.5", 2.5, True))
-# timed by --dcn-times: kernel F's (rows, margin, chunk) and kernel E's
-# staging (margin, chunk) beside their defaults
+# timed by --dcn-times: kernel F's (rows, margin, chunk), its default first
 DCN_F_VARIANTS = ((8, 3, 8), (8, 1, 8), (8, 7, 8), (8, 3, 4), (8, 3, 16),
                   (4, 3, 8))
-DCN_E_STAGING = ((1, 8), (3, 8))
 NO_LIBRARY_DCN = "none (no torchvision): no PyTorch call computes DCNv2"
 SERVE_STEPS = 3         # per-frame batched steps after the clips
 AGREE_S, AGREE_T = 2, 3  # serve_agree: streams, frames (roll every 2nd)
@@ -575,9 +573,9 @@ def window_misses(ops, off, h, w, geo):
 
 def dcn_variants(ops, x, off, mask, grad_cols, want_gx):
     """Device ms (``graph_ms``) of kernel F at the geometries of
-    DCN_F_VARIANTS and of kernel E staging x's window in shared memory at
-    DCN_E_STAGING, each checked first (E exact against its default, F
-    against ``want_gx`` at DCN_REL x max |grad| and DCN_BF16_RTOL)."""
+    DCN_F_VARIANTS, each checked first against ``want_gx`` (DCN_REL x max
+    |grad|, DCN_BF16_RTOL), with the share of corners outside the
+    window."""
     n, c, h, w = x.shape
     g = mask.shape[1] // 9
     times = {}
@@ -594,16 +592,6 @@ def dcn_variants(ops, x, off, mask, grad_cols, want_gx):
         times[name] = dict(graph_ms=graph_ms(f_kernel),
                            smem_bytes=geo.smem_bytes,
                            **window_misses(ops, off, h, w, geo))
-    cols = ops.deform_columns(x, off, mask)
-    for margin, chunk in ((-1, 0),) + DCN_E_STAGING:
-        name = ("E_direct" if margin < 0
-                else f"E_staged_margin{margin}_chunk{chunk}")
-
-        def e_kernel():
-            return ops.deform_columns(x, off, mask, staging=(margin, chunk))
-
-        check_close(name, e_kernel(), cols, 0.0, 0.0)
-        times[name] = dict(graph_ms=graph_ms(e_kernel))
     return times
 
 
@@ -1890,6 +1878,21 @@ def troi_stream(dev, smi, init_model, inference_vid, S, kernels, g):
     return counts, bodies
 
 
+def build_checkout(root) -> Path:
+    """Put the checkout at ROOT first on the import path, check that the
+    port's package comes from there, build its kernels and print the
+    ``build`` line; returns ROOT resolved."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from lowlightenvironmentvideoobjectdetection_torch.ops import cuda_build
+    if not Path(cuda_build.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {cuda_build.__file__}, not from {root}")
+    t0 = time.perf_counter()
+    cuda_build.build()
+    phase("build", seconds=round(time.perf_counter() - t0, 3), root=str(root))
+    return root
+
+
 def roi_grad_times(root, dev, smi) -> int:
     """``--roi-grad-times ROOT``: kernel D's cases of the ``kernels`` phase
     alone (``roi_grad_kernels``), with the package of the checkout at ROOT,
@@ -1897,17 +1900,11 @@ def roi_grad_times(root, dev, smi) -> int:
     ``git archive`` and run both in the turns parent, change, change,
     parent. Prints the sweep's line and one JSON line of kernel D's
     entry."""
-    root = Path(root).resolve()
-    sys.path.insert(0, str(root))
+    root = build_checkout(root)
     from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
         selsa as S)
     from lowlightenvironmentvideoobjectdetection_torch.ops import (
-        cuda_build, roi_align as roi_ops)
-    if not Path(roi_ops.__file__).resolve().is_relative_to(root):
-        raise RuntimeError(f"imported {roi_ops.__file__}, not from {root}")
-    t0 = time.perf_counter()
-    cuda_build.build()
-    phase("build", seconds=round(time.perf_counter() - t0, 3), root=str(root))
+        roi_align as roi_ops)
     errs = {}
     # a checkout from before the explicit plain version compares with
     # autograd alone
@@ -1926,15 +1923,9 @@ def dcn_times(root, dev, smi) -> int:
     and run both in the turns parent, change, change, parent); with the
     variants (``dcn_variants``) where the package has ``col2im_geometry``.
     Prints one JSON line of E's, F's and G's entries."""
-    root = Path(root).resolve()
-    sys.path.insert(0, str(root))
+    root = build_checkout(root)
     from lowlightenvironmentvideoobjectdetection_torch.ops import (
-        cuda_build, deform_conv as dcn_ops)
-    if not Path(dcn_ops.__file__).resolve().is_relative_to(root):
-        raise RuntimeError(f"imported {dcn_ops.__file__}, not from {root}")
-    t0 = time.perf_counter()
-    cuda_build.build()
-    phase("build", seconds=round(time.perf_counter() - t0, 3), root=str(root))
+        deform_conv as dcn_ops)
     errs = {}
     out = dcn_kernels(dev, torch.Generator().manual_seed(0), dcn_ops, errs,
                       variants=hasattr(dcn_ops, "col2im_geometry"))

@@ -31,39 +31,53 @@
 // few operations per column element, far below the bytes' time.
 //
 // A sample (its position, corners and weights) depends on the image, the
-// deform group, the tap and the pixel, not on the channel. The first E and
-// F took one thread per column entry: each recomputed its sample, with
-// three 64-bit divisions, for every one of the group's C / G channels, and
-// F added each of its 4 corner products to global memory with a scalar f32
-// atomic, up to 2.7e8 a call at stage 0, paced by L2's atomic rate (2.83 ms
-// against a bound of 0.115 ms). Both now compute a sample once and reuse it
-// over the group's channels, on 3-D grids that need no 64-bit division:
+// deform group, the tap and the pixel, not on the channel. One thread per
+// column entry would recompute it, with three 64-bit divisions, for each of
+// the group's C / G channels, and adding each of its 4 corner products to
+// global memory with a scalar f32 atomic (up to 2.7e8 a call at stage 0) is
+// paced by L2's atomic rate: 2.82 ms against a bound of 0.115 ms. E and F
+// compute a sample once and reuse it over the group's channels, on 3-D
+// grids that need no 64-bit division:
 //
 // - Kernel E: one block per (image, deform group, tile of 4 x 32 output
 //   pixels); 9 warps, warp k takes tap k, each lane 4 consecutive pixels of
 //   one row. A thread computes its 4 samples once, then for each of the
-//   group's channels gathers their corners and writes the 4 columns with
-//   one 16-byte streaming store (st.global.cs.v4.f32: the columns do not
-//   fit L2); scalar stores where the 4 are not 16-byte aligned or run off
-//   the map's row.
+//   group's channels gathers their corners (through L1) and writes the 4
+//   columns with one 16-byte streaming store (st.global.cs.v4.f32: the
+//   columns do not fit L2); scalar stores where the 4 are not 16-byte
+//   aligned or run off the map's row. The gathers' latency bounds it: 72
+//   registers (3 blocks an SM) took it from 0.44 to 0.24 ms at stage 0;
+//   without the gathers it takes 0.13 ms. Staging x's window in shared
+//   memory was 2-3x slower than L1.
 // - Kernel F: one block per (image, deform group, tile of TH x 32 output
-//   pixels, chunk of the group's channels). The block zeroes an f32 window
-//   of x's gradient in shared memory, the tile plus a margin: TH + 2 + 2R
-//   rows and 32 + 2 ceil4(R + 1) columns (aligned to 16 bytes) for each
-//   channel of the chunk. Each thread takes one pixel and loops over the 9
-//   taps: it reads dy, dx and m once, computes the sample once, then for
-//   each channel reads grad_cols (a warp reads a row's 128 bytes) and adds
-//   grad_col * m * w into each in-map corner with a shared-memory atomic; a
-//   corner outside the window (an offset beyond R pixels) goes straight to
-//   global memory with a global atomic. Then the block adds its window into
+//   pixels, chunk of 8 of the group's channels). The block zeroes an f32
+//   window of x's gradient in shared memory, the tile plus a margin: TH + 2
+//   + 2R rows and 32 + 2 ceil4(R + 1) columns (its left edge on 16 bytes).
+//   Each thread takes one pixel and loops over the 9 taps: it reads dy, dx
+//   and m once, computes the sample once and reads grad_cols for the
+//   chunk's 8 channels (a warp reads a row's 128 bytes), and adds each
+//   corner in the map but outside the window (an offset beyond R pixels)
+//   to global memory itself. The corners inside go through the warp: each
+//   thread writes a record (g * m for the 8 channels, the 4 corners'
+//   weights, the corner's window cell), then the warp adds the 32 records
+//   one at a time, lane = (channel, corner), with shared-memory atomics.
+//   A shared f32 atomic add is a compare-and-swap loop on sm_90 (ATOMS.CAS)
+//   and bank conflicts multiply its cost: with a thread's own adds, lanes
+//   on random corners made F twice as slow at offsets of 1.5 px as at 0.
+//   Here the window interleaves the 8 channels per cell and its rows are
+//   2 (mod 4) cells long, so a record's 32 adds fall in 32 banks, on 32
+//   addresses, whatever the offsets. Then the block adds its window into
 //   the zeroed f32 buffer with red.global.add.v4.f32, 4 pixels along x an
 //   instruction, skipping vectors that stayed zero (scalar atomics where W
 //   is not a multiple of 4). Windows of neighbouring tiles overlap, so the
 //   flush stays atomic. The global atomic operations per channel and tile
 //   fall from up to 9 x 4 x TH x 32 scalar adds to at most (TH + 2 + 2R)
-//   (32 + 2 ceil4(R + 1)) / 4 vector adds.
+//   (32 + 2 ceil4(R + 1)) / 4 vector adds. A chunk smaller than 8 (groups
+//   of fewer channels, a group's last chunk) keeps a plane per channel and
+//   each thread adds its own corners.
 // The wrapper (ops/deform_conv.py) chooses TH, R and the chunk and gives the
-// shared memory's bytes; the entry checks that they agree.
+// shared memory's bytes; the entry checks that they agree. Times: PERF.md
+// (chip_smoke.py, H100 80GB HBM3 at 700 W).
 //
 // G takes one thread per (image, group, tap, pixel) and loops over the
 // group's channels, so the sums over channels need no atomics. Positions
@@ -83,7 +97,9 @@ constexpr int kTileW = 32;              // E and F: a tile row is a warp
 constexpr int kImRows = 4;              // E: 4 rows of 8 lanes x 4 pixels
 constexpr int kImThreads = kTaps * 32;  // E: one warp a tap
 constexpr int kColMaxRows = 8;          // F: TH x 32 threads, TH <= 8
-constexpr int kColChunk = 8;            // F: the chunk its inner loop unrolls
+constexpr int kColChunk = 8;            // F: the chunk its warps share out
+constexpr int kRec = kColChunk + 5;     // F: a sample's record (odd: no
+                                        // bank conflicts when written)
 constexpr int kMaxGrid = 65535;         // gridDim.y and gridDim.z
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -134,49 +150,45 @@ __device__ __forceinline__ Sample sample_at(float dy, float dx, int py,
 
 __host__ __device__ __forceinline__ int ceil4(int v) { return (v + 3) & ~3; }
 
-// Kernel E's shared window when it stages x (margin >= 0): the tile's 4
-// rows and 32 columns plus margin + 1 on each side, f32.
-__host__ __device__ __forceinline__ int im_window_h(int margin) {
-  return kImRows + 2 * (margin + 1);
-}
-__host__ __device__ __forceinline__ int im_window_w(int margin) {
-  return kTileW + 2 * (margin + 1);
-}
-
 // Kernel F's shared window: TH rows plus margin + 1 on each side, and 32
 // columns plus ceil4(margin + 1) on each side, so that its columns start
-// on a multiple of 4 pixels (tiles start on multiples of 32).
+// on a multiple of 4 pixels (tiles start on multiples of 32); its rows are
+// 2 cells longer than that (RS = 2 mod 4; the 2 are never used). Then a
+// record of kRec floats for each thread.
 __host__ __device__ __forceinline__ int col_window_h(int rows, int margin) {
   return rows + 2 * (margin + 1);
 }
 __host__ __device__ __forceinline__ int col_window_w(int margin) {
   return kTileW + 2 * ceil4(margin + 1);
 }
+__host__ __device__ __forceinline__ int col_row_stride(int margin) {
+  return col_window_w(margin) + 2;
+}
+__host__ __device__ __forceinline__ int col_smem_bytes(int rows, int margin,
+                                                       int chunk) {
+  return (chunk * col_window_h(rows, margin) * col_row_stride(margin) +
+          rows * kTileW * kRec) * 4;
+}
 
 // Kernel E: block (tile x, tile y, image * G + group), 9 warps; warp k takes
-// tap k, lane l the 4 pixels from column 4 (l % 8) of row l / 8. With
-// margin >= 0 the block stages x's window for chunk channels at a time in
-// shared memory as f32 and gathers the corners inside it from there (kStage);
-// with margin < 0 every corner comes from global memory (through L1).
-template <typename T, bool kStage>
+// tap k, lane l the 4 pixels from column 4 (l % 8) of row l / 8. The
+// corners come from global memory, through L1 (staging x's window in shared
+// memory was slower: PERF.md); 72 registers let 3 blocks share an SM.
+template <typename T>
 __global__ void __launch_bounds__(kImThreads, 3)
     dcn_im2col_tile(const T* __restrict__ x, const float* __restrict__ offset,
                     const float* __restrict__ mask, float* __restrict__ cols,
-                    int C, int H, int W, int G, int margin, int chunk) {
-  extern __shared__ float win[];
+                    int C, int H, int W, int G) {
   const int k = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ty0 = blockIdx.y * kImRows, tx0 = blockIdx.x * kTileW;
   const int py = ty0 + (lane >> 3), px0 = tx0 + (lane & 7) * 4;
   const int n = blockIdx.z / G, g = blockIdx.z - n * G;
   const int HW = H * W, cpg = C / G;
-  constexpr bool stage = kStage;
-  const int WH = im_window_h(margin), WW = im_window_w(margin);
-  const int wy0 = ty0 - margin - 1, wx0 = tx0 - margin - 1;
-  const float* off = offset + static_cast<long long>(blockIdx.z) * 2 * kTaps * HW;
-  const float* msk = mask + static_cast<long long>(blockIdx.z) * kTaps * HW;
+  const long long ng = blockIdx.z;
+  const float* off = offset + ng * 2 * kTaps * HW;
+  const float* msk = mask + ng * kTaps * HW;
   Sample s[4];
   float m[4];
-  int widx[4][4];  // each corner's index in the window, or -1
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int px = px0 + i;
@@ -188,16 +200,7 @@ __global__ void __launch_bounds__(kImThreads, 3)
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q) s[i].ok[q] = false;
-      s[i].y0 = s[i].x0 = 0;
       m[i] = 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ry = s[i].y0 + (q >> 1) - wy0, rx = s[i].x0 + (q & 1) - wx0;
-      widx[i][q] = stage && s[i].ok[q] && ry >= 0 && ry < WH && rx >= 0 &&
-                           rx < WW
-                       ? ry * WW + rx
-                       : -1;
     }
   }
   const long long c0 = static_cast<long long>(n) * C + g * cpg;
@@ -205,47 +208,28 @@ __global__ void __launch_bounds__(kImThreads, 3)
   float* out = cols + (c0 * kTaps + k) * HW + py * W + px0;
   const bool vec = py < H && px0 + 3 < W && (HW & 3) == 0 &&
                    ((py * W + px0) & 3) == 0;
-  const int step = stage ? chunk : cpg;
-  for (int j0 = 0; j0 < cpg; j0 += step) {
-    const int cc = min(step, cpg - j0);
-    if (stage) {
-      __syncthreads();  // the previous chunk's gathers are done
-      for (int i = threadIdx.x; i < cc * WH * WW; i += blockDim.x) {
-        const int r = i / WW, wx = i - r * WW;
-        const int jc = r / WH, wy = r - jc * WH;
-        const int gy = wy0 + wy, gx = wx0 + wx;
-        win[i] = gy >= 0 && gy < H && gx >= 0 && gx < W
-                     ? to_float(xg[(j0 + jc) * HW + gy * W + gx])
-                     : 0.0f;
+  for (int j = 0; j < cpg; ++j) {
+    const T* xc = xg + j * HW;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float val = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (s[i].ok[q]) {
+          val = __fadd_rn(val, __fmul_rn(to_float(xc[s[i].o[q]]), s[i].w[q]));
+        }
       }
-      __syncthreads();
+      v[i] = __fmul_rn(val, m[i]);
     }
-    for (int jc = 0; jc < cc; ++jc) {
-      const T* xc = xg + (j0 + jc) * HW;
-      const float* wc = win + jc * WH * WW;
-      float v[4];
+    float* o = out + j * kTaps * HW;
+    if (vec) {
+      __stcs(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2],
+                                                       v[3]));
+    } else if (py < H) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        float val = 0.0f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (s[i].ok[q]) {
-            const float xv =
-                widx[i][q] >= 0 ? wc[widx[i][q]] : to_float(xc[s[i].o[q]]);
-            val = __fadd_rn(val, __fmul_rn(xv, s[i].w[q]));
-          }
-        }
-        v[i] = __fmul_rn(val, m[i]);
-      }
-      float* o = out + (j0 + jc) * kTaps * HW;
-      if (vec) {
-        __stcs(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2],
-                                                         v[3]));
-      } else if (py < H) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (px0 + i < W) __stcs(o + i, v[i]);
-        }
+        if (px0 + i < W) __stcs(o + i, v[i]);
       }
     }
   }
@@ -259,41 +243,21 @@ __device__ __forceinline__ void red_add_v4(float* p, float4 v) {
                : "memory");
 }
 
-// v[t] <- v[(t + r) % n] for 0 <= r < n, n a power of 2, in registers: a
-// rotation by each set bit of r.
-template <int n>
-__device__ __forceinline__ void rotate(float (&v)[n], int r) {
-#pragma unroll
-  for (int b = 1; b < n; b <<= 1) {
-    float u[n];
-#pragma unroll
-    for (int t = 0; t < n; ++t) u[t] = v[(t + b) % n];
-#pragma unroll
-    for (int t = 0; t < n; ++t) v[t] = (r & b) ? u[t] : v[t];
-  }
-}
-
-// Kernel F's adds for one sample and channel jc of the chunk: gm * w into
-// each in-map corner, in the shared window or, outside it, in grad_x.
-__device__ __forceinline__ void add_corners(const Sample& s,
-                                            const int (&widx)[4], float gm,
-                                            float* win, float* gx, int jc,
-                                            int plane, int HW) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (!s.ok[q]) continue;
-    const float a = __fmul_rn(gm, s.w[q]);
-    if (widx[q] >= 0) {
-      atomicAdd(win + jc * plane + widx[q], a);
-    } else {
-      atomicAdd(gx + jc * HW + s.o[q], a);
-    }
-  }
+// Kernel F's window cell for channel c of a block's cc: a full chunk of 8
+// interleaves them per cell, a smaller one keeps a plane per channel.
+__device__ __forceinline__ int cell_at(int cell, int c, int cc, int cells) {
+  return cc == kColChunk ? cell * kColChunk + c : c * cells + cell;
 }
 
 // Kernel F: block (tile x, tile y, (image * G + group) * chunks + chunk) of
 // TH x 32 threads, one a pixel; x's gradient summed in a shared window of
-// chunk channels (see the head of this file), then flushed into grad_x.
+// chunk channels (cell_at), then flushed into grad_x (see the head of this
+// file). With a full chunk of
+// 8 channels each warp adds its row's samples one at a time, lane = (channel
+// lane / 4, corner lane % 4), from records that each thread writes for its
+// own sample: the 32 addresses are distinct and, as RS = 2 (mod 4), lie in
+// 32 distinct banks whatever the offsets (a shared f32 atomic add is a
+// compare-and-swap loop on sm_90, and bank conflicts multiply its cost).
 __global__ void __launch_bounds__(kColMaxRows * kTileW)
     dcn_col2im_tile(const float* __restrict__ grad_cols,
                     const float* __restrict__ offset,
@@ -303,7 +267,7 @@ __global__ void __launch_bounds__(kColMaxRows * kTileW)
   float* win = reinterpret_cast<float*>(win4);
   const int rows = blockDim.x / kTileW;
   const int WH = col_window_h(rows, margin), WW = col_window_w(margin);
-  const int plane = WH * WW;  // a multiple of 4
+  const int RS = col_row_stride(margin), cells = WH * RS;
   const int ty0 = blockIdx.y * rows, tx0 = blockIdx.x * kTileW;
   const int wy0 = ty0 - margin - 1, wx0 = tx0 - ceil4(margin + 1);
   const int ng = blockIdx.z / chunks;
@@ -311,47 +275,86 @@ __global__ void __launch_bounds__(kColMaxRows * kTileW)
   const int n = ng / G, g = ng - n * G;
   const int HW = H * W, cpg = C / G;
   const int cc = min(chunk, cpg - j0);
-  for (int i = threadIdx.x; i < cc * plane / 4; i += blockDim.x) {
-    win4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
+  float* rec = win + chunk * cells;  // kRec floats a thread
+  for (int i = threadIdx.x; i < cc * cells; i += blockDim.x) win[i] = 0.0f;
   __syncthreads();
   const long long c0 = static_cast<long long>(n) * C + g * cpg + j0;
-  const int py = ty0 + threadIdx.x / kTileW, px = tx0 + threadIdx.x % kTileW;
-  if (py < H && px < W) {
-    const int p = py * W + px;
-    const float* off = offset + static_cast<long long>(ng) * 2 * kTaps * HW;
-    const float* msk = mask + static_cast<long long>(ng) * kTaps * HW;
-    const float* gc = grad_cols + c0 * kTaps * HW + p;
-    float* gx = grad_x + c0 * HW;
-    for (int k = 0; k < kTaps; ++k) {
-      const Sample s = sample_at(off[k * HW + p], off[(kTaps + k) * HW + p],
-                                 py, px, k, H, W);
-      const float m = msk[k * HW + p];
-      int widx[4];  // the corner's index in the window, or -1
+  const int lane = threadIdx.x % kTileW;
+  const int py = ty0 + threadIdx.x / kTileW, px = tx0 + lane;
+  const bool in_map = py < H && px < W;
+  const int p = in_map ? py * W + px : 0;
+  const float* off = offset + static_cast<long long>(ng) * 2 * kTaps * HW;
+  const float* msk = mask + static_cast<long long>(ng) * kTaps * HW;
+  const float* gc = grad_cols + c0 * kTaps * HW + p;
+  float* gx = grad_x + c0 * HW;
+  float* mine = rec + threadIdx.x * kRec;
+  const float* warp_rec = rec + (threadIdx.x - lane) * kRec;
+  for (int k = 0; k < kTaps; ++k) {
+    Sample s;
+    float m = 0.0f;
+    int base = 0;  // the top-left corner's window cell
+    bool in_win[4] = {false, false, false, false};
+    if (in_map) {
+      s = sample_at(off[k * HW + p], off[(kTaps + k) * HW + p], py, px, k, H,
+                    W);
+      m = msk[k * HW + p];
+      const int ry = s.y0 - wy0, rx = s.x0 - wx0;
+      base = ry * RS + rx;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int ry = s.y0 + (q >> 1) - wy0, rx = s.x0 + (q & 1) - wx0;
-        widx[q] = ry >= 0 && ry < WH && rx >= 0 && rx < WW ? ry * WW + rx
-                                                           : -1;
+        const int cy = ry + (q >> 1), cx = rx + (q & 1);
+        in_win[q] = s.ok[q] && cy >= 0 && cy < WH && cx >= 0 && cx < WW;
       }
-      if (cc == kColChunk) {
-        // the chunk's 8 loads at once; lane l adds channel (t + l) % 8 at
-        // step t, so the lanes that add to one channel's plane together are
-        // 8 pixels apart and seldom retry a shared atomic on one corner
-        float g8[kColChunk];
+    }
+    if (cc == kColChunk) {
+      float gm[kColChunk];
 #pragma unroll
-        for (int t = 0; t < kColChunk; ++t) g8[t] = gc[(t * kTaps + k) * HW];
-        const int r = threadIdx.x % kColChunk;
-        rotate(g8, r);
+      for (int t = 0; t < kColChunk; ++t) {
+        gm[t] = in_map ? __fmul_rn(gc[(t * kTaps + k) * HW], m) : 0.0f;
+      }
+      // corners in the map but outside the window: global adds, by the
+      // sample's own thread
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (!in_map || !s.ok[q] || in_win[q]) continue;
 #pragma unroll
         for (int t = 0; t < kColChunk; ++t) {
-          add_corners(s, widx, __fmul_rn(g8[t], m), win, gx,
-                      (t + r) % kColChunk, plane, HW);
+          atomicAdd(gx + t * HW + s.o[q], __fmul_rn(gm[t], s.w[q]));
         }
-      } else {
-        for (int jc = 0; jc < cc; ++jc) {
-          add_corners(s, widx, __fmul_rn(gc[(jc * kTaps + k) * HW], m), win,
-                      gx, jc, plane, HW);
+      }
+      __syncwarp();  // the warp has read the previous tap's records
+#pragma unroll
+      for (int t = 0; t < kColChunk; ++t) mine[t] = gm[t];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        mine[kColChunk + q] = in_win[q] ? s.w[q] : 0.0f;
+      }
+      mine[kColChunk + 4] = __int_as_float(base);
+      __syncwarp();
+      const int ch = lane >> 2, q = lane & 3;
+      const int d = (q >> 1) * RS + (q & 1);
+      for (int i = 0; i < kTileW; ++i) {
+        const float* r = warp_rec + i * kRec;
+        const float wq = r[kColChunk + q];
+        if (wq != 0.0f) {
+          const int cell = __float_as_int(r[kColChunk + 4]) + d;
+          atomicAdd(win + cell * kColChunk + ch, __fmul_rn(r[ch], wq));
+        }
+      }
+    } else if (in_map) {
+      for (int jc = 0; jc < cc; ++jc) {
+        const float gm = __fmul_rn(gc[(jc * kTaps + k) * HW], m);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (!s.ok[q]) continue;
+          const float a = __fmul_rn(gm, s.w[q]);
+          if (in_win[q]) {
+            atomicAdd(win + cell_at(base + (q >> 1) * RS + (q & 1), jc, cc,
+                                    cells),
+                      a);
+          } else {
+            atomicAdd(gx + jc * HW + s.o[q], a);
+          }
         }
       }
     }
@@ -360,22 +363,29 @@ __global__ void __launch_bounds__(kColMaxRows * kTileW)
   if ((W & 3) == 0) {  // whole 16-byte vectors: wx0 and W are multiples of 4
     const int WW4 = WW / 4;
     for (int i = threadIdx.x; i < cc * WH * WW4; i += blockDim.x) {
-      const int r = i / WW4, q = i - r * WW4;
-      const int jc = r / WH, gy = wy0 + r - jc * WH, gxc = wx0 + 4 * q;
+      const int r = i / cc, jc = i - r * cc;
+      const int wy = r / WW4, q = r - wy * WW4;
+      const int gy = wy0 + wy, gxc = wx0 + 4 * q;
       if (gy < 0 || gy >= H || gxc < 0 || gxc >= W) continue;
-      const float4 v = win4[i];
+      const int cell = wy * RS + 4 * q;
+      const float4 v = make_float4(win[cell_at(cell, jc, cc, cells)],
+                                   win[cell_at(cell + 1, jc, cc, cells)],
+                                   win[cell_at(cell + 2, jc, cc, cells)],
+                                   win[cell_at(cell + 3, jc, cc, cells)]);
       if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) {
         red_add_v4(grad_x + (c0 + jc) * HW + gy * W + gxc, v);
       }
     }
   } else {
-    for (int i = threadIdx.x; i < cc * plane; i += blockDim.x) {
-      const int r = i / WW, gxc = wx0 + i - r * WW;
-      const int jc = r / WH, gy = wy0 + r - jc * WH;
-      if (gy < 0 || gy >= H || gxc < 0 || gxc >= W || win[i] == 0.0f) {
+    for (int i = threadIdx.x; i < cc * cells; i += blockDim.x) {
+      const int jc = i / cells, cell = i - jc * cells;
+      const int wy = cell / RS, wx = cell - wy * RS;
+      const int gy = wy0 + wy, gxc = wx0 + wx;
+      const float v = win[cell_at(cell, jc, cc, cells)];
+      if (wx >= WW || gy < 0 || gy >= H || gxc < 0 || gxc >= W || v == 0.0f) {
         continue;
       }
-      atomicAdd(grad_x + (c0 + jc) * HW + gy * W + gxc, win[i]);
+      atomicAdd(grad_x + (c0 + jc) * HW + gy * W + gxc, v);
     }
   }
 }
@@ -451,41 +461,18 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <typename T>
-int launch_im2col(const T* x, const float* o, const float* m, float* out,
-                  int C, int H, int W, int G, int margin, int chunk,
-                  int smem_bytes, dim3 grid, cudaStream_t s) {
-  if (margin < 0) {
-    dcn_im2col_tile<T, false><<<grid, kImThreads, 0, s>>>(
-        x, o, m, out, C, H, W, G, margin, chunk);
-  } else {
-    const cudaError_t e = allow_smem(dcn_im2col_tile<T, true>, smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dcn_im2col_tile<T, true><<<grid, kImThreads, smem_bytes, s>>>(
-        x, o, m, out, C, H, W, G, margin, chunk);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Kernel E. dtype: 0 = float32, 1 = bfloat16 (x); offset, mask and cols
-// float32, contiguous. margin < 0: corners from global memory, chunk and
-// smem_bytes 0; margin >= 0: x staged in shared memory chunk channels at a
-// time, smem_bytes = chunk * (4 + 2 (margin + 1)) * (32 + 2 (margin + 1))
-// * 4. Returns cudaGetLastError() after the launch.
+// float32, contiguous. Returns cudaGetLastError() after the launch.
 extern "C" int llvod_dcn_im2col(const void* x, const void* offset,
                                 const void* mask, void* cols, int N, int C,
-                                int H, int W, int G, int dtype, int margin,
-                                int chunk, int smem_bytes, void* stream) {
+                                int H, int W, int G, int dtype,
+                                void* stream) {
   if (bad_shape(N, C, H, W, G)) return kInvalid;
   const long long ng = static_cast<long long>(N) * G;
   const int tiles_y = (H + kImRows - 1) / kImRows;
   if (ng > kMaxGrid || tiles_y > kMaxGrid) return kInvalid;
-  const int want = margin < 0 ? 0
-                              : chunk * im_window_h(margin) *
-                                    im_window_w(margin) * 4;
-  if (smem_bytes != want || (margin >= 0 && chunk < 1)) return kInvalid;
   if (ng == 0) return 0;
   const dim3 grid((W + kTileW - 1) / kTileW, tiles_y,
                   static_cast<unsigned int>(ng));
@@ -494,22 +481,23 @@ extern "C" int llvod_dcn_im2col(const void* x, const void* offset,
   const float* m = static_cast<const float*>(mask);
   float* out = static_cast<float*>(cols);
   if (dtype == 0) {
-    return launch_im2col(static_cast<const float*>(x), o, m, out, C, H, W, G,
-                         margin, chunk, smem_bytes, grid, s);
+    dcn_im2col_tile<float><<<grid, kImThreads, 0, s>>>(
+        static_cast<const float*>(x), o, m, out, C, H, W, G);
+  } else if (dtype == 1) {
+    dcn_im2col_tile<__nv_bfloat16><<<grid, kImThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), o, m, out, C, H, W, G);
+  } else {
+    return kInvalid;
   }
-  if (dtype == 1) {
-    return launch_im2col(static_cast<const __nv_bfloat16*>(x), o, m, out, C,
-                         H, W, G, margin, chunk, smem_bytes, grid, s);
-  }
-  return kInvalid;
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Kernel F. grad_cols, offset, mask float32; grad_x a zeroed float32
 // [N, C, H, W] buffer that receives x's gradient. Tiles of tile_h x 32
 // pixels (1 <= tile_h <= 8), a window margin of margin >= 0 pixels, chunk
-// channels a block (at most C / G); smem_bytes = chunk * (tile_h + 2
-// (margin + 1)) * (32 + 2 ceil4(margin + 1)) * 4. Returns
-// cudaGetLastError() after the launch.
+// channels a block (at most C / G); smem_bytes = (chunk * (tile_h + 2
+// (margin + 1)) * (34 + 2 ceil4(margin + 1)) + 32 tile_h * 13) * 4.
+// Returns cudaGetLastError() after the launch.
 extern "C" int llvod_dcn_col2im(const void* grad_cols, const void* offset,
                                 const void* mask, void* grad_x, int N, int C,
                                 int H, int W, int G, int tile_h, int margin,
@@ -523,10 +511,7 @@ extern "C" int llvod_dcn_col2im(const void* grad_cols, const void* offset,
   const long long z = static_cast<long long>(N) * G * chunks;
   const int tiles_y = (H + tile_h - 1) / tile_h;
   if (z > kMaxGrid || tiles_y > kMaxGrid) return kInvalid;
-  if (smem_bytes != chunk * col_window_h(tile_h, margin) *
-                        col_window_w(margin) * 4) {
-    return kInvalid;
-  }
+  if (smem_bytes != col_smem_bytes(tile_h, margin, chunk)) return kInvalid;
   if (z == 0) return 0;
   const cudaError_t e = allow_smem(dcn_col2im_tile, smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -31,10 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # x, offset, mask, cols, N, C, H, W, G, dtype, margin, chunk,
-    # smem_bytes, stream
-    "llvod_dcn_im2col": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+    # x, offset, mask, cols, N, C, H, W, G, dtype, stream
+    "llvod_dcn_im2col": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # grad_cols, offset, mask, grad_x (f32), N, C, H, W, G, tile_h, margin,
     # chunk, smem_bytes, stream
     "llvod_dcn_col2im": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -55,6 +55,7 @@ IM2COL_ROWS = 4
 COL2IM_ROWS = 8
 COL2IM_MARGIN = 3
 COL2IM_CHUNK = 8
+COL2IM_RECORD = 13  # floats of a sample's record in F's shared memory
 SMEM_LIMIT = 232448  # a block's shared memory on the H100 (227 KB)
 GRID_LIMIT = 65535   # gridDim.y and gridDim.z
 
@@ -297,7 +298,8 @@ class Col2imGeometry(NamedTuple):
     """Kernel F's launch: tiles of ``rows`` x ``TILE_W`` output pixels, a
     shared f32 window of ``window`` (rows, columns) pixels around each for
     ``chunk`` of the group's channels, ``chunks`` blocks a group and tile,
-    ``smem_bytes`` of dynamic shared memory a block."""
+    ``smem_bytes`` of dynamic shared memory a block (the window, its rows 2
+    cells longer, and a record of COL2IM_RECORD floats a thread)."""
     rows: int
     margin: int
     chunk: int
@@ -322,7 +324,8 @@ def col2im_geometry(c: int, g: int, h: int = 1, n: int = 1,
     chunk = min(chunk, cpg)
     chunks = -(-cpg // chunk)
     window = (rows + 2 * (margin + 1), TILE_W + 2 * _ceil4(margin + 1))
-    smem = chunk * window[0] * window[1] * 4
+    smem = (chunk * window[0] * (window[1] + 2)
+            + rows * TILE_W * COL2IM_RECORD) * 4
     if (smem > SMEM_LIMIT or n * g * chunks > GRID_LIMIT
             or -(-h // rows) > GRID_LIMIT):
         raise ValueError(f"deform_col2im: {smem} bytes of shared memory or "
@@ -331,25 +334,15 @@ def col2im_geometry(c: int, g: int, h: int = 1, n: int = 1,
     return Col2imGeometry(rows, margin, chunk, chunks, window, smem)
 
 
-def _im2col_staging(margin: int, chunk: int):
-    """(margin, chunk, smem_bytes) of kernel E staging x's window in shared
-    memory; (-1, 0, 0) for no staging (margin < 0)."""
-    if margin < 0:
-        return -1, 0, 0
-    return (margin, chunk, chunk * (IM2COL_ROWS + 2 * (margin + 1))
-            * (TILE_W + 2 * (margin + 1)) * 4)
-
-
 def deform_columns(x: torch.Tensor, offset: torch.Tensor,
-                   mask: torch.Tensor, staging=(-1, 0)) -> torch.Tensor:
+                   mask: torch.Tensor) -> torch.Tensor:
     """Kernel E: the f32 columns [N, Cin * 9, H * W] of
     ``deform_columns_plain``, bit for bit; f32 offsets and mask, f32 or bf16
     x. One block per (image, deform group, tile of 4 x 32 output pixels),
     one thread per tap and 4 consecutive pixels: it computes the 4 samples
     once and, for each of the group's channels, gathers their corners and
-    writes the 4 columns with one 16-byte streaming store. ``staging``
-    (margin, chunk) with margin >= 0 stages x's window in shared memory
-    chunk channels at a time. CPU tensors take the plain version."""
+    writes the 4 columns with one 16-byte streaming store. CPU tensors take
+    the plain version."""
     if x.device.type == "cpu":
         return deform_columns_plain(x, offset, mask)
     x, offset, mask, g = _check_cuda(x, offset, mask, "deform_columns")
@@ -358,8 +351,7 @@ def deform_columns(x: torch.Tensor, offset: torch.Tensor,
     if cols.numel():
         status = cuda_build.load_library().llvod_dcn_im2col(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
-            n, c, h, w, g, _DTYPES[x.dtype], *_im2col_staging(*staging),
-            _stream(x))
+            n, c, h, w, g, _DTYPES[x.dtype], _stream(x))
         cuda_build.check(status, "llvod_dcn_im2col")
         deform_columns.launches += 1
     return cols

@@ -731,19 +731,6 @@ def test_dcn_col2im_geometries(dev, offsets, rows, margin, chunk):
                                atol=1e-5 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("margin,chunk", [(0, 1), (1, 8), (3, 5)])
-def test_dcn_im2col_staged_is_exact(dev, dtype, margin, chunk):
-    """Kernel E staging x's window in shared memory gives the plain
-    columns bit for bit, corners beyond the window read from global
-    memory."""
-    for offsets in ("random", "far"):
-        x, off, mask = _dcn_inputs(dev, 2, 16, 19, 45, 2, dtype, offsets)
-        torch.testing.assert_close(
-            dcn.deform_columns(x, off, mask, staging=(margin, chunk)),
-            dcn.deform_columns_plain(x, off, mask), rtol=0, atol=0)
-
-
 def test_dcn_kernels_stage_shapes(dev):
     """The aggregator's four stage shapes at T = 3 (stage 0 at 152 x 256):
     one launch each of E, F and G against the plain versions, bf16 x."""

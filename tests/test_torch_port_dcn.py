@@ -261,7 +261,8 @@ def test_col2im_geometry_fits(n, c, h, w, g):
     geo = tdcn.col2im_geometry(c, g, h, n)
     cpg = c // g
     wh, ww = geo.window
-    assert geo.smem_bytes == geo.chunk * wh * ww * 4
+    assert geo.smem_bytes == (geo.chunk * wh * (ww + 2)
+                              + geo.rows * tdcn.TILE_W * 13) * 4
     assert geo.smem_bytes <= 227 * 1024
     assert 2 * (geo.smem_bytes + 1024) <= 228 * 1024
     assert 1 <= geo.chunk <= cpg
