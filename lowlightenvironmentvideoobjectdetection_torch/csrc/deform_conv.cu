@@ -45,10 +45,9 @@
 //   group's channels gathers their corners (through L1) and writes the 4
 //   columns with one 16-byte streaming store (st.global.cs.v4.f32: the
 //   columns do not fit L2); scalar stores where the 4 are not 16-byte
-//   aligned or run off the map's row. The gathers' latency bounds it: 72
-//   registers (3 blocks an SM) took it from 0.44 to 0.24 ms at stage 0;
-//   without the gathers it takes 0.13 ms. Staging x's window in shared
-//   memory was 2-3x slower than L1.
+//   aligned or run off the map's row. The gathers' latency bounds it, more
+//   than the stores: it is built for 3 blocks an SM (72 registers).
+//   Staging x's window in shared memory was 2-4x slower than L1 (PERF.md).
 // - Kernel F: one block per (image, deform group, tile of TH x 32 output
 //   pixels, chunk of 8 of the group's channels). The block zeroes an f32
 //   window of x's gradient in shared memory, the tile plus a margin: TH + 2
