@@ -68,10 +68,9 @@ non-zero.
     python3 chip_smoke.py --roi-grad-times ROOT
     python3 chip_smoke.py --dcn-times ROOT
 
-run kernel D's cases, or DCNv2's (E, F, G at every offset scale, and F's
-tile, margin and chunk variants where the package has them), alone with the
-package of the checkout at ROOT (for comparing two commits in one call) and
-print their JSON line.
+run kernel D's cases, or DCNv2's (E, F, G at every offset scale), alone
+with the package of the checkout at ROOT (for comparing two commits in one
+call) and print their JSON line.
 """
 
 from __future__ import annotations
@@ -144,9 +143,6 @@ AGG_OFFSET_STD = 1.5
 # map): 0 as in a step near the zero init, agg_agree's std, and PR 8's cases
 DCN_OFFSETS = (("std0", 0.0, False), ("std1.5", AGG_OFFSET_STD, False),
                ("std2.5", 2.5, True))
-# timed by --dcn-times: kernel F's (rows, margin, chunk), its default first
-DCN_F_VARIANTS = ((8, 3, 8), (8, 1, 8), (8, 7, 8), (8, 3, 4), (8, 3, 16),
-                  (4, 3, 8))
 NO_LIBRARY_DCN = "none (no torchvision): no PyTorch call computes DCNv2"
 SERVE_STEPS = 3         # per-frame batched steps after the clips
 AGREE_S, AGREE_T = 2, 3  # serve_agree: streams, frames (roll every 2nd)
@@ -543,59 +539,7 @@ def dcn_check(ops, tag, x, off, mask, g, errs):
     return grad_cols
 
 
-def window_misses(ops, off, h, w, geo):
-    """The share of kernel F's in-map corners that lie outside their
-    tile's shared window (added to global memory directly) under the
-    geometry ``geo``, and the share of corners outside the map."""
-    n, hw = off.shape[0], h * w
-    o = off.float().reshape(n, -1, 2, 9, hw)
-    k = torch.arange(9, device=off.device)
-    p = torch.arange(hw, device=off.device)
-    py, px = p // w, p % w
-    y0 = torch.floor((py + (k // 3 - 1)[:, None]).float() + o[:, :, 0])
-    x0 = torch.floor((px + (k % 3 - 1)[:, None]).float() + o[:, :, 1])
-    ty0 = (py // geo.rows) * geo.rows
-    tx0 = (px // ops.TILE_W) * ops.TILE_W
-    side = geo.window[1] - ops.TILE_W >> 1
-    inside = outside = total = 0
-    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
-        cy, cx = y0 + dy, x0 + dx
-        in_map = (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
-        in_win = ((cy >= ty0 - geo.margin - 1)
-                  & (cy < ty0 - geo.margin - 1 + geo.window[0])
-                  & (cx >= tx0 - side) & (cx < tx0 - side + geo.window[1]))
-        inside += int(in_map.sum())
-        outside += int((in_map & ~in_win).sum())
-        total += in_map.numel()
-    return dict(outside_window=outside / max(inside, 1),
-                outside_map=1 - inside / total)
-
-
-def dcn_variants(ops, x, off, mask, grad_cols, want_gx):
-    """Device ms (``graph_ms``) of kernel F at the geometries of
-    DCN_F_VARIANTS, each checked first against ``want_gx`` (DCN_REL x max
-    |grad|, DCN_BF16_RTOL), with the share of corners outside the
-    window."""
-    n, c, h, w = x.shape
-    g = mask.shape[1] // 9
-    times = {}
-    atol = DCN_REL * want_gx.float().abs().max().item()
-    for rows, margin, chunk in DCN_F_VARIANTS:
-        geo = ops.col2im_geometry(c, g, h, n, rows=rows, margin=margin,
-                                  chunk=chunk)
-        name = f"F_rows{rows}_margin{margin}_chunk{geo.chunk}"
-
-        def f_kernel():
-            return ops.deform_col2im(grad_cols, x, off, mask, geometry=geo)
-
-        check_close(name, f_kernel(), want_gx, DCN_BF16_RTOL, atol)
-        times[name] = dict(graph_ms=graph_ms(f_kernel),
-                           smem_bytes=geo.smem_bytes,
-                           **window_misses(ops, off, h, w, geo))
-    return times
-
-
-def dcn_kernels(dev, g, ops, errs, variants=False):
+def dcn_kernels(dev, g, ops, errs):
     """Kernels E, F and G at each of DCN_SHAPES and each offset scale of
     DCN_OFFSETS, f32 and bf16 x, through ``dcn_check``. Then at bf16 x, as
     the aggregator's training gives it: E and F at every offset scale
@@ -603,8 +547,7 @@ def dcn_kernels(dev, g, ops, errs, variants=False):
     the map (PR 8's cases, drawn from ``g``; the others from their own
     generators) also G, and each beside its plain version in the turns
     plain, kernel, kernel, plain (F's and G's plain version is the one
-    plain backward that gives both); each with the bound. With
-    ``variants``, also ``dcn_variants`` at every scale. Returns {E, F, G:
+    plain backward that gives both); each with the bound. Returns {E, F, G:
     stage 0's entry with the other stages under their names, each stage's
     entry with the times at every scale under ``offsets``}."""
     out = {k: {} for k in "EFG"}
@@ -655,12 +598,6 @@ def dcn_kernels(dev, g, ops, errs, variants=False):
                         entry["plain_note"] = (
                             "the plain backward computes F's and G's "
                             "outputs together")
-            if variants:
-                want_gx = ops.modulated_deform_conv_backward_plain(
-                    grad_cols, x, off, mask)[0]
-                out["F"][name].setdefault("variants", {})[scale] = \
-                    dcn_variants(ops, x, off, mask, grad_cols, want_gx)
-                del want_gx
             del x, off, mask, grad_cols
     for kern, entries in out.items():
         first = entries.pop("stage0")
@@ -1920,15 +1857,13 @@ def dcn_times(root, dev, smi) -> int:
     """``--dcn-times ROOT``: DCNv2's cases of the ``kernels`` phase alone
     (``dcn_kernels``), with the package of the checkout at ROOT, so that two
     commits compare in one call (unpack the earlier one with ``git archive``
-    and run both in the turns parent, change, change, parent); with the
-    variants (``dcn_variants``) where the package has ``col2im_geometry``.
-    Prints one JSON line of E's, F's and G's entries."""
+    and run both in the turns parent, change, change, parent). Prints one
+    JSON line of E's, F's and G's entries."""
     root = build_checkout(root)
     from lowlightenvironmentvideoobjectdetection_torch.ops import (
         deform_conv as dcn_ops)
     errs = {}
-    out = dcn_kernels(dev, torch.Generator().manual_seed(0), dcn_ops, errs,
-                      variants=hasattr(dcn_ops, "col2im_geometry"))
+    out = dcn_kernels(dev, torch.Generator().manual_seed(0), dcn_ops, errs)
     print(json.dumps(dict(root=str(root), card=smi, dcn=out,
                           max_abs_err=errs)), flush=True)
     return 0

@@ -48,18 +48,19 @@
 //   aligned or run off the map's row. The gathers' latency bounds it, more
 //   than the stores: it is built for 3 blocks an SM (72 registers).
 //   Staging x's window in shared memory was 2-4x slower than L1 (PERF.md).
-// - Kernel F: one block per (image, deform group, tile of TH x 32 output
+// - Kernel F: one block per (image, deform group, tile of 8 x 32 output
 //   pixels, chunk of 8 of the group's channels). The block zeroes an f32
-//   window of x's gradient in shared memory, the tile plus a margin: TH + 2
-//   + 2R rows and 32 + 2 ceil4(R + 1) columns (its left edge on 16 bytes).
-//   Each thread takes one pixel and loops over the 9 taps: it reads dy, dx
-//   and m once, computes the sample once and reads grad_cols for the
-//   chunk's 8 channels (a warp reads a row's 128 bytes), and adds each
-//   corner in the map but outside the window (an offset beyond R pixels)
-//   to global memory itself. The corners inside go through the warp: each
-//   thread writes a record (g * m for the 8 channels, the 4 corners'
-//   weights, the corner's window cell), then the warp adds the 32 records
-//   one at a time, lane = (channel, corner), with shared-memory atomics.
+//   window of x's gradient in shared memory, the tile plus a margin of R = 3
+//   pixels: 8 + 2 (R + 1) rows and 32 + 2 ceil4(R + 1) columns (its left
+//   edge on 16 bytes). Each thread takes one pixel and loops over the 9
+//   taps: it reads dy, dx and m once, computes the sample once and reads
+//   grad_cols for the chunk's channels (a warp reads a row's 128 bytes),
+//   and adds each corner in the map but outside the window (an offset
+//   beyond R pixels) to global memory itself. The corners inside go through
+//   the warp: each thread writes a record (g * m for the 8 channels, 0 for
+//   those past a short chunk's end, the 4 corners' weights, the corner's
+//   window cell), then the warp adds the 32 records one at a time, lane =
+//   (channel, corner), with shared-memory atomics.
 //   A shared f32 atomic add is a compare-and-swap loop on sm_90 (ATOMS.CAS)
 //   and bank conflicts multiply its cost: with a thread's own adds, lanes
 //   on random corners made F twice as slow at offsets of 1.5 px as at 0.
@@ -70,13 +71,11 @@
 //   instruction, skipping vectors that stayed zero (scalar atomics where W
 //   is not a multiple of 4). Windows of neighbouring tiles overlap, so the
 //   flush stays atomic. The global atomic operations per channel and tile
-//   fall from up to 9 x 4 x TH x 32 scalar adds to at most (TH + 2 + 2R)
-//   (32 + 2 ceil4(R + 1)) / 4 vector adds. A chunk smaller than 8 (groups
-//   of fewer channels, a group's last chunk) keeps a plane per channel and
-//   each thread adds its own corners.
-// The wrapper (ops/deform_conv.py) chooses TH, R and the chunk and gives the
-// shared memory's bytes; the entry checks that they agree. Times: PERF.md
-// (chip_smoke.py, H100 80GB HBM3 at 700 W).
+//   fall from up to 9 x 4 x 8 x 32 scalar adds to at most 16 x 40 / 4
+//   vector adds. The tile's rows, R and the chunk were chosen by timing
+//   (margins 1, 3, 7; chunks 4, 8, 16; 4 or 8 rows); the window and the
+//   records take 34,816 bytes a block. Times: PERF.md (chip_smoke.py, H100
+//   80GB HBM3 at 700 W).
 //
 // G takes one thread per (image, group, tap, pixel) and loops over the
 // group's channels, so the sums over channels need no atomics. Positions
@@ -95,7 +94,8 @@ constexpr int kThreads = 256;           // kernel G
 constexpr int kTileW = 32;              // E and F: a tile row is a warp
 constexpr int kImRows = 4;              // E: 4 rows of 8 lanes x 4 pixels
 constexpr int kImThreads = kTaps * 32;  // E: one warp a tap
-constexpr int kColMaxRows = 8;          // F: TH x 32 threads, TH <= 8
+constexpr int kColRows = 8;             // F: 8 x 32 threads, one a pixel
+constexpr int kColMargin = 3;           // F: window margin in pixels
 constexpr int kColChunk = 8;            // F: the chunk its warps share out
 constexpr int kRec = kColChunk + 5;     // F: a sample's record (odd: no
                                         // bank conflicts when written)
@@ -147,27 +147,24 @@ __device__ __forceinline__ Sample sample_at(float dy, float dx, int py,
   return s;
 }
 
-__host__ __device__ __forceinline__ int ceil4(int v) { return (v + 3) & ~3; }
+constexpr int ceil4(int v) { return (v + 3) & ~3; }
 
-// Kernel F's shared window: TH rows plus margin + 1 on each side, and 32
-// columns plus ceil4(margin + 1) on each side, so that its columns start
+// Kernel F's shared window: 8 rows plus kColMargin + 1 on each side, and 32
+// columns plus ceil4(kColMargin + 1) on each side, so that its columns start
 // on a multiple of 4 pixels (tiles start on multiples of 32); its rows are
-// 2 cells longer than that (RS = 2 mod 4; the 2 are never used). Then a
-// record of kRec floats for each thread.
-__host__ __device__ __forceinline__ int col_window_h(int rows, int margin) {
-  return rows + 2 * (margin + 1);
-}
-__host__ __device__ __forceinline__ int col_window_w(int margin) {
-  return kTileW + 2 * ceil4(margin + 1);
-}
-__host__ __device__ __forceinline__ int col_row_stride(int margin) {
-  return col_window_w(margin) + 2;
-}
-__host__ __device__ __forceinline__ int col_smem_bytes(int rows, int margin,
-                                                       int chunk) {
-  return (chunk * col_window_h(rows, margin) * col_row_stride(margin) +
-          rows * kTileW * kRec) * 4;
-}
+// 2 cells longer than that (kColRS = 2 mod 4; the 2 are never used), each
+// cell the chunk's 8 channels. Then a record of kRec floats a thread.
+constexpr int kColSide = ceil4(kColMargin + 1);
+constexpr int kColWH = kColRows + 2 * (kColMargin + 1);
+constexpr int kColWW = kTileW + 2 * kColSide;
+constexpr int kColRS = kColWW + 2;
+constexpr int kColCells = kColWH * kColRS;
+constexpr int kColWin = kColChunk * kColCells;
+constexpr int kColThreads = kColRows * kTileW;
+static_assert(kColRS % 4 == 2, "a record's 32 adds must fall in 32 banks");
+static_assert((kColWin + kColThreads * kRec) * 4 <= 48 * 1024,
+              "F's window and records must fit static shared memory");
+static_assert((kColWin + kColThreads * kRec) % 4 == 0, "whole float4s");
 
 // Kernel E: block (tile x, tile y, image * G + group), 9 warps; warp k takes
 // tap k, lane l the 4 pixels from column 4 (l % 8) of row l / 8. The
@@ -242,40 +239,31 @@ __device__ __forceinline__ void red_add_v4(float* p, float4 v) {
                : "memory");
 }
 
-// Kernel F's window cell for channel c of a block's cc: a full chunk of 8
-// interleaves them per cell, a smaller one keeps a plane per channel.
-__device__ __forceinline__ int cell_at(int cell, int c, int cc, int cells) {
-  return cc == kColChunk ? cell * kColChunk + c : c * cells + cell;
-}
-
 // Kernel F: block (tile x, tile y, (image * G + group) * chunks + chunk) of
-// TH x 32 threads, one a pixel; x's gradient summed in a shared window of
-// chunk channels (cell_at), then flushed into grad_x (see the head of this
-// file). With a full chunk of
-// 8 channels each warp adds its row's samples one at a time, lane = (channel
-// lane / 4, corner lane % 4), from records that each thread writes for its
-// own sample: the 32 addresses are distinct and, as RS = 2 (mod 4), lie in
-// 32 distinct banks whatever the offsets (a shared f32 atomic add is a
-// compare-and-swap loop on sm_90, and bank conflicts multiply its cost).
-__global__ void __launch_bounds__(kColMaxRows * kTileW)
-    dcn_col2im_tile(const float* __restrict__ grad_cols,
-                    const float* __restrict__ offset,
-                    const float* __restrict__ mask, float* grad_x, int C,
-                    int H, int W, int G, int margin, int chunk, int chunks) {
-  extern __shared__ float4 win4[];
-  float* win = reinterpret_cast<float*>(win4);
-  const int rows = blockDim.x / kTileW;
-  const int WH = col_window_h(rows, margin), WW = col_window_w(margin);
-  const int RS = col_row_stride(margin), cells = WH * RS;
-  const int ty0 = blockIdx.y * rows, tx0 = blockIdx.x * kTileW;
-  const int wy0 = ty0 - margin - 1, wx0 = tx0 - ceil4(margin + 1);
+// 8 x 32 threads, one a pixel; x's gradient summed in a shared window of the
+// chunk's channels, interleaved per cell, then flushed into grad_x (see the
+// head of this file). Each warp adds its row's samples one at a time, lane =
+// (channel lane / 4, corner lane % 4), from records that each thread writes
+// for its own sample: the 32 addresses are distinct and, as kColRS = 2
+// (mod 4), lie in 32 distinct banks whatever the offsets (a shared f32
+// atomic add is a compare-and-swap loop on sm_90, and bank conflicts
+// multiply its cost). A chunk of cc < 8 channels leaves lanes cc * 4 and up
+// idle. The body is compiled for a full chunk (kFull: cc = 8 known) and for
+// a short one; with cc known only at run time F was 6-14% slower.
+template <bool kFull>
+__device__ __forceinline__ void col2im_block(
+    float* win, const float* __restrict__ grad_cols,
+    const float* __restrict__ offset, const float* __restrict__ mask,
+    float* grad_x, int C, int H, int W, int G, int chunks) {
+  const int ty0 = blockIdx.y * kColRows, tx0 = blockIdx.x * kTileW;
+  const int wy0 = ty0 - kColMargin - 1, wx0 = tx0 - kColSide;
   const int ng = blockIdx.z / chunks;
-  const int j0 = (blockIdx.z - ng * chunks) * chunk;
+  const int j0 = (blockIdx.z - ng * chunks) * kColChunk;
   const int n = ng / G, g = ng - n * G;
   const int HW = H * W, cpg = C / G;
-  const int cc = min(chunk, cpg - j0);
-  float* rec = win + chunk * cells;  // kRec floats a thread
-  for (int i = threadIdx.x; i < cc * cells; i += blockDim.x) win[i] = 0.0f;
+  const int cc = kFull ? kColChunk : min(kColChunk, cpg - j0);
+  float* rec = win + kColWin;  // kRec floats a thread
+  for (int i = threadIdx.x; i < kColWin; i += kColThreads) win[i] = 0.0f;
   __syncthreads();
   const long long c0 = static_cast<long long>(n) * C + g * cpg + j0;
   const int lane = threadIdx.x % kTileW;
@@ -288,6 +276,8 @@ __global__ void __launch_bounds__(kColMaxRows * kTileW)
   float* gx = grad_x + c0 * HW;
   float* mine = rec + threadIdx.x * kRec;
   const float* warp_rec = rec + (threadIdx.x - lane) * kRec;
+  const int ch = lane >> 2, q = lane & 3;
+  const int d = (q >> 1) * kColRS + (q & 1);
   for (int k = 0; k < kTaps; ++k) {
     Sample s;
     float m = 0.0f;
@@ -298,40 +288,38 @@ __global__ void __launch_bounds__(kColMaxRows * kTileW)
                     W);
       m = msk[k * HW + p];
       const int ry = s.y0 - wy0, rx = s.x0 - wx0;
-      base = ry * RS + rx;
+      base = ry * kColRS + rx;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int cy = ry + (q >> 1), cx = rx + (q & 1);
-        in_win[q] = s.ok[q] && cy >= 0 && cy < WH && cx >= 0 && cx < WW;
+      for (int c = 0; c < 4; ++c) {
+        const int cy = ry + (c >> 1), cx = rx + (c & 1);
+        in_win[c] = s.ok[c] && cy >= 0 && cy < kColWH && cx >= 0 &&
+                    cx < kColWW;
       }
     }
-    if (cc == kColChunk) {
-      float gm[kColChunk];
+    float gm[kColChunk];
+#pragma unroll
+    for (int t = 0; t < kColChunk; ++t) {
+      gm[t] = in_map && t < cc ? __fmul_rn(gc[(t * kTaps + k) * HW], m)
+                               : 0.0f;
+    }
+    // corners in the map but outside the window: global adds, by the
+    // sample's own thread
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!in_map || !s.ok[c] || in_win[c]) continue;
 #pragma unroll
       for (int t = 0; t < kColChunk; ++t) {
-        gm[t] = in_map ? __fmul_rn(gc[(t * kTaps + k) * HW], m) : 0.0f;
+        if (t < cc) atomicAdd(gx + t * HW + s.o[c], __fmul_rn(gm[t], s.w[c]));
       }
-      // corners in the map but outside the window: global adds, by the
-      // sample's own thread
+    }
+    __syncwarp();  // the warp has read the previous tap's records
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (!in_map || !s.ok[q] || in_win[q]) continue;
+    for (int t = 0; t < kColChunk; ++t) mine[t] = gm[t];
 #pragma unroll
-        for (int t = 0; t < kColChunk; ++t) {
-          atomicAdd(gx + t * HW + s.o[q], __fmul_rn(gm[t], s.w[q]));
-        }
-      }
-      __syncwarp();  // the warp has read the previous tap's records
-#pragma unroll
-      for (int t = 0; t < kColChunk; ++t) mine[t] = gm[t];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        mine[kColChunk + q] = in_win[q] ? s.w[q] : 0.0f;
-      }
-      mine[kColChunk + 4] = __int_as_float(base);
-      __syncwarp();
-      const int ch = lane >> 2, q = lane & 3;
-      const int d = (q >> 1) * RS + (q & 1);
+    for (int c = 0; c < 4; ++c) mine[kColChunk + c] = in_win[c] ? s.w[c] : 0.0f;
+    mine[kColChunk + 4] = __int_as_float(base);
+    __syncwarp();
+    if (ch < cc) {
       for (int i = 0; i < kTileW; ++i) {
         const float* r = warp_rec + i * kRec;
         const float wq = r[kColChunk + q];
@@ -340,52 +328,52 @@ __global__ void __launch_bounds__(kColMaxRows * kTileW)
           atomicAdd(win + cell * kColChunk + ch, __fmul_rn(r[ch], wq));
         }
       }
-    } else if (in_map) {
-      for (int jc = 0; jc < cc; ++jc) {
-        const float gm = __fmul_rn(gc[(jc * kTaps + k) * HW], m);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (!s.ok[q]) continue;
-          const float a = __fmul_rn(gm, s.w[q]);
-          if (in_win[q]) {
-            atomicAdd(win + cell_at(base + (q >> 1) * RS + (q & 1), jc, cc,
-                                    cells),
-                      a);
-          } else {
-            atomicAdd(gx + jc * HW + s.o[q], a);
-          }
-        }
-      }
     }
   }
   __syncthreads();
   if ((W & 3) == 0) {  // whole 16-byte vectors: wx0 and W are multiples of 4
-    const int WW4 = WW / 4;
-    for (int i = threadIdx.x; i < cc * WH * WW4; i += blockDim.x) {
-      const int r = i / cc, jc = i - r * cc;
-      const int wy = r / WW4, q = r - wy * WW4;
-      const int gy = wy0 + wy, gxc = wx0 + 4 * q;
-      if (gy < 0 || gy >= H || gxc < 0 || gxc >= W) continue;
-      const int cell = wy * RS + 4 * q;
-      const float4 v = make_float4(win[cell_at(cell, jc, cc, cells)],
-                                   win[cell_at(cell + 1, jc, cc, cells)],
-                                   win[cell_at(cell + 2, jc, cc, cells)],
-                                   win[cell_at(cell + 3, jc, cc, cells)]);
+    constexpr int WW4 = kColWW / 4;
+    for (int i = threadIdx.x; i < kColChunk * kColWH * WW4;
+         i += kColThreads) {
+      const int r = i / kColChunk, jc = i - r * kColChunk;
+      const int wy = r / WW4, v4 = r - wy * WW4;
+      const int gy = wy0 + wy, gxc = wx0 + 4 * v4;
+      if (jc >= cc || gy < 0 || gy >= H || gxc < 0 || gxc >= W) continue;
+      const float* cell = win + (wy * kColRS + 4 * v4) * kColChunk + jc;
+      const float4 v = make_float4(cell[0], cell[kColChunk],
+                                   cell[2 * kColChunk], cell[3 * kColChunk]);
       if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) {
         red_add_v4(grad_x + (c0 + jc) * HW + gy * W + gxc, v);
       }
     }
   } else {
-    for (int i = threadIdx.x; i < cc * cells; i += blockDim.x) {
-      const int jc = i / cells, cell = i - jc * cells;
-      const int wy = cell / RS, wx = cell - wy * RS;
+    for (int i = threadIdx.x; i < kColWin; i += kColThreads) {
+      const int cell = i / kColChunk, jc = i - cell * kColChunk;
+      const int wy = cell / kColRS, wx = cell - wy * kColRS;
       const int gy = wy0 + wy, gxc = wx0 + wx;
-      const float v = win[cell_at(cell, jc, cc, cells)];
-      if (wx >= WW || gy < 0 || gy >= H || gxc < 0 || gxc >= W || v == 0.0f) {
+      const float v = win[i];
+      if (jc >= cc || wx >= kColWW || gy < 0 || gy >= H || gxc < 0 ||
+          gxc >= W || v == 0.0f) {
         continue;
       }
       atomicAdd(grad_x + (c0 + jc) * HW + gy * W + gxc, v);
     }
+  }
+}
+
+__global__ void __launch_bounds__(kColThreads)
+    dcn_col2im_tile(const float* __restrict__ grad_cols,
+                    const float* __restrict__ offset,
+                    const float* __restrict__ mask, float* grad_x, int C,
+                    int H, int W, int G, int chunks) {
+  __shared__ float4 win4[(kColWin + kColThreads * kRec) / 4];
+  float* win = reinterpret_cast<float*>(win4);
+  if (C / G - (blockIdx.z % chunks) * kColChunk >= kColChunk) {
+    col2im_block<true>(win, grad_cols, offset, mask, grad_x, C, H, W, G,
+                       chunks);
+  } else {
+    col2im_block<false>(win, grad_cols, offset, mask, grad_x, C, H, W, G,
+                        chunks);
   }
 }
 
@@ -451,19 +439,11 @@ bool bad_shape(int N, int C, int H, int W, int G) {
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
-// Dynamic shared memory above the default 48 KB must be allowed per kernel.
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
 }  // namespace
 
 // Kernel E. dtype: 0 = float32, 1 = bfloat16 (x); offset, mask and cols
-// float32, contiguous. Returns cudaGetLastError() after the launch.
+// float32, contiguous. Returns cudaErrorInvalidValue for a grid beyond its
+// limits, else cudaGetLastError() after the launch.
 extern "C" int llvod_dcn_im2col(const void* x, const void* offset,
                                 const void* mask, void* cols, int N, int C,
                                 int H, int W, int G, int dtype,
@@ -492,35 +472,25 @@ extern "C" int llvod_dcn_im2col(const void* x, const void* offset,
 }
 
 // Kernel F. grad_cols, offset, mask float32; grad_x a zeroed float32
-// [N, C, H, W] buffer that receives x's gradient. Tiles of tile_h x 32
-// pixels (1 <= tile_h <= 8), a window margin of margin >= 0 pixels, chunk
-// channels a block (at most C / G); smem_bytes = (chunk * (tile_h + 2
-// (margin + 1)) * (34 + 2 ceil4(margin + 1)) + 32 tile_h * 13) * 4.
-// Returns cudaGetLastError() after the launch.
+// [N, C, H, W] buffer that receives x's gradient. Returns
+// cudaErrorInvalidValue for a grid beyond its limits, else
+// cudaGetLastError() after the launch.
 extern "C" int llvod_dcn_col2im(const void* grad_cols, const void* offset,
                                 const void* mask, void* grad_x, int N, int C,
-                                int H, int W, int G, int tile_h, int margin,
-                                int chunk, int smem_bytes, void* stream) {
+                                int H, int W, int G, void* stream) {
   if (bad_shape(N, C, H, W, G)) return kInvalid;
-  if (tile_h < 1 || tile_h > kColMaxRows || margin < 0 || chunk < 1 ||
-      chunk > C / G) {
-    return kInvalid;
-  }
-  const int chunks = (C / G + chunk - 1) / chunk;
+  const int chunks = (C / G + kColChunk - 1) / kColChunk;
   const long long z = static_cast<long long>(N) * G * chunks;
-  const int tiles_y = (H + tile_h - 1) / tile_h;
+  const int tiles_y = (H + kColRows - 1) / kColRows;
   if (z > kMaxGrid || tiles_y > kMaxGrid) return kInvalid;
-  if (smem_bytes != col_smem_bytes(tile_h, margin, chunk)) return kInvalid;
   if (z == 0) return 0;
-  const cudaError_t e = allow_smem(dcn_col2im_tile, smem_bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((W + kTileW - 1) / kTileW, tiles_y,
                   static_cast<unsigned int>(z));
-  dcn_col2im_tile<<<grid, tile_h * kTileW, smem_bytes,
+  dcn_col2im_tile<<<grid, kColThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(grad_cols), static_cast<const float*>(offset),
       static_cast<const float*>(mask), static_cast<float*>(grad_x), C, H, W,
-      G, margin, chunk, chunks);
+      G, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,10 +33,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, offset, mask, cols, N, C, H, W, G, dtype, stream
     "llvod_dcn_im2col": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # grad_cols, offset, mask, grad_x (f32), N, C, H, W, G, tile_h, margin,
-    # chunk, smem_bytes, stream
-    "llvod_dcn_col2im": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+    # grad_cols, offset, mask, grad_x (f32), N, C, H, W, G, stream
+    "llvod_dcn_col2im": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # grad_cols, x, offset, mask, grad_offset, grad_mask, N, C, H, W, G,
     # dtype, stream
     "llvod_dcn_col2im_coord": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

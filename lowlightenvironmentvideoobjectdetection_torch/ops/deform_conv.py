@@ -39,7 +39,7 @@ nothing falls back.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -47,17 +47,7 @@ from . import cuda_build
 
 K = 9  # 3x3 taps
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# launch geometry of kernels E and F (csrc/deform_conv.cu): tiles of
-# output pixels 32 wide (a warp a row); E's 4 rows, F's rows, its window's
-# margin in pixels and its channels a block (chosen by timing, PERF.md)
-TILE_W = 32
-IM2COL_ROWS = 4
-COL2IM_ROWS = 8
-COL2IM_MARGIN = 3
-COL2IM_CHUNK = 8
-COL2IM_RECORD = 13  # floats of a sample's record in F's shared memory
-SMEM_LIMIT = 232448  # a block's shared memory on the H100 (227 KB)
-GRID_LIMIT = 65535   # gridDim.y and gridDim.z
+_INVALID = 1  # cudaErrorInvalidValue: E's and F's C entries, a grid too large
 
 
 def _taps(device):
@@ -279,10 +269,6 @@ def _check_cuda(x, offset, mask, what):
             raise TypeError(f"{what}: {name} must be float32 on x's device")
     if x.numel() * K >= 2 ** 31:
         raise ValueError(f"{what}: 2^31 column elements or more")
-    n, _, h, _ = x.shape
-    if n * g > GRID_LIMIT or -(-h // IM2COL_ROWS) > GRID_LIMIT:
-        raise ValueError(f"{what}: {n} images x {g} groups or {h} rows "
-                         "exceed the grid")
     return x.contiguous(), offset.contiguous(), mask.contiguous(), g
 
 
@@ -290,48 +276,14 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _ceil4(v: int) -> int:
-    return -(-v // 4) * 4
-
-
-class Col2imGeometry(NamedTuple):
-    """Kernel F's launch: tiles of ``rows`` x ``TILE_W`` output pixels, a
-    shared f32 window of ``window`` (rows, columns) pixels around each for
-    ``chunk`` of the group's channels, ``chunks`` blocks a group and tile,
-    ``smem_bytes`` of dynamic shared memory a block (the window, its rows 2
-    cells longer, and a record of COL2IM_RECORD floats a thread)."""
-    rows: int
-    margin: int
-    chunk: int
-    chunks: int
-    window: tuple
-    smem_bytes: int
-
-
-def col2im_geometry(c: int, g: int, h: int = 1, n: int = 1,
-                    rows: int = COL2IM_ROWS, margin: int = COL2IM_MARGIN,
-                    chunk: int = COL2IM_CHUNK) -> Col2imGeometry:
-    """Kernel F's geometry for n images of c channels in g deform groups and
-    h rows: the window is the tile plus margin + 1 pixels on each side, its
-    columns widened to multiples of 4 pixels (16-byte flushes); chunks of
-    min(chunk, c / g) channels cover the group's. Raises ValueError where
-    the kernel cannot take it."""
-    cpg = c // g
-    if not (1 <= rows <= 8 and margin >= 0 and chunk >= 1 and cpg >= 1):
-        raise ValueError(f"deform_col2im: no geometry for rows={rows}, "
-                         f"margin={margin}, chunk={chunk}, {c} channels in "
-                         f"{g} groups")
-    chunk = min(chunk, cpg)
-    chunks = -(-cpg // chunk)
-    window = (rows + 2 * (margin + 1), TILE_W + 2 * _ceil4(margin + 1))
-    smem = (chunk * window[0] * (window[1] + 2)
-            + rows * TILE_W * COL2IM_RECORD) * 4
-    if (smem > SMEM_LIMIT or n * g * chunks > GRID_LIMIT
-            or -(-h // rows) > GRID_LIMIT):
-        raise ValueError(f"deform_col2im: {smem} bytes of shared memory or "
-                         f"a grid of {n * g * chunks} x {-(-h // rows)} "
-                         "blocks is more than a block or a grid takes")
-    return Col2imGeometry(rows, margin, chunk, chunks, window, smem)
+def _check_launch(status: int, name: str) -> None:
+    """Raise ValueError where a tiled entry (E, F) refused the shape: more
+    than 65535 images x groups (x F's chunks of 8 channels) or row tiles
+    for the grid; else as ``cuda_build.check``."""
+    if status == _INVALID:
+        raise ValueError(f"{name}: the shape needs a grid beyond 65535 "
+                         "blocks in y or z")
+    cuda_build.check(status, name)
 
 
 def deform_columns(x: torch.Tensor, offset: torch.Tensor,
@@ -352,7 +304,7 @@ def deform_columns(x: torch.Tensor, offset: torch.Tensor,
         status = cuda_build.load_library().llvod_dcn_im2col(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
             n, c, h, w, g, _DTYPES[x.dtype], _stream(x))
-        cuda_build.check(status, "llvod_dcn_im2col")
+        _check_launch(status, "llvod_dcn_im2col")
         deform_columns.launches += 1
     return cols
 
@@ -367,29 +319,25 @@ def _check_grad_cols(grad_cols, x):
 
 
 def deform_col2im(grad_cols: torch.Tensor, x: torch.Tensor,
-                  offset: torch.Tensor, mask: torch.Tensor,
-                  geometry: Optional[Col2imGeometry] = None) -> torch.Tensor:
+                  offset: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Kernel F: x's gradient, in x's dtype, from the columns' f32 gradient
     [N, Cin * 9, H * W] (x gives the shape and dtype; its values are not
-    read). One block per (image, deform group, tile of output pixels, chunk
-    of the group's channels) sums grad_col * mask * corner weight into a
-    shared f32 window around its tile, each sample computed once for the
-    chunk's channels, a corner outside the window added to global memory
-    directly; then adds the window into a zeroed f32 buffer with 16-byte
-    atomic reductions, cast once. ``geometry`` (``col2im_geometry``'s, for
-    timing other tiles, margins and chunks) defaults to ``COL2IM_ROWS``,
-    ``COL2IM_MARGIN`` and ``COL2IM_CHUNK``. CUDA tensors only."""
+    read). One block per (image, deform group, tile of 8 x 32 output
+    pixels, chunk of 8 of the group's channels) sums grad_col * mask *
+    corner weight into a shared f32 window of the tile and 3 pixels around
+    it, each sample computed once for the chunk's channels, a corner
+    outside the window added to global memory directly; then adds the
+    window into a zeroed f32 buffer with 16-byte atomic reductions, cast
+    once. CUDA tensors only."""
     x, offset, mask, g = _check_cuda(x, offset, mask, "deform_col2im")
     grad_cols = _check_grad_cols(grad_cols, x)
     n, c, h, w = x.shape
-    geo = geometry or col2im_geometry(c, g, h, n)
     grad_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     if grad_cols.numel():
         status = cuda_build.load_library().llvod_dcn_col2im(
             grad_cols.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-            grad_x.data_ptr(), n, c, h, w, g, geo.rows, geo.margin, geo.chunk,
-            geo.smem_bytes, _stream(x))
-        cuda_build.check(status, "llvod_dcn_col2im")
+            grad_x.data_ptr(), n, c, h, w, g, _stream(x))
+        _check_launch(status, "llvod_dcn_col2im")
         deform_col2im.launches += 1
     return grad_x.to(x.dtype)
 

@@ -686,49 +686,32 @@ def _dcn_check(x, off, mask, cout=24, seed=1):
 @pytest.mark.parametrize("n,c,h,w,g", [(2, 16, 9, 13, 8), (1, 8, 7, 5, 1),
                                        (3, 64, 38, 64, 8),
                                        (2, 32, 20, 17, 4),
-                                       (2, 12, 19, 45, 4)])
+                                       (2, 12, 19, 45, 4),
+                                       (1, 12, 19, 45, 1)])
 def test_dcn_kernels_match_plain(dev, dtype, n, c, h, w, g):
-    """Random offsets; the last shape has h and w that no tile divides, W
+    """Random offsets; the last shapes have h and w that no tile divides, W
     not a multiple of 4 (E's and F's scalar stores and adds) and deform
-    groups of 3 channels."""
+    groups of 3 and 12 channels (F's short chunks)."""
     _dcn_check(*_dcn_inputs(dev, n, c, h, w, g, dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("offsets", ["zero", "integer", "outside", "far",
                                      "one_spot"])
-def test_dcn_kernels_edge_offsets(dev, dtype, offsets):
+@pytest.mark.parametrize("c,h,w,g", [(16, 11, 14, 8), (24, 21, 36, 2)])
+def test_dcn_kernels_edge_offsets(dev, dtype, offsets, c, h, w, g):
     """Zero offsets (a plain conv times the mask), whole-pixel offsets
     (every sample on a pixel: the one-sided offset gradient), every sample
     outside the map (zero columns, zero input gradient), offsets far beyond
-    F's window margin, and one image whose samples all land on one
-    point."""
+    F's window margin, and one image whose samples all land on one point;
+    in groups of 2 channels and of 12 (F's full chunk of 8 and a short one
+    of 4; W = 36 flushes 16-byte vectors)."""
     n = 1 if offsets == "one_spot" else 2
-    x, off, mask = _dcn_inputs(dev, n, 16, 11, 14, 8, dtype, offsets)
+    x, off, mask = _dcn_inputs(dev, n, c, h, w, g, dtype, offsets)
     gx, _, _ = _dcn_check(x, off, mask)
     if offsets == "outside":
         assert not dcn.deform_columns(x, off, mask).any()
         assert not gx.any()
-
-
-@pytest.mark.parametrize("offsets", ["random", "far", "one_spot"])
-@pytest.mark.parametrize("rows,margin,chunk", [(8, 0, 1), (1, 7, 16),
-                                               (4, 2, 3), (8, 3, 8)])
-def test_dcn_col2im_geometries(dev, offsets, rows, margin, chunk):
-    """Kernel F at other tiles, window margins and channel chunks (for
-    timing them) gives the plain backward's x gradient: a chunk of 3 of 16
-    channels leaves a partial last chunk, a margin of 0 sends most corners
-    to the global adds; W = 36 flushes 16-byte vectors."""
-    x, off, mask = _dcn_inputs(dev, 2, 16, 21, 36, 2, torch.float32, offsets)
-    geo = dcn.col2im_geometry(16, 2, 21, 2, rows=rows, margin=margin,
-                              chunk=chunk)
-    assert geo.chunk * geo.chunks >= 8 > geo.chunk * (geo.chunks - 1)
-    grad_cols = torch.randn(2, 16 * 9, 21 * 36, device=dev)
-    got = dcn.deform_col2im(grad_cols, x, off, mask, geometry=geo)
-    want = dcn.modulated_deform_conv_backward_plain(grad_cols, x, off,
-                                                    mask)[0]
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=1e-5 * float(want.abs().max()))
 
 
 def test_dcn_kernels_stage_shapes(dev):
@@ -753,8 +736,8 @@ def test_dcn_kernels_stage_shapes(dev):
 
 
 def test_dcn_rejects(dev):
-    """f16 x, bf16 offsets, mismatched shapes and a bad grad_cols raise
-    with no launch."""
+    """f16 x, bf16 offsets, mismatched shapes, a bad grad_cols and more
+    images x groups than E's and F's grids take raise with no launch."""
     x, off, mask = _dcn_inputs(dev, 1, 16, 6, 7, 8, torch.float32)
     before = (dcn.deform_columns.launches, dcn.deform_col2im.launches,
               dcn.deform_col2im_coord.launches)
@@ -770,5 +753,10 @@ def test_dcn_rejects(dev):
     with pytest.raises(TypeError):
         dcn.modulated_deform_conv(x.half(), off, mask,
                                   torch.randn(4, 16, 3, 3, device=dev))
+    xb, ob, mb = _dcn_inputs(dev, 65536, 1, 1, 1, 1, torch.float32, "zero")
+    with pytest.raises(ValueError):
+        dcn.deform_columns(xb, ob, mb)
+    with pytest.raises(ValueError):
+        dcn.deform_col2im(torch.zeros(65536, 9, 1, device=dev), xb, ob, mb)
     assert (dcn.deform_columns.launches, dcn.deform_col2im.launches,
             dcn.deform_col2im_coord.launches) == before

@@ -12,9 +12,12 @@ backward (``modulated_deform_conv_backward_plain``, kernels F and G's plain
 version) is held against torch autograd through the plain columns.
 
 Offsets: normal with a std of 2.5 px, clipped to +-5 (many samples beyond
-the map's edge, many beyond 2 px), or whole pixels (every sample on a
-pixel, where the offsets' gradient is one-sided, as JAX's autodiff of
-``floor`` takes it). Fault F1: the JAX default (``agg_dcn_impl="windowed"``,
+the map's edge, many beyond 2 px), whole pixels (every sample on a pixel,
+where the offsets' gradient is one-sided, as JAX's autodiff of ``floor``
+takes it), normal with a std of 8 px unclipped ("far": the card tests'
+offsets beyond kernel F's window) or every sample at one point ("one_spot").
+Groups of 3 and of 12 channels are the card tests' channel counts that
+kernel F's chunks of 8 do not divide. Fault F1: the JAX default (``agg_dcn_impl="windowed"``,
 ``agg_dcn_radius=2``) clamps offsets to +-2 px; the port does not.
 """
 
@@ -46,6 +49,10 @@ CASES = {
     "g8": (2, 16, 6, 11, 8, 8, "random"),
     "g8_integer": (1, 16, 8, 5, 8, 6, "integer"),
     "g2_integer": (2, 4, 5, 7, 2, 3, "integer"),
+    "g2_cpg12": (2, 24, 9, 13, 2, 6, "random"),
+    "g4_cpg3": (2, 12, 7, 10, 4, 5, "random"),
+    "g8_far": (1, 16, 8, 11, 8, 6, "far"),
+    "g2_one_spot": (1, 8, 9, 7, 2, 4, "one_spot"),
 }
 
 
@@ -55,6 +62,15 @@ def _inputs(name, seed=0):
     x = rs.randn(n, h, w, c).astype(np.float32)
     if kind == "integer":
         off = rs.randint(-3, 4, (n, h, w, g * 18)).astype(np.float32)
+    elif kind == "far":
+        off = (rs.randn(n, h, w, g * 18) * 8.0).astype(np.float32)
+    elif kind == "one_spot":  # every tap's sample at (h/2 + 0.3, w/2 + 0.6)
+        k = np.arange(9)
+        dy = (h // 2 + 0.3) - (np.arange(h)[:, None, None] + k // 3 - 1)
+        dx = (w // 2 + 0.6) - (np.arange(w)[None, :, None] + k % 3 - 1)
+        dy, dx = np.broadcast_arrays(dy, dx)
+        off = np.tile(np.concatenate([dy, dx], -1), (n, 1, 1, g)).reshape(
+            n, h, w, g * 18).astype(np.float32)
     else:
         off = np.clip(rs.randn(n, h, w, g * 18) * 2.5, -5, 5).astype(
             np.float32)
@@ -141,7 +157,9 @@ def test_dcn_samples_outside_the_map():
     assert out[0, 0, 0, 1].item() == 0.5 and out[0, 0, 0, 0].item() == 1.0
 
 
-@pytest.mark.parametrize("name", ["g2", "g8", "g8_integer"])
+@pytest.mark.parametrize("name", ["g1", "g2", "g8", "g8_integer",
+                                  "g2_cpg12", "g4_cpg3", "g8_far",
+                                  "g2_one_spot"])
 def test_closed_form_backward_matches_autograd(name):
     """Kernels F and G's plain version against torch autograd through the
     plain columns, for x, the offsets and the mask."""
@@ -242,46 +260,3 @@ def test_dcn_entry_rejects():
         tdcn.modulated_deform_conv(x[:, :7], off, mask, wt[:, :7])
     with pytest.raises(ValueError):
         tdcn.modulated_deform_conv(x, off, mask, wt[:, :4])
-
-
-# (images, channels, h, w, deform groups): the aggregator's four stage
-# shapes at T = 3 and the card tests' odd shapes
-GEOMETRY_SHAPES = [(3, 64, 152, 256, 8), (3, 128, 76, 128, 8),
-                   (3, 256, 38, 64, 8), (3, 512, 38, 64, 8),
-                   (2, 12, 19, 45, 4), (1, 8, 7, 5, 1), (2, 16, 9, 13, 8),
-                   (2, 32, 20, 17, 4)]
-
-
-@pytest.mark.parametrize("n,c,h,w,g", GEOMETRY_SHAPES)
-def test_col2im_geometry_fits(n, c, h, w, g):
-    """Kernel F's launch geometry: its shared window fits a block's 227 KB
-    with room for two blocks an SM, the chunks cover the group's channels
-    with no empty chunk, the window's columns come in 16-byte vectors, and
-    the grid stays within its limits."""
-    geo = tdcn.col2im_geometry(c, g, h, n)
-    cpg = c // g
-    wh, ww = geo.window
-    assert geo.smem_bytes == (geo.chunk * wh * (ww + 2)
-                              + geo.rows * tdcn.TILE_W * 13) * 4
-    assert geo.smem_bytes <= 227 * 1024
-    assert 2 * (geo.smem_bytes + 1024) <= 228 * 1024
-    assert 1 <= geo.chunk <= cpg
-    assert geo.chunk * (geo.chunks - 1) < cpg <= geo.chunk * geo.chunks
-    assert ww % 4 == 0 and (ww - tdcn.TILE_W) // 2 % 4 == 0
-    assert wh == geo.rows + 2 * (geo.margin + 1)
-    assert (ww - tdcn.TILE_W) // 2 >= geo.margin + 1
-    assert n * g * geo.chunks <= tdcn.GRID_LIMIT
-    assert -(-h // geo.rows) <= tdcn.GRID_LIMIT
-
-
-def test_col2im_geometry_rejects():
-    """A window beyond a block's shared memory, a grid beyond its limit
-    and a tile the kernel does not take raise ValueError."""
-    with pytest.raises(ValueError):
-        tdcn.col2im_geometry(4096, 1, margin=40, chunk=512)
-    with pytest.raises(ValueError):
-        tdcn.col2im_geometry(64, 64, 8, n=2048)
-    with pytest.raises(ValueError):
-        tdcn.col2im_geometry(64, 8, rows=9)
-    with pytest.raises(ValueError):
-        tdcn.col2im_geometry(64, 8, margin=-1)
