@@ -542,12 +542,12 @@ def dcn_check(ops, tag, x, off, mask, g, errs):
 def dcn_kernels(dev, g, ops, errs):
     """Kernels E, F and G at each of DCN_SHAPES and each offset scale of
     DCN_OFFSETS, f32 and bf16 x, through ``dcn_check``. Then at bf16 x, as
-    the aggregator's training gives it: E and F at every offset scale
-    eagerly and from a CUDA graph; at the scale that pushes offsets beyond
-    the map (PR 8's cases, drawn from ``g``; the others from their own
-    generators) also G, and each beside its plain version in the turns
-    plain, kernel, kernel, plain (F's and G's plain version is the one
-    plain backward that gives both); each with the bound. Returns {E, F, G:
+    the aggregator's training gives it: each at every offset scale eagerly
+    and from a CUDA graph; at the scale that pushes offsets beyond the map
+    (drawn from ``g``; the other scales from their own generators)
+    each beside its plain version in the turns plain, kernel, kernel, plain
+    (F's and G's plain version is the one plain backward that gives both);
+    each with the bound. Returns {E, F, G:
     stage 0's entry with the other stages under their names, each stage's
     entry with the times at every scale under ``offsets``}."""
     out = {k: {} for k in "EFG"}
@@ -571,8 +571,6 @@ def dcn_kernels(dev, g, ops, errs):
             errs_of = dict(E=f"{tag}_columns", F=f"{tag}_grad_x",
                            G=f"{tag}_grad_offset")
             for kern, (kernel, plain) in runs.items():
-                if kern == "G" and not push:
-                    continue
                 nbytes, flops = dcn_cost(kern, DCN_FRAMES, c, h, w,
                                          DCN_GROUPS, x.element_size())
                 bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
@@ -2158,7 +2156,7 @@ def main() -> int:
                     "modulated_deform_conv2d)")
     for name, body, what in zip(
             dcn_names, ("dcn_im2col_tile", "dcn_col2im_tile",
-                        "dcn_col2im_coord"),
+                        "dcn_col2im_coord_tile"),
             ("forward: the bilinear im2col", "backward: the input's gradient",
              "backward: the offsets' and the mask's gradients")):
         kernels.append(dict(name=name, body=body, route="cuda",

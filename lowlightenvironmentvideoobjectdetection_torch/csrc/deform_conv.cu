@@ -35,8 +35,8 @@
 // column entry would recompute it, with three 64-bit divisions, for each of
 // the group's C / G channels, and adding each of its 4 corner products to
 // global memory with a scalar f32 atomic (up to 2.7e8 a call at stage 0) is
-// paced by L2's atomic rate: 2.82 ms against a bound of 0.115 ms. E and F
-// compute a sample once and reuse it over the group's channels, on 3-D
+// paced by L2's atomic rate: 2.82 ms against a bound of 0.115 ms. E, F and
+// G compute a sample once and reuse it over the group's channels, on 3-D
 // grids that need no 64-bit division:
 //
 // - Kernel E: one block per (image, deform group, tile of 4 x 32 output
@@ -77,12 +77,28 @@
 //   records take 34,816 bytes a block. Times: PERF.md (chip_smoke.py, H100
 //   80GB HBM3 at 700 W).
 //
-// G takes one thread per (image, group, tap, pixel) and loops over the
-// group's channels, so the sums over channels need no atomics. Positions
-// and the forward's products and sums round with __fadd_rn / __fsub_rn /
-// __fmul_rn: nvcc would contract a + b * c into an FMA, and an ulp at an
-// integer position moves floor, and with it the cell whose corners take the
-// offsets' gradient.
+// - Kernel G: E's blocks and lanes (9 warps, warp k tap k, 4 pixels a lane).
+//   A thread reads its 4 dy, dx once, computes the 4 samples once and walks
+//   the group's channels: grad_cols 16 bytes a channel with ld.global.cs (269
+//   MB a call at stage 0, the bulk of G's bytes, do not fit L2) and the 16
+//   corner gathers through L1. As the mask's and the offsets' gradients are
+//   linear in the corner values, it sums grad_col x corner per pixel and
+//   corner (16 FMAs a channel) and applies the sample's weights and corner
+//   differences once at the end; three 16-byte stores a thread. The sums run
+//   in channel order with no atomics: G is deterministic. What bounds it is
+//   its loads' latency, which the warps an SM holds hide. It is built for 4
+//   blocks an SM (56 registers, 76 bytes spilled), which beat 2, 3 (72
+//   registers, with 1, 2, 4 or 8 channels' loads in flight together), 5 and
+//   6: at 4 the 480 blocks of stages 2 and 3 fit in one wave. Its channel
+//   loop steps two pointers: indexing them by the channel made nvcc spill
+//   more and G 7-9% slower. Splitting the channels over lane slices of
+//   smaller tiles lost at offsets of 1.5 px and more. Times: PERF.md
+//   (chip_smoke.py --dcn-times, H100 80GB HBM3 at 700 W).
+//
+// Positions and the forward's products and sums round with __fadd_rn /
+// __fsub_rn / __fmul_rn: nvcc would contract a + b * c into an FMA, and an
+// ulp at an integer position moves floor, and with it the cell whose
+// corners take the offsets' gradient.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,15 +106,15 @@
 namespace {
 
 constexpr int kTaps = 9;
-constexpr int kThreads = 256;           // kernel G
-constexpr int kTileW = 32;              // E and F: a tile row is a warp
-constexpr int kImRows = 4;              // E: 4 rows of 8 lanes x 4 pixels
-constexpr int kImThreads = kTaps * 32;  // E: one warp a tap
+constexpr int kTileW = 32;              // E, F, G: a tile row is a warp
+constexpr int kImRows = 4;              // E, G: 4 rows of 8 lanes x 4 px
+constexpr int kImThreads = kTaps * 32;  // E, G: one warp a tap
 constexpr int kColRows = 8;             // F: 8 x 32 threads, one a pixel
 constexpr int kColMargin = 3;           // F: window margin in pixels
 constexpr int kColChunk = 8;            // F: the chunk its warps share out
 constexpr int kRec = kColChunk + 5;     // F: a sample's record (odd: no
                                         // bank conflicts when written)
+constexpr int kCoordBlocks = 4;         // G: blocks an SM (56 registers)
 constexpr int kMaxGrid = 65535;         // gridDim.y and gridDim.z
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -377,60 +393,150 @@ __global__ void __launch_bounds__(kColThreads)
   }
 }
 
-// Kernel G: one thread per (image, group, tap, pixel),
-// i = ((n * G + g) * 9 + k) * HW + p, summing over the group's channels:
-// the mask's gradient sum_c grad_col * S, and m times sum_c grad_col * dS/dly
-// (dS/dlx) for dy (dx), S the in-map corners' bilinear sum.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dcn_col2im_coord(const float* __restrict__ grad_cols,
-                     const T* __restrict__ x,
-                     const float* __restrict__ offset,
-                     const float* __restrict__ mask,
-                     float* __restrict__ grad_offset,
-                     float* __restrict__ grad_mask, int C, int H, int W, int G,
-                     long long total) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int HW = H * W;
-  const int p = static_cast<int>(i % HW);
-  const long long r = i / HW;
-  const int k = static_cast<int>(r % kTaps);
-  const long long og = r / kTaps;  // n * G + g
-  const long long n = og / G;
-  const int g = static_cast<int>(og % G);
-  const int cpg = C / G;
-  const float* off = offset + og * 2 * kTaps * HW;
-  const float dy = off[k * HW + p];
-  const float dx = off[(kTaps + k) * HW + p];
-  const float m = mask[(og * kTaps + k) * HW + p];
-  const Sample s = sample_at(dy, dx, p / W, p % W, k, H, W);
-  const float hy = 1.0f - s.ly, hx = 1.0f - s.lx;
-  const long long c0 = n * C + static_cast<long long>(g) * cpg;
-  const T* xg = x + c0 * HW;
-  const float* gc = grad_cols + (c0 * kTaps + k) * HW + p;
-  float g_mask = 0.0f, g_y = 0.0f, g_x = 0.0f;
-  for (int j = 0; j < cpg; ++j) {
-    const T* xc = xg + static_cast<long long>(j) * HW;
-    float v[4];
+// G's view of a sample: the flat index of its top-left corner (exact
+// wherever a corner lies in the map) and its fractional parts; which of its
+// corners lie in the map is kept apart, as bits.
+struct Coord {
+  int base;
+  float ly, lx;
+};
+
+// 4 consecutive floats of a row from p: one 16-byte load where vec, else
+// the first n (n < 4 at a row's end, 0 past the map), 0 beyond. kStream
+// reads with ld.global.cs (the columns' gradient does not fit L2).
+template <bool kStream>
+__device__ __forceinline__ void load4(const float* p, bool vec, int n,
+                                      float v[4]) {
+  if (vec) {
+    const float4 t = kStream ? __ldcs(reinterpret_cast<const float4*>(p))
+                             : *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) v[q] = s.ok[q] ? to_float(xc[s.o[q]]) : 0.0f;
-    const float gcv = gc[static_cast<long long>(j) * kTaps * HW];
-    const float val =
-        v[0] * s.w[0] + v[1] * s.w[1] + v[2] * s.w[2] + v[3] * s.w[3];
-    g_mask += gcv * val;
-    g_y += gcv * (hx * (v[2] - v[0]) + s.lx * (v[3] - v[1]));
-    g_x += gcv * (hy * (v[1] - v[0]) + s.ly * (v[3] - v[2]));
+    for (int i = 0; i < 4; ++i) {
+      v[i] = i < n ? (kStream ? __ldcs(p + i) : p[i]) : 0.0f;
+    }
   }
-  float* go = grad_offset + og * 2 * kTaps * HW;
-  go[k * HW + p] = g_y * m;
-  go[(kTaps + k) * HW + p] = g_x * m;
-  grad_mask[(og * kTaps + k) * HW + p] = g_mask;
 }
 
-unsigned int blocks_for(long long total) {
-  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+// The first n of 4 consecutive floats of a row to p, streamed, with one
+// 16-byte store where vec.
+__device__ __forceinline__ void store4(float* p, bool vec, int n,
+                                       const float v[4]) {
+  if (vec) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < n) __stcs(p + i, v[i]);
+    }
+  }
+}
+
+// Adds one channel's terms to a thread's sums: gc[i] times each in-map
+// corner of pixel i (bit 4 i + q of ok for corner q), into acc[i][q].
+template <typename T>
+__device__ __forceinline__ void coord_channel(const T* __restrict__ xc,
+                                              const Coord* s, unsigned ok,
+                                              int W, const float gc[4],
+                                              float acc[4][4]) {
+  float v[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int d[4] = {0, 1, W, W + 1};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool in = (ok >> (4 * i + q)) & 1u;
+      v[i][q] = in ? to_float(xc[s[i].base + d[q]]) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(gc[i], v[i][q], acc[i][q]);
+  }
+}
+
+// Kernel G: block (tile x, tile y, image * G + group) of 9 warps, as E:
+// warp k takes tap k, lane l the 4 pixels from column 4 (l % 8) of row
+// l / 8. A thread reads its 4 dy and dx once (16-byte loads where it can)
+// and computes the 4 samples once. The three sums over the group's
+// channels are linear in the corner values, so it sums instead, per pixel
+// and corner, A_q = sum_c grad_col * v_q (0 for a corner outside the map)
+// and applies the sample's coefficients once at the end:
+//
+//   grad_mask = sum_q w_q A_q
+//   grad_dy   = m ((1 - lx) (A_10 - A_00) + lx (A_11 - A_01))
+//   grad_dx   = m ((1 - ly) (A_01 - A_00) + ly (A_11 - A_10))
+//
+// A channel costs a 16-byte streaming load of grad_cols, 16 corner gathers
+// through L1 and 16 FMAs. The sums run in channel order with no atomics, so
+// G is deterministic.
+template <typename T>
+__global__ void __launch_bounds__(kImThreads, kCoordBlocks)
+    dcn_col2im_coord_tile(const float* __restrict__ grad_cols,
+                          const T* __restrict__ x,
+                          const float* __restrict__ offset,
+                          const float* __restrict__ mask,
+                          float* __restrict__ grad_offset,
+                          float* __restrict__ grad_mask, int C, int H, int W,
+                          int G, bool aligned) {
+  const int k = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int py = blockIdx.y * kImRows + (lane >> 3);
+  const int px0 = blockIdx.x * kTileW + (lane & 7) * 4;
+  const int n = blockIdx.z / G, g = blockIdx.z - n * G;
+  const int HW = H * W, cpg = C / G;
+  const int p = py * W + px0;
+  // pixels of the 4 in the map, and whether 16-byte accesses fit them
+  const int in_map = py < H ? min(4, W - px0) : 0;
+  const bool vec = aligned && in_map == 4 && (p & 3) == 0;
+  const long long ng = blockIdx.z;
+  const float* off = offset + (ng * 2 * kTaps + k) * HW + p;
+  float dy[4], dx[4];
+  load4<false>(off, vec, in_map, dy);
+  load4<false>(off + kTaps * HW, vec, in_map, dx);
+  Coord s[4];
+  unsigned ok = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s[i] = Coord{0, 0.0f, 0.0f};
+    if (i < in_map) {
+      const Sample a = sample_at(dy[i], dx[i], py, px0 + i, k, H, W);
+      s[i] = Coord{a.y0 * W + a.x0, a.ly, a.lx};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ok |= unsigned(a.ok[q]) << (4 * i + q);
+    }
+  }
+  const long long c0 = static_cast<long long>(n) * C + g * cpg;
+  const T* xg = x + c0 * HW;
+  const float* gcp = grad_cols + (c0 * kTaps + k) * HW + p;
+  float acc[4][4] = {};
+  for (int j = 0; j < cpg; ++j, gcp += kTaps * HW, xg += HW) {
+    float gc[4];
+    load4<true>(gcp, vec, in_map, gc);
+    coord_channel(xg, s, ok, W, gc, acc);
+  }
+  if (in_map <= 0) return;
+  float m[4], gy[4], gx[4], gm[4];
+  load4<false>(mask + (ng * kTaps + k) * HW + p, vec, in_map, m);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* a = acc[i];
+    const float ly = s[i].ly, lx = s[i].lx;
+    const float hy = __fsub_rn(1.0f, ly), hx = __fsub_rn(1.0f, lx);
+    gm[i] = __fmul_rn(hy, hx) * a[0] + __fmul_rn(hy, lx) * a[1] +
+            __fmul_rn(ly, hx) * a[2] + __fmul_rn(ly, lx) * a[3];
+    gy[i] = m[i] * (hx * (a[2] - a[0]) + lx * (a[3] - a[1]));
+    gx[i] = m[i] * (hy * (a[1] - a[0]) + ly * (a[3] - a[2]));
+  }
+  float* go = grad_offset + (ng * 2 * kTaps + k) * HW + p;
+  store4(go, vec, in_map, gy);
+  store4(go + kTaps * HW, vec, in_map, gx);
+  store4(grad_mask + (ng * kTaps + k) * HW + p, vec, in_map, gm);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
 bool bad_shape(int N, int C, int H, int W, int G) {
@@ -496,15 +602,24 @@ extern "C" int llvod_dcn_col2im(const void* grad_cols, const void* offset,
 
 // Kernel G. dtype as for llvod_dcn_im2col (x); grad_offset [N, G * 18, H, W]
 // and grad_mask [N, G * 9, H, W] float32, every element written. Returns
+// cudaErrorInvalidValue for a grid beyond its limits, else
 // cudaGetLastError() after the launch.
 extern "C" int llvod_dcn_col2im_coord(const void* grad_cols, const void* x,
                                       const void* offset, const void* mask,
                                       void* grad_offset, void* grad_mask,
                                       int N, int C, int H, int W, int G,
                                       int dtype, void* stream) {
-  if (bad_shape(N, C, H, W, G)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(N) * G * kTaps * H * W;
-  if (total == 0) return 0;
+  if (bad_shape(N, C, H, W, G)) return kInvalid;
+  const long long ng = static_cast<long long>(N) * G;
+  const int tiles_y = (H + kImRows - 1) / kImRows;
+  if (ng > kMaxGrid || tiles_y > kMaxGrid) return kInvalid;
+  if (ng == 0) return 0;
+  const dim3 grid((W + kTileW - 1) / kTileW, tiles_y,
+                  static_cast<unsigned int>(ng));
+  // 16-byte accesses need every plane to start on 16 bytes
+  const bool aligned = (H * W) % 4 == 0 && aligned16(grad_cols) &&
+                       aligned16(offset) && aligned16(mask) &&
+                       aligned16(grad_offset) && aligned16(grad_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gc = static_cast<const float*>(grad_cols);
   const float* o = static_cast<const float*>(offset);
@@ -512,14 +627,14 @@ extern "C" int llvod_dcn_col2im_coord(const void* grad_cols, const void* x,
   float* go = static_cast<float*>(grad_offset);
   float* gm = static_cast<float*>(grad_mask);
   if (dtype == 0) {
-    dcn_col2im_coord<float><<<blocks_for(total), kThreads, 0, s>>>(
-        gc, static_cast<const float*>(x), o, m, go, gm, C, H, W, G, total);
+    dcn_col2im_coord_tile<float><<<grid, kImThreads, 0, s>>>(
+        gc, static_cast<const float*>(x), o, m, go, gm, C, H, W, G, aligned);
   } else if (dtype == 1) {
-    dcn_col2im_coord<__nv_bfloat16><<<blocks_for(total), kThreads, 0, s>>>(
+    dcn_col2im_coord_tile<__nv_bfloat16><<<grid, kImThreads, 0, s>>>(
         gc, static_cast<const __nv_bfloat16*>(x), o, m, go, gm, C, H, W, G,
-        total);
+        aligned);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return kInvalid;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,7 +47,7 @@ from . import cuda_build
 
 K = 9  # 3x3 taps
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_INVALID = 1  # cudaErrorInvalidValue: E's and F's C entries, a grid too large
+_INVALID = 1  # cudaErrorInvalidValue: the grid too large for E, F or G
 
 
 def _taps(device):
@@ -277,9 +277,9 @@ def _stream(t: torch.Tensor):
 
 
 def _check_launch(status: int, name: str) -> None:
-    """Raise ValueError where a tiled entry (E, F) refused the shape: more
-    than 65535 images x groups (x F's chunks of 8 channels) or row tiles
-    for the grid; else as ``cuda_build.check``."""
+    """Raise ValueError where a tiled entry (E, F, G) refused the shape:
+    more than 65535 images x groups (x F's chunks of 8 channels) or row
+    tiles for the grid; else as ``cuda_build.check``."""
     if status == _INVALID:
         raise ValueError(f"{name}: the shape needs a grid beyond 65535 "
                          "blocks in y or z")
@@ -345,9 +345,13 @@ def deform_col2im(grad_cols: torch.Tensor, x: torch.Tensor,
 def deform_col2im_coord(grad_cols: torch.Tensor, x: torch.Tensor,
                         offset: torch.Tensor, mask: torch.Tensor):
     """Kernel G: (grad_offset [N, G * 18, H, W], grad_mask [N, G * 9, H, W]),
-    f32, from the columns' f32 gradient: one thread per (image, deform
-    group, tap, pixel) sums over the group's channels. CUDA tensors
-    only."""
+    f32, from the columns' f32 gradient. One block per (image, deform
+    group, tile of 4 x 32 output pixels), one thread per tap and 4
+    consecutive pixels: it computes the 4 samples once and sums, over the
+    group's channels in a fixed order, grad_col times each corner value,
+    then applies the samples' weights and corner differences once;
+    16-byte loads of grad_cols, the offsets and the mask, and 16-byte
+    stores. No atomics: the result is deterministic. CUDA tensors only."""
     x, offset, mask, g = _check_cuda(x, offset, mask, "deform_col2im_coord")
     grad_cols = _check_grad_cols(grad_cols, x)
     n, c, h, w = x.shape
@@ -358,7 +362,7 @@ def deform_col2im_coord(grad_cols: torch.Tensor, x: torch.Tensor,
             grad_cols.data_ptr(), x.data_ptr(), offset.data_ptr(),
             mask.data_ptr(), grad_off.data_ptr(), grad_mask.data_ptr(), n, c,
             h, w, g, _DTYPES[x.dtype], _stream(x))
-        cuda_build.check(status, "llvod_dcn_col2im_coord")
+        _check_launch(status, "llvod_dcn_col2im_coord")
         deform_col2im_coord.launches += 1
     return grad_off, grad_mask
 

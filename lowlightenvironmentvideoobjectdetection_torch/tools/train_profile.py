@@ -28,7 +28,7 @@ steps:
   10 kernels with the most device time, and per step the device ms of
   kernels B (``roi_align_gather``), D (``roi_align_scatter``) and the DCN's
   E (``dcn_im2col_tile``), F (``dcn_col2im_tile``) and G
-  (``dcn_col2im_coord``).
+  (``dcn_col2im_coord_tile``).
 
 Prints the card's name and power limit and one JSON line, and with
 ``--out`` writes it to that file. Needs a CUDA device; fails without one.
@@ -67,7 +67,7 @@ DARKFARM = D.DarkfarmConfig(
 AGGREGATOR = dataclasses.replace(DARKFARM, with_aggregator=True)
 # device ms per step by kernel symbol
 KERNEL_SYMBOLS = ("roi_align_gather", "roi_align_scatter", "dcn_im2col_tile",
-                  "dcn_col2im_tile", "dcn_col2im_coord")
+                  "dcn_col2im_tile", "dcn_col2im_coord_tile")
 
 
 def train_sample(cfg, device, seed=0) -> S.TrainBatch:

@@ -687,12 +687,30 @@ def _dcn_check(x, off, mask, cout=24, seed=1):
                                        (3, 64, 38, 64, 8),
                                        (2, 32, 20, 17, 4),
                                        (2, 12, 19, 45, 4),
-                                       (1, 12, 19, 45, 1)])
+                                       (1, 12, 19, 45, 1),
+                                       (2, 20, 7, 10, 4),
+                                       (1, 64, 6, 5, 1)])
 def test_dcn_kernels_match_plain(dev, dtype, n, c, h, w, g):
     """Random offsets; the last shapes have h and w that no tile divides, W
-    not a multiple of 4 (E's and F's scalar stores and adds) and deform
-    groups of 3 and 12 channels (F's short chunks)."""
+    not a multiple of 4 (E's and F's scalar stores and adds, G's scalar
+    loads and stores) and deform groups of 3, 5 and 12 channels (F's short
+    chunks, G's channels past its last whole chunk); the last puts 64
+    channels a group on a map narrower than a row of lanes."""
     _dcn_check(*_dcn_inputs(dev, n, c, h, w, g, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dcn_offset_grads_deterministic(dev, dtype):
+    """G sums over the channels in a fixed order with no atomics: two
+    launches on the same inputs give the same bits, at a stage shape and
+    at a ragged one."""
+    for n, c, h, w, g in ((3, 64, 38, 64, 8), (2, 20, 7, 10, 4)):
+        x, off, mask = _dcn_inputs(dev, n, c, h, w, g, dtype)
+        grad_cols = torch.randn(n, c * 9, h * w, device=dev)
+        first = dcn.deform_col2im_coord(grad_cols, x, off, mask)
+        second = dcn.deform_col2im_coord(grad_cols, x, off, mask)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -737,7 +755,8 @@ def test_dcn_kernels_stage_shapes(dev):
 
 def test_dcn_rejects(dev):
     """f16 x, bf16 offsets, mismatched shapes, a bad grad_cols and more
-    images x groups than E's and F's grids take raise with no launch."""
+    images x groups than E's, F's and G's grids take raise with no
+    launch."""
     x, off, mask = _dcn_inputs(dev, 1, 16, 6, 7, 8, torch.float32)
     before = (dcn.deform_columns.launches, dcn.deform_col2im.launches,
               dcn.deform_col2im_coord.launches)
@@ -758,5 +777,8 @@ def test_dcn_rejects(dev):
         dcn.deform_columns(xb, ob, mb)
     with pytest.raises(ValueError):
         dcn.deform_col2im(torch.zeros(65536, 9, 1, device=dev), xb, ob, mb)
+    with pytest.raises(ValueError):
+        dcn.deform_col2im_coord(torch.zeros(65536, 9, 1, device=dev), xb, ob,
+                                mb)
     assert (dcn.deform_columns.launches, dcn.deform_col2im.launches,
             dcn.deform_col2im_coord.launches) == before

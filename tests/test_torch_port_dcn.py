@@ -17,7 +17,9 @@ where the offsets' gradient is one-sided, as JAX's autodiff of ``floor``
 takes it), normal with a std of 8 px unclipped ("far": the card tests'
 offsets beyond kernel F's window) or every sample at one point ("one_spot").
 Groups of 3 and of 12 channels are the card tests' channel counts that
-kernel F's chunks of 8 do not divide. Fault F1: the JAX default (``agg_dcn_impl="windowed"``,
+kernel F's chunks of 8 do not divide; groups of 5 channels, and of 16 on a
+map 5 pixels wide, those that leave kernel G channels past its last whole
+chunk and a row narrower than its lanes. Fault F1: the JAX default (``agg_dcn_impl="windowed"``,
 ``agg_dcn_radius=2``) clamps offsets to +-2 px; the port does not.
 """
 
@@ -51,6 +53,8 @@ CASES = {
     "g2_integer": (2, 4, 5, 7, 2, 3, "integer"),
     "g2_cpg12": (2, 24, 9, 13, 2, 6, "random"),
     "g4_cpg3": (2, 12, 7, 10, 4, 5, "random"),
+    "g4_cpg5": (2, 20, 7, 10, 4, 5, "random"),
+    "g1_cpg16_narrow": (1, 16, 6, 5, 1, 4, "random"),
     "g8_far": (1, 16, 8, 11, 8, 6, "far"),
     "g2_one_spot": (1, 8, 9, 7, 2, 4, "one_spot"),
 }
@@ -158,7 +162,8 @@ def test_dcn_samples_outside_the_map():
 
 
 @pytest.mark.parametrize("name", ["g1", "g2", "g8", "g8_integer",
-                                  "g2_cpg12", "g4_cpg3", "g8_far",
+                                  "g2_cpg12", "g4_cpg3", "g4_cpg5",
+                                  "g1_cpg16_narrow", "g8_far",
                                   "g2_one_spot"])
 def test_closed_form_backward_matches_autograd(name):
     """Kernels F and G's plain version against torch autograd through the
