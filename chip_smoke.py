@@ -61,9 +61,23 @@ are fractional, their range printed; top-k flips pinned). The
 G (the offsets' and the mask's) at the aggregator's four stage shapes,
 f32 and bf16, at three offset scales (0, 1.5 px and 2.5 px with some
 beyond the map), against their plain versions and autograd, timed eagerly
-and from a CUDA graph. Then one JSON line of kernel summaries (A-G), and
-a last line ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero.
+and from a CUDA graph. Then the training data path from files, in a
+temporary directory under the checkout: ``data_train`` (a DarkFarm-layout
+tree of 2 x 10 PNG pairs at 1080x1920 written with the port's PNG writer
+and a COCO-VID annotation file; the port's CLI, ``tools/train.py``, on the
+canonical config with ``--cfg-options`` pointing ``data.train`` at it, 6
+steps with 4 loader workers and 6 without: B and D twice and E, F, G 12
+times a step, finite losses, the loader's host ms a batch beside the step
+ms, the device's idle share with and without workers; then one sample's
+device stages on the card and on the CPU from the same files and draws,
+uint8 stages equal, float stages to DATA_FLOAT_TOL) and ``noise_raw``
+(``SeqAddNoise`` 'a7s3' and ``SeqsRGB2RAW`` + ``SeqNormalizeRAW`` on those
+frames on the card against the CPU with the same draws, the a7s3 noise's
+per-channel moments from the card's own generator against the model, and
+3 steps of ``llvod_raw_darkfarm.py`` through the CLI on 8-channel RAW
+pairs: B and D twice a step). Then one JSON line of kernel summaries
+(A-G), and a last line ``{"ok": true, "device": {...}}``. Any failure
+exits non-zero.
 
     python3 chip_smoke.py --roi-grad-times ROOT
     python3 chip_smoke.py --dcn-times ROOT
@@ -80,15 +94,12 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
-
-# f32 results are compared below: no TF32 anywhere in this run
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 ATTN_ATOL = 1e-5        # f32 sums of exact products; P to ~16 bits in bf16
 LIBRARY_TOL = 2e-2      # SDPA yardstick: bf16 P and bf16 output
@@ -150,6 +161,27 @@ SET_BOX_TOL = 5e-3      # px; detections as sets, f32 (as the CPU tests)
 SET_SCORE_TOL = 1e-5
 RAW_HW = (600, 1000)    # raw frames of the serve phase, before prepare
 PKG = "lowlightenvironmentvideoobjectdetection_torch"
+REPO = Path(__file__).resolve().parent
+KERNEL_NAMES = ("attention", "roi_align", "attention_1slab",
+                "roi_align_backward", "dcn_im2col", "dcn_col2im",
+                "dcn_col2im_coord")
+# data_train / noise_raw: the training data path from files
+CANONICAL_CFG = ("configs/vid/llvod/"
+                 "llvod_l1234_fusion_add_i1234_rdb_taf_darkfarm.py")
+RAW_CFG = "configs/vid/llvod/llvod_raw_darkfarm.py"
+DATA_TREE = dict(videos=2, frames=10, hw=(1080, 1920))  # DarkFarm's frames
+DATA_STEPS, RAW_STEPS = 6, 3
+DATA_PROFILED = 2       # data_train: the last steps, under the profiler
+DATA_WORKERS = 4
+# launches a step of A-G (KERNEL_NAMES): the canonical step, and the RAW
+# config's (no aggregator)
+DATA_PER_STEP = (0, 2, 0, 2, 12, 12, 12)
+RAW_PER_STEP = (0, 2, 0, 2, 0, 0, 0)
+DATA_FLOAT_TOL = 1e-6   # of max |x|: a batch's float stages, card vs CPU
+NOISE_RTOL = 1e-6       # of max |x|: AddNoise with the same draws
+RAW_RTOL = 1e-5         # of max |x|: sRGB2RAW, the card's sin/asin/pow
+MOMENT_CLEAN = 128.0    # the constant frame of the a7s3 moment check
+MOMENT_SIGMAS = 5.0     # its tolerance, in standard errors
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOP_PER_S = 989e12
@@ -1627,6 +1659,386 @@ def agg_agree(dev, kernels):
     del model
 
 
+# ---- the data path: a config file and PNG frames to the canonical step
+
+def _tensors(results, prefix=""):
+    """(path, tensor) of every tensor in a pipeline's results."""
+    if isinstance(results, torch.Tensor):
+        return [(prefix, results)]
+    if isinstance(results, dict):
+        items = results.items()
+    elif isinstance(results, (list, tuple)):
+        items = enumerate(results)
+    else:
+        return []
+    return [pt for k, v in items for pt in _tensors(v, f"{prefix}/{k}")]
+
+
+def compare_results(name, card, cpu, float_tol):
+    """Every tensor of ``card`` against ``cpu``'s: integer and bool ones
+    equal, float ones to ``float_tol`` x their largest |value|. Returns the
+    largest float error over the largest |value| (0 if none differ)."""
+    a, b = _tensors(card), _tensors(cpu)
+    if [p for p, _ in a] != [p for p, _ in b]:
+        raise AssertionError(f"{name}: results differ in structure")
+    worst = 0.0
+    for (path, x), (_, y) in zip(a, b):
+        x = x.cpu()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{name}{path}: {x.shape} {x.dtype} against "
+                                 f"{y.shape} {y.dtype}")
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}{path}: card and CPU differ")
+            continue
+        scale = float(y.abs().max()) if y.numel() else 0.0
+        err = max_err(x, y) / scale if scale else max_err(x, y)
+        if err > float_tol:
+            raise AssertionError(f"{name}{path}: card and CPU differ by "
+                                 f"{err} of the largest value")
+        worst = max(worst, err)
+    return worst
+
+
+class StepWindow:
+    """``on_step`` for the CLI: a synchronised host stamp after each step,
+    and ``torch.profiler`` over the steps after the first ``skip`` (the
+    loader's next batch included), which gives the device's busy ms and
+    idle share over that window. The profiler's host overhead slows those
+    steps: time steps before them."""
+
+    DEVICE = torch.autograd.DeviceType.CUDA
+
+    def __init__(self, n_steps, skip):
+        self.n, self.skip = n_steps, skip
+        self.stamps, self.prof, self.t0, self.window = [], None, 0.0, None
+
+    def __call__(self, state, metrics):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        done = len(self.stamps)
+        if done == self.skip:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif done == self.n and self.prof is not None:
+            wall = (time.perf_counter() - self.t0) * 1e3
+            self.prof.__exit__(None, None, None)
+            from lowlightenvironmentvideoobjectdetection_torch.tools.stage_profile import (  # noqa: E501
+                union_ms)
+            dev = [e for e in self.prof.events()
+                   if e.device_type == self.DEVICE]
+            if not dev:
+                raise RuntimeError("the profiler recorded no device events")
+            busy = union_ms([(e.time_range.start, e.time_range.end)
+                             for e in dev])
+            steps = self.n - self.skip
+            self.window = dict(steps=steps, busy_ms_per_step=busy / steps,
+                               wall_ms_per_step=wall / steps,
+                               idle_share=1.0 - busy / wall)
+            self.prof = None
+
+
+def cli_run(name, argv, kernels, per_step, n_steps, skip):
+    """The port's CLI (``tools/train.py::main``) on ``argv`` + ``--steps
+    n_steps``, on the card, with every launch count reset just before:
+    checks ``per_step`` launches a step of each of ``kernels`` (A-G), B's
+    7x7 gather and D's 7x7 scatter bodies, the step count and finite
+    metrics. Returns the run: counts, bodies, step ms, metrics, the
+    loader's timings, the profiled window and the peak memory in GiB."""
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        train as cli)
+    window = StepWindow(n_steps, skip)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    out = cli.main(list(argv) + ["--steps", str(n_steps)], on_step=window)
+    run = dict(counts=[k.launches for k in kernels],
+               bodies=dict(roi_align=dict(kernels[1].body_launches),
+                           roi_align_backward=dict(kernels[3].body_launches)),
+               step_ms=[(b - a) * 1e3 for a, b in
+                        zip([t0] + window.stamps, window.stamps)],
+               metrics=out["metrics"], timings=out["timings"],
+               window=window.window,
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    if run["counts"] != [p * n_steps for p in per_step]:
+        raise AssertionError(f"{name}: launch counts {run['counts']} for "
+                             f"{n_steps} steps, want {per_step} a step")
+    check_bodies(f"{name} roi_align", kernels[1],
+                 gather7x2=per_step[1] * n_steps, gather14x2=0)
+    check_bodies(f"{name} roi_align_backward", kernels[3],
+                 scatter7x2=per_step[3] * n_steps, scatter14x2=0)
+    if out["state"].step != n_steps or len(run["metrics"]) != n_steps or \
+            not all(np.isfinite(v) for m in run["metrics"]
+                    for v in m.values()):
+        raise AssertionError(f"{name}: step {out['state'].step}, metrics "
+                             f"{run['metrics']}")
+    del out
+    torch.cuda.empty_cache()
+    return run
+
+
+def loader_summary(timings, skip):
+    """Medians over the batches after the first ``skip`` (the workers'
+    start-up): the worker's host ms, the main process's wait and its
+    device stages' launch ms."""
+    rows = timings[skip:]
+    return {k: statistics.median(r[k] for r in rows)
+            for k in ("host_ms", "wait_ms", "device_ms")}
+
+
+def data_options(root, ann, workers):
+    return ["--cfg-options", f"data.train.ann_file={ann}",
+            f"data.train.img_prefix={root}/",
+            f"data.workers_per_gpu={workers}"]
+
+
+def batch_twice(dev, cfg_path, root, ann):
+    """One sample of ``cfg_path``'s pipeline from the tree: the host stages
+    once, then each device stage on the card and on the CPU from the same
+    frames and draws, compared after each stage (``compare_results``:
+    uint8 and integer results equal, float ones to DATA_FLOAT_TOL), and the
+    padded batch. Returns the per-stage card ms (synchronised), the same
+    stages' CPU ms, the host stages' ms, each stage's float error and the
+    host sample (frames and generator) for the noise phase."""
+    import copy
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        Config, apply_cli_options)
+    from lowlightenvironmentvideoobjectdetection_torch.data import loader
+    from lowlightenvironmentvideoobjectdetection_torch.data.pipelines import (
+        to_device)
+    from lowlightenvironmentvideoobjectdetection_torch.models.builder import (
+        model_config)
+    cfg = Config.fromfile(cfg_path)
+    apply_cli_options(cfg, data_options(root, ann, 0)[1:])
+    dcfg = cfg["data"]["train"]
+    mcfg = model_config(cfg["model"])
+    card = loader.Compose(dcfg["pipeline"], device=dev)
+    host = loader.HostClips(loader.build_dataset(dcfg), card, seed=0)
+    item = host[(0, 0)]
+    sides = {side: [to_device(copy.deepcopy(item["frames"]), d),
+                    copy.deepcopy(item["rng"])]
+             for side, d in (("card", dev), ("cpu", torch.device("cpu")))}
+    card_ms, cpu_ms, errs = {}, {}, {}
+    for i, step in enumerate(card.device_steps):
+        name = f"{i}:{type(step).__name__}"
+        for side, times in (("card", card_ms), ("cpu", cpu_ms)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sides[side][0] = step(*sides[side])
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t) * 1e3
+        errs[name] = compare_results(f"batch_twice {name}",
+                                     sides["card"][0], sides["cpu"][0],
+                                     DATA_FLOAT_TOL)
+    batches = {side: loader.make_batch(loader.pad_batch(
+        s[0], mcfg.selsa.pad_h, mcfg.selsa.pad_w), mcfg.in_channels)
+        for side, s in sides.items()}
+    errs["batch"] = compare_results("batch_twice batch", batches["card"],
+                                    batches["cpu"], DATA_FLOAT_TOL)
+    return dict(card_ms=card_ms, cpu_ms=cpu_ms, host_ms=item["host_ms"],
+                float_err=errs, item=item,
+                batch_shape=list(batches["card"].pair_imgs.shape))
+
+
+def png_decode_ms(root):
+    """Host ms to decode one frame of the tree as written (filter None) and
+    re-encoded with the Paeth filter on every row (as libpng's adaptive
+    filtering often picks), the median of 3 each."""
+    import glob
+    from lowlightenvironmentvideoobjectdetection_torch.data import image_io
+    path = sorted(glob.glob(f"{root}/*/GT/*.png"))[0]
+    paeth = f"{root}/paeth.png"
+    image_io.imwrite_png(paeth, image_io.imread(path), filters=4, level=1)
+    out = {}
+    for name, p in (("none", path), ("paeth", paeth)):
+        ts = []
+        for _ in range(3):
+            t = time.perf_counter()
+            image_io.imread(p)
+            ts.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(ts)
+    return out
+
+
+def data_train(dev, smi, kernels, root):
+    """The canonical config from a config file and PNG frames on disk:
+    writes a DarkFarm-layout tree under ``root`` (DATA_TREE: 2 videos of 10
+    frame pairs at 1080x1920, DarkFarm's size, with the port's PNG writer;
+    dark noisy frames beside bright clean ``GT/`` frames, 1-8 boxes of the
+    8 classes, a COCO-VID annotation file), then runs the port's CLI on
+    ``llvod_l1234_fusion_add_i1234_rdb_taf_darkfarm.py`` with
+    ``--cfg-options`` pointing ``data.train`` at it, ``--steps 6 --seed
+    0``, DATA_WORKERS loader processes, on the card: per step 2 launches of
+    B and D and 12 of E, F and G, finite losses with ``loss_l1_{0..3}_{u,d}``,
+    the step ms after the warm-up and before the last DATA_PROFILED steps,
+    the device's idle share over those; then the same with the loader in
+    the main process (``data.workers_per_gpu=0``); then ``batch_twice``.
+    Returns the launch counts (A-G) of both runs, B's and D's bodies, and
+    the host sample."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
+        write_darkfarm_tree)
+    t = time.perf_counter()
+    ann = write_darkfarm_tree(root, **DATA_TREE)
+    tree_s = time.perf_counter() - t
+    cfg_path = str(REPO / CANONICAL_CFG)
+    per_step = DATA_PER_STEP
+    argv = [cfg_path, "--seed", "0", "--work-dir", f"{root}/work"]
+    skip = DATA_STEPS - DATA_PROFILED
+    run = cli_run("data_train", argv + data_options(root, ann, DATA_WORKERS),
+                  kernels, per_step, DATA_STEPS, skip)
+    keys = set(run["metrics"][-1])
+    if not {f"loss_l1_{i}_{s}" for i in range(4) for s in "ud"} <= keys:
+        raise AssertionError(f"data_train: metrics {sorted(keys)}")
+    solo = cli_run("data_train without workers",
+                   argv + data_options(root, ann, 0), kernels, per_step,
+                   DATA_STEPS, skip)
+    twice = batch_twice(dev, cfg_path, root, ann)
+
+    def timed(r):
+        return r["step_ms"][TRAIN_WARMUP:skip]
+
+    phase("data_train", card=smi, config=CANONICAL_CFG, tree=DATA_TREE,
+          tree_write_s=tree_s, steps=DATA_STEPS, warmup_steps=TRAIN_WARMUP,
+          workers=DATA_WORKERS, step_ms=run["step_ms"],
+          timed_steps=[TRAIN_WARMUP, skip],
+          median_step_ms=statistics.median(timed(run)),
+          loss_per_step=[m["loss"] for m in run["metrics"]],
+          last_step_metrics=run["metrics"][-1],
+          loader_ms_per_batch=run["timings"],
+          loader_median_ms=loader_summary(run["timings"], TRAIN_WARMUP),
+          device_window=run["window"], peak_mem_gb=run["peak_gb"],
+          launches_per_step=dict(zip(KERNEL_NAMES, per_step)),
+          no_workers=dict(step_ms=solo["step_ms"],
+                          median_step_ms=statistics.median(timed(solo)),
+                          loader_ms_per_batch=solo["timings"],
+                          loader_median_ms=loader_summary(solo["timings"],
+                                                          TRAIN_WARMUP),
+                          device_window=solo["window"]),
+          stages_card_ms=twice["card_ms"], stages_cpu_ms=twice["cpu_ms"],
+          host_stages_ms=twice["host_ms"],
+          png_decode_ms=png_decode_ms(root),
+          card_vs_cpu_float_err=twice["float_err"],
+          float_tol_rel_to_max=DATA_FLOAT_TOL,
+          batch_shape=twice["batch_shape"])
+    counts = [a + b for a, b in zip(run["counts"], solo["counts"])]
+    bodies = {k: {b: run["bodies"][k].get(b, 0) + solo["bodies"][k].get(b, 0)
+                  for b in run["bodies"][k]} for k in run["bodies"]}
+    return counts, bodies, ann, twice["item"]
+
+
+def a7s3_moments(clean, level):
+    """The A7S3 model's mean and variance per channel for a constant clean
+    value (``ops/noise.py``: k dsn (shot + dark + read), the streak dsn
+    independent of the rest): E = am v + k n; Var = k^2 ((1 + s_b^2) Var S
+    + s_b^2 E[S]^2) with S = shot + dark + read, E[S] = am v / k + n and
+    Var S = am v / k + n + var_read x read_ratio."""
+    from lowlightenvironmentvideoobjectdetection_torch.ops import noise as N
+    c = N.A7S3
+    out = []
+    for ch in range(3):
+        k = c["k"][ch] * level["k_ratio"]
+        es = level["am"] * clean / k + c["n"][ch]
+        var_s = es + c["var_read"][ch] * level["read_ratio"]
+        sb2 = c["var_beta"][ch]
+        out.append((k * es, k * k * ((1 + sb2) * var_s + sb2 * es * es),
+                    k, es, var_s, sb2))
+    return out
+
+
+def noise_raw(dev, smi, kernels, root, ann, item):
+    """The RAW and noise steps on full-size frames on the card, against
+    the CPU with the same draws: ``SeqAddNoise`` ('a7s3') on the host
+    sample's clean frames (the ``GT/`` halves, 1080x1920) with draws from
+    a CPU generator passed to both (NOISE_RTOL), and ``SeqsRGB2RAW`` then
+    ``SeqNormalizeRAW`` on the pairs with one camera matrix and gains
+    passed to both (RAW_RTOL: the card's sin, asin and pow against the
+    CPU's); the a7s3 noise drawn by the card's own generator on a constant
+    frame, its mean and variance per channel against the model's formula
+    (within MOMENT_SIGMAS standard errors); then RAW_STEPS steps of
+    ``llvod_raw_darkfarm.py`` (8-channel RAW pairs) through the CLI, the
+    loader in the main process: 2 launches of B and D a step, none of E,
+    F, G. Returns the launch counts (A-G) and B's and D's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.pipelines import (
+        transforms as T)
+    from lowlightenvironmentvideoobjectdetection_torch.ops import noise as N
+    from lowlightenvironmentvideoobjectdetection_torch.ops import (
+        unprocess as U)
+    pairs = [torch.as_tensor(f["img"]) for f in item["frames"]]
+    clean = [p[..., 3:].contiguous() for p in pairs]
+    g = torch.Generator().manual_seed(7)
+    add = T.SeqAddNoise(noise_type="a7s3", share_params=True)
+    errs = {}
+    for i, c in enumerate(clean):
+        draws = N.a7s3_draws(c.float()[None], am=add.am, generator=g)
+        got = add.apply(dict(img=c.to(dev), img_fields=["img"]),
+                        **{k: v.to(dev) for k, v in draws.items()})
+        want = add.apply(dict(img=c, img_fields=["img"]), **draws)
+        errs[f"add_noise_{i}"] = compare_results(
+            "noise_raw add_noise", got, want, NOISE_RTOL)
+    ccm = U.random_ccm_gain(torch.Generator().manual_seed(8))
+    raw = T.SeqSRGB2RAW(share_params=True)
+    norm = T.SeqNormalizeRAW(mean=[0.25] * 4, std=[0.12] * 4)
+    card_ccm = U.CcmGain(*(x.to(dev) for x in ccm))
+    got = norm([raw.apply(dict(img=p.to(dev), img_fields=["img"]), card_ccm)
+                for p in pairs])
+    want = norm([raw.apply(dict(img=p, img_fields=["img"]), ccm)
+                 for p in pairs])
+    errs["srgb2raw_normalize"] = compare_results("noise_raw srgb2raw", got,
+                                                 want, RAW_RTOL)
+    if got[0]["img"].shape[-1] != 8:
+        raise AssertionError("noise_raw: RAW pairs must have 8 channels")
+    # moments of the card's own draws
+    level = dict(am=0.8, k_ratio=200.0, read_ratio=30.0)
+    t_, h, w = 3, 563, 1000
+    flat = torch.full((t_, h, w, 3), MOMENT_CLEAN, device=dev)
+    noise = N.real_camera_noise_a7s3(
+        flat, **level, generator=torch.Generator(device=dev).manual_seed(9))
+    n_pix, n_rows = t_ * h * w, t_ * h
+    moments = []
+    for ch, (mean, var, k, es, var_s, sb2) in enumerate(
+            a7s3_moments(MOMENT_CLEAN, level)):
+        x = noise[..., ch].double()
+        m, v = float(x.mean()), float(x.var())
+        # standard errors: pixel noise, and the streak shared along a row
+        mean_se = k * np.sqrt(var_s / n_pix + sb2 * es * es / n_rows)
+        var_se = var * np.sqrt(2.0 / n_pix + 4.0 * sb2 / n_rows)
+        moments.append(dict(channel=ch, mean=m, mean_model=mean,
+                            mean_se=mean_se, var=v, var_model=var,
+                            var_se=var_se))
+        if abs(m - mean) > MOMENT_SIGMAS * mean_se or \
+                abs(v - var) > MOMENT_SIGMAS * var_se:
+            raise AssertionError(f"noise_raw: a7s3 channel {ch} mean {m} "
+                                 f"var {v}, model {mean} {var}")
+    del noise, flat
+    per_step = RAW_PER_STEP
+    # the RAW config redefines train_pipeline but not data, so its
+    # data.train.pipeline is the base's sRGB one (ROADMAP fault F9): name
+    # its own pipeline on the command line
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        load_config)
+    raw_pipeline = load_config(str(REPO / RAW_CFG))["train_pipeline"]
+    run = cli_run("noise_raw", [str(REPO / RAW_CFG), "--seed", "0",
+                                "--work-dir", f"{root}/work_raw"]
+                  + data_options(root, ann, 0)
+                  + [f"data.train.pipeline={raw_pipeline!r}"],
+                  kernels, per_step, RAW_STEPS, 1)
+    phase("noise_raw", card=smi, card_vs_cpu_err_rel_to_max=errs,
+          add_noise_rtol=NOISE_RTOL, raw_rtol=RAW_RTOL,
+          a7s3_moments=moments, moment_clean=MOMENT_CLEAN,
+          moment_sigmas=MOMENT_SIGMAS, raw_config=RAW_CFG,
+          raw_steps=RAW_STEPS, raw_step_ms=run["step_ms"],
+          raw_loss_per_step=[m["loss"] for m in run["metrics"]],
+          raw_last_step_metrics=run["metrics"][-1],
+          raw_loader_ms_per_batch=run["timings"],
+          raw_peak_mem_gb=run["peak_gb"],
+          launches_per_step=dict(zip(KERNEL_NAMES, per_step)))
+    return run["counts"], run["bodies"]
+
+
 def troi_cost(n_maps, h, w, c, n_rois, feat_bytes=2, k=2, out_size=7):
     """(bytes, FLOPs) of TemporalRoIAlign's most-similar RoI align over
     ``n_maps`` reference maps: the roi features and the maps read once, the
@@ -1875,6 +2287,11 @@ def main() -> int:
                     help="only DCNv2's cases (E, F, G), with the package at "
                          "ROOT")
     args = ap.parse_args()
+    # f32 results are compared below: no TF32 anywhere in this run. Set
+    # here, not at import: the data loader's spawned workers import this
+    # module, and a worker that has touched the CUDA flags aborts at exit
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     # ---- device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2126,6 +2543,18 @@ def main() -> int:
     for name in ("roi_align", "roi_align_backward"):
         add_bodies(summary[name], bodies[name])
     agg_agree(dev, (roi_align, roi_align_backward) + dcn_launchers)
+
+    # the training data path: a config file and PNG frames on disk
+    path_kernels = train_kernels + dcn_launchers
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=REPO) as root:
+        counts, bodies, ann, item = data_train(dev, smi, path_kernels, root)
+        more, more_bodies = noise_raw(dev, smi, path_kernels, root, ann,
+                                      item)
+    for name, n, m in zip(KERNEL_NAMES, counts, more):
+        summary[name]["launches"] += n + m
+    for name in ("roi_align", "roi_align_backward"):
+        add_bodies(summary[name], bodies[name])
+        add_bodies(summary[name], more_bodies[name])
 
     for name, entry in summary.items():
         if sum(entry.get("body_launches", {}).values()) not in (

@@ -23,6 +23,13 @@ def save_checkpoint(directory: str, state: TrainState) -> str:
     return path
 
 
+def checkpoint_step(path: str) -> int:
+    """The step of the checkpoint at ``path``, without reading its
+    tensors."""
+    return int(torch.load(path, map_location="cpu", weights_only=True,
+                          mmap=True)["step"])
+
+
 def load_checkpoint(path: str, state: TrainState) -> TrainState:
     """Restore the checkpoint at ``path`` into ``state``'s model (in place)
     and return the state it holds, on the model's device."""
