@@ -75,16 +75,26 @@ uint8 stages equal, float stages to DATA_FLOAT_TOL) and ``noise_raw``
 frames on the card against the CPU with the same draws, the a7s3 noise's
 per-channel moments from the card's own generator against the model, and
 3 steps of ``llvod_raw_darkfarm.py`` through the CLI on 8-channel RAW
-pairs: B and D twice a step). Then one JSON line of kernel summaries
-(A-G), and a last line ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero.
+pairs: B and D twice a step). Then ``eval``, on the same tree: the
+canonical config's test split at full width through ``apis/test.py`` on
+the plain path at f32, whose detections become the gts (its own mAP50 1);
+the kernel path at f32 through the port's test CLI against them (mAP50 at
+least EVAL_F32_MAP, per-frame detection sets against the plain run's);
+the config's bf16 through the CLI with 4 loader workers and none (mAP50,
+frames/s, frame-0 and steady frame ms, the host split, the device's idle
+share, peak memory; A 3 times and B once a frame, B once more a memo
+fill); the training CLI's eval hook against the test CLI on its final
+checkpoint. Then one JSON line of kernel summaries (A-G), and a last line
+``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
     python3 chip_smoke.py --roi-grad-times ROOT
     python3 chip_smoke.py --dcn-times ROOT
+    python3 chip_smoke.py --loader-close ROOT
 
-run kernel D's cases, or DCNv2's (E, F, G at every offset scale), alone
-with the package of the checkout at ROOT (for comparing two commits in one
-call) and print their JSON line.
+run kernel D's cases, or DCNv2's (E, F, G at every offset scale), or the
+training loader's close LOADER_CLOSE_ROUNDS times, alone with the package
+of the checkout at ROOT (for comparing two commits in one call) and print
+their JSON line.
 """
 
 from __future__ import annotations
@@ -182,6 +192,16 @@ NOISE_RTOL = 1e-6       # of max |x|: AddNoise with the same draws
 RAW_RTOL = 1e-5         # of max |x|: sRGB2RAW, the card's sin/asin/pow
 MOMENT_CLEAN = 128.0    # the constant frame of the a7s3 moment check
 MOMENT_SIGMAS = 5.0     # its tolerance, in standard errors
+# eval: the plain f32 run's detections above a score make the gts, at most
+# EVAL_GTS_PER_FRAME a frame (the threshold rises until none has more)
+EVAL_GTS_PER_FRAME = 8
+EVAL_GT_SCORE = 0.05
+EVAL_F32_MAP = 0.99     # the kernel path's f32 mAP50 against those gts
+EVAL_HOOK_TOL = 1e-3    # the training CLI's eval line against the test CLI
+EVAL_WORKERS = (4, 0)   # the bf16 runs' loader processes
+EVAL_HOOK_STEPS = 2
+# --loader-close: rounds of opening, reading and closing the loader
+LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOP_PER_S = 989e12
@@ -820,16 +840,28 @@ def match_sets(got, want):
     """Detections of one frame (DetResult) as sets: every valid row of
     ``want`` needs a row of ``got`` with its label, box within SET_BOX_TOL
     and score within SET_SCORE_TOL. Returns the counts, the rows of want
-    left unmatched, the largest differences among matched rows, and for
-    unmatched rows the nearest same-label row in units of the tolerances."""
+    left unmatched, the largest differences among matched rows, for
+    unmatched rows the nearest same-label row in units of the tolerances,
+    and the highest score of an unmatched row."""
     def rows(d):
         v = d.valid.cpu().numpy()
         return list(zip(d.labels.cpu().numpy()[v],
                         d.boxes.float().cpu().numpy()[v],
                         d.scores.float().cpu().numpy()[v]))
-    grows, wrows = rows(got), rows(want)
+    return match_rows(rows(got), rows(want))
+
+
+def per_class_rows(per_cls):
+    """A frame's per-class [N, 5] results as (label, box, score) rows."""
+    return [(c, np.asarray(r[:4], np.float32), float(r[4]))
+            for c, rows in enumerate(per_cls) for r in rows]
+
+
+def match_rows(grows, wrows):
+    """``match_sets`` on (label, box, score) rows."""
+    grows = list(grows)
     out = dict(n_got=len(grows), n_want=len(wrows), unmatched=0, box=0.0,
-               score=0.0, nearest_unmatched=0.0)
+               score=0.0, nearest_unmatched=0.0, top_unmatched_score=0.0)
     for lab, box, score in wrows:
         dist = [(max(np.abs(b - box).max() / SET_BOX_TOL,
                      abs(sc - score) / SET_SCORE_TOL), i)
@@ -839,6 +871,8 @@ def match_sets(got, want):
             out["unmatched"] += 1
             out["nearest_unmatched"] = max(out["nearest_unmatched"],
                                            float(hit[0]))
+            out["top_unmatched_score"] = max(out["top_unmatched_score"],
+                                             float(score))
             continue
         _, b, sc = grows.pop(hit[1])
         out["box"] = max(out["box"], float(np.abs(b - box).max()))
@@ -2039,6 +2073,312 @@ def noise_raw(dev, smi, kernels, root, ann, item):
     return run["counts"], run["bodies"]
 
 
+# ---- evaluation: the tree's frames through the test API and the CLIs
+
+def eval_options(root, ann, workers):
+    return ["--cfg-options", f"data.test.ann_file={ann}",
+            f"data.test.img_prefix={root}/",
+            f"data.workers_per_gpu={workers}"]
+
+
+def eval_gts(ann, det_lists, path, videos=None):
+    """The tree's annotation file with the detections ``det_lists`` (one
+    per frame, in dataset order) as its gts, written to ``path``: every
+    detection scored above a threshold, which starts at EVAL_GT_SCORE and
+    rises above the (EVAL_GTS_PER_FRAME + 1)-th score of every frame and
+    above every box narrower or lower than 1 px (no gt can be such a box),
+    as COCO xywh in original coordinates (x + w gives back x2 exactly).
+    With ``videos`` only those video ids (and their frames) are kept.
+    Every other detection then scores below every gt, so the run that
+    made them has an mAP50 of 1 against them. Returns the threshold and
+    the number of gts."""
+    with open(ann) as f:
+        data = json.load(f)
+    images = sorted(data["images"],
+                    key=lambda im: (im["video_id"], im["frame_id"]))
+    rows = [per_class_rows(d) for d in det_lists]
+    thr = EVAL_GT_SCORE
+    for r in rows:
+        scores = sorted((s for _, _, s in r), reverse=True)
+        if len(scores) > EVAL_GTS_PER_FRAME:
+            thr = max(thr, scores[EVAL_GTS_PER_FRAME])
+        thr = max([thr] + [s for _, b, s in r
+                           if b[2] - b[0] < 1 or b[3] - b[1] < 1])
+    anns = []
+    for img, r in zip(images, rows):
+        if videos is not None and img["video_id"] not in videos:
+            continue
+        for c, b, s in r:
+            if s > thr:
+                x1, y1, x2, y2 = (float(v) for v in b)
+                anns.append(dict(
+                    id=len(anns) + 1, image_id=img["id"],
+                    video_id=img["video_id"], category_id=c + 1,
+                    bbox=[x1, y1, x2 - x1, y2 - y1],
+                    area=(x2 - x1) * (y2 - y1), iscrowd=0,
+                    instance_id=len(anns) + 1))
+    if videos is not None:
+        data["videos"] = [v for v in data["videos"] if v["id"] in videos]
+        data["images"] = [im for im in data["images"]
+                          if im["video_id"] in videos]
+    data["annotations"] = anns
+    with open(path, "w") as f:
+        json.dump(data, f)
+    return thr, len(anns)
+
+
+def eval_reference(dev, cfg_path, root, ann, kernels):
+    """The plain path on the card at f32: ``apis/test.py``'s
+    ``single_device_test`` over the config's test split with the
+    ``VIDModel`` the test CLI builds (seed 0) at f32, its kernels' plain
+    versions (``impl = "plain"``), the loader in the main process. No
+    kernel launches. Returns the per-frame results and the seconds."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        VIDModel)
+    from lowlightenvironmentvideoobjectdetection_torch.apis.test import (
+        single_device_test)
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        Config, apply_cli_options)
+    from lowlightenvironmentvideoobjectdetection_torch.data.loader import (
+        build_dataset)
+    from lowlightenvironmentvideoobjectdetection_torch.data.pipelines import (
+        Compose)
+    from lowlightenvironmentvideoobjectdetection_torch.models.builder import (
+        vid_model_kwargs)
+    cfg = Config.fromfile(cfg_path)
+    apply_cli_options(cfg, eval_options(root, ann, 0)[1:])
+    d = cfg["data"]["test"]
+    kw = vid_model_kwargs(cfg["model"], d.get("ref_img_sampler"))
+    kw["compute_dtype"] = torch.float32
+    model = VIDModel(device=dev, **kw)
+    model.impl = "plain"
+    reset_counts(*kernels)
+    t = time.perf_counter()
+    dets, _ = single_device_test(model, build_dataset(d, test_mode=True),
+                                 Compose(d["pipeline"], device=dev))
+    seconds = time.perf_counter() - t
+    if any(k.launches for k in kernels):
+        raise AssertionError("eval: the plain run launched a kernel")
+    return dets, seconds
+
+
+def eval_cli(name, argv, kernels, want_counts, window=None):
+    """The port's test CLI (``tools/test.py::main``) on ``argv``, on the
+    card, every launch count reset just before: checks ``want_counts``
+    launches of ``kernels`` (A-G) and finite per-class [N, 5] results.
+    ``window`` (a ``StepWindow``) is called after each frame. Returns the
+    CLI's output, its detections, counts and bodies, wall seconds and
+    peak memory in GiB."""
+    import functools
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        test as cli)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    real = cli.multi_device_test
+    if window is not None:
+        cli.multi_device_test = functools.partial(real, progress_fn=window)
+    t = time.perf_counter()
+    try:
+        out = cli.main(argv)
+    finally:
+        cli.multi_device_test = real
+    run = dict(out=out, wall_s=time.perf_counter() - t,
+               counts=[k.launches for k in kernels],
+               bodies={n: dict(k.body_launches) for n, k in zip(
+                   ("attention", "roi_align", "roi_align_backward"),
+                   (kernels[0], kernels[1], kernels[3]))},
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+               dets=[[np.asarray(b, np.float32).reshape(-1, 5)
+                      for b in r["bbox_results"]] for r in out["results"]])
+    if run["counts"] != list(want_counts):
+        raise AssertionError(f"{name}: launch counts {run['counts']}, want "
+                             f"{list(want_counts)}")
+    for d in run["dets"]:
+        if len(d) != 8 or not all(np.isfinite(x).all() for x in d):
+            raise AssertionError(f"{name}: bad per-class results")
+    return run
+
+
+def eval_times(run, frames):
+    """Per-frame host ms of a CLI run (``timings``: the loader's wait and
+    device stages, and the step): frames/s over the loop, each video's
+    frame 0 (its memo fill; every frame of a 10-frame video is among its
+    14 references, so its decoding happens there), the median and highest
+    of the second video's other frames (the first video's are under the
+    profiler), the decode, device-stage and step ms a frame and the
+    peak."""
+    t = run["out"]["timings"]
+    ms = [r["wait_ms"] + r["device_ms"] + r["step_ms"] for r in t]
+    steady = ms[frames + 1:]
+    return dict(
+        frames_per_s=len(ms) / (sum(ms) / 1e3),
+        frames_per_s_after_first=(len(ms) - 1) / (sum(ms[1:]) / 1e3),
+        cli_fps=run["out"]["summary"]["fps"], cli_wall_s=run["wall_s"],
+        frame0_ms=ms[::frames], frame0_wait_ms=[r["wait_ms"]
+                                               for r in t[::frames]],
+        median_steady_frame_ms=statistics.median(steady),
+        max_steady_frame_ms=max(steady),
+        median_steady_step_ms=statistics.median(
+            r["step_ms"] for r in t[frames + 1:]),
+        # every frame's pair is decoded once: these are a frame's shares
+        decode_ms_per_frame=sum(r["host_ms"] for r in t) / len(t),
+        device_stage_ms_per_frame=sum(r["device_ms"] for r in t) / len(t),
+        step_ms_per_frame=sum(r["step_ms"] for r in t) / len(t),
+        frame_ms=ms, peak_mem_gb=run["peak_gb"])
+
+
+def eval_phase(dev, smi, kernels, root, ann):
+    """The canonical config's test split from the ``data_train`` tree (2
+    videos x 10 PNG pairs at 1080x1920) through the evaluation path, at
+    full width (608x1024, 8 classes, TemporalRoIAlign with 3 shared FCs,
+    14 adaptive-stride references, seeded weights): the plain path at f32
+    (``eval_reference``), whose detections become the gts (``eval_gts``;
+    its own mAP50 must be 1); the kernel path at f32 through the test CLI
+    against them (mAP50 at least EVAL_F32_MAP, per-frame detection sets
+    against the plain run's); the config's bf16 through the CLI with
+    EVAL_WORKERS loader processes, its mAP50 and times, the device's idle
+    share over the first video's steady frames; every CLI run launching A
+    3 times and B once a frame and B once more a memo fill, A on the body
+    of its dtype and B on the 7x7 gather. Then the training CLI for
+    EVAL_HOOK_STEPS steps with ``evaluation.interval`` at that count and
+    ``data.val`` the first video's gts: its ``eval: mAP50=`` line within
+    EVAL_HOOK_TOL of the test CLI's on the final checkpoint. Returns the
+    launch counts (A-G) of the bf16 runs and the hook's run, and B's and
+    D's bodies there."""
+    import contextlib
+    import io
+    from lowlightenvironmentvideoobjectdetection_torch.apis.test import (
+        evaluate_bbox)
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        load_config)
+    from lowlightenvironmentvideoobjectdetection_torch.data.loader import (
+        build_dataset)
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        test as cli, train as train_cli)
+    t_phase = time.perf_counter()
+    cfg_path = str(REPO / CANONICAL_CFG)
+    frames, videos = DATA_TREE["frames"], DATA_TREE["videos"]
+    n = frames * videos
+    # A three times a frame (one a shared FC), B once a frame and once a
+    # memo fill (one a video)
+    per_run = (3 * n, n + videos, 0, 0, 0, 0, 0)
+
+    plain, plain_s = eval_reference(dev, cfg_path, root, ann, kernels)
+    gts = f"{root}/eval_gts.json"
+    thr, n_gts = eval_gts(ann, plain, gts)
+    test_cfg = load_config(cfg_path)["data"]["test"]
+    ds = build_dataset(dict(test_cfg, ann_file=gts, img_prefix=f"{root}/"),
+                       test_mode=True)
+    anns = [ds.get_ann_info(info) for info in ds.data_infos]
+    plain_map = evaluate_bbox(plain, anns)["mAP50"]
+    if plain_map != 1.0:
+        raise AssertionError(f"eval: the plain run's own mAP50 {plain_map}")
+
+    f32 = eval_cli("eval f32", [cfg_path] + eval_options(root, gts, 0)
+                   + ["model.compute_dtype=float32"], kernels, per_run)
+    check_bodies("eval f32 attention", kernels[0], fma=3 * n, mma=0)
+    check_bodies("eval f32 roi_align", kernels[1], gather7x2=n + videos,
+                 gather14x2=0)
+    f32_map = f32["out"]["metrics"]["mAP50"]
+    sets = [match_rows(per_class_rows(g), per_class_rows(w))
+            for g, w in zip(f32["dets"], plain)]
+    if f32_map < EVAL_F32_MAP:
+        raise AssertionError(f"eval: f32 kernel path mAP50 {f32_map} < "
+                             f"{EVAL_F32_MAP}; sets {sets}")
+
+    runs, counts, bodies = {}, [0] * len(kernels), {}
+    for workers in EVAL_WORKERS:
+        window = StepWindow(frames, 1)
+        run = eval_cli(f"eval bf16 workers={workers}",
+                       [cfg_path] + eval_options(root, gts, workers),
+                       kernels, per_run, window)
+        check_bodies("eval bf16 attention", kernels[0], fma=0, mma=3 * n)
+        check_bodies("eval bf16 roi_align", kernels[1], gather7x2=n + videos,
+                     gather14x2=0)
+        runs[workers] = dict(mAP50=run["out"]["metrics"]["mAP50"],
+                             device_window=window.window,
+                             loader_ms_per_frame=run["out"]["timings"],
+                             **eval_times(run, frames))
+        counts = [a + b for a, b in zip(counts, run["counts"])]
+        for k, v in run["bodies"].items():
+            total = bodies.setdefault(k, {})
+            for body, c in v.items():
+                total[body] = total.get(body, 0) + c
+    if runs[EVAL_WORKERS[0]]["mAP50"] != runs[EVAL_WORKERS[1]]["mAP50"]:
+        raise AssertionError("eval: bf16 mAP50 depends on the workers")
+
+    # the training CLI's eval hook on the first video, then the test CLI
+    # on its final checkpoint
+    one = f"{root}/eval_gts_video1.json"
+    eval_gts(ann, plain, one, videos={1})
+    val = dict(test_cfg, ann_file=one, img_prefix=f"{root}/")
+    work = f"{root}/work_eval"
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts(*kernels)
+    with contextlib.redirect_stdout(printed):
+        hook = train_cli.main(
+            [cfg_path, "--seed", "0", "--work-dir", work, "--steps",
+             str(EVAL_HOOK_STEPS)] + data_options(root, ann, 0)
+            + [f"evaluation.interval={EVAL_HOOK_STEPS}",
+               f"data.val={val!r}"])
+    print(printed.getvalue(), end="", flush=True)
+    hook_counts = [k.launches for k in kernels]
+    want = [p * EVAL_HOOK_STEPS + e for p, e in zip(
+        DATA_PER_STEP, (3 * frames, frames + 1, 0, 0, 0, 0, 0))]
+    if hook_counts != want:
+        raise AssertionError(f"eval hook: launch counts {hook_counts}, want "
+                             f"{want}")
+    check_bodies("eval hook attention", kernels[0], fma=0, mma=3 * frames)
+    counts = [a + b for a, b in zip(counts, hook_counts)]
+    for name, k in (("roi_align", kernels[1]),
+                    ("roi_align_backward", kernels[3])):
+        for body, c in k.body_launches.items():
+            bodies[name][body] = bodies[name].get(body, 0) + c
+    lines = [x for x in printed.getvalue().splitlines()
+             if x.startswith("eval: mAP50=")]
+    if len(lines) != 1 or len(hook["evals"]) != 1:
+        raise AssertionError(f"eval hook: lines {lines}")
+    hook_map = hook["evals"][0]["mAP50"]
+    del hook
+    torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    after = cli.main([cfg_path, "--checkpoint",
+                      f"{work}/step_{EVAL_HOOK_STEPS}.pt"]
+                     + eval_options(root, one, 0))
+    cli_map = after["metrics"]["mAP50"]
+    if abs(hook_map - cli_map) > EVAL_HOOK_TOL:
+        raise AssertionError(f"eval hook: mAP50 {hook_map} against the test "
+                             f"CLI's {cli_map}")
+    if abs(float(lines[0].split("=")[1]) - cli_map) > EVAL_HOOK_TOL:
+        raise AssertionError(f"eval hook: line {lines[0]}, CLI {cli_map}")
+
+    phase("eval", card=smi, config=CANONICAL_CFG, tree=DATA_TREE,
+          phase_s=time.perf_counter() - t_phase, plain_f32_s=plain_s,
+          gts=dict(count=n_gts, score_threshold=thr,
+                   most_a_frame=EVAL_GTS_PER_FRAME),
+          plain_f32_map50=plain_map, kernel_f32_map50=f32_map,
+          kernel_f32_gate=EVAL_F32_MAP,
+          kernel_f32_vs_plain_sets=dict(
+              unmatched=sum(x["unmatched"] for x in sets),
+              frames_with_unmatched=sum(1 for x in sets if x["unmatched"]),
+              max_box_px=max(x["box"] for x in sets),
+              max_score=max(x["score"] for x in sets),
+              nearest_unmatched_in_tols=max(x["nearest_unmatched"]
+                                            for x in sets),
+              top_unmatched_score=max(x["top_unmatched_score"]
+                                      for x in sets),
+              detections=[x["n_got"] for x in sets],
+              tolerances=dict(box_px=SET_BOX_TOL, score=SET_SCORE_TOL)),
+          bf16_map50=runs[EVAL_WORKERS[0]]["mAP50"],
+          bf16_by_workers=runs, launches_per_run=dict(zip(KERNEL_NAMES,
+                                                          per_run)),
+          hook=dict(steps=EVAL_HOOK_STEPS, line=lines[0], map50=hook_map,
+                    test_cli_map50=cli_map, tol=EVAL_HOOK_TOL))
+    return counts, bodies
+
+
 def troi_cost(n_maps, h, w, c, n_rois, feat_bytes=2, k=2, out_size=7):
     """(bytes, FLOPs) of TemporalRoIAlign's most-similar RoI align over
     ``n_maps`` reference maps: the roi features and the maps read once, the
@@ -2279,6 +2619,45 @@ def dcn_times(root, dev, smi) -> int:
     return 0
 
 
+def loader_close(root, smi) -> int:
+    """``--loader-close ROOT``: with the package of the checkout at ROOT,
+    the canonical config's training loader (DATA_WORKERS workers, the
+    card) on a DATA_TREE tree, LOADER_CLOSE_ROUNDS times opened, read for
+    LOADER_CLOSE_BATCHES batches and closed; counts the closes that fail (a
+    worker aborting at exit). Prints one JSON line."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        Config, apply_cli_options)
+    from lowlightenvironmentvideoobjectdetection_torch.data import loader
+    from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
+        write_darkfarm_tree)
+    if not Path(loader.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {loader.__file__}, not from {root}")
+    fails = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=REPO) as tree:
+        ann = write_darkfarm_tree(tree, **DATA_TREE)
+        cfg = Config.fromfile(str(REPO / CANONICAL_CFG))
+        apply_cli_options(cfg, data_options(tree, ann, DATA_WORKERS)[1:])
+        for r in range(LOADER_CLOSE_ROUNDS):
+            ld = loader.TrainLoader(cfg, 608, 1024, 3, seed=r, device="cuda")
+            try:
+                for _ in range(LOADER_CLOSE_BATCHES):
+                    next(ld)
+                torch.cuda.synchronize()
+                ld.close()
+            except RuntimeError as e:  # a worker died: count the round
+                fails.append(dict(round=r, error=str(e)))
+    print(json.dumps(dict(root=str(root), card=smi,
+                          rounds=LOADER_CLOSE_ROUNDS,
+                          batches=LOADER_CLOSE_BATCHES,
+                          workers=DATA_WORKERS, failed=len(fails),
+                          failures=fails,
+                          seconds=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--roi-grad-times", metavar="ROOT",
@@ -2286,6 +2665,9 @@ def main() -> int:
     ap.add_argument("--dcn-times", metavar="ROOT",
                     help="only DCNv2's cases (E, F, G), with the package at "
                          "ROOT")
+    ap.add_argument("--loader-close", metavar="ROOT",
+                    help="only the training loader's close, many times, "
+                         "with the package at ROOT")
     args = ap.parse_args()
     # f32 results are compared below: no TF32 anywhere in this run. Set
     # here, not at import: the data loader's spawned workers import this
@@ -2309,6 +2691,8 @@ def main() -> int:
         return roi_grad_times(args.roi_grad_times, dev, smi)
     if args.dcn_times:
         return dcn_times(args.dcn_times, dev, smi)
+    if args.loader_close:
+        return loader_close(args.loader_close, smi)
 
     from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
         init_model, inference_vid)
@@ -2550,11 +2934,14 @@ def main() -> int:
         counts, bodies, ann, item = data_train(dev, smi, path_kernels, root)
         more, more_bodies = noise_raw(dev, smi, path_kernels, root, ann,
                                       item)
-    for name, n, m in zip(KERNEL_NAMES, counts, more):
-        summary[name]["launches"] += n + m
+        # evaluation: the tree's test split through the test API and CLIs
+        ev, ev_bodies = eval_phase(dev, smi, path_kernels, root, ann)
+    for name, n, m, e in zip(KERNEL_NAMES, counts, more, ev):
+        summary[name]["launches"] += n + m + e
     for name in ("roi_align", "roi_align_backward"):
         add_bodies(summary[name], bodies[name])
         add_bodies(summary[name], more_bodies[name])
+        add_bodies(summary[name], ev_bodies[name])
 
     for name, entry in summary.items():
         if sum(entry.get("body_launches", {}).values()) not in (

@@ -37,7 +37,10 @@ class VIDModel:
     The config comes from ``cfg_kwargs`` (``SelsaConfig`` fields, e.g.
     ``roi_extractor="temporal", num_shared_fcs=3``). ``device`` None builds
     on the card and raises without one; pass ``device="cpu"`` for the
-    CPU."""
+    CPU. ``impl = "plain"`` (an attribute, for comparisons only) runs
+    the kernels' plain versions."""
+
+    impl = None
 
     def __init__(self, model_type: str = "SELSA", state_dict=None,
                  seed: int = 0, ref_method: str = "adaptive",
@@ -63,11 +66,12 @@ class VIDModel:
     def _step(self, img, img_shape, sf, frame_id, refs):
         if frame_id == 0:
             self.state = S.init_video_state(self.model, refs, img_shape,
-                                            self.anchors)
+                                            self.anchors, impl=self.impl)
         do = self.ref_method != "fix" or frame_id % self.frame_stride == 0
         self.state, dets = S.inference_step(
             self.model, self.state, img, img_shape, sf, self.anchors,
-            update_memo=self.ref_method == "fix", do_update=do)
+            update_memo=self.ref_method == "fix", do_update=do,
+            impl=self.impl)
         return dets
 
     def inference_vid(self, frame: np.ndarray, frame_id: int,
@@ -89,21 +93,26 @@ class VIDModel:
                           refs)
         return dict(bbox_results=result_to_per_class(dets, cfg.num_classes))
 
-    def _pad_prepared(self, img: np.ndarray) -> torch.Tensor:
-        """Pad an already resized and normalized image to the bucket, keeping
-        the model's input channels."""
+    def _pad_prepared(self, img) -> torch.Tensor:
+        """Pad an already resized and normalized image [h, w, C] (numpy, or
+        a tensor such as the pipeline's device stage gives) to the bucket
+        on the model's device, keeping its first ``backbone_in_channels``
+        channels (the noisy half of a pair)."""
         cfg = self.cfg
+        img = torch.as_tensor(img).to(self.device, torch.float32)
         keep = min(img.shape[-1], cfg.backbone_in_channels)
-        canvas = np.zeros((cfg.pad_h, cfg.pad_w, keep), np.float32)
+        canvas = img.new_zeros((cfg.pad_h, cfg.pad_w, keep))
         h, w = min(img.shape[0], cfg.pad_h), min(img.shape[1], cfg.pad_w)
         canvas[:h, :w] = img[:h, :w, :keep]
-        return torch.as_tensor(canvas, device=self.device)
+        return canvas
 
-    def inference_vid_prepared(self, img: np.ndarray, img_shape=None,
-                               scale_factor=None, frame_id: int = 0,
-                               ref_imgs: Optional[np.ndarray] = None) -> Dict:
-        """Streaming over pipeline-prepared images: only the pad happens
-        here. ``scale_factor`` maps detections back to the original frame."""
+    def inference_vid_prepared(self, img, img_shape=None, scale_factor=None,
+                               frame_id: int = 0, ref_imgs=None) -> Dict:
+        """Streaming over pipeline-prepared images [h, w, C], numpy or
+        tensors (a tensor on the model's device is padded where it lies):
+        only the pad happens here. ``scale_factor`` maps detections back to
+        the original frame; ``ref_imgs`` are the prepared reference frames
+        at frame 0 (an [R, h, w, C] array or a sequence of [h, w, C])."""
         cfg = self.cfg
         canvas = self._pad_prepared(img)
         if img_shape is None:
@@ -112,8 +121,8 @@ class VIDModel:
                              device=self.device)
         if scale_factor is None:
             scale_factor = np.ones((4,), np.float32)
-        sf = torch.as_tensor(np.asarray(scale_factor, np.float32),
-                             device=self.device)
+        sf = torch.as_tensor(scale_factor, dtype=torch.float32).to(
+            self.device)
         refs = None
         if frame_id == 0:
             if ref_imgs is None:

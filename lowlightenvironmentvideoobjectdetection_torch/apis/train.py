@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -34,14 +34,19 @@ def step_generators(seed: int, step: int, batch_size: int
 class TrainLoop:
     """Host loop over the train step: logging every ``log_interval``
     steps, a checkpoint every ``checkpoint_interval`` steps when
-    ``checkpoint_dir`` is set, and ``on_step(state, metrics)`` after each
-    step when given."""
+    ``checkpoint_dir`` is set, ``on_step(state, metrics)`` after each step
+    when given, and every ``eval_interval`` steps, when ``eval_fn`` is
+    given, ``eval_fn(state)`` -> {name: value}, logged as ``eval: k=v
+    ...`` (mmcv's EvalHook). ``eval_fn`` reads the state; the training
+    does not depend on it."""
 
     trainer: Trainer
     log_interval: int = 50
     checkpoint_interval: int = 1000
     checkpoint_dir: Optional[str] = None
     on_step: Optional[Callable[[TrainState, dict], None]] = None
+    eval_fn: Optional[Callable[[TrainState], Dict[str, float]]] = None
+    eval_interval: int = 0
 
     def run(self, state: TrainState, data_iter: Iterable, num_steps: int,
             seed: int, log_fn: Callable[[str], None] = print) -> TrainState:
@@ -63,6 +68,11 @@ class TrainLoop:
                        + f" ({self.log_interval / dt:.2f} it/s)")
             if self.checkpoint_dir and (i + 1) % self.checkpoint_interval == 0:
                 save_checkpoint(self.checkpoint_dir, state)
+            if (self.eval_fn and self.eval_interval
+                    and (i + 1) % self.eval_interval == 0):
+                res = self.eval_fn(state)
+                log_fn("eval: " + " ".join(f"{k}={v:.4f}"
+                                           for k, v in res.items()))
         return state
 
 
@@ -75,8 +85,9 @@ def train_model(loss_fn: Callable, model: nn.Module, data_iter: Iterable,
     schedule, a ``Trainer`` over ``loss_fn(model, sample, generator)`` and a
     ``TrainLoop``. ``resume_from`` restores a whole ``TrainState``
     checkpoint (parameters, momentum, step) into ``model``, so the schedule
-    and the samples continue where they left off. Returns the final
-    state."""
+    and the samples continue where they left off. ``loop_kwargs`` go to
+    ``TrainLoop`` (``eval_fn`` and ``eval_interval`` among them). Returns
+    the final state."""
     opt = make_optimizer(model, lr=make_lr_schedule(
         base_lr, iters_per_epoch=iters_per_epoch))
     trainer = Trainer(loss_fn=loss_fn, optimizer=opt)

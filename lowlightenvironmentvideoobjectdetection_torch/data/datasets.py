@@ -1,7 +1,8 @@
 """Video detection datasets over COCO-VID with reference-frame sampling, the
 port's copy of the JAX package's ``data/datasets.py``
 (``CocoVideoDataset``, ``ImagenetVIDDataset``, ``DarkFarmVIDDataset``) as
-``torch.utils.data.Dataset``s.
+``torch.utils.data.Dataset``s, and ``distributed_video_split``, the test
+split's whole-video shards.
 
 The reference-frame sampler draws from a ``random.Random``: the one given
 to ``get_sample``, or for ``dataset[idx]`` the dataset's own. Given a
@@ -176,6 +177,28 @@ class ImagenetVIDDataset(CocoVideoDataset):
 
 class DarkFarmVIDDataset(CocoVideoDataset):
     CLASSES = DARKFARM_CLASSES
+
+
+def distributed_video_split(data_infos: Sequence[dict], num_shards: int
+                            ) -> List[List[int]]:
+    """Test indices split into ``num_shards`` shards of whole videos
+    (mmtracking's ``DistributedVideoSampler``): the first frames' indices
+    are cut into ``np.array_split`` chunks, and each shard runs from its
+    chunk's first video to the next chunk's (the last to the end), so a
+    streaming memo never crosses shards."""
+    first_frames = [i for i, d in enumerate(data_infos)
+                    if d.get("frame_id", 0) == 0]
+    chunks = np.array_split(first_frames, num_shards)
+    splits: List[List[int]] = []
+    for k, chunk in enumerate(chunks):
+        start = int(chunk[0]) if len(chunk) else len(data_infos)
+        if k == num_shards - 1:
+            end = len(data_infos)
+        else:
+            nxt = chunks[k + 1]
+            end = int(nxt[0]) if len(nxt) else len(data_infos)
+        splits.append(list(range(start, end)))
+    return splits
 
 
 DATASETS = {"ImagenetVIDDataset": ImagenetVIDDataset,

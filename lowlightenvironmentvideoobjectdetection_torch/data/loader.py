@@ -1,7 +1,7 @@
-"""Training batches from a config's dataset and pipeline, the counterpart of
-the JAX package's ``tools/train.py::dataset_iterator`` (with ``make_batch``
-for the darkfarm families) and of ``data/prefetch.py``'s background
-loading.
+"""Training batches and test frames from a config's dataset and pipeline,
+the counterpart of the JAX package's ``tools/train.py::dataset_iterator``
+(with ``make_batch`` for the darkfarm families), of ``data/prefetch.py``'s
+background loading and of the frame preparation in ``apis/test.py``.
 
 A ``DataLoader`` with ``workers`` processes (spawned) runs the host stages
 of each sample: the reference-frame sampler, the annotations and the PNG
@@ -24,6 +24,10 @@ global generator. Each sample's draws come from
 the noise and RAW seeds, in the JAX package's order), so batches do not
 depend on the number of workers, and a run resumed at step s reads the
 batches of steps s, s + 1, ...
+
+The test loop's frames come through ``TestLoader``: the same split, its
+workers decoding the frames of ``stream_plan`` (each file once a video)
+in dataset order, the main process running the device stages.
 """
 
 from __future__ import annotations
@@ -31,11 +35,11 @@ from __future__ import annotations
 import multiprocessing
 import random
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.utils.data import DataLoader, Dataset, Sampler
+from torch.utils.data import DataLoader, Dataset, Sampler, get_worker_info
 
 from ..models.vid.selsa_darkfarm import DarkfarmBatch
 from .datasets import DATASETS, CocoVideoDataset
@@ -52,28 +56,40 @@ def sample_seed(seed: int, step: int, i: int) -> int:
                .generate_state(1, np.uint64)[0])
 
 
-def build_dataset(dcfg: dict) -> CocoVideoDataset:
-    """``data.train`` of a config -> its dataset (COCO-VID types)."""
+def build_dataset(dcfg: dict, test_mode: bool = False) -> CocoVideoDataset:
+    """``data.train`` (or with ``test_mode`` ``data.test`` / ``data.val``)
+    of a config -> its dataset (COCO-VID types). A test dataset keeps every
+    frame, and one without a ``ref_img_sampler`` samples no references."""
     if dcfg["type"] not in DATASETS:
         raise ValueError(f"dataset type {dcfg['type']!r}: the port reads "
                          f"{sorted(DATASETS)}")
+    sampler = dict(dcfg.get("ref_img_sampler") or {})
     return DATASETS[dcfg["type"]](
         ann_file=dcfg["ann_file"], img_prefix=dcfg.get("img_prefix", ""),
-        ref_img_sampler=dict(dcfg.get("ref_img_sampler") or {}))
+        ref_img_sampler=(sampler or None) if test_mode else sampler,
+        test_mode=test_mode)
+
+
+def loader_workers(cfg: dict) -> int:
+    """The config's loader processes, ``data.workers_per_gpu`` (2 when
+    unset)."""
+    return int(cfg["data"].get("workers_per_gpu", 2))
 
 
 class StepOrder(Sampler):
     """(dataset index, global step) for steps ``start``, ``start + 1``,
     ...: epoch e reads the e-th permutation of
-    ``np.random.RandomState(seed)``."""
+    ``np.random.RandomState(seed)``. Setting ``stopped`` ends the
+    iteration."""
 
     def __init__(self, n: int, seed: int, start: int = 0):
         self.n, self.seed, self.start = n, seed, start
+        self.stopped = False
 
     def __iter__(self):
         perms = np.random.RandomState(self.seed)
         epoch, order, step = -1, None, self.start
-        while True:
+        while not self.stopped:
             while epoch < step // self.n:
                 order, epoch = perms.permutation(self.n), epoch + 1
             yield int(order[step % self.n]), step
@@ -179,10 +195,11 @@ class TrainLoader:
             raise ValueError(f"{dcfg['ann_file']}: no training frames")
         self.pad_h, self.pad_w, self.in_channels = pad_h, pad_w, in_channels
         if workers is None:
-            workers = int(cfg["data"].get("workers_per_gpu", 2))
+            workers = loader_workers(cfg)
+        self.order = StepOrder(len(self.dataset), seed, start)
         self.loader = DataLoader(
             HostClips(self.dataset, self.pipeline, seed),
-            sampler=StepOrder(len(self.dataset), seed, start),
+            sampler=self.order,
             batch_size=None, collate_fn=_one, num_workers=workers,
             worker_init_fn=_worker_init if workers else None,
             multiprocessing_context=(multiprocessing.get_context("spawn")
@@ -219,7 +236,150 @@ class TrainLoader:
         return batch
 
     def close(self):
-        """Stop the worker processes."""
+        """Stop the worker processes: the sampler ends, the samples they
+        are preparing are received and dropped, and they exit idle (a
+        worker told to exit while its queue still hands a sample over can
+        abort at exit)."""
         it, self._it = self._it, None
         if it is not None and hasattr(it, "_shutdown_workers"):
-            it._shutdown_workers()
+            self.order.stopped = True
+            for _ in it:  # ends by shutting the workers down
+                pass
+
+
+def _file_key(info: dict):
+    return info.get("filename", info.get("file_name"))
+
+
+def stream_plan(dataset: CocoVideoDataset,
+                indices: Optional[Sequence[int]] = None):
+    """What the test loop prepares for each frame, in order: the JAX
+    ``single_device_test``'s per-video reference cache
+    (``apis/test.py:52-81``) as a plan. A frame's file is prepared once a
+    video: the references of frame 0 (``test_with_adaptive_stride`` spans
+    the video) are kept by file name until they come up as key frames, and
+    the cache empties at each frame 0. Returns ``jobs``, the frames to run the pipeline's host stages
+    on, as (slot, frame dict), and ``steps``, one a frame: its dataset
+    ``index`` and ``sample``, how many jobs it takes (``n_jobs``), its
+    ``key`` slot, its ``refs`` slots (frame 0 with references, else None)
+    and whether the prepared frames are dropped first (``reset``). A slot
+    is a file name; the key frame's is dropped after its frame, as no
+    later frame takes it from the cache."""
+    indices = list(indices) if indices is not None else range(len(dataset))
+    jobs, steps, cached = [], [], set()
+    prefix = dataset.img_prefix
+
+    def job(slot, info, ann=None):
+        frame = dict(img_info=dict(info), img_prefix=prefix)
+        if ann is not None:
+            frame["ann"] = ann
+        jobs.append((slot, frame))
+
+    for i in indices:
+        s = dataset[i]
+        info = s["img_info"]
+        fid = info.get("frame_id", 0)
+        if fid == 0:
+            cached = set()
+        n0, key = len(jobs), _file_key(info)
+        if key in cached:
+            cached.remove(key)
+        else:
+            job(key, info, s.get("ann"))
+        refs = None
+        if fid == 0 and s.get("ref_img_infos"):
+            cached.add(key)
+            refs = [_file_key(r) for r in s["ref_img_infos"]]
+            for k, r in zip(refs, s["ref_img_infos"]):
+                if k not in cached:
+                    job(k, r)
+                    cached.add(k)
+            cached.discard(key)
+        steps.append(dict(index=i, sample=s, n_jobs=len(jobs) - n0, key=key,
+                          refs=refs, reset=fid == 0))
+    return jobs, steps
+
+
+class HostFrames(Dataset):
+    """The host stages (decoding) of the test loop's jobs: job k -> its
+    slot, its frame dict after ``pipeline.host`` with the images as CPU
+    tensors (in shared memory when a worker made them, moved there in the
+    worker's own thread as ``HostClips`` does) and the ms it took."""
+
+    def __init__(self, jobs, pipeline: Compose):
+        self.jobs, self.pipeline = jobs, pipeline
+
+    def __len__(self):
+        return len(self.jobs)
+
+    def __getitem__(self, k):
+        t = time.perf_counter()
+        slot, frame = self.jobs[k]
+        frame = to_device(self.pipeline.host(dict(frame), None), "cpu")
+        if get_worker_info() is not None:
+            for v in frame.values():
+                if isinstance(v, torch.Tensor):
+                    v.share_memory_()
+        return dict(slot=slot, frame=frame,
+                    host_ms=(time.perf_counter() - t) * 1e3)
+
+
+class TestLoader:
+    """The test frames of ``dataset`` at ``indices`` (all by default) in
+    order, each prepared by the test ``pipeline`` as ``stream_plan`` says:
+    ``workers`` spawned processes (none: the main process) run the host
+    stages of the plan's jobs in order and hand the frames over in shared
+    memory; the main process moves them to the pipeline's device and runs
+    its device stages there. ``frames()`` yields, a frame, its dataset
+    ``index``, its ``sample``, the prepared key frame (``prepared``, the
+    pipeline's output) and at frame 0 the prepared reference images
+    (``ref_imgs``, else None). ``timings`` gets one dict a frame:
+    ``host_ms`` (the decoding of its jobs, in a worker), ``wait_ms`` (how
+    long the main process waited for them) and ``device_ms`` (the device
+    stages' launch time). The results do not depend on ``workers``."""
+
+    def __init__(self, dataset: CocoVideoDataset, pipeline: Compose,
+                 indices: Optional[Sequence[int]] = None, workers: int = 0):
+        self.pipeline, self.workers = pipeline, workers
+        self.jobs, self.steps = stream_plan(dataset, indices)
+        self.timings: List[Dict[str, float]] = []
+
+    def _loader(self):
+        w = self.workers
+        return DataLoader(
+            HostFrames(self.jobs, self.pipeline), batch_size=None,
+            shuffle=False, collate_fn=_one, num_workers=w,
+            worker_init_fn=_worker_init if w else None,
+            multiprocessing_context=(multiprocessing.get_context("spawn")
+                                     if w else None),
+            pin_memory=bool(w) and self.pipeline.device.type == "cuda",
+            persistent_workers=False)
+
+    def frames(self) -> Iterator[dict]:
+        it = iter(self._loader())
+        store: Dict[object, dict] = {}
+        try:
+            for step in self.steps:
+                if step["reset"]:
+                    store.clear()
+                host = wait = dev = 0.0
+                for _ in range(step["n_jobs"]):
+                    t = time.perf_counter()
+                    item = next(it)
+                    t1 = time.perf_counter()
+                    store[item["slot"]] = self.pipeline.device_stage(
+                        to_device(item["frame"], self.pipeline.device), None)
+                    host += item["host_ms"]
+                    wait += (t1 - t) * 1e3
+                    dev += (time.perf_counter() - t1) * 1e3
+                self.timings.append(dict(index=step["index"], host_ms=host,
+                                         wait_ms=wait, device_ms=dev))
+                refs = step["refs"]
+                yield dict(index=step["index"], sample=step["sample"],
+                           prepared=store[step["key"]],
+                           ref_imgs=None if refs is None else
+                           [store[k]["img"] for k in refs])
+                del store[step["key"]]
+        finally:
+            if hasattr(it, "_shutdown_workers"):
+                it._shutdown_workers()

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ...registry import PIPELINES
+from ...utils.device import resolve_device
 from ..image_io import imread
 
 
@@ -59,9 +60,10 @@ class Compose:
     """A chain of steps, each a callable or a ``dict(type=...)`` built from
     ``PIPELINES``. ``host`` runs the leading loading steps,
     ``device_stage`` the rest on tensors; a call runs both, moving the clip
-    to ``device`` in between."""
+    to ``device`` in between: the card when None (raising without one),
+    or the device given, ``"cpu"`` for the CPU."""
 
-    def __init__(self, transforms: Sequence, device="cpu"):
+    def __init__(self, transforms: Sequence, device=None):
         steps = []
         for t in transforms:
             if isinstance(t, dict):
@@ -74,7 +76,7 @@ class Compose:
         if any(getattr(t, "on_host", False) for t in steps[n:]):
             raise ValueError("loading steps must lead the pipeline")
         self.host_steps, self.device_steps = steps[:n], steps[n:]
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     @staticmethod
     def _run(steps, results, rng):

@@ -3,6 +3,9 @@
 the model types that the JAX ``tools/train.py`` trains with
 ``darkfarm_loss`` and the port can build.
 
+``vid_model_kwargs`` maps a config to the streaming ``VIDModel``, as the
+JAX ``tools/test.py`` and ``tools/train.py`` do.
+
 Each factory takes the config's model dict (without ``type``) and gives a
 ``DarkfarmConfig``; ``build_model`` builds the model with seeded weights
 and its anchors, and says which half of the pairs the loss trains on (the
@@ -16,6 +19,7 @@ JAX package runs on a TPU are dropped: ``remat``, ``input_packed``,
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -32,6 +36,11 @@ TINY_KW = dict(pad_h=64, pad_w=64, train_nms_pre=64, train_nms_post=32,
                test_nms_pre=64, test_nms_post=16, num_roi_samples=16,
                compute_dtype=torch.float32)
 CLEAN_TYPES = ("SelsaCleanDetect", "SelsaCleanDarkfarmDetect")
+# what a darkfarm-family config drops to stream its noisy branch through
+# SELSA: the training-only knobs
+TRAIN_ONLY_KEYS = ("loss_type", "with_aggregator", "agg_rdb", "agg_taf",
+                   "dual_branch", "denoiser", "with_cleaner")
+NOT_PORTED_VID = ("FGFA", "DFF", "FasterRCNN")
 
 
 def _selsa_cfg(num_classes=30, pad_h=608, pad_w=1024, out_indices=(3,),
@@ -179,3 +188,51 @@ def build_model(model_cfg: dict, tiny: bool = False, seed: int = 0,
         cfg, torch.Generator().manual_seed(seed), device=device)
     branch = "clean" if model_cfg["type"] in CLEAN_TYPES else "noise"
     return System(model, anchors, branch)
+
+
+def vid_model_kwargs(model_cfg: dict, sampler: Optional[dict] = None,
+                     tiny: bool = False) -> dict:
+    """The config's ``model`` dict and its test dataset's
+    ``ref_img_sampler`` -> ``VIDModel`` keyword arguments, the JAX CLIs'
+    mapping (``tools/test.py:289-315``, ``tools/train.py:326-340``): a
+    darkfarm-family type streams its noisy branch through SELSA with the
+    same architecture, ``out_indices=(3,)``, ``in_channels`` as
+    ``backbone_in_channels`` and the training-only keys dropped; ``tiny``
+    applies TINY_KW; a ``test_with_fix_stride`` sampler gives
+    ``ref_method="fix"`` with its ``stride`` and a memo of its frame range
+    (unless the model dict sets them)."""
+    kw = dict(model_cfg)
+    mtype = kw.pop("type")
+    if mtype in NOT_PORTED_VID:
+        raise NotImplementedError(
+            f"model type {mtype!r}: the port streams SELSA and the darkfarm "
+            "family only (ROADMAP.md Queue 1, the other VID families and "
+            "the mmdet zoo)")
+    if mtype != "SELSA":
+        if mtype not in MODELS:
+            raise KeyError(f"model type {mtype!r}: the port streams SELSA "
+                           f"and {sorted(MODELS.keys())}")
+        kw["out_indices"] = (3,)
+        in_ch = kw.pop("in_channels", None)
+        if in_ch and in_ch != 3:
+            kw.setdefault("backbone_in_channels", in_ch)
+        for k in TRAIN_ONLY_KEYS:
+            kw.pop(k, None)
+    if tiny:
+        kw.update(TINY_KW)
+    out = dict(model_type="SELSA")
+    for k in ("ref_method", "frame_stride"):
+        if k in kw:
+            out[k] = kw.pop(k)
+    sampler = sampler or {}
+    if sampler.get("method",
+                   "test_with_adaptive_stride") == "test_with_fix_stride":
+        out.setdefault("ref_method", "fix")
+        out.setdefault("frame_stride", sampler.get("stride", 1))
+        fr = sampler.get("frame_range", [-7, 7])
+        kw.setdefault("num_ref_frames",
+                      abs(fr[0]) + fr[1] if isinstance(fr, list) else 14)
+    scfg = _selsa_cfg(**kw)
+    out.update({f.name: getattr(scfg, f.name)
+                for f in dataclasses.fields(scfg)})
+    return out

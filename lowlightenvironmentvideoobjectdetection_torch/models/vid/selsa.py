@@ -401,10 +401,12 @@ def _proposals(cfg, cls, reg, anchors, img_shape) -> rpn.Proposals:
 
 @torch.no_grad()
 def init_video_state(model: SelsaDetector, ref_imgs: torch.Tensor, img_shape,
-                     anchors: torch.Tensor) -> VideoState:
+                     anchors: torch.Tensor,
+                     impl: Optional[str] = None) -> VideoState:
     """Fill the memo from the reference frames ref_imgs [R, H, W, Cin] (one
     proposal NMS for all R); the temporal extractor also keeps their neck
-    maps."""
+    maps. ``impl="plain"`` runs RoIAlign's plain version (for comparisons
+    only)."""
     cfg = model.cfg
     r = ref_imgs.shape[0]
     p = cfg.test_nms_post
@@ -414,7 +416,8 @@ def init_video_state(model: SelsaDetector, ref_imgs: torch.Tensor, img_shape,
                              device=neck.device).expand(r, 2)
     props = _proposals(cfg, cls_all, reg_all, anchors, shapes)
     binds = torch.arange(r, device=neck.device).repeat_interleave(p)
-    rfeats = model.roi_feats(neck, props.boxes.reshape(-1, 4), binds)
+    rfeats = model.roi_feats(neck, props.boxes.reshape(-1, 4), binds,
+                             impl=impl)
     kvs = model.bbox_head.ref_transform_kv(rfeats)
     kvs = tuple((k.reshape(k.shape[0], r, p, -1), v.reshape(v.shape[0], r, p, -1))
                 for k, v in kvs)
@@ -491,15 +494,16 @@ def inference_step_batch(model: SelsaDetector, states: VideoState,
                          frames: torch.Tensor, img_shapes: torch.Tensor,
                          scale_factors: Optional[torch.Tensor],
                          anchors: torch.Tensor, update_memo: bool = False,
-                         do_update: bool = True
+                         do_update: bool = True, impl: Optional[str] = None
                          ) -> Tuple[VideoState, DetResult]:
     """One frame of each of S streams, frames [S, H, W, 3], img_shapes
     [S, 2], scale_factors [S, 4] -> (states, DetResult [S, 100, ...]): the
     counterpart of ``jax.vmap(inference_step)``. With ``update_memo`` and
     ``do_update`` the memo of every stream rolls at its own ``next_slot``,
-    in place (see ``roll_memo``)."""
+    in place (see ``roll_memo``). ``impl`` as in ``stream_head_batch``."""
     cfg = model.cfg
-    out = stream_head_batch(model, states, frames, img_shapes, anchors)
+    out = stream_head_batch(model, states, frames, img_shapes, anchors,
+                            impl=impl)
     props = out.proposals
     dets = bh.bbox_decode(props.boxes, out.cls_score, out.bbox_pred,
                           img_shapes, roi_valid=props.valid,
@@ -566,9 +570,10 @@ def stream_head(model: SelsaDetector, state: VideoState, frame: torch.Tensor,
 def inference_step(model: SelsaDetector, state: VideoState,
                    frame: torch.Tensor, img_shape, scale_factor,
                    anchors: torch.Tensor, update_memo: bool = False,
-                   do_update: bool = True) -> Tuple[VideoState, DetResult]:
+                   do_update: bool = True, impl: Optional[str] = None
+                   ) -> Tuple[VideoState, DetResult]:
     """One streamed frame [H, W, 3] -> (state, DetResult): the S = 1 case
-    of ``inference_step_batch``.
+    of ``inference_step_batch`` (``impl`` as there).
 
     With ``update_memo`` (fix-stride mode) and ``do_update``, this frame's
     K/V replace the oldest memo slot, written in place in the given state's
@@ -576,7 +581,7 @@ def inference_step(model: SelsaDetector, state: VideoState,
     states, dets = inference_step_batch(
         model, _one_stream(state), frame[None], _batch_of_one(img_shape, frame),
         _batch_of_one(scale_factor, frame), anchors, update_memo=update_memo,
-        do_update=do_update)
+        do_update=do_update, impl=impl)
     if update_memo and do_update:
         state = VideoState(state.ref_kv, state.ref_valid,
                            (state.next_slot + 1) % state.ref_valid.shape[0],

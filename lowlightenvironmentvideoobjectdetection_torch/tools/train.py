@@ -18,8 +18,10 @@ and PNG frames, ``data.workers_per_gpu`` loader processes) or, with
 ``TINY_KW`` and computes in float32. Appends a line to
 ``WORK_DIR/train_log.json`` and saves ``WORK_DIR/step_<N>.pt`` with
 ``torch.save``; ``--resume-from`` continues from such a file (its
-parameters, momentum, step and the data order). The periodic evaluation
-hook of the JAX CLI is not ported yet (ROADMAP.md Queue 1, evaluation).
+parameters, momentum, step and the data order). With ``evaluation.interval``
+in the config and a ``data.val`` (else ``data.test``) whose ``ann_file``
+exists, every ``interval`` steps the current detector streams that split
+(``make_eval_fn``) and its ``mAP50`` is logged as ``eval: mAP50=...``.
 """
 
 from __future__ import annotations
@@ -33,10 +35,13 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..apis.inference import VIDModel, detector_state
+from ..apis.test import evaluate_bbox, single_device_test
 from ..apis.train import train_model
 from ..config import Config, apply_cli_options
-from ..data.loader import TrainLoader
-from ..models.builder import build_model
+from ..data.loader import TrainLoader, build_dataset, loader_workers
+from ..data.pipelines import Compose
+from ..models.builder import build_model, vid_model_kwargs
 from ..models.vid.selsa_darkfarm import DarkfarmBatch
 from ..utils.checkpoint import checkpoint_step, save_checkpoint
 from ..utils.device import resolve_device
@@ -77,12 +82,44 @@ def synthetic_batches(cfg, device, seed: int):
                               for a in fields))
 
 
+def make_eval_fn(cfg, vcfg: dict, model: torch.nn.Module, tiny: bool,
+                 device) -> Callable:
+    """The EvalHook of the JAX CLI (``tools/train.py:305-362``): builds the
+    streaming ``VIDModel`` of the config (``vid_model_kwargs``), the split
+    ``vcfg``'s test dataset and pipeline once; each call copies the
+    training ``state``'s current detector weights into the ``VIDModel``
+    (``detector_state``: the ``selsa.`` entries; the cleaner and the
+    aggregator play no part in streaming) in its own storage and dtypes,
+    streams the split (``single_device_test``) and returns
+    ``evaluate_bbox``'s ``{"mAP50": ...}``. Nothing of the trainer is
+    written: its parameters, optimizer state, generators and modes stay as
+    they are."""
+    with torch.random.fork_rng(devices=[]):  # the build draws its init
+        vid = VIDModel(state_dict=model.state_dict(), device=device,
+                       **vid_model_kwargs(cfg["model"],
+                                          vcfg.get("ref_img_sampler"), tiny))
+    ds = build_dataset(vcfg, test_mode=True)
+    pipe = Compose(vcfg["pipeline"], device=device)
+    workers = loader_workers(cfg)
+
+    def eval_fn(state):
+        # load_state_dict copies into the VIDModel's own tensors (cast to
+        # their dtypes), so the trainer's parameters are only read
+        vid.model.load_state_dict(detector_state(state.model.state_dict()),
+                                  strict=True)
+        det_lists, annotations = single_device_test(vid, ds, pipe,
+                                                    workers=workers)
+        return evaluate_bbox(det_lists, annotations)
+
+    return eval_fn
+
+
 def main(argv: Optional[List[str]] = None,
          on_step: Optional[Callable] = None) -> dict:
     """Run the CLI on ``argv``; ``on_step(state, metrics)`` is called after
     each step. Returns the final ``state``, the ``log`` line, each step's
-    ``metrics`` and the loader's ``timings`` (None with
-    ``--synthetic``)."""
+    ``metrics``, the loader's ``timings`` (None with ``--synthetic``) and
+    each periodic evaluation's results (``evals``)."""
     args = parse_args(argv)
     cfg = Config.fromfile(args.config)
     apply_cli_options(cfg, args.cfg_options)
@@ -102,7 +139,18 @@ def main(argv: Optional[List[str]] = None,
         loader = data = TrainLoader(cfg, s.pad_h, s.pad_w,
                                     system.cfg.in_channels, seed=args.seed,
                                     start=start, device=device)
-    metrics = []
+    metrics, evals = [], []
+    eval_fn, eval_interval = None, 0
+    vcfg = (cfg.get("data") or {}).get("val") or (cfg.get("data") or {}).get(
+        "test")
+    interval = (cfg.get("evaluation") or {}).get("interval")
+    if interval and vcfg and os.path.exists(vcfg.get("ann_file", "")):
+        hook = make_eval_fn(cfg, vcfg, system.model, args.tiny, device)
+        eval_interval = int(interval)
+
+        def eval_fn(state):
+            evals.append(hook(state))
+            return evals[-1]
 
     def step_done(state, m):
         metrics.append(m)
@@ -116,7 +164,8 @@ def main(argv: Optional[List[str]] = None,
             base_lr=opt_cfg.get("lr", 0.01), seed=args.seed,
             checkpoint_dir=work_dir,
             log_interval=cfg.get("log_config", {}).get("interval", 50),
-            resume_from=args.resume_from, on_step=step_done)
+            resume_from=args.resume_from, on_step=step_done,
+            eval_fn=eval_fn, eval_interval=eval_interval)
     finally:
         if loader is not None:
             loader.close()
@@ -128,7 +177,8 @@ def main(argv: Optional[List[str]] = None,
     path = save_checkpoint(work_dir, state)
     print(f"saved final checkpoint to {path}")
     return dict(state=state, log=log, metrics=metrics,
-                timings=loader.timings if loader is not None else None)
+                timings=loader.timings if loader is not None else None,
+                evals=evals)
 
 
 if __name__ == "__main__":

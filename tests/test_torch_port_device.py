@@ -1,5 +1,6 @@
 """The port's entry points build on the card unless the caller asks for the
-CPU, and raise where there is no card."""
+CPU, and raise where there is no card; so does a pipeline's device
+stage (``Compose``)."""
 
 import pytest
 import torch
@@ -7,6 +8,9 @@ import torch
 from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
     VIDModel,
     init_model,
+)
+from lowlightenvironmentvideoobjectdetection_torch.data.pipelines import (
+    Compose,
 )
 from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
     selsa as TS,
@@ -56,3 +60,11 @@ def test_cpu_on_request():
                              generator=torch.Generator().manual_seed(0))
     assert st.ref_kv[0][0].device.type == "cpu"
     assert st.ref_kv[0][0].shape == (2, 16, 2, 8, 64)
+
+
+def test_compose_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    steps = [dict(type="Normalize")]
+    assert Compose(steps, device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Compose(steps)

@@ -3,7 +3,8 @@ and the JAX package: the machine with the card has none of them. In a
 fresh interpreter with those names blocked in ``sys.modules`` (an import
 of a blocked name raises), every module of the port and ``chip_smoke``
 import, and the canonical config's data path runs: a tree of PNG pairs is
-written and read back, and a training batch is built from it."""
+written and read back, a training batch is built from it, and the test
+CLI evaluates the config on it."""
 
 import os
 import pkgutil
@@ -20,8 +21,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
 def test_port_runs_without_jax_cv2_or_pil(tmp_path):
     mods = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                   port.__name__ + ".")]
-    assert {port.__name__ + ".data.image_io", port.__name__ + ".tools.train",
-            port.__name__ + ".data.loader"} <= set(mods)
+    assert {port.__name__ + m for m in (
+        ".data.image_io", ".tools.train", ".data.loader", ".tools.test",
+        ".apis.test", ".core.eval.mean_ap")} <= set(mods)
     code = f"""
 import importlib, sys
 for name in {BLOCKED!r}:
@@ -40,6 +42,14 @@ apply_cli_options(cfg, ["data.train.ann_file=" + ann,
 batch = next(TrainLoader(cfg, 64, 96, 3, device="cpu", workers=0))
 assert tuple(batch.pair_imgs.shape) == (1, 3, 64, 96, 6)
 assert bool(batch.gt_valid.any())
+from {port.__name__}.tools import test
+out = test.main(["configs/vid/llvod/"
+                 "llvod_l1234_fusion_add_i1234_rdb_taf_darkfarm.py",
+                 "--tiny", "--device", "cpu", "--cfg-options",
+                 "data.test.ann_file=" + ann,
+                 "data.test.img_prefix={tmp_path}/",
+                 "model.neck_channels=32", "data.workers_per_gpu=0"])
+assert out["summary"]["frames"] == 4 and "mAP50" in out["summary"]
 loaded = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}
           and sys.modules[m] is not None]
 assert not loaded, loaded

@@ -260,7 +260,8 @@ def test_canonical_train_pipeline(darkfarm_tree):
                                 ref_img_sampler=sampler)
     td = tds.DarkFarmVIDDataset(ann, img_prefix=prefix,
                                 ref_img_sampler=sampler)
-    jp, tp = JCompose(dcfg["pipeline"]), TCompose(dcfg["pipeline"])
+    jp = JCompose(dcfg["pipeline"])
+    tp = TCompose(dcfg["pipeline"], device="cpu")
     flips = set()
     for idx in range(len(jd)):
         random.seed(idx)
@@ -278,7 +279,7 @@ def test_canonical_test_pipeline(darkfarm_tree):
     prefix, ann = darkfarm_tree
     cfg = t_load_config(CANONICAL)
     pipeline = cfg["data"]["test"]["pipeline"]
-    jp, tp = JCompose(pipeline), TCompose(pipeline)
+    jp, tp = JCompose(pipeline), TCompose(pipeline, device="cpu")
     jd = jds.DarkFarmVIDDataset(ann, img_prefix=prefix, test_mode=True)
     for idx in (0, 5, 9):
         info = jd.data_infos[idx]

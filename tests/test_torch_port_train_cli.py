@@ -135,6 +135,22 @@ def test_loader_resumes_at_its_step(tree):
             assert torch.equal(a, b)
 
 
+def test_loader_close_drains_its_workers(tree):
+    """``close`` ends the sampler and receives what the workers are
+    preparing before they exit: on the card, a worker told to exit while
+    it still handed a sample over aborted at exit (``chip_smoke.py
+    --loader-close`` counts such closes)."""
+    cfg = tconfig.Config.fromfile(CANONICAL)
+    tconfig.apply_cli_options(cfg, _options(tree))
+    loader = tl.TrainLoader(cfg, 64, 64, 3, seed=2, device="cpu", workers=2)
+    next(loader)
+    it = loader._it
+    assert it._tasks_outstanding > 0  # the workers prefetch
+    loader.close()
+    assert loader.order.stopped and it._tasks_outstanding == 0
+    assert all(w.exitcode == 0 for w in it._workers)
+
+
 NARROW = ["model.out_indices=(2, 3)", "model.neck_channels=32"]
 
 
