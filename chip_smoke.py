@@ -84,8 +84,30 @@ the config's bf16 through the CLI with 4 loader workers and none (mAP50,
 frames/s, frame-0 and steady frame ms, the host split, the device's idle
 share, peak memory; A 3 times and B once a frame, B once more a memo
 fill); the training CLI's eval hook against the test CLI on its final
-checkpoint. Then one JSON line of kernel summaries (A-G), and a last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+checkpoint. Then the dark backbones and the denoise-then-detect
+baselines: ``kernels`` also holds E, F and G at the frame counts that
+streaming ResNetC gives its plugin after stage 4 (a memo fill's 14
+frames, S = 4 and 1; the training shapes of the dark packs are the
+aggregator's four); ``dark_variants`` (each of the 13 ``DARK_VARIANTS``
+backbones at full width on a 3-frame clip, ``conv_offset`` perturbed: the
+f32 kernel path against the plain DCN, the E launches its modules give,
+the bf16 forward's ms), ``plugin_train`` (the insert-plugins config through
+``train_model``: E 12, F and G 9 launches a step, ``plugin1`` taking no
+gradient as in JAX; the stem and stage 1 bit-identical, the later
+plugins' leaves changed), ``plugin_agree`` (its f32 loss and gradients,
+kernels against plain, ``conv_offset`` perturbed), ``dark_agree`` (the
+ConvLSTM config's, B and D against the plain RoIAlign), then on the tree:
+``dark_train`` (``llvod_lstm_darkfarm.py`` through the CLI with 4 loader
+workers: B and D twice a step, no DCN, the teacher and the frozen stages
+bit-identical, the ConvLSTM gates changed, step ms, idle share, peak
+memory), ``dark_stream`` (its test split: the plain f32 run's detections
+as gts, the kernel path at f32 through the test CLI, mAP50; then S = 4
+ResNetC streams batched against each stream alone at f32) and
+``fastdvd_train`` (``llvod_fastdvd_darkfarm.py`` 3 steps and
+``llvod_unet_darkfarm.py`` 2 through the CLI: B and D twice a step,
+``loss_denoise`` finite, every denoiser leaf changed). Then one JSON line
+of kernel summaries (A-G), and a last line ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero.
 
     python3 chip_smoke.py --roi-grad-times ROOT
     python3 chip_smoke.py --dcn-times ROOT
@@ -100,6 +122,7 @@ their JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -150,12 +173,18 @@ TROI_CFG = dict(roi_extractor="temporal", num_shared_fcs=3, num_classes=8)
 # zero gradient in exact arithmetic (softmax ignores a constant per query,
 # and the TAF's softmax over the frames a constant per pixel): these biases
 # may stay at their initial 0
-ZERO_GRAD = (".ref_fc_embed.bias", "_taf.emb_conv2.bias")
+ZERO_GRAD = (".ref_fc_embed.bias", "taf.emb_conv2.bias")
 # DCNv2 (kernels E, F, G) at the aggregator's stage shapes, T = 3 frames of
-# 608x1024, G = 8: (name, channels, h, w)
-DCN_SHAPES = (("stage0", 64, 152, 256), ("stage1", 128, 76, 128),
-              ("stage2", 256, 38, 64), ("stage3", 512, 38, 64))
-DCN_FRAMES, DCN_GROUPS = 3, 8
+# 608x1024, G = 8: (name, frames, channels, h, w); the dark backbones'
+# packs in training take the same four (the ConvLSTM's at stages 3 and 4,
+# the layer plugins' at C / 4 and the insert plugins' TAF at the stage's
+# planes, 3 frames), and streaming ResNetC's plugin after stage 4 takes a
+# memo fill's 14 frames as one clip and S = 4 or 1 streams' frames
+DCN_SHAPES = (("stage0", 3, 64, 152, 256), ("stage1", 3, 128, 76, 128),
+              ("stage2", 3, 256, 38, 64), ("stage3", 3, 512, 38, 64),
+              ("plugin4_memo14", 14, 512, 38, 64),
+              ("plugin4_s4", 4, 512, 38, 64), ("plugin4_s1", 1, 512, 38, 64))
+DCN_GROUPS = 8
 DCN_REL = 1e-5             # of max |value|: F's atomic order varies per run
 DCN_BF16_RTOL = 2.0 ** -7  # x's bf16 gradient: one rounding of the f32 sum
 # agg_agree: conv_offset perturbed so the offsets have this std (feature px)
@@ -200,6 +229,16 @@ EVAL_F32_MAP = 0.99     # the kernel path's f32 mAP50 against those gts
 EVAL_HOOK_TOL = 1e-3    # the training CLI's eval line against the test CLI
 EVAL_WORKERS = (4, 0)   # the bf16 runs' loader processes
 EVAL_HOOK_STEPS = 2
+# the dark backbones and the denoise-then-detect baselines
+LSTM_CFG = "configs/vid/llvod/llvod_lstm_darkfarm.py"
+PLUGIN_CFG = "configs/vid/llvod/llvod_insert_plugins_l34_i1234_vid_a7s3.py"
+FASTDVD_CFG = "configs/vid/llvod/llvod_fastdvd_darkfarm.py"
+UNET_CFG = "configs/vid/llvod/llvod_unet_darkfarm.py"
+DARK_CLIP = 3           # a training clip: the key and 2 references
+DARK_VARIANT_REL = 1e-5  # of max |stage|: f32 kernel path vs plain DCN
+DARK_STEPS, DARK_TIMED = 8, 4  # dark_train: 2 warm-up, 4 timed, 2 profiled
+FASTDVD_STEPS, UNET_STEPS = 3, 2
+DARK_STREAM_S, DARK_STREAM_T = 4, 3  # dark_stream: ResNetC streams, frames
 # --loader-close: rounds of opening, reading and closing the loader
 LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
@@ -537,11 +576,11 @@ def roi_grad_case(name, ops, plain_backward, maps_shape, rois, binds, g,
     return entry
 
 
-def dcn_inputs(dev, dtype, g, c, h, w, std=2.5, push=True):
-    """DCN operands at one stage shape: x [3, c, h, w], offsets of N(0,
+def dcn_inputs(dev, dtype, g, n, c, h, w, std=2.5, push=True):
+    """DCN operands at one stage shape: x [n, c, h, w], offsets of N(0,
     std^2) px (at 2.5 many beyond 2 px, samples beyond the edges), with
     ``push`` every 50th pushed beyond the map, masks in (0, 1)."""
-    n, gr = DCN_FRAMES, DCN_GROUPS
+    gr = DCN_GROUPS
     x = torch.randn(n, c, h, w, generator=g).to(dev, dtype)
     off = torch.randn(n, gr * 18, h, w, generator=g) * std
     if push:
@@ -603,13 +642,14 @@ def dcn_kernels(dev, g, ops, errs):
     stage 0's entry with the other stages under their names, each stage's
     entry with the times at every scale under ``offsets``}."""
     out = {k: {} for k in "EFG"}
-    for name, c, h, w in DCN_SHAPES:
+    for name, n, c, h, w in DCN_SHAPES:
         for scale, std, push in DCN_OFFSETS:
             gen = g if push else torch.Generator().manual_seed(int(10 * std))
             for dtype in (torch.float32, torch.bfloat16):
                 tag = (f"dcn_{name}" + ("" if push else f"_{scale}")
                        + f"_{str(dtype)[6:]}")
-                x, off, mask = dcn_inputs(dev, dtype, gen, c, h, w, std, push)
+                x, off, mask = dcn_inputs(dev, dtype, gen, n, c, h, w, std,
+                                          push)
                 grad_cols = dcn_check(ops, tag, x, off, mask, gen, errs)
             runs = dict(
                 E=(lambda: ops.deform_columns(x, off, mask),
@@ -623,8 +663,8 @@ def dcn_kernels(dev, g, ops, errs):
             errs_of = dict(E=f"{tag}_columns", F=f"{tag}_grad_x",
                            G=f"{tag}_grad_offset")
             for kern, (kernel, plain) in runs.items():
-                nbytes, flops = dcn_cost(kern, DCN_FRAMES, c, h, w,
-                                         DCN_GROUPS, x.element_size())
+                nbytes, flops = dcn_cost(kern, n, c, h, w, DCN_GROUPS,
+                                         x.element_size())
                 bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
                 if push:
                     ms, plain_ms, _ = compare_times(kernel, plain)
@@ -642,7 +682,7 @@ def dcn_kernels(dev, g, ops, errs):
                         bound_by=bound_by, share_of_bound=bound_ms / ms,
                         graph_share_of_bound=bound_ms / gms, library_ms=None,
                         library_note=NO_LIBRARY_DCN, bytes=nbytes,
-                        flops=flops, shape=[DCN_FRAMES, c, h, w],
+                        flops=flops, shape=[n, c, h, w],
                         groups=DCN_GROUPS, offset_std=std)
                     if kern != "E":
                         entry["plain_note"] = (
@@ -1138,7 +1178,7 @@ def seeded_model(S, cfg, dev):
 
 
 def train_steps(name, model, batch, loss_fn, kernels, frozen,
-                per_step=(0, 2, 0, 2)):
+                per_step=(0, 2, 0, 2), still=()):
     """TRAIN_WARMUP + TRAIN_STEPS steps of ``loss_fn(model, sample,
     generator)`` on ``batch`` (one sample, a batch of 1) through
     ``train_model``. Checks ``per_step`` launches a step of each of
@@ -1146,7 +1186,8 @@ def train_steps(name, model, batch, loss_fn, kernels, frozen,
     two of kernel B, on the 7x7 gather body, and of kernel D, on
     scatter7x2, and none of A and C), the step count and finite metrics,
     that the parameters under the ``frozen`` prefixes stayed bit-identical
-    and that the others moved (but ZERO_GRAD biases). Returns the run: the
+    and that the others moved (but ZERO_GRAD biases and, when they stay,
+    those under the ``still`` prefixes). Returns the run: the
     launch counts, B's and D's launches per body, the step ms, each step's
     metrics, the peak memory in GiB and the names of the frozen and of the
     unchanged parameters."""
@@ -1193,6 +1234,7 @@ def train_steps(name, model, batch, loss_fn, kernels, frozen,
         elif same:
             run["unchanged"].append(n)
     if not run["frozen"] or any(not n.endswith(ZERO_GRAD)
+                                and not n.startswith(still)
                                 for n in run["unchanged"]):
         raise AssertionError(f"{name}: {len(run['frozen'])} frozen; "
                              f"unchanged {run['unchanged']}")
@@ -1624,17 +1666,8 @@ def agg_agree(dev, kernels):
     uniforms = S.draw_loss_uniforms(cfg.selsa, 8,
                                     torch.Generator().manual_seed(3), dev)
     probe = OffsetProbe(model)
-    gen = torch.Generator().manual_seed(4)
-    with torch.no_grad():
-        for p in probe.packs:
-            w = p.conv_offset.weight
-            w.copy_(torch.randn(w.shape, generator=gen).to(dev))
-        with probe:  # the offsets' std at this scale, pack by pack
-            D.darkfarm_loss(model, sample, anchors, uniforms=uniforms)
-        for i, p in enumerate(probe.packs):
-            std = statistics.mean(st["std"] for st in probe.stats
-                                  if st["pack"] == i)
-            p.conv_offset.weight.mul_(AGG_OFFSET_STD / std)
+    perturb_offsets(probe, lambda: D.darkfarm_loss(model, sample, anchors,
+                                                   uniforms=uniforms), dev)
 
     def run(impl, pinned=None):
         model.zero_grad(set_to_none=True)
@@ -1691,6 +1724,513 @@ def agg_agree(dev, kernels):
         raise AssertionError(f"agg_agree: gradient of {worst_leaf} off by "
                              f"{worst} tolerances")
     del model
+
+
+# ---- the dark backbones and the denoise-then-detect baselines
+
+def add_counts(total, more):
+    """{kernel: {body: count}} ``more`` added into ``total``."""
+    for k, v in more.items():
+        t = total.setdefault(k, {})
+        for body, c in v.items():
+            t[body] = t.get(body, 0) + c
+
+
+def dark_dcn_calls(backbone, clip_len, backward=False):
+    """E launches of one forward of a dark ``backbone`` on clips of
+    ``clip_len`` frames, from its modules: 2 a bidirectional ConvLSTM block
+    (``dcn_f`` on the frames, ``dcn_b`` on the forward hidden states) and
+    one a reference frame of each layer plugin and each aggregator plugin's
+    TAF (each call takes every clip). With ``backward``, the launches of F
+    and of G in its backward: none in the stages up to ``frozen_stages``,
+    whose output is detached (the stage's plugin too, as in JAX)."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.aggregators.denoising_aggregator import (  # noqa: E501
+        TemporalAttentionFusion)
+    from lowlightenvironmentvideoobjectdetection_torch.models.backbones.dark_resnet import (  # noqa: E501
+        ConvLSTMBottleneck, LayerDenoisingPlugin)
+    n = 0
+    for i, names in enumerate(backbone.stages):
+        if backward and backbone.frozen_stages >= i + 1:
+            continue
+        for m in (m for name in names
+                  for m in getattr(backbone, name).modules()):
+            if isinstance(m, ConvLSTMBottleneck) and m.bidirectional:
+                n += 2
+            elif isinstance(m, (LayerDenoisingPlugin,
+                                TemporalAttentionFusion)):
+                n += clip_len
+    return n
+
+
+def perturb_offsets(probe, forward, dev, seed=4):
+    """Each ``conv_offset`` of the packs of ``probe`` (an ``OffsetProbe``)
+    redrawn from a seeded normal and rescaled so that its offsets' std in
+    ``forward()`` is AGG_OFFSET_STD px (the zero init puts every sample on
+    a pixel)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in probe.packs:
+            w = p.conv_offset.weight
+            w.copy_(torch.randn(w.shape, generator=gen).to(dev))
+        with probe:
+            forward()
+        for i, p in enumerate(probe.packs):
+            std = statistics.mean(st["std"] for st in probe.stats
+                                  if st["pack"] == i)
+            p.conv_offset.weight.mul_(AGG_OFFSET_STD / std)
+
+
+def offset_range(stats):
+    return dict(min=min(st["min"] for st in stats),
+                max=max(st["max"] for st in stats),
+                std=statistics.mean(st["std"] for st in stats),
+                outside_share=max(st["outside"] for st in stats))
+
+
+def model_dict(cfg_path, **overrides):
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        load_config)
+    return dict(load_config(str(REPO / cfg_path))["model"], **overrides)
+
+
+def dark_variants(dev, smi, dcn_launchers):
+    """Each of the 13 ``DARK_VARIANTS`` backbones at full width (R50, the
+    detector's DC5 strides and dilations, every stage returned, the stem
+    and stage 1 frozen; ``InsertResNet`` with the insert-plugins configs'
+    aggregator plugins), seeded, with ``conv_offset`` perturbed
+    (``perturb_offsets``), on one clip of DARK_CLIP frames of 608x1024: at
+    f32 the kernel path (E) against the plain DCN (``impl="plain"``),
+    every stage within DARK_VARIANT_REL of its largest |value|, with
+    ``dark_dcn_calls`` launches of E; then the same weights at bf16, the
+    forward's ms (CUDA events, the median of 5 after 2 warm-ups).
+    Returns {variant: worst error, E launches, bf16 ms}."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.backbones import (  # noqa: E501
+        dark_resnet as DR)
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S)
+    t_phase = time.perf_counter()
+    insert = dict(model_dict(PLUGIN_CFG)["backbone_overrides"])
+    out = {}
+    for variant in sorted(DR.DARK_VARIANTS):
+        kw = dict(strides=(1, 2, 2, 1), dilations=(1, 1, 1, 2),
+                  out_indices=(0, 1, 2, 3), frozen_stages=1,
+                  **(insert if variant == "InsertResNet" else {}))
+        model = DR.make_dark_backbone(variant, **kw)
+        S.init_params(model, torch.Generator().manual_seed(0))
+        model = model.to(dev).eval()
+        cin = DR.DARK_VARIANTS[variant].get("in_channels", 3)
+        g = torch.Generator().manual_seed(1)
+        x = torch.randn(DARK_CLIP, cin, 608, 1024, generator=g).to(dev)
+        probe = OffsetProbe(model)
+        if probe.packs:
+            perturb_offsets(probe, lambda: model(x), dev)
+        want_e = dark_dcn_calls(model, DARK_CLIP)
+        with torch.no_grad(), probe:
+            reset_counts(*dcn_launchers)
+            got = model(x)
+            launches = [k.launches for k in dcn_launchers]
+            plain = model(x, impl="plain")
+        if launches != [want_e, 0, 0]:
+            raise AssertionError(f"dark_variants {variant}: E, F, G "
+                                 f"launches {launches}, want {want_e}")
+        errs = [max_err(a, b) / b.abs().max().item()
+                for a, b in zip(got, plain)]
+        del got, plain
+        bf16 = DR.make_dark_backbone(variant, dtype=torch.bfloat16, **kw)
+        bf16.load_state_dict(model.state_dict())
+        bf16 = bf16.to(dev).eval()
+        del model
+        with torch.no_grad():
+            bf16(x)
+            bf16(x)
+            times = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                bf16(x)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+        del bf16, x
+        torch.cuda.empty_cache()
+        out[variant] = dict(worst_rel_err=max(errs), e_launches=want_e,
+                            bf16_forward_ms=statistics.median(times),
+                            offsets=(offset_range(probe.stats)
+                                     if probe.stats else None))
+        if max(errs) > DARK_VARIANT_REL:
+            raise AssertionError(f"dark_variants {variant}: kernel path off "
+                                 f"the plain one by {max(errs)} of max")
+    phase("dark_variants", card=smi, frames=DARK_CLIP, hw=[608, 1024],
+          rel_tol=DARK_VARIANT_REL, variants=out,
+          phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def dark_cli_train(name, cfg_path, root, ann, kernels, per_step, n_steps,
+                   skip, workers, frozen=(), moving=()):
+    """``cli_run`` on ``cfg_path`` from the data_train tree (``--seed 0``),
+    with the trained model's parameters against the model the CLI built
+    (``build_model`` with seed 0 again): the ``frozen`` prefixes
+    bit-identical, every leaf under ``moving`` changed (but ZERO_GRAD).
+    Returns the run, the unchanged and the changed parameter names."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.builder import (
+        build_model)
+    argv = [str(REPO / cfg_path), "--seed", "0", "--work-dir",
+            f"{root}/work_{name}"] + data_options(root, ann, workers)
+    run = cli_run(name, argv, kernels, per_step, n_steps, skip,
+                  keep_model=True)
+    built = dict(build_model(model_dict(cfg_path), seed=0,
+                             device="cpu").model.named_parameters())
+    same, moved = [], []
+    for n, p in run.pop("model").named_parameters():
+        (same if torch.equal(p.detach().cpu(), built[n]) else
+         moved).append(n)
+    bad = [n for n in same if n.startswith(moving) and
+           not n.endswith(ZERO_GRAD)]
+    bad += [n for n in moved if n.startswith(frozen)]
+    if bad or (frozen and not any(n.startswith(frozen) for n in same)):
+        raise AssertionError(f"{name}: wrong leaves moved or stayed: {bad}")
+    torch.cuda.empty_cache()
+    return run, same, moved
+
+
+def dark_train(dev, smi, kernels, root, ann):
+    """``llvod_lstm_darkfarm.py`` (``SelsaDarkDetect``: the ConvLSTM
+    DarkResNet, stage 2's blocks recurrent over the key and its 2
+    references as one clip, the key first; L2 feature losses against the
+    frozen teacher; 8 classes, 2 shared FCs) at full width through the
+    CLI from the data_train tree with DATA_WORKERS loader processes:
+    DARK_STEPS steps, 2 warm-up, DARK_TIMED timed, the rest profiled for
+    the idle share; B and D twice a step and no E, F or G (DarkResNet has
+    no DCN), finite losses with the 4 feature losses, the teacher and the
+    frozen stem and stage 1 bit-identical, every ConvLSTM gate changed.
+    Returns the launch counts (A-G) and B's and D's bodies."""
+    t = time.perf_counter()
+    run, same, moved = dark_cli_train(
+        "dark_train", LSTM_CFG, root, ann, kernels, (0, 2, 0, 2, 0, 0, 0),
+        DARK_STEPS, TRAIN_WARMUP + DARK_TIMED, DATA_WORKERS,
+        frozen=DARKFARM_FROZEN, moving=("selsa.backbone.layer2_",))
+    keys = set(run["metrics"][-1])
+    gates = [n for n in moved if ".gate_f." in n]
+    if not {f"loss_l2_{i}" for i in range(4)} <= keys or len(gates) != 4:
+        raise AssertionError(f"dark_train: metrics {sorted(keys)}, gates "
+                             f"{gates}")
+    timed_ms = run["step_ms"][TRAIN_WARMUP:TRAIN_WARMUP + DARK_TIMED]
+    phase("dark_train", card=smi, config=LSTM_CFG, workers=DATA_WORKERS,
+          steps=DARK_STEPS, warmup_steps=TRAIN_WARMUP, step_ms=run["step_ms"],
+          median_step_ms=statistics.median(timed_ms),
+          loss_per_step=[m["loss"] for m in run["metrics"]],
+          last_step_metrics=run["metrics"][-1],
+          loader_median_ms=loader_summary(run["timings"], TRAIN_WARMUP),
+          device_window=run["window"], peak_mem_gb=run["peak_gb"],
+          launches=dict(zip(KERNEL_NAMES, run["counts"])),
+          frozen_or_unchanged=len(same), changed=len(moved),
+          phase_s=time.perf_counter() - t)
+    return run["counts"], run["bodies"]
+
+
+def darkfarm_config_f32(cfg_path):
+    """A config's model (``models/builder.py``) at full width in f32."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.builder import (
+        model_config)
+    return model_config(model_dict(cfg_path, compute_dtype="float32"))
+
+
+def kernel_vs_plain_loss(name, model, sample, anchors, kernels, want_counts,
+                         probe=None):
+    """One f32 ``darkfarm_loss`` and every parameter's gradient through the
+    kernels and through the plain versions (``impl="plain"``) with the same
+    uniforms, at train_agree's tolerances (``kernels`` launch
+    ``want_counts`` times on the kernel path). Returns the phase's
+    fields."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S, selsa_darkfarm as D)
+    uniforms = S.draw_loss_uniforms(model.cfg.selsa, 8,
+                                    torch.Generator().manual_seed(3),
+                                    anchors.device)
+
+    def run(impl):
+        model.zero_grad(set_to_none=True)
+        loss, _ = D.darkfarm_loss(model, sample, anchors, uniforms=uniforms,
+                                  impl=impl)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    reset_counts(*kernels)
+    with probe or contextlib.nullcontext():
+        lk, gk = run(None)
+    counts = [k.launches for k in kernels]
+    if counts != list(want_counts):
+        raise AssertionError(f"{name}: kernel path launches {counts}, want "
+                             f"{list(want_counts)}")
+    lp, gp = run("plain")
+    worst, worst_leaf = grad_agreement(gk, gp)
+    loss_rel = abs(lk - lp) / abs(lp)
+    fields = dict(loss_kernel=lk, loss_plain=lp, loss_rel_err=loss_rel,
+                  loss_rtol=TRAIN_LOSS_RTOL, leaves=len(gp),
+                  worst_grad_err_over_tol=worst, worst_leaf=worst_leaf,
+                  launches=counts,
+                  grad_tolerance=dict(rel_to_leaf_max=TRAIN_GRAD_REL,
+                                      floor_rel_to_global_max=(
+                                          TRAIN_GRAD_FLOOR)))
+    if loss_rel > TRAIN_LOSS_RTOL or worst > 1.0:
+        phase(name, **fields)
+        raise AssertionError(f"{name}: loss {lk} against {lp}; gradient of "
+                             f"{worst_leaf} off by {worst} tolerances")
+    return fields
+
+
+def dark_agree(dev, roi_kernels):
+    """f32, TF32 off: ``llvod_lstm_darkfarm.py``'s loss and every gradient
+    at full width through kernels B and D and through the plain RoIAlign
+    (``kernel_vs_plain_loss``)."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa_darkfarm as D)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        darkfarm_sample)
+    t = time.perf_counter()
+    cfg = darkfarm_config_f32(LSTM_CFG)
+    model, anchors = D.make_darkfarm(cfg, torch.Generator().manual_seed(0),
+                                     device=dev)
+    sample = darkfarm_sample(cfg, dev, seed=3)
+    fields = kernel_vs_plain_loss("dark_agree", model, sample, anchors,
+                                  roi_kernels, (2, 2))
+    phase("dark_agree", config=LSTM_CFG, phase_s=time.perf_counter() - t,
+          **fields)
+    del model
+
+
+def plugin_train(dev, smi, kernels):
+    """``llvod_insert_plugins_l34_i1234_vid_a7s3.py`` (``SelsaNoiseDetect``
+    on InsertResNet: a ``DenoisingAggregator`` with 1 RDB of 8 layers and a
+    TAF after each of the 4 stages; no teacher; 30 classes, 2 shared FCs;
+    bf16 compute, f32 parameters) at full width through ``train_steps`` on
+    a seeded (noise, clean) sample of a key and 2 references: per step B
+    and D twice and E, F and G ``dark_dcn_calls`` times (derived from the
+    built backbone: each TAF's DCN once per frame; F and G not in
+    ``plugin1``, which takes no gradient), the stem and stage 1
+    bit-identical, every leaf of ``plugin2`` to ``plugin4`` changed (but
+    ZERO_GRAD). ``plugin1`` sits before stage 1's gradient stop, as in
+    JAX: no gradient reaches it, so its zero-initialised leaves stay 0 and
+    the others move by the weight decay alone. Returns the launch counts
+    (A-G) and B's and D's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.builder import (
+        build_model)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        darkfarm_sample)
+    t = time.perf_counter()
+    system = build_model(model_dict(PLUGIN_CFG), seed=0, device=dev)
+    model = system.model
+    sample = darkfarm_sample(system.cfg, dev, seed=2)
+    batch = type(sample)(*(f[None] for f in sample))
+    backbone, clip = model.selsa.backbone, sample.pair_imgs.shape[0]
+    n_dcn = (dark_dcn_calls(backbone, clip),) + (dark_dcn_calls(
+        backbone, clip, backward=True),) * 2
+    first = "selsa.backbone.plugin1."
+    run = train_steps("plugin_train", model, batch, system.loss_fn, kernels,
+                      DARKFARM_FROZEN, per_step=(0, 2, 0, 2) + n_dcn,
+                      still=(first,))
+    plugins = [n for n, _ in model.named_parameters()
+               if n.startswith("selsa.backbone.plugin")]
+    if {n.split(".")[2] for n in plugins} != {f"plugin{i}" for i in
+                                              range(1, 5)}:
+        raise AssertionError(f"plugin_train: plugins {plugins}")
+    first_still = [n for n in run["unchanged"] if n.startswith(first)]
+    timed_ms = run["step_ms"][TRAIN_WARMUP:]
+    med = statistics.median(timed_ms)
+    phase("plugin_train", card=smi, config=PLUGIN_CFG,
+          steps=len(run["step_ms"]), warmup_steps=TRAIN_WARMUP,
+          loss_per_step=[m["loss"] for m in run["metrics"]],
+          step_ms=run["step_ms"], median_step_ms=med,
+          step_ms_min_max=[min(timed_ms), max(timed_ms)],
+          peak_mem_gb=run["peak_gb"], dcn_calls_per_step=dict(
+              zip(("E", "F", "G"), n_dcn)),
+          launches=dict(zip(KERNEL_NAMES, run["counts"])),
+          plugin_params=len(plugins), plugin_numel=sum(
+              p.numel() for n, p in model.named_parameters()
+              if n in plugins),
+          frozen_params=len(run["frozen"]),
+          unchanged_params=run["unchanged"],
+          plugin1_unchanged=len(first_still), plugin1_params=sum(
+              n.startswith(first) for n in plugins),
+          phase_s=time.perf_counter() - t)
+    del model, system
+    return run["counts"], run["bodies"]
+
+
+def plugin_agree(dev, kernels):
+    """f32, TF32 off: the ``plugin_train`` config's loss and every gradient
+    at full width through B, D, E, F, G and through the plain RoIAlign and
+    DCN, with ``conv_offset`` perturbed (``perturb_offsets``; the offsets'
+    range printed), at train_agree's tolerances."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa_darkfarm as D)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        darkfarm_sample)
+    t = time.perf_counter()
+    cfg = darkfarm_config_f32(PLUGIN_CFG)
+    model, anchors = D.make_darkfarm(cfg, torch.Generator().manual_seed(0),
+                                     device=dev)
+    sample = darkfarm_sample(cfg, dev, seed=3)
+    probe = OffsetProbe(model)
+    with torch.no_grad():
+        perturb_offsets(probe, lambda: model.selsa.extract_feats(
+            sample.pair_imgs[..., :cfg.in_channels]), dev)
+    backbone, clip = model.selsa.backbone, sample.pair_imgs.shape[0]
+    want = (2, 2, dark_dcn_calls(backbone, clip)) + (dark_dcn_calls(
+        backbone, clip, backward=True),) * 2
+    fields = kernel_vs_plain_loss("plugin_agree", model, sample, anchors,
+                                  kernels, want, probe)
+    phase("plugin_agree", config=PLUGIN_CFG, offsets=offset_range(
+        probe.stats), phase_s=time.perf_counter() - t, **fields)
+    del model
+
+
+def dark_stream(dev, smi, kernels, root, ann):
+    """Streaming on the dark backbones. (1) ``llvod_lstm_darkfarm.py``'s
+    test split on the data_train tree (the ConvLSTM over each video's 14
+    references as one clip at frame 0, then each frame as a clip of one):
+    the plain path at f32 (``eval_reference``) makes the gts
+    (``eval_gts``), the kernel path at f32 through the test CLI scores
+    mAP50 at least EVAL_F32_MAP against them; A twice and B once a frame,
+    B once more a memo fill. (2) ``ResNetC`` (a layer plugin after stage
+    4) at f32, full width, ``conv_offset`` perturbed: DARK_STREAM_S memos
+    from 14 reference frames each, then DARK_STREAM_T batched steps of the
+    S streams (S clips of one frame; the memo rolled every second frame)
+    against each stream's clip alone, detections as sets. Returns the
+    launch counts (A-G) of the CLI run and of (2), and B's and D's bodies
+    there."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        VIDModel)
+    from lowlightenvironmentvideoobjectdetection_torch.apis.test import (
+        evaluate_bbox)
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        load_config)
+    from lowlightenvironmentvideoobjectdetection_torch.data.loader import (
+        build_dataset)
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S)
+    t_phase = time.perf_counter()
+    cfg_path = str(REPO / LSTM_CFG)
+    frames, videos = DATA_TREE["frames"], DATA_TREE["videos"]
+    n = frames * videos
+    per_run = (2 * n, n + videos, 0, 0, 0, 0, 0)
+    plain, _ = eval_reference(dev, cfg_path, root, ann, kernels)
+    gts = f"{root}/dark_gts.json"
+    thr, n_gts = eval_gts(ann, plain, gts)
+    test_cfg = load_config(cfg_path)["data"]["test"]
+    ds = build_dataset(dict(test_cfg, ann_file=gts, img_prefix=f"{root}/"),
+                       test_mode=True)
+    plain_map = evaluate_bbox(plain, [ds.get_ann_info(i)
+                                      for i in ds.data_infos])["mAP50"]
+    f32 = eval_cli("dark_stream f32", [cfg_path] + eval_options(root, gts, 0)
+                   + ["model.compute_dtype=float32"], kernels, per_run)
+    f32_map = f32["out"]["metrics"]["mAP50"]
+    cli_counts = f32["counts"]
+    bodies = {k: dict(f32["bodies"][k])
+              for k in ("roi_align", "roi_align_backward")}
+    if plain_map != 1.0 or f32_map < EVAL_F32_MAP:
+        raise AssertionError(f"dark_stream: mAP50 plain {plain_map}, "
+                             f"kernels {f32_map}")
+
+    # (2) S streams of ResNetC, batched against alone
+    vid = VIDModel(device=dev, backbone_variant="ResNetC", num_classes=8,
+                   compute_dtype=torch.float32)
+    model, anchors, cfg = vid.model, vid.anchors, vid.cfg
+    probe = OffsetProbe(model)
+    g = torch.Generator().manual_seed(6)
+    hw = (cfg.pad_h, cfg.pad_w, 3)
+    refs = torch.randn((DARK_STREAM_S, cfg.num_ref_frames) + hw,
+                       generator=g)
+    frames = torch.randn((DARK_STREAM_S, DARK_STREAM_T) + hw,
+                         generator=g).to(dev)
+    shapes = torch.tensor([[cfg.pad_h, cfg.pad_w]] * DARK_STREAM_S,
+                          dtype=torch.float32, device=dev)
+    sfs = torch.ones(DARK_STREAM_S, 4, device=dev)
+    perturb_offsets(probe, lambda: model.extract_feat(frames[:1, 0]), dev)
+    reset_counts(*kernels)
+    with probe:
+        memos = [S.init_video_state(model, refs[s].to(dev), shapes[s],
+                                    anchors) for s in range(DARK_STREAM_S)]
+        fill_e = kernels[4].launches
+        _, bdets = S.inference_clip_batch(
+            model, S.stack_video_states(memos), frames, shapes, sfs, anchors,
+            update_memo=True, frame_stride=2)
+        batch_e = kernels[4].launches - fill_e
+        sets = []
+        for s in range(DARK_STREAM_S):
+            _, odets = S.inference_clip(model, memos[s], frames[s], shapes[s],
+                                        sfs[s], anchors, update_memo=True,
+                                        frame_stride=2)
+            sets += [match_sets(type(odets)(*(f[t] for f in odets)),
+                                type(bdets)(*(f[s, t] for f in bdets)))
+                     for t in range(DARK_STREAM_T)]
+    s_counts = [k.launches for k in kernels]
+    add_counts(bodies, dict(roi_align=kernels[1].body_launches,
+                            roi_align_backward=kernels[3].body_launches))
+    calls = DARK_STREAM_T * dark_dcn_calls(model.backbone, 1)
+    want_e = (DARK_STREAM_S * dark_dcn_calls(model.backbone,
+                                             cfg.num_ref_frames)
+              + calls + DARK_STREAM_S * calls)
+    if s_counts[4:] != [want_e, 0, 0] or batch_e != calls:
+        raise AssertionError(f"dark_stream: E, F, G launches {s_counts[4:]}"
+                             f" (batched step {batch_e}), want {want_e}")
+    unmatched = sum(x["unmatched"] for x in sets)
+    phase("dark_stream", card=smi, config=LSTM_CFG, gts=dict(
+              count=n_gts, score_threshold=thr),
+          plain_f32_map50=plain_map, kernel_f32_map50=f32_map,
+          kernel_f32_gate=EVAL_F32_MAP, cli_launches=dict(
+              zip(KERNEL_NAMES, cli_counts)),
+          batched=dict(variant="ResNetC", streams=DARK_STREAM_S,
+                       frames=DARK_STREAM_T, memo_frames=cfg.num_ref_frames,
+                       sets=sets,
+                       offsets=offset_range(probe.stats),
+                       launches=dict(zip(KERNEL_NAMES, s_counts))),
+          phase_s=time.perf_counter() - t_phase)
+    if unmatched or any(x["n_got"] != x["n_want"] for x in sets):
+        raise AssertionError("dark_stream: a stream of the batch differs "
+                             "from the stream alone")
+    del vid, model, memos, frames
+    torch.cuda.empty_cache()
+    return [a + b for a, b in zip(cli_counts, s_counts)], bodies
+
+
+def fastdvd_train(dev, smi, kernels, root, ann):
+    """The denoise-then-detect baselines through the CLI from the
+    data_train tree: ``llvod_fastdvd_darkfarm.py`` (FastDVDnet over each
+    frame's edge-replicated 5-frame window; FASTDVD_STEPS steps) and
+    ``llvod_unet_darkfarm.py`` (a per-frame U-Net; UNET_STEPS steps), then
+    SELSA on the denoised frames; the loader in the main process. B and D
+    twice a step, no E, F or G, ``loss_denoise`` finite, every
+    ``denoiser.`` leaf changed, the stem and stage 1 bit-identical.
+    Returns the launch counts (A-G) and B's and D's bodies."""
+    t = time.perf_counter()
+    out, counts, bodies = {}, [0] * len(kernels), {}
+    for name, cfg_path, n_steps in (("fastdvd", FASTDVD_CFG, FASTDVD_STEPS),
+                                    ("unet", UNET_CFG, UNET_STEPS)):
+        run, same, moved = dark_cli_train(
+            f"fastdvd_train {name}", cfg_path, root, ann, kernels,
+            (0, 2, 0, 2, 0, 0, 0), n_steps, n_steps - 1, 0,
+            frozen=tuple("selsa." + f for f in FROZEN),
+            moving=("denoiser.",))
+        den = [m["loss_denoise"] for m in run["metrics"]]
+        if not all(np.isfinite(den)):
+            raise AssertionError(f"fastdvd_train {name}: loss_denoise {den}")
+        out[name] = dict(config=cfg_path, steps=n_steps,
+                         step_ms=run["step_ms"], loss_denoise=den,
+                         loss_per_step=[m["loss"] for m in run["metrics"]],
+                         device_window=run["window"],
+                         peak_mem_gb=run["peak_gb"],
+                         denoiser_leaves_changed=sum(
+                             n.startswith("denoiser.") for n in moved))
+        counts = [a + b for a, b in zip(counts, run["counts"])]
+        add_counts(bodies, run["bodies"])
+    phase("fastdvd_train", card=smi, runs=out,
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t)
+    return counts, bodies
 
 
 # ---- the data path: a config file and PNG frames to the canonical step
@@ -1775,13 +2315,15 @@ class StepWindow:
             self.prof = None
 
 
-def cli_run(name, argv, kernels, per_step, n_steps, skip):
+def cli_run(name, argv, kernels, per_step, n_steps, skip,
+            keep_model=False):
     """The port's CLI (``tools/train.py::main``) on ``argv`` + ``--steps
     n_steps``, on the card, with every launch count reset just before:
     checks ``per_step`` launches a step of each of ``kernels`` (A-G), B's
     7x7 gather and D's 7x7 scatter bodies, the step count and finite
     metrics. Returns the run: counts, bodies, step ms, metrics, the
-    loader's timings, the profiled window and the peak memory in GiB."""
+    loader's timings, the profiled window and the peak memory in GiB (with
+    ``keep_model`` also the trained model)."""
     from lowlightenvironmentvideoobjectdetection_torch.tools import (
         train as cli)
     window = StepWindow(n_steps, skip)
@@ -1810,6 +2352,8 @@ def cli_run(name, argv, kernels, per_step, n_steps, skip):
                     for v in m.values()):
         raise AssertionError(f"{name}: step {out['state'].step}, metrics "
                              f"{run['metrics']}")
+    if keep_model:
+        run["model"] = out["state"].model
     del out
     torch.cuda.empty_cache()
     return run
@@ -2246,7 +2790,6 @@ def eval_phase(dev, smi, kernels, root, ann):
     EVAL_HOOK_TOL of the test CLI's on the final checkpoint. Returns the
     launch counts (A-G) of the bf16 runs and the hook's run, and B's and
     D's bodies there."""
-    import contextlib
     import io
     from lowlightenvironmentvideoobjectdetection_torch.apis.test import (
         evaluate_bbox)
@@ -2928,20 +3471,31 @@ def main() -> int:
         add_bodies(summary[name], bodies[name])
     agg_agree(dev, (roi_align, roi_align_backward) + dcn_launchers)
 
-    # the training data path: a config file and PNG frames on disk
+    # the dark backbones: the 13 variants, the insert-plugins config
     path_kernels = train_kernels + dcn_launchers
+    dark_variants(dev, smi, dcn_launchers)
+    runs = [plugin_train(dev, smi, path_kernels)]
+    plugin_agree(dev, (roi_align, roi_align_backward) + dcn_launchers)
+    dark_agree(dev, (roi_align, roi_align_backward))
+
+    # the training data path: a config file and PNG frames on disk
     with tempfile.TemporaryDirectory(prefix="_smoke_", dir=REPO) as root:
         counts, bodies, ann, item = data_train(dev, smi, path_kernels, root)
+        runs.append((counts, bodies))
         more, more_bodies = noise_raw(dev, smi, path_kernels, root, ann,
                                       item)
+        runs.append((more, more_bodies))
         # evaluation: the tree's test split through the test API and CLIs
-        ev, ev_bodies = eval_phase(dev, smi, path_kernels, root, ann)
-    for name, n, m, e in zip(KERNEL_NAMES, counts, more, ev):
-        summary[name]["launches"] += n + m + e
-    for name in ("roi_align", "roi_align_backward"):
-        add_bodies(summary[name], bodies[name])
-        add_bodies(summary[name], more_bodies[name])
-        add_bodies(summary[name], ev_bodies[name])
+        runs.append(eval_phase(dev, smi, path_kernels, root, ann))
+        # the dark backbones and the denoisers from the same tree
+        runs.append(dark_train(dev, smi, path_kernels, root, ann))
+        runs.append(dark_stream(dev, smi, path_kernels, root, ann))
+        runs.append(fastdvd_train(dev, smi, path_kernels, root, ann))
+    for counts, bodies in runs:
+        for name, n in zip(KERNEL_NAMES, counts):
+            summary[name]["launches"] += n
+        for name in ("roi_align", "roi_align_backward"):
+            add_bodies(summary[name], bodies[name])
 
     for name, entry in summary.items():
         if sum(entry.get("body_launches", {}).values()) not in (

@@ -32,13 +32,14 @@ class VIDModel:
     'fix' rolls each streamed frame's own K/V into it every
     ``frame_stride`` frames. ``state_dict`` None gives seeded random weights
     (``init_params`` with a CPU generator seeded by ``seed``); of a darkfarm
-    state dict (``SelsaDarkfarmDetector``'s) it takes the ``selsa.``
-    entries, the detector, as the clean branch plays no part at test time.
-    The config comes from ``cfg_kwargs`` (``SelsaConfig`` fields, e.g.
-    ``roi_extractor="temporal", num_shared_fcs=3``). ``device`` None builds
-    on the card and raises without one; pass ``device="cpu"`` for the
-    CPU. ``impl = "plain"`` (an attribute, for comparisons only) runs
-    the kernels' plain versions."""
+    or FastDVD state dict (``SelsaDarkfarmDetector``'s,
+    ``FastDVDSelsaDetector``'s) it takes the ``selsa.`` entries, the
+    detector (``detector_state``). The config comes from ``cfg_kwargs``
+    (``SelsaConfig`` fields, e.g. ``roi_extractor="temporal",
+    num_shared_fcs=3``, or a dark backbone's ``backbone_variant``).
+    ``device`` None builds on the card and raises without one; pass
+    ``device="cpu"`` for the CPU. ``impl = "plain"`` (an attribute, for
+    comparisons only) runs the kernels' plain versions."""
 
     impl = None
 
@@ -137,7 +138,9 @@ def detector_state(state_dict: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
     """A SELSA detector's state dict: as given, or the ``selsa.`` entries of
     a darkfarm one (without the cleaner's and the aggregator's: streaming
-    runs neither, as in the JAX package; ROADMAP F7)."""
+    runs neither, as in the JAX package; ROADMAP F7) or of a
+    ``SelsaFastDVDnetDetect`` one (without the denoiser's: the JAX package
+    streams the noisy frames; ROADMAP F11)."""
     if not any(k.startswith("selsa.") for k in state_dict):
         return state_dict
     return {k[len("selsa."):]: v for k, v in state_dict.items()

@@ -6,12 +6,15 @@ DCNv2): the counterpart of the JAX package's
 weight bridge maps them by path.
 
 Feature maps are NCHW [T, C, h, w] (T frames of one clip), as the
-backbone's stage outputs. Convs compute in the module's ``dtype`` (weights
-cast per use, as flax); the DCN's ``weight`` and ``bias`` are raw f32
-parameters that are never cast, and the DCN returns f32, as in JAX. Its
-offsets are unbounded (the JAX ``dcn_impl="scan"`` semantics; the port has
-no windowed DCN and no offset clamp, ROADMAP fault F1). JAX rematerialises
-the RDBs and the fusion only to fit a 16 GB chip; the port does not.
+backbone's stage outputs; the TAF and the single-stage aggregator also take
+several clips of ``clip_len`` frames (``clips``; a dark backbone's plugin
+streams S clips of one frame) and fuse each clip on its own. Convs compute
+in the module's ``dtype`` (weights cast per use, as flax); the DCN's
+``weight`` and ``bias`` are raw f32 parameters that are never cast, and
+the DCN returns f32, as in JAX. Its offsets are unbounded (the JAX
+``dcn_impl="scan"`` semantics; the port has no windowed DCN and no offset
+clamp, ROADMAP fault F1). JAX rematerialises the RDBs and the fusion only
+to fit a 16 GB chip; the port does not.
 """
 
 from __future__ import annotations
@@ -25,6 +28,14 @@ import torch.nn.functional as F
 
 from ...ops.deform_conv import K, modulated_deform_conv
 from ..backbones.resnet import Conv2d
+
+
+def clips(x: torch.Tensor, clip_len: Optional[int]) -> torch.Tensor:
+    """Frames [N, ...] -> [N / clip_len, clip_len, ...] (None: one clip)."""
+    t = x.shape[0] if clip_len is None else clip_len
+    if x.shape[0] % t:
+        raise ValueError(f"{x.shape[0]} frames are not clips of {t}")
+    return x.reshape(x.shape[0] // t, t, *x.shape[1:])
 
 
 def _conv3(cin: int, cout: int, dtype, stride: int = 1) -> Conv2d:
@@ -126,19 +137,22 @@ class TemporalAttentionFusion(nn.Module):
                                                    dtype))
         self.conv2 = _conv3(mid_channels, channels, dtype)
 
-    def forward(self, x, impl: Optional[str] = None):
-        """x [T, C, h, w] -> [T, C, h, w]."""
+    def forward(self, x, impl: Optional[str] = None,
+                clip_len: Optional[int] = None):
+        """x [N, C, h, w] -> [N, C, h, w]: N = clips x ``clip_len`` frames
+        (None: one clip), each clip fused on its own."""
         x = F.relu(self.conv1(x))
+        xc = clips(x, clip_len)
         fused = []
-        for i in range(x.shape[0]):
-            ref = x[i:i + 1].expand_as(x)
+        for i in range(xc.shape[1]):
+            ref = xc[:, i:i + 1].expand_as(xc).flatten(0, 1)
             x_set = self.offset_conv(torch.cat([x, ref], 1))
             h = self.dcn_pack(x, x_set, impl=impl) * ref
             for j in range(self.emb_nums):
                 h = getattr(self, f"emb_conv{j}")(h)
-            wgt = torch.softmax(h, 0)
-            fused.append((wgt * x).sum(0))
-        return F.relu(self.conv2(torch.stack(fused)))
+            wgt = torch.softmax(h.reshape(xc.shape), 1)
+            fused.append((wgt * xc).sum(1))
+        return F.relu(self.conv2(torch.stack(fused, 1).flatten(0, 1)))
 
 
 class DenoisingAggregator(nn.Module):
@@ -160,12 +174,15 @@ class DenoisingAggregator(nn.Module):
                                             dtype) if with_taf else None)
         self.conv2 = _conv3(channels, channels, dtype)
 
-    def forward(self, x, impl: Optional[str] = None):
+    def forward(self, x, impl: Optional[str] = None,
+                clip_len: Optional[int] = None):
+        """x [N, C, h, w], N = clips x ``clip_len`` frames (None: one
+        clip)."""
         h = F.relu(self.conv1(x))
         for i in range(self.rdb_blocks):
             h = getattr(self, f"rdb{i}")(h)
         if self.taf is not None:
-            h = self.taf(h, impl=impl)
+            h = self.taf(h, impl=impl, clip_len=clip_len)
         return x + self.conv2(h)
 
 

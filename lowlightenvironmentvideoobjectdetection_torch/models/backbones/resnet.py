@@ -11,7 +11,7 @@ frozen stage's output, where the JAX package stops the gradient.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -84,7 +84,10 @@ class Bottleneck(nn.Module):
         else:
             self.downsample_conv = None
 
-    def forward(self, x):
+    def forward(self, x, clip_len: Optional[int] = None,
+                impl: Optional[str] = None):
+        """Each frame on its own (``clip_len`` and ``impl``, which blocks
+        that mix frames read, are unused)."""
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
@@ -97,10 +100,15 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """Multi-stage ResNet. Input [N, C, H, W]; returns the stage outputs
     selected by ``out_indices`` (duplicates allowed), NCHW. With
-    ``frozen_stages`` k >= 0 no gradient reaches the stem or stages 1..k."""
+    ``frozen_stages`` k >= 0 no gradient reaches the stem or stages 1..k.
+
+    A subclass chooses a stage's blocks (``stage_block``) and may append a
+    module to a stage (``stage_plugin``, named ``plugin{i+1}``, before the
+    stage's gradient stop), as the dark backbones do
+    (``dark_resnet.py``)."""
 
     def __init__(self, depth: int = 50, in_channels: int = 3,
-                 base_channels: int = 64,
+                 base_channels: int = 64, num_stages: int = 4,
                  strides: Sequence[int] = (1, 2, 2, 2),
                  dilations: Sequence[int] = (1, 1, 1, 1),
                  out_indices: Sequence[int] = (3,), frozen_stages: int = -1,
@@ -118,14 +126,14 @@ class ResNet(nn.Module):
         self.bn1 = FrozenBatchNorm(base_channels, dtype=dtype)
         self.stages = []
         inplanes = base_channels
-        for i, nblocks in enumerate(stage_blocks):
+        for i in range(num_stages):
             planes = base_channels * 2 ** i
             names = []
-            for j in range(nblocks):
+            for j in range(stage_blocks[i]):
                 first = j == 0
                 name = f"layer{i + 1}_{j}"
-                self.add_module(name, Bottleneck(
-                    inplanes, planes,
+                self.add_module(name, self.stage_block(
+                    i, inplanes, planes,
                     stride=strides[i] if first else 1,
                     dilation=dilations[i],
                     downsample=first and (strides[i] != 1
@@ -133,9 +141,29 @@ class ResNet(nn.Module):
                     dtype=dtype))
                 inplanes = planes * 4
                 names.append(name)
+            plugin = self.stage_plugin(i, inplanes, planes, dtype)
+            if plugin is not None:
+                self.add_module(f"plugin{i + 1}", plugin)
+                names.append(f"plugin{i + 1}")
             self.stages.append(names)
 
-    def forward(self, x) -> Tuple[torch.Tensor, ...]:
+    def stage_block(self, stage: int, *args, **kw) -> nn.Module:
+        """A block of stage ``stage`` (0-based) from ``Bottleneck``'s
+        arguments."""
+        return Bottleneck(*args, **kw)
+
+    def stage_plugin(self, stage: int, channels: int, planes: int,
+                     dtype) -> Optional[nn.Module]:
+        """The module after stage ``stage``'s blocks, on its ``channels``
+        (None: none)."""
+        return None
+
+    def forward(self, x, clip_len: Optional[int] = None,
+                impl: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
+        """x [N, Cin, H, W]: N frames as clips of ``clip_len`` (None: one
+        clip), read only by the blocks and plugins that mix frames;
+        ``impl="plain"`` runs their DCN's plain version (for comparisons
+        only)."""
         x = F.relu(self.bn1(self.conv1(x.to(self.compute_dtype))))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         if self.frozen_stages >= 0:
@@ -143,7 +171,7 @@ class ResNet(nn.Module):
         outs = []
         for i, names in enumerate(self.stages):
             for name in names:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, clip_len=clip_len, impl=impl)
             if self.frozen_stages >= i + 1:
                 x = x.detach()
             outs.append(x)

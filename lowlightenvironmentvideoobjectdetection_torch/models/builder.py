@@ -1,16 +1,20 @@
 """Config model dict -> port model, the counterpart of the JAX package's
-``zoo.py`` (``_selsa_cfg``, ``_darkfarm`` and the darkfarm factories) for
-the model types that the JAX ``tools/train.py`` trains with
-``darkfarm_loss`` and the port can build.
+``zoo.py`` (``_selsa_cfg``, ``_darkfarm``, the darkfarm factories and
+``SelsaFastDVDnetDetect``) for the model types that the JAX
+``tools/train.py`` trains with ``darkfarm_loss`` or ``fastdvd_selsa_loss``
+and the port can build. A config's
+``backbone_variant`` builds a dark backbone (``backbones/dark_resnet.py``)
+with its ``backbone_overrides``.
 
 ``vid_model_kwargs`` maps a config to the streaming ``VIDModel``, as the
 JAX ``tools/test.py`` and ``tools/train.py`` do.
 
 Each factory takes the config's model dict (without ``type``) and gives a
-``DarkfarmConfig``; ``build_model`` builds the model with seeded weights
-and its anchors, and says which half of the pairs the loss trains on (the
-clean half for the ``SelsaClean*`` oracles). Keys that only choose how the
-JAX package runs on a TPU are dropped: ``remat``, ``input_packed``,
+``DarkfarmConfig`` (a ``FastDVDSelsaConfig`` for
+``SelsaFastDVDnetDetect``); ``build_model`` builds the model with seeded
+weights and its anchors, and says which half of the pairs the loss trains
+on (the clean half for the ``SelsaClean*`` oracles). Keys that only choose
+how the JAX package runs on a TPU are dropped: ``remat``, ``input_packed``,
 ``stem_s2d``, ``stem_fused``, ``roi_align_impl``, and the windowed DCN's
 ``agg_dcn_impl`` / ``agg_dcn_radius`` (the port's DCN is the unbounded
 'scan' form, ROADMAP fault F1).
@@ -19,13 +23,15 @@ JAX package runs on a TPU are dropped: ``remat``, ``input_packed``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from ..registry import MODELS
 from .vid.selsa import SelsaConfig
 from .vid.selsa_darkfarm import DarkfarmConfig, darkfarm_loss, make_darkfarm
+from .vid.selsa_fastdvd import (FastDVDSelsaConfig, fastdvd_selsa_loss,
+                                make_fastdvd_selsa)
 
 TPU_ONLY_KEYS = ("remat", "input_packed", "stem_s2d", "stem_fused",
                  "roi_align_impl", "agg_dcn_impl", "agg_dcn_radius")
@@ -41,18 +47,19 @@ CLEAN_TYPES = ("SelsaCleanDetect", "SelsaCleanDarkfarmDetect")
 TRAIN_ONLY_KEYS = ("loss_type", "with_aggregator", "agg_rdb", "agg_taf",
                    "dual_branch", "denoiser", "with_cleaner")
 NOT_PORTED_VID = ("FGFA", "DFF", "FasterRCNN")
+# SelsaDarkDetect's backbone when its config names none
+DARK_DETECT_BACKBONE = "DarkResNet"
 
 
 def _selsa_cfg(num_classes=30, pad_h=608, pad_w=1024, out_indices=(3,),
                **kw) -> SelsaConfig:
     for k in TPU_ONLY_KEYS:
         kw.pop(k, None)
-    variant = kw.pop("backbone_variant", None)
-    if variant is not None or kw.pop("backbone_overrides", None):
-        raise NotImplementedError(
-            f"backbone_variant {variant!r}: the dark backbones (DarkResNet "
-            "and its plugins) are not ported yet (ROADMAP.md Queue 1, the "
-            "dark backbones item)")
+    bo = kw.get("backbone_overrides")
+    if isinstance(bo, dict):  # configs write a dict: sorted (key, value)
+        kw["backbone_overrides"] = tuple(  # pairs, lists as tuples
+            (k, tuple(v) if isinstance(v, list) else v)
+            for k, v in sorted(bo.items()))
     for k in ("compute_dtype", "head_dtype"):
         if isinstance(kw.get(k), str):
             kw[k] = DTYPES[kw[k]]
@@ -113,7 +120,7 @@ def build_dark_detect(num_classes=30, out_indices=(0, 1, 2, 3, 3), **kw):
 def build_selsa_dark_detect(num_classes=30, out_indices=(0, 1, 2, 3, 3),
                             **kw):
     """On the ConvLSTM DarkResNet backbone (or the config's variant)."""
-    kw.setdefault("backbone_variant", "DarkResNet")
+    kw.setdefault("backbone_variant", DARK_DETECT_BACKBONE)
     loss_type = kw.pop("loss_type", "l2")
     return _darkfarm(num_classes, loss_type, True, out_indices, **kw)
 
@@ -149,6 +156,16 @@ def build_llvod(num_classes=8, loss_type="l2", out_indices=(0, 1, 2, 3, 3),
     return _darkfarm(num_classes, loss_type, True, out_indices, **kw)
 
 
+@MODELS.register("SelsaFastDVDnetDetect")
+def build_selsa_fastdvd(num_classes=8, denoiser="fastdvd", **kw):
+    """The FastDVDnet (or U-Net) denoiser, then SELSA on its frames."""
+    return FastDVDSelsaConfig(selsa=_selsa_cfg(num_classes=num_classes, **kw),
+                              denoiser=denoiser)
+
+
+ModelConfig = Union[DarkfarmConfig, FastDVDSelsaConfig]
+
+
 @dataclasses.dataclass
 class System:
     """A built model, its anchors and the loss that trains it."""
@@ -158,17 +175,20 @@ class System:
     branch: str  # the half of the pairs the detector trains on
 
     @property
-    def cfg(self) -> DarkfarmConfig:
+    def cfg(self) -> ModelConfig:
         return self.model.cfg
 
     def loss_fn(self, model, sample, generator):
+        if isinstance(self.cfg, FastDVDSelsaConfig):
+            return fastdvd_selsa_loss(model, sample, self.anchors,
+                                      generator=generator)
         return darkfarm_loss(model, sample, self.anchors,
                              generator=generator, branch=self.branch)
 
 
-def model_config(model_cfg: dict, tiny: bool = False) -> DarkfarmConfig:
-    """The config's ``model`` dict -> its ``DarkfarmConfig``; ``tiny``
-    applies TINY_KW."""
+def model_config(model_cfg: dict, tiny: bool = False) -> ModelConfig:
+    """The config's ``model`` dict -> its ``DarkfarmConfig`` (or
+    ``FastDVDSelsaConfig``); ``tiny`` applies TINY_KW."""
     kw = dict(model_cfg)
     mtype = kw.pop("type")
     if mtype not in MODELS:
@@ -184,8 +204,10 @@ def build_model(model_cfg: dict, tiny: bool = False, seed: int = 0,
     """Build the config's model with weights seeded by ``seed`` on
     ``device`` (None: the card, raising without one)."""
     cfg = model_config(model_cfg, tiny)
-    model, anchors = make_darkfarm(
-        cfg, torch.Generator().manual_seed(seed), device=device)
+    make = (make_fastdvd_selsa if isinstance(cfg, FastDVDSelsaConfig)
+            else make_darkfarm)
+    model, anchors = make(cfg, torch.Generator().manual_seed(seed),
+                          device=device)
     branch = "clean" if model_cfg["type"] in CLEAN_TYPES else "noise"
     return System(model, anchors, branch)
 
@@ -196,8 +218,12 @@ def vid_model_kwargs(model_cfg: dict, sampler: Optional[dict] = None,
     ``ref_img_sampler`` -> ``VIDModel`` keyword arguments, the JAX CLIs'
     mapping (``tools/test.py:289-315``, ``tools/train.py:326-340``): a
     darkfarm-family type streams its noisy branch through SELSA with the
-    same architecture, ``out_indices=(3,)``, ``in_channels`` as
-    ``backbone_in_channels`` and the training-only keys dropped; ``tiny``
+    same architecture (a dark backbone with its variant and overrides;
+    ``SelsaDarkDetect`` its DarkResNet when the config names none, where
+    the JAX CLIs stream the plain ResNet, ROADMAP F12),
+    ``out_indices=(3,)``, ``in_channels`` as ``backbone_in_channels`` and
+    the training-only keys dropped (``SelsaFastDVDnetDetect`` its
+    ``denoiser``: the JAX package streams it without, ROADMAP F11); ``tiny``
     applies TINY_KW; a ``test_with_fix_stride`` sampler gives
     ``ref_method="fix"`` with its ``stride`` and a memo of its frame range
     (unless the model dict sets them)."""
@@ -213,6 +239,8 @@ def vid_model_kwargs(model_cfg: dict, sampler: Optional[dict] = None,
             raise KeyError(f"model type {mtype!r}: the port streams SELSA "
                            f"and {sorted(MODELS.keys())}")
         kw["out_indices"] = (3,)
+        if mtype == "SelsaDarkDetect":  # streams the backbone it trains (F12)
+            kw.setdefault("backbone_variant", DARK_DETECT_BACKBONE)
         in_ch = kw.pop("in_channels", None)
         if in_ch and in_ch != 3:
             kw.setdefault("backbone_in_channels", in_ch)

@@ -21,13 +21,20 @@ With ``roi_extractor="temporal"`` the key-frame rois go through
 TemporalRoIAlign against the reference frames' neck maps: in the loss
 against the batch's reference frames, when streaming against the maps the
 memo keeps (``VideoState.ref_maps``).
+
+With ``backbone_variant`` the backbone is one of the dark backbones
+(``backbones/dark_resnet.py``), whose ConvLSTM stages and plugins mix the
+frames of a clip: training takes the key and its references as one clip
+(the key first), the memo fill the references as one clip, and a streamed
+step each stream's frame as a clip of its own, as the JAX package streams
+one frame at a time.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,6 +42,7 @@ import torch.nn as nn
 from ...core.anchors import AnchorGenerator
 from ...core.nms import DetResult
 from ...ops.roi_align import roi_align
+from ..backbones.dark_resnet import make_dark_backbone
 from ..backbones.resnet import FrozenBatchNorm, ResNet
 from ..dense_heads import rpn_head as rpn
 from ..necks.channel_mapper import ChannelMapper
@@ -73,6 +81,12 @@ class SelsaConfig:
     # last feeds the neck), e.g. (0, 1, 2, 3, 3) for the feature losses
     out_indices: Tuple[int, ...] = (3,)
     backbone_in_channels: int = 3  # 4 for RAW (RGGB) input
+    # None: the plain ResNet; else a dark-backbone variant of
+    # ``backbones/dark_resnet.py`` (DarkResNet, ResNet_A, ResNetC, ...) with
+    # extra ``DarkResNet`` arguments as (key, value) pairs, e.g. the
+    # insert-plugins configs' plugin_stages and plugin_type="aggregator"
+    backbone_variant: Optional[str] = None
+    backbone_overrides: Tuple[Tuple[str, Any], ...] = ()
     # key-roi extractor: 'single' (plain RoIAlign) or 'temporal'
     # (TemporalRoIAlign over the reference maps); reference rois stay plain
     roi_extractor: str = "single"
@@ -107,11 +121,16 @@ class SelsaDetector(nn.Module):
     def __init__(self, cfg: SelsaConfig = SelsaConfig()):
         super().__init__()
         self.cfg = c = cfg
-        self.backbone = ResNet(
+        backbone = dict(
             depth=c.depth, in_channels=c.backbone_in_channels,
             strides=(1, 2, 2, 1), dilations=(1, 1, 1, 2),
             out_indices=c.out_indices, frozen_stages=c.frozen_stages,
             dtype=c.compute_dtype)
+        if c.backbone_variant is None:
+            self.backbone = ResNet(**backbone)
+        else:
+            self.backbone = make_dark_backbone(
+                c.backbone_variant, **backbone, **dict(c.backbone_overrides))
         self.neck = ChannelMapper(256 * 2 ** c.out_indices[-1],
                                   c.neck_channels, 3, dtype=c.compute_dtype)
         self.rpn_head = rpn.RPNHead(c.neck_channels, c.neck_channels,
@@ -124,15 +143,21 @@ class SelsaDetector(nn.Module):
                 c.neck_channels, c.troi_similar_points,
                 c.troi_attention_blocks, dtype=c.compute_dtype)
 
-    def extract_feats(self, imgs: torch.Tensor):
+    def extract_feats(self, imgs: torch.Tensor,
+                      clip_len: Optional[int] = None,
+                      impl: Optional[str] = None):
         """imgs: [T, H, W, Cin] normalized -> (the backbone stages of
-        ``cfg.out_indices``, NCHW; the neck feature [T, h, w, C])."""
-        stages = self.backbone(imgs.permute(0, 3, 1, 2))
+        ``cfg.out_indices``, NCHW; the neck feature [T, h, w, C]). A dark
+        backbone takes the T frames as clips of ``clip_len`` frames in order
+        (None: one clip); ``impl="plain"`` runs its DCN's plain version."""
+        stages = self.backbone(imgs.permute(0, 3, 1, 2), clip_len=clip_len,
+                               impl=impl)
         return stages, self.neck(stages[-1]).permute(0, 2, 3, 1).contiguous()
 
-    def extract_feat(self, imgs: torch.Tensor) -> torch.Tensor:
+    def extract_feat(self, imgs: torch.Tensor, clip_len: Optional[int] = None,
+                     impl: Optional[str] = None) -> torch.Tensor:
         """imgs: [T, H, W, Cin] normalized -> neck feature [T, h, w, C]."""
-        return self.extract_feats(imgs)[1]
+        return self.extract_feats(imgs, clip_len, impl)[1]
 
     def rpn_forward(self, neck_feat: torch.Tensor):
         """[T, h, w, C] -> (cls [T, h, w, A], reg [T, h, w, 4A])."""
@@ -164,10 +189,12 @@ def make_anchors(cfg: SelsaConfig, device=None) -> torch.Tensor:
     return torch.as_tensor(gen.grid_anchors([cfg.feat_hw])[0], device=device)
 
 
-def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+def _lecun_normal_(w: torch.Tensor, generator: torch.Generator,
+                   fan_in: Optional[int] = None) -> None:
     """flax's ``lecun_normal``: truncated normal at +-2 sigma, variance
-    1 / fan_in after truncation."""
-    fan_in = w[0].numel()
+    1 / fan_in after truncation (fan_in: one output's inputs, by default
+    the size of ``w[0]``)."""
+    fan_in = fan_in or w[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                           generator=generator)
@@ -176,14 +203,18 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 @torch.no_grad()
 def init_params(model: SelsaDetector, generator: torch.Generator
                 ) -> SelsaDetector:
-    """Seeded init with flax's defaults: lecun-normal conv and dense kernels,
-    zero biases, FrozenBN scale 1, shift 0, mean 0, var 1; then each module
-    with an ``init_flax`` (a DCN pack: a zero ``conv_offset``, a uniform raw
-    ``weight``) its own. The generator must live on the model's device (a
-    CPU generator for a CPU model)."""
+    """Seeded init with flax's defaults: lecun-normal conv, transposed conv
+    and dense kernels, zero biases, FrozenBN scale 1, shift 0, mean 0, var
+    1; then each module with an ``init_flax`` (a DCN pack: a zero
+    ``conv_offset``, a uniform raw ``weight``) its own. The generator must
+    live on the model's device (a CPU generator for a CPU model)."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            _lecun_normal_(mod.weight, generator)
+        if isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+            # a transposed conv's weight is [in, out, kh, kw]; flax's
+            # kernel [kh, kw, in, out] has fan_in kh * kw * in
+            fan_in = (mod.weight[:, 0].numel()
+                      if isinstance(mod, nn.ConvTranspose2d) else None)
+            _lecun_normal_(mod.weight, generator, fan_in)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, FrozenBatchNorm):
@@ -268,11 +299,11 @@ def selsa_loss(model: SelsaDetector, batch: TrainBatch, anchors: torch.Tensor,
     The proposals carry no gradient, as in the original (mmdet detaches
     the RPN outputs before decoding, and RoIAlign has no roi gradient);
     the JAX package differentiates through them (ROADMAP fault F6).
-    ``impl="plain"`` runs RoIAlign's plain version (for comparisons
-    only)."""
+    ``impl="plain"`` runs the plain versions of RoIAlign and of a dark
+    backbone's DCN (for comparisons only)."""
     uniforms = loss_uniforms(model.cfg, batch.gt_boxes.shape[0], anchors,
                              generator, uniforms)
-    neck = model.extract_feat(batch.imgs)
+    neck = model.extract_feat(batch.imgs, impl=impl)
     return detection_loss(model, neck, batch, anchors, uniforms, impl=impl)
 
 
@@ -405,12 +436,13 @@ def init_video_state(model: SelsaDetector, ref_imgs: torch.Tensor, img_shape,
                      impl: Optional[str] = None) -> VideoState:
     """Fill the memo from the reference frames ref_imgs [R, H, W, Cin] (one
     proposal NMS for all R); the temporal extractor also keeps their neck
-    maps. ``impl="plain"`` runs RoIAlign's plain version (for comparisons
-    only)."""
+    maps. A dark backbone takes the R frames as one clip, in their order.
+    ``impl="plain"`` runs the plain versions of RoIAlign and of a dark
+    backbone's DCN (for comparisons only)."""
     cfg = model.cfg
     r = ref_imgs.shape[0]
     p = cfg.test_nms_post
-    neck = model.extract_feat(ref_imgs)
+    neck = model.extract_feat(ref_imgs, impl=impl)  # one clip of R frames
     cls_all, reg_all = model.rpn_forward(neck)
     shapes = torch.as_tensor(img_shape, dtype=torch.float32,
                              device=neck.device).expand(r, 2)
@@ -445,11 +477,12 @@ def stream_head_batch(model: SelsaDetector, states: VideoState,
     against each stream's own memo maps, with the temporal extractor) and
     the SELSA head for one frame of each of S streams, frames
     [S, H, W, Cin] and img_shapes [S, 2], against the batched memo
-    ``states``. ``impl="plain"`` runs both kernels' plain versions (for
-    comparisons only)."""
+    ``states``. A dark backbone takes the frames as S clips of one frame,
+    so no stream sees another. ``impl="plain"`` runs the kernels' plain
+    versions (for comparisons only)."""
     cfg = model.cfg
     s = frames.shape[0]
-    neck = model.extract_feat(frames)
+    neck = model.extract_feat(frames, clip_len=1, impl=impl)  # S clips
     cls, reg = model.rpn_forward(neck)
     props = _proposals(cfg, cls, reg, anchors, img_shapes)
     p = props.boxes.shape[1]

@@ -180,8 +180,10 @@ def darkfarm_loss(model: SelsaDarkfarmDetector, batch: DarkfarmBatch,
     uniforms = loss_uniforms(detector.cfg, batch.gt_boxes.shape[0], anchors,
                              generator, uniforms)
     noise, clean = batch.pair_imgs[..., :c], batch.pair_imgs[..., c:]
-    stages, neck = detector.extract_feats(noise if branch == "noise"
-                                          else clean)
+    # the key and its references are one clip, key first: a dark
+    # backbone's ConvLSTM starts at the key
+    stages, neck = detector.extract_feats(
+        noise if branch == "noise" else clean, impl=impl)
     denoised = None
     if cfg.with_aggregator:
         denoised, neck = model.denoise_feats(stages, neck, impl=impl)

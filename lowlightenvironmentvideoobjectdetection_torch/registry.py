@@ -1,7 +1,8 @@
 """Registries of the port, the counterpart of the JAX package's
 ``registry.py``: a config dict's ``type`` names a registered factory.
 ``PIPELINES`` holds the data transforms (``data/pipelines``), ``MODELS``
-the model builders (``models/builder.py``)."""
+the model builders (``models/builder.py``) and ``BACKBONES`` the dark
+backbones' variants (``models/backbones/dark_resnet.py``)."""
 
 from __future__ import annotations
 
@@ -37,4 +38,5 @@ class Registry:
 
 
 MODELS = Registry("models")
+BACKBONES = Registry("backbones")
 PIPELINES = Registry("pipelines")

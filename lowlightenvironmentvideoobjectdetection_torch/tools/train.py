@@ -13,7 +13,9 @@ card (``--device cpu`` for the CPU; without a card and without
 ``--device`` it raises), and trains it through ``apis.train.train_model``
 on batches of its ``data.train`` (``data/loader.py``: COCO-VID annotations
 and PNG frames, ``data.workers_per_gpu`` loader processes) or, with
-``--synthetic``, on uniform noise as the JAX CLI's synthetic batches.
+``--synthetic``, on uniform noise as the JAX CLI's synthetic batches
+(``DarkfarmBatch``es of (noise, clean) pairs; ``FastDVDBatch``es of the
+same pairs for ``SelsaFastDVDnetDetect``).
 ``--tiny`` shrinks the bucket and the proposal counts as the JAX CLI's
 ``TINY_KW`` and computes in float32. Appends a line to
 ``WORK_DIR/train_log.json`` and saves ``WORK_DIR/step_<N>.pt`` with
@@ -43,6 +45,7 @@ from ..data.loader import TrainLoader, build_dataset, loader_workers
 from ..data.pipelines import Compose
 from ..models.builder import build_model, vid_model_kwargs
 from ..models.vid.selsa_darkfarm import DarkfarmBatch
+from ..models.vid.selsa_fastdvd import FastDVDBatch, FastDVDSelsaConfig
 from ..utils.checkpoint import checkpoint_step, save_checkpoint
 from ..utils.device import resolve_device
 
@@ -139,6 +142,8 @@ def main(argv: Optional[List[str]] = None,
         loader = data = TrainLoader(cfg, s.pad_h, s.pad_w,
                                     system.cfg.in_channels, seed=args.seed,
                                     start=start, device=device)
+    if isinstance(system.cfg, FastDVDSelsaConfig):  # the same pairs
+        data = (FastDVDBatch(*b) for b in data)
     metrics, evals = [], []
     eval_fn, eval_interval = None, 0
     vcfg = (cfg.get("data") or {}).get("val") or (cfg.get("data") or {}).get(

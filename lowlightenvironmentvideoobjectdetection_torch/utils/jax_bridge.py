@@ -1,18 +1,26 @@
 """JAX (flax) variables -> port ``state_dict``.
 
-Takes the SELSA (or darkfarm) variable tree as nested dicts of numpy arrays
-(``{"params": ..., "batch_stats": ...}``, e.g. ``jax.tree.map(np.asarray,
-variables)``) and returns a ``state_dict`` for ``SelsaDetector`` (or
-``SelsaDarkfarmDetector``, whose ``selsa`` and ``cleaner.resnet`` modules
-are named as the flax ones). Module names match the flax names, so a leaf's
-key is its path joined by dots with the leaf renamed:
+Takes the SELSA (or darkfarm, or FastDVD) variable tree as nested dicts of
+numpy arrays (``{"params": ..., "batch_stats": ...}``, e.g.
+``jax.tree.map(np.asarray, variables)``) and returns a ``state_dict`` for
+``SelsaDetector`` (or ``SelsaDarkfarmDetector``, whose ``selsa`` and
+``cleaner.resnet`` modules are named as the flax ones, or
+``FastDVDSelsaDetector``, ``denoiser`` and ``selsa``). Module names match
+the flax names, so a leaf's key is its path joined by dots with the leaf
+renamed:
 
 - conv ``kernel`` [kh, kw, in, out] -> ``weight`` [out, in, kh, kw];
+- a ``ConvTranspose`` ``kernel`` [kh, kw, in, out] (where ``model``, the
+  port module the state dict is for, has an ``nn.ConvTranspose2d``: the
+  denoisers' up-convolutions) -> ``weight`` [in, out, kh, kw] flipped in
+  both spatial axes: flax's transposed conv (``transpose_kernel=False``)
+  does not flip its kernel, PyTorch's (the adjoint of a convolution) does;
 - dense ``kernel`` [in, out] -> ``weight`` [out, in] (``shared_fc0``'s
   rows stay in the (7, 7, C) order of the [N, 7, 7, C] roi features);
 - ``bias`` -> ``bias``; FrozenBN ``scale`` -> ``weight``;
-- a ``ModulatedDCNPack``'s raw ``weight`` [3, 3, in, out] (under a
-  ``dcn_pack``) -> ``weight`` [out, in, 3, 3];
+- a ``ModulatedDCNPack``'s raw ``weight`` [3, 3, in, out] (a ``weight``
+  beside a ``conv_offset``: the aggregators' and plugins' ``dcn_pack``,
+  the ConvLSTM's ``dcn_f`` / ``dcn_b``) -> ``weight`` [out, in, 3, 3];
 - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
 Any other collection or leaf raises. ``grads_from_jax`` maps a JAX gradient
@@ -23,10 +31,11 @@ by leaf with the port's ``.grad``. ``video_state_from_jax`` turns a JAX
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..models.vid.selsa import VideoState
 
@@ -42,7 +51,18 @@ def _walk(tree: Mapping, prefix=()):
             yield prefix + (str(k),), v
 
 
-def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+def _node(tree: Mapping, path) -> Mapping:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def from_jax_variables(variables: Mapping,
+                       model: Optional[nn.Module] = None
+                       ) -> Dict[str, torch.Tensor]:
+    transposed = set() if model is None else {
+        name for name, m in model.named_modules()
+        if isinstance(m, nn.ConvTranspose2d)}
     out: Dict[str, torch.Tensor] = {}
     for coll, tree in variables.items():
         if coll == "params":
@@ -55,13 +75,15 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             *mods, leaf_name = path
             a = np.asarray(leaf, dtype=np.float32)
             if (coll == "params" and leaf_name == "weight" and mods
-                    and mods[-1] == "dcn_pack" and a.ndim == 4
+                    and "conv_offset" in _node(tree, mods) and a.ndim == 4
                     and a.shape[:2] == (3, 3)):
                 a = a.transpose(3, 2, 0, 1)  # the DCN's raw [3, 3, in, out]
             elif leaf_name not in names or not mods:
                 raise KeyError(f"unconsumed leaf {coll}/{'/'.join(path)}")
             elif leaf_name == "kernel":
-                if a.ndim == 4:
+                if a.ndim == 4 and ".".join(mods) in transposed:
+                    a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+                elif a.ndim == 4:
                     a = a.transpose(3, 2, 0, 1)
                 elif a.ndim == 2:
                     a = a.T
@@ -75,10 +97,12 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def grads_from_jax(grads: Mapping) -> Dict[str, torch.Tensor]:
+def grads_from_jax(grads: Mapping, model: Optional[nn.Module] = None
+                   ) -> Dict[str, torch.Tensor]:
     """A gradient tree with the structure of the ``params`` collection ->
-    port parameter name -> gradient in the port's layout."""
-    return from_jax_variables({"params": grads})
+    port parameter name -> gradient in the port's layout (``model`` as in
+    ``from_jax_variables``)."""
+    return from_jax_variables({"params": grads}, model)
 
 
 def _tensor(a) -> torch.Tensor:

@@ -23,7 +23,9 @@ def test_port_runs_without_jax_cv2_or_pil(tmp_path):
                                                   port.__name__ + ".")]
     assert {port.__name__ + m for m in (
         ".data.image_io", ".tools.train", ".data.loader", ".tools.test",
-        ".apis.test", ".core.eval.mean_ap")} <= set(mods)
+        ".apis.test", ".core.eval.mean_ap", ".models.backbones.dark_resnet",
+        ".models.cleaners.video_denoisers",
+        ".models.vid.selsa_fastdvd")} <= set(mods)
     code = f"""
 import importlib, sys
 for name in {BLOCKED!r}:

@@ -9,8 +9,11 @@
   5e-3, scores to 1e-5, as sets) and mAP50 within 1e-6;
 - ``--synthetic 3`` runs; ``--num-shards 2 --shard 1`` runs the second
   video;
-- a ``backbone_variant`` config raises ``NotImplementedError``, as do the
-  JAX CLI's tracking and image-detector routes;
+- a dark-backbone config (``llvod_lstm_darkfarm.py``: ``SelsaDarkDetect``,
+  the ConvLSTM DarkResNet) streams with its backbone, equal to
+  ``apis/test.py`` with the same seeded model;
+- the JAX CLI's tracking and image-detector routes raise
+  ``NotImplementedError``;
 - without ``--device cpu`` and with no card it raises ``RuntimeError``.
 
 The gts are the port's own top detections (2 a frame).
@@ -38,6 +41,10 @@ from test_torch_port_eval import (
 
 from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
     init_model,
+)
+from lowlightenvironmentvideoobjectdetection_torch.config import (
+    Config,
+    apply_cli_options,
 )
 from lowlightenvironmentvideoobjectdetection_torch.apis.test import (
     evaluate_bbox,
@@ -189,15 +196,45 @@ def test_synthetic_and_one_shard(world):
     assert 0.0 <= out["metrics"]["mAP50"] <= 1.0
 
 
+LSTM = os.path.join(ROOT, "configs/vid/llvod/llvod_lstm_darkfarm.py")
+
+
+def test_a_dark_variant_config_streams(world, monkeypatch):
+    built = []
+
+    def init(**kw):
+        built.append(init_model(**kw))
+        return built[-1]
+
+    monkeypatch.setattr(tcli, "init_model", init)
+    got = tcli.main([LSTM, "--tiny", "--device", "cpu"]
+                    + options(world["ann"], world["prefix"]))
+    model = built[0]
+    assert model.cfg.backbone_variant == "DarkResNet"
+    assert type(model.model.backbone.layer2_0).__name__ == (
+        "ConvLSTMBottleneck")
+    assert got["summary"]["frames"] == VIDEOS * FRAMES
+    cfg = Config.fromfile(LSTM)
+    apply_cli_options(cfg, options(world["ann"], world["prefix"])[1:])
+    d = cfg["data"]["test"]
+    again = init_model(device="cpu", **vid_model_kwargs(
+        cfg["model"], d["ref_img_sampler"], tiny=True))
+    dets, anns = single_device_test(again, build_dataset(d, test_mode=True),
+                                    Compose(d["pipeline"], device="cpu"))
+    for g, w in zip(results_of(got), dets):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    assert got["metrics"] == evaluate_bbox(dets, anns)
+
+
 @pytest.mark.parametrize("opts,match", [
-    (["model.backbone_variant=DarkResNet"], "dark backbones"),
     (["model.type=DeepSORT"], "multi-object tracking"),
     (["data.test.type=MOTChallengeDataset"], "multi-object tracking"),
     (["model.type=SiamRPN"], "single-object tracking"),
     (["model.type=FasterRCNN", "data.test.type=CocoDataset"],
      "image detectors"),
     (["model.type=FGFA"], "other VID families"),
-], ids=["backbone_variant", "mot_model", "mot_data", "sot", "image", "fgfa"])
+], ids=["mot_model", "mot_data", "sot", "image", "fgfa"])
 def test_routes_the_port_lacks_raise(world, opts, match):
     with pytest.raises(NotImplementedError, match=match):
         tcli.main([CANONICAL, "--tiny", "--device", "cpu", "--cfg-options"]

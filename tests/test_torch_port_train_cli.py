@@ -15,8 +15,10 @@ JAX package's, on the CPU:
   ``_u`` / ``_d`` feature losses, writes ``step_2.pt`` and
   ``train_log.json``, and ``--resume-from`` continues at step 2 with the
   data of step 2;
-- the model builder maps every darkfarm type to the JAX zoo's config,
-  and ``SelsaDarkDetect`` raises (its DarkResNet is not ported).
+- the model builder maps every darkfarm type, ``SelsaDarkDetect`` (the
+  ConvLSTM DarkResNet) and ``SelsaFastDVDnetDetect`` to the JAX zoo's
+  config, and every config under ``configs/vid/llvod/`` (all of which the
+  JAX zoo builds) to the JAX zoo's config of that file.
 """
 
 import dataclasses
@@ -189,39 +191,68 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(tree, tmp_path,
 DARKFARM_TYPES = ["SelsaDarkfarmDetect", "SelsaNewDarkfarmDetect",
                   "SelsaNewDetect", "SelsaNewVIDDetect", "DarkDetect",
                   "SelsaNoiseDetect", "SelsaNoiseDarkfarmDetect",
-                  "SelsaCleanDetect", "SelsaCleanDarkfarmDetect", "LLVOD"]
+                  "SelsaCleanDetect", "SelsaCleanDarkfarmDetect", "LLVOD",
+                  "SelsaDarkDetect", "SelsaFastDVDnetDetect"]
+FASTDVD = os.path.join(ROOT, "configs/vid/llvod/llvod_fastdvd_darkfarm.py")
 
 
-@pytest.mark.parametrize("mtype", DARKFARM_TYPES)
-def test_builder_matches_the_jax_zoo(mtype):
-    base = dict(tconfig.load_config(CANONICAL)["model"], type=mtype)
-    if mtype == "DarkDetect":
-        base.pop("loss_type")  # its factory fixes the loss
-    kw = dict(base)
-    kw.pop("type")
-    jmodel, _ = MODELS.get(mtype)(**dict(kw, compute_dtype="float32"))
-    jcfg = jmodel.cfg
-    tcfg = tb.model_config(dict(base, compute_dtype="float32"))
-    for f in ("loss_type", "with_cleaner", "in_channels", "with_aggregator",
-              "agg_rdb", "agg_taf", "dual_branch"):
-        assert getattr(tcfg, f) == getattr(jcfg, f), f
-    for f in dataclasses.fields(tcfg.selsa):
-        want = getattr(jcfg.selsa, f.name)
-        got = getattr(tcfg.selsa, f.name)
-        if f.name in ("compute_dtype", "head_dtype"):
+def _same_config(tcfg, jcfg):
+    """Every field of the port's config (and of its nested ``selsa``)
+    equals the JAX config's, dtypes by name."""
+    for f in dataclasses.fields(tcfg):
+        want, got = getattr(jcfg, f.name), getattr(tcfg, f.name)
+        if dataclasses.is_dataclass(got):
+            _same_config(got, want)
+        elif f.name in ("compute_dtype", "head_dtype"):
             assert (got is None) == (want is None) and (
                 got is None or str(got)[6:] == jnp.dtype(want).name), f.name
         else:
             assert got == want, f.name
+
+
+def _jax_cfg(model_dict):
+    kw = dict(model_dict)
+    jmodel, _ = MODELS.get(kw.pop("type"))(**kw)
+    return jmodel.cfg
+
+
+@pytest.mark.parametrize("mtype", DARKFARM_TYPES)
+def test_builder_matches_the_jax_zoo(mtype):
+    if mtype == "SelsaFastDVDnetDetect":
+        base = dict(tconfig.load_config(FASTDVD)["model"])
+    else:
+        base = dict(tconfig.load_config(CANONICAL)["model"], type=mtype)
+    if mtype == "DarkDetect":
+        base.pop("loss_type")  # its factory fixes the loss
+    base["compute_dtype"] = "float32"
+    tcfg = tb.model_config(base)
+    _same_config(tcfg, _jax_cfg(base))
     assert (tb.CLEAN_TYPES.count(mtype) == 1) == mtype.startswith(
         "SelsaClean")
+    variant = tcfg.selsa.backbone_variant
+    assert variant == ("DarkResNet" if mtype == "SelsaDarkDetect" else None)
+
+
+@pytest.mark.parametrize("path", LLVOD,
+                         ids=[os.path.relpath(p, ROOT) for p in LLVOD])
+def test_model_config_accepts_every_llvod_config(path):
+    """Each config under ``configs/vid/llvod/`` (``done/`` included), as
+    the JAX zoo builds it, gives the port the same config."""
+    model = tconfig.load_config(path)["model"]
+    _same_config(tb.model_config(model), _jax_cfg(model))
 
 
 def test_tiny_and_selsa_dark_detect():
+    """``--tiny`` sizes; ``SelsaDarkDetect`` builds its ConvLSTM
+    DarkResNet (stage 2's blocks); FGFA is not a port model type."""
     cfg = tb.model_config(tconfig.load_config(CANONICAL)["model"], tiny=True)
     assert (cfg.selsa.pad_h, cfg.selsa.pad_w) == (64, 64)
     assert cfg.selsa.compute_dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="dark backbones"):
-        tb.model_config(dict(type="SelsaDarkDetect"))
+    system = tb.build_model(dict(type="SelsaDarkDetect"), tiny=True,
+                            device="cpu")
+    backbone = system.model.selsa.backbone
+    assert system.cfg.selsa.backbone_variant == "DarkResNet"
+    assert type(backbone.layer2_0).__name__ == "ConvLSTMBottleneck"
+    assert type(backbone.layer3_0).__name__ == "Bottleneck"
     with pytest.raises(KeyError, match="FGFA"):
         tb.model_config(dict(type="FGFA"))
