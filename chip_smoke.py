@@ -105,9 +105,27 @@ as gts, the kernel path at f32 through the test CLI, mAP50; then S = 4
 ResNetC streams batched against each stream alone at f32) and
 ``fastdvd_train`` (``llvod_fastdvd_darkfarm.py`` 3 steps and
 ``llvod_unet_darkfarm.py`` 2 through the CLI: B and D twice a step,
-``loss_denoise`` finite, every denoiser leaf changed). Then one JSON line
-of kernel summaries (A-G), and a last line ``{"ok": true, "device":
-{...}}``. Any failure exits non-zero.
+``loss_denoise`` finite, every denoiser leaf changed). Then the
+flow-based ImageNet-VID families: ``fgfa_stream``
+(``fgfa_faster_rcnn_r50_dc5_1x_imagenetvid.py`` through ``VIDModel`` at
+full width, bf16 detector, a 14-frame memo of frames and maps, random
+600x1000 frames: memo fill and steady frame ms, the device's idle share,
+peak memory, the split of a frame into the backbone, FlowNetSimple over
+the 14 pairs, the warp, ``F.grid_sample`` alone at those shapes, the
+EmbedAggregator (and its conv on 15 maps against 16 in one call) and the
+rest; B once a frame; the f32 kernel path against
+the plain path, detections as sets), ``dff_stream`` (the DFF config over
+DFF_FRAMES frames at ``key_frame_interval`` 10: key against non-key frame
+ms, B once a frame, f32 agreement), then on an ImageNet-VID tree of PNG
+frames (VID_TREE, written with the port's PNG writer): ``vid_train``
+(the SELSA, FGFA and DFF R50 configs through the training CLI with
+VID_WORKERS loader processes: step ms, idle share, peak memory; B and D
+twice a step for SELSA, once for FGFA and DFF), ``fgfa_agree`` (FGFA's f32
+loss and gradients, kernels B and D against the plain RoIAlign) and
+``vid_eval`` (FGFA and DFF through the test CLI on the val split: the
+plain f32 run's detections as gts, the f32 kernel path's mAP50). Then one
+JSON line of kernel summaries (A-G), and a last line ``{"ok": true,
+"device": {...}}``. Any failure exits non-zero.
 
     python3 chip_smoke.py --roi-grad-times ROOT
     python3 chip_smoke.py --dcn-times ROOT
@@ -239,6 +257,16 @@ DARK_VARIANT_REL = 1e-5  # of max |stage|: f32 kernel path vs plain DCN
 DARK_STEPS, DARK_TIMED = 8, 4  # dark_train: 2 warm-up, 4 timed, 2 profiled
 FASTDVD_STEPS, UNET_STEPS = 3, 2
 DARK_STREAM_S, DARK_STREAM_T = 4, 3  # dark_stream: ResNetC streams, frames
+# the flow-based ImageNet-VID families (FGFA, DFF) and SELSA's training
+FGFA_CFG = "configs/vid/fgfa/fgfa_faster_rcnn_r50_dc5_1x_imagenetvid.py"
+DFF_CFG = "configs/vid/dff/dff_faster_rcnn_r50_dc5_1x_imagenetvid.py"
+SELSA_CFG = "configs/vid/selsa/selsa_faster_rcnn_r50_dc5_1x_imagenetvid.py"
+FLOW_STEADY, FLOW_PROFILED = 10, 3  # fgfa_stream: frames after frame 0
+DFF_FRAMES = 21         # dff_stream: key frames 0, 10 and 20
+FLOW_AGREE_FRAMES = 3   # f32 kernel path against plain (DFF: key, 2 warps)
+VID_TREE = dict(videos=2, frames=12, hw=(720, 1280))  # ImageNet-VID frames
+VID_STEPS, VID_TIMED = 6, 2  # vid_train: 2 warm-up, 2 timed, 2 profiled
+VID_WORKERS = 4
 # --loader-close: rounds of opening, reading and closing the loader
 LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
@@ -1387,6 +1415,40 @@ class TopKPin:
         self.flips += int((idx.sort(1).values != want.sort(1).values)
                           .any(1).sum())
         return x.gather(1, want), want
+
+
+class ReluPin:
+    """Stands in for ``F.relu`` in the bbox head's module (``bbox_head``)
+    inside a ``with`` block, for the agree phases: records each call's
+    decisions (x > 0); given ``pinned`` (another run's, call by call) it
+    keeps those (x where the pinned decision passes, else 0) and counts the
+    elements where its own decision differs. Such a flip is a shared FC's
+    pre-activation within the two paths' roundings of 0: it moves that
+    roi's share of the FC's gradient row by a whole term, which no rounding
+    tolerance covers (the value moves by less than the rounding)."""
+
+    def __init__(self, module, pinned=None):
+        self.module, self.orig = module, module.F
+        self.pinned, self.decisions, self.flips = pinned, [], 0
+
+    def __enter__(self):
+        self.module.F = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.F = self.orig
+
+    def __getattr__(self, name):  # the rest of torch.nn.functional
+        return getattr(self.orig, name)
+
+    def relu(self, x):
+        own = x > 0
+        self.decisions.append(own)
+        if self.pinned is None:
+            return self.orig.relu(x)
+        want = self.pinned[len(self.decisions) - 1]
+        self.flips += int((own != want).sum())
+        return x * want
 
 
 def darkfarm_train(dev, smi, kernels):
@@ -2706,10 +2768,11 @@ def eval_reference(dev, cfg_path, root, ann, kernels):
     return dets, seconds
 
 
-def eval_cli(name, argv, kernels, want_counts, window=None):
+def eval_cli(name, argv, kernels, want_counts, window=None, classes=8):
     """The port's test CLI (``tools/test.py::main``) on ``argv``, on the
     card, every launch count reset just before: checks ``want_counts``
-    launches of ``kernels`` (A-G) and finite per-class [N, 5] results.
+    launches of ``kernels`` (A-G) and finite per-class [N, 5] results of
+    ``classes`` classes.
     ``window`` (a ``StepWindow``) is called after each frame. Returns the
     CLI's output, its detections, counts and bodies, wall seconds and
     peak memory in GiB."""
@@ -2739,7 +2802,7 @@ def eval_cli(name, argv, kernels, want_counts, window=None):
         raise AssertionError(f"{name}: launch counts {run['counts']}, want "
                              f"{list(want_counts)}")
     for d in run["dets"]:
-        if len(d) != 8 or not all(np.isfinite(x).all() for x in d):
+        if len(d) != classes or not all(np.isfinite(x).all() for x in d):
             raise AssertionError(f"{name}: bad per-class results")
     return run
 
@@ -3105,6 +3168,423 @@ def troi_stream(dev, smi, init_model, inference_vid, S, kernels, g):
                 AGREE_TOL, AGREE_TOL)
     check_close("troi_stream agree bbox_pred", got.bbox_pred, want.bbox_pred,
                 AGREE_TOL, AGREE_TOL)
+    return counts, bodies
+
+
+# ---- the flow-based ImageNet-VID families: FGFA, DFF (and SELSA training)
+
+def flow_profiled(fn, n):
+    """``fn()`` n times under ``torch.profiler``, synchronised before and
+    after: the device's busy ms a call (the union of its kernels'
+    intervals), the wall ms a call and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from lowlightenvironmentvideoobjectdetection_torch.tools.stage_profile import (  # noqa: E501
+        union_ms)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == StepWindow.DEVICE]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device events")
+    busy = union_ms([(e.time_range.start, e.time_range.end) for e in dev])
+    return dict(calls=n, busy_ms_per_call=busy / n, wall_ms_per_call=wall / n,
+                idle_share=1.0 - busy / wall)
+
+
+def flow_vid_model(cfg_path, dev, **overrides):
+    """The ``VIDModel`` the test CLI builds for ``cfg_path`` (seed 0)."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        VIDModel)
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        load_config)
+    from lowlightenvironmentvideoobjectdetection_torch.models.builder import (
+        vid_model_kwargs)
+    cfg = load_config(str(REPO / cfg_path))
+    kw = vid_model_kwargs(cfg["model"],
+                          cfg["data"]["test"].get("ref_img_sampler"))
+    kw.update(overrides)
+    return VIDModel(device=dev, **kw)
+
+
+def flow_stream(name, model, frames, refs, kernels):
+    """Stream the raw frames through ``inference_vid`` (``refs`` at frame 0)
+    with every launch count reset just before: per-frame host ms, the
+    launch counts (A-G) and B's bodies, the peak memory in GiB, the
+    per-class results (finite, 30 classes)."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        inference_vid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    lat, results = [], []
+    for fid, frame in enumerate(frames):
+        t = time.perf_counter()
+        out = inference_vid(model, frame, fid,
+                            ref_frames=refs if fid == 0 else None)
+        lat.append((time.perf_counter() - t) * 1e3)
+        results.append(out["bbox_results"])
+    run = dict(ms=lat, counts=[k.launches for k in kernels],
+               bodies=dict(roi_align=dict(kernels[1].body_launches),
+                           roi_align_backward=dict(kernels[3].body_launches)),
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    n = len(frames)
+    if run["counts"] != [0, n, 0, 0, 0, 0, 0]:
+        raise AssertionError(f"{name}: launch counts {run['counts']} for {n} "
+                             "frames, want one of B a frame")
+    check_bodies(f"{name} roi_align", kernels[1], gather7x2=n, gather14x2=0)
+    for res in results:
+        if len(res) != 30 or not all(r.ndim == 2 and r.shape[1] == 5
+                                     and np.isfinite(r).all() for r in res):
+            raise AssertionError(f"{name}: bad per-class results")
+    run["detections"] = [sum(len(r) for r in res) for res in results]
+    return run
+
+
+def flow_agree(name, family, dev, kernels):
+    """f32, TF32 off: FLOW_AGREE_FRAMES streamed frames of the config's
+    model through kernel B and through the plain RoIAlign from one memo:
+    detections as sets (``match_sets``). Returns the sets."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        fgfa as FG)
+    cfg_path = FGFA_CFG if family == "FGFA" else DFF_CFG
+    m32 = flow_vid_model(cfg_path, dev, compute_dtype=torch.float32)
+    model, cfg = m32.model, m32.cfg
+    g = torch.Generator().manual_seed(9)
+    hw = (cfg.pad_h, cfg.pad_w, 3)
+    frames = torch.randn((FLOW_AGREE_FRAMES,) + hw, generator=g).to(dev)
+    shape = torch.tensor([600.0, 1000.0], device=dev)
+    sf = torch.ones(4, device=dev)
+    if family == "FGFA":
+        refs = torch.randn((cfg.num_ref_frames,) + hw, generator=g).to(dev)
+        states = [FG.fgfa_init_state(model, refs) for _ in range(2)]
+        step = FG.fgfa_inference_step
+    else:
+        states = [FG.dff_init_state() for _ in range(2)]
+        step = FG.dff_inference_step
+    sets = []
+    for t in range(FLOW_AGREE_FRAMES):
+        reset_counts(*kernels)
+        states[0], got = step(model, states[0], frames[t], shape, sf,
+                              m32.anchors)
+        if kernels[1].launches != 1:
+            raise AssertionError(f"{name}: the kernel path launched B "
+                                 f"{kernels[1].launches} times")
+        states[1], want = step(model, states[1], frames[t], shape, sf,
+                               m32.anchors, impl="plain")
+        sets.append(match_sets(got, want))
+    if any(x["unmatched"] or x["n_got"] != x["n_want"] for x in sets):
+        raise AssertionError(f"{name}: f32 kernel path against plain: {sets}")
+    del m32, model, states
+    torch.cuda.empty_cache()
+    return sets
+
+
+def fgfa_stream(dev, smi, kernels):
+    """``fgfa_faster_rcnn_r50_dc5_1x_imagenetvid.py`` through ``VIDModel``
+    at full width (608x1024, 30 classes, bf16 detector; FlowNetSimple, the
+    warp and the EmbedAggregator f32; a memo of 14 frames and maps), seeded
+    weights, random 600x1000 frames: frame 0 fills the memo from 14
+    reference frames, FLOW_STEADY more frames are timed, FLOW_PROFILED more
+    give the device's busy and idle share; kernel B once a frame (FGFA's
+    memo fill runs no RoIAlign). Then the split of a steady frame (CUDA
+    events, the step without the memo's roll): backbone and neck,
+    FlowNetSimple over the 14 (frame, memo) pairs, the warp of the 14 memo
+    maps, ``F.grid_sample`` alone at those shapes, the EmbedAggregator,
+    the rest (RPN, proposals, RoIAlign, head, decode); then the f32 kernel
+    path against the plain path (``flow_agree``). Returns the launch counts
+    (A-G) of the stream and B's bodies."""
+    import torch.nn.functional as F
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        inference_vid)
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        fgfa as FG)
+    from lowlightenvironmentvideoobjectdetection_torch.ops.grid_sample import (
+        flow_warp_feats, grid_sample)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(8)
+    n = 1 + FLOW_STEADY + FLOW_PROFILED
+    raw = rng.randint(0, 256, (n,) + RAW_HW + (3,)).astype(np.uint8)
+    model = flow_vid_model(FGFA_CFG, dev)
+    cfg = model.cfg
+    refs = rng.randint(0, 256, (cfg.num_ref_frames,) + RAW_HW + (3,)
+                       ).astype(np.uint8)
+    main = flow_stream("fgfa_stream", model, raw[:1 + FLOW_STEADY], refs,
+                       kernels)
+    frames = iter(range(1 + FLOW_STEADY, n))
+    window = flow_profiled(lambda: inference_vid(model, raw[next(frames)],
+                                                 1), FLOW_PROFILED)
+    counts = [k.launches for k in kernels]  # the stream's, profiled too
+    if counts != [0, n, 0, 0, 0, 0, 0]:
+        raise AssertionError(f"fgfa_stream: launch counts {counts}")
+    check_bodies("fgfa_stream roi_align", kernels[1], gather7x2=n,
+                 gather14x2=0)
+    bodies = dict(roi_align=dict(kernels[1].body_launches),
+                  roi_align_backward={})
+    st = model.state
+    memo = cfg.num_ref_frames
+    if (st.ref_feats.shape != (memo, *cfg.feat_hw, cfg.neck_channels)
+            or st.ref_feats.dtype != cfg.compute_dtype
+            or st.next_slot != n % memo):
+        raise AssertionError("fgfa_stream: bad memo")
+
+    # the split of a steady frame
+    m = model.model
+    imgs, img_shape, sf = prepare_frames(raw[:1], cfg.pad_h, cfg.pad_w,
+                                         device=dev)
+    frame, sf = imgs[0], torch.as_tensor(sf, device=dev)
+    with torch.no_grad():
+        key = m.extract_feat(frame[None])[0]
+        flows = m.compute_flow(frame, st.ref_imgs)
+        warped = flow_warp_feats(st.ref_feats, flows)
+        stack = torch.cat([key[None].float(), warped])
+        grid = torch.rand(st.ref_feats.shape[:3] + (2,), generator=torch
+                          .Generator().manual_seed(3)).to(dev) * 2 - 1
+        maps32 = st.ref_feats.float().permute(0, 3, 1, 2)
+        split = dict(
+            step=timed(lambda: FG.fgfa_inference_step(
+                m, st, frame, img_shape, sf, model.anchors,
+                update_memo=False), iters=5, warmup=2),
+            backbone_neck=timed(lambda: m.extract_feat(frame[None]),
+                                iters=5, warmup=2),
+            flownet_14_pairs=timed(lambda: m.compute_flow(
+                frame, st.ref_imgs), iters=5, warmup=2),
+            warp_14_maps=timed(lambda: flow_warp_feats(st.ref_feats, flows)),
+            aggregator=timed(lambda: m.aggregator(key[None], stack)))
+        split["rest"] = split["step"] - sum(
+            split[k] for k in ("backbone_neck", "flownet_14_pairs",
+                               "warp_14_maps", "aggregator"))
+        # the aggregator's f32 conv on the 15 candidate maps, and on 16 (the
+        # key and the candidates in one call, which cuDNN runs with another
+        # algorithm): why the EmbedAggregator embeds the key apart
+        conv = m.aggregator.embed_conv0
+        x15 = stack.permute(0, 3, 1, 2).contiguous()
+        x16 = torch.cat([key[None].float(), stack]).permute(0, 3, 1, 2
+                                                            ).contiguous()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        conv_maps = dict(maps15_ms=timed(lambda: conv(x15), iters=5,
+                                         warmup=2),
+                         maps16_ms=timed(lambda: conv(x16), iters=5,
+                                         warmup=2),
+                         peak_extra_gb=(torch.cuda.max_memory_allocated()
+                                        - base) / 2**30)
+        del x15, x16
+        gs = dict(
+            wrapper_bf16_maps=timed(lambda: grid_sample(
+                st.ref_feats, grid, align_corners=True,
+                padding_mode="border")),
+            f32_nchw=timed(lambda: F.grid_sample(
+                maps32, grid, mode="bilinear", padding_mode="border",
+                align_corners=True)),
+            # each map read once (bf16), each output written once (f32)
+            bound_ms=st.ref_feats.numel() * (st.ref_feats.element_size() + 4)
+            / HBM_BYTES_PER_S * 1e3)
+    sets = flow_agree("fgfa_stream agree", "FGFA", dev, kernels)
+    steady = main["ms"][1:]
+    phase("fgfa_stream", card=smi, config=FGFA_CFG, memo_frames=memo,
+          frames=n, memo_fill_frame0_ms=main["ms"][0],
+          median_frame_ms=statistics.median(steady),
+          min_frame_ms=min(steady), max_frame_ms=max(steady),
+          frame_ms=steady, device_window=window, peak_mem_gb=main["peak_gb"],
+          split_ms=split, aggregator_conv=conv_maps,
+          grid_sample_memo_maps_ms=dict(
+              maps=list(st.ref_feats.shape), **gs),
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          detections_per_frame=main["detections"],
+          f32_kernel_vs_plain_sets=sets, phase_s=time.perf_counter() - t_phase)
+    del model, m, st, stack, warped, flows, maps32
+    torch.cuda.empty_cache()
+    return counts, bodies
+
+
+def dff_stream(dev, smi, kernels):
+    """``dff_faster_rcnn_r50_dc5_1x_imagenetvid.py`` (``key_frame_interval``
+    10) through ``VIDModel`` at full width, bf16, seeded weights, DFF_FRAMES
+    random 600x1000 frames: key frames (0, 10, 20: the backbone) against
+    the others (FlowNetSimple on one pair and the warp of the key's map);
+    kernel B once a frame; then the f32 kernel path against the plain path
+    over a key frame and two warped ones. Returns the launch counts (A-G)
+    and B's bodies."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(10)
+    raw = rng.randint(0, 256, (DFF_FRAMES,) + RAW_HW + (3,)).astype(np.uint8)
+    model = flow_vid_model(DFF_CFG, dev)
+    kfi = model.model.key_frame_interval
+    run = flow_stream("dff_stream", model, raw, None, kernels)
+    key = [ms for i, ms in enumerate(run["ms"]) if i % kfi == 0]
+    other = [ms for i, ms in enumerate(run["ms"]) if i % kfi]
+    sets = flow_agree("dff_stream agree", "DFF", dev, kernels)
+    phase("dff_stream", card=smi, config=DFF_CFG, key_frame_interval=kfi,
+          frames=DFF_FRAMES, key_frame_ms=key, median_key_frame_ms=
+          statistics.median(key[1:]), non_key_frame_ms=other,
+          median_non_key_frame_ms=statistics.median(other),
+          max_non_key_frame_ms=max(other), peak_mem_gb=run["peak_gb"],
+          launches=dict(zip(KERNEL_NAMES, run["counts"])),
+          detections_per_frame=run["detections"],
+          f32_kernel_vs_plain_sets=sets, phase_s=time.perf_counter() - t_phase)
+    del model
+    torch.cuda.empty_cache()
+    return run["counts"], run["bodies"]
+
+
+def vid_train(dev, smi, kernels, prefix, ann):
+    """The ImageNet-VID families' R50 configs (SELSA, FGFA, DFF) at full
+    width through the port's training CLI from an ImageNet-VID tree of PNG
+    frames (VID_TREE) with VID_WORKERS loader processes: VID_STEPS steps
+    each (2 warm-up, VID_TIMED timed, the rest profiled for the idle
+    share); B and D twice a step for SELSA (key and reference rois), once
+    for FGFA and DFF; finite losses. Then ``fgfa_agree``. Returns the
+    launch counts (A-G) and B's and D's bodies."""
+    t = time.perf_counter()
+    out, counts, bodies = {}, [0] * len(kernels), {}
+    for name, cfg_path, per_step in (
+            ("selsa", SELSA_CFG, (0, 2, 0, 2, 0, 0, 0)),
+            ("fgfa", FGFA_CFG, (0, 1, 0, 1, 0, 0, 0)),
+            ("dff", DFF_CFG, (0, 1, 0, 1, 0, 0, 0))):
+        argv = [str(REPO / cfg_path), "--seed", "0", "--work-dir",
+                f"{prefix}/../../work_{name}", "--cfg-options",
+                f"data.train.ann_file={ann}",
+                f"data.train.img_prefix={prefix}",
+                f"data.workers_per_gpu={VID_WORKERS}"]
+        run = cli_run(f"vid_train {name}", argv, kernels, per_step,
+                      VID_STEPS, TRAIN_WARMUP + VID_TIMED)
+        timed_ms = run["step_ms"][TRAIN_WARMUP:TRAIN_WARMUP + VID_TIMED]
+        out[name] = dict(config=cfg_path, step_ms=run["step_ms"],
+                         median_timed_step_ms=statistics.median(timed_ms),
+                         loss_per_step=[m["loss"] for m in run["metrics"]],
+                         device_window=run["window"],
+                         loader_median_ms=loader_summary(run["timings"],
+                                                         TRAIN_WARMUP),
+                         peak_mem_gb=run["peak_gb"],
+                         launches_per_step=dict(zip(KERNEL_NAMES, per_step)))
+        counts = [a + b for a, b in zip(counts, run["counts"])]
+        add_counts(bodies, run["bodies"])
+    phase("vid_train", card=smi, tree=VID_TREE, workers=VID_WORKERS,
+          steps=VID_STEPS, warmup_steps=TRAIN_WARMUP, runs=out,
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t)
+    return counts, bodies
+
+
+def fgfa_agree(dev, roi_align, roi_align_backward):
+    """f32, TF32 off: one ``fgfa_loss`` and every parameter's gradient at
+    full width (the FGFA config's model, a key and 2 references of
+    ``train_sample``) through kernels B and D and through the plain
+    RoIAlign, with the same uniforms; ``train_agree``'s tolerances. The
+    plain run keeps the kernel run's ReLU decisions in the bbox head
+    (``ReluPin``; the flips are counted: a shared FC's pre-activation
+    within rounding of 0 takes the two paths to different sides)."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.builder import (
+        build_model)
+    from lowlightenvironmentvideoobjectdetection_torch.models.roi_heads import (  # noqa: E501
+        bbox_head as bh)
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        fgfa as FG, selsa as S)
+    from lowlightenvironmentvideoobjectdetection_torch.tools.train_profile import (  # noqa: E501
+        train_sample)
+    system = build_model(model_dict(FGFA_CFG, compute_dtype="float32"),
+                         seed=0, device=dev)
+    model, cfg = system.model, system.cfg
+    sample = train_sample(cfg, dev, seed=4)
+    uniforms = S.draw_loss_uniforms(cfg, 8, torch.Generator().manual_seed(4),
+                                    dev)
+
+    def run(impl, pin):
+        model.zero_grad(set_to_none=True)
+        with pin:
+            loss, _ = FG.fgfa_loss(model, sample, system.anchors,
+                                   uniforms=uniforms, impl=impl)
+            loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    reset_counts(roi_align, roi_align_backward)
+    kernel_pin = ReluPin(bh)
+    lk, gk = run(None, kernel_pin)
+    if (roi_align.launches, roi_align_backward.launches) != (1, 1):
+        raise AssertionError("fgfa_agree: kernel path launches "
+                             f"{roi_align.launches}, "
+                             f"{roi_align_backward.launches}")
+    pin = ReluPin(bh, kernel_pin.decisions)
+    lp, gp = run("plain", pin)
+    worst, worst_leaf = grad_agreement(gk, gp)
+    loss_rel = abs(lk - lp) / abs(lp)
+    phase("fgfa_agree", loss_kernel=lk, loss_plain=lp, loss_rel_err=loss_rel,
+          head_relu_flips_pinned=pin.flips,
+          loss_rtol=TRAIN_LOSS_RTOL, leaves=len(gp),
+          worst_grad_err_over_tol=worst, worst_leaf=worst_leaf,
+          grad_tolerance=dict(rel_to_leaf_max=TRAIN_GRAD_REL,
+                              floor_rel_to_global_max=TRAIN_GRAD_FLOOR))
+    if loss_rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"fgfa_agree: loss {lk} against {lp}")
+    if worst > 1.0:
+        raise AssertionError(f"fgfa_agree: gradient of {worst_leaf} off by "
+                             f"{worst} tolerances")
+    del system, model, gk, gp
+    torch.cuda.empty_cache()
+
+
+def vid_eval(dev, smi, kernels, prefix, ann):
+    """FGFA and DFF on the ImageNet-VID tree's val split (VID_TREE's
+    videos) at full width: the plain path at f32 (``eval_reference``)
+    makes the gts (``eval_gts``; its own mAP50 must be 1), the kernel path
+    at f32 through the test CLI scores mAP50 at least EVAL_F32_MAP against
+    them, B once a frame. Returns the launch counts (A-G) of the CLI runs
+    and B's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.test import (
+        evaluate_bbox)
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        load_config)
+    from lowlightenvironmentvideoobjectdetection_torch.data.loader import (
+        build_dataset)
+    t = time.perf_counter()
+    n = VID_TREE["videos"] * VID_TREE["frames"]
+    per_run = (0, n, 0, 0, 0, 0, 0)
+    out, counts, bodies = {}, [0] * len(kernels), {}
+    for name, cfg_path in (("fgfa", FGFA_CFG), ("dff", DFF_CFG)):
+        path = str(REPO / cfg_path)
+        plain, plain_s = eval_reference(dev, path, prefix, ann, kernels)
+        gts = f"{prefix}/../../{name}_gts.json"
+        thr, n_gts = eval_gts(ann, plain, gts)
+        test_cfg = load_config(path)["data"]["test"]
+        ds = build_dataset(dict(test_cfg, ann_file=gts,
+                                img_prefix=f"{prefix}/"), test_mode=True)
+        plain_map = evaluate_bbox(plain, [ds.get_ann_info(i)
+                                          for i in ds.data_infos])["mAP50"]
+        run = eval_cli(f"vid_eval {name} f32", [path]
+                       + eval_options(prefix, gts, 0)
+                       + ["model.compute_dtype=float32"], kernels, per_run,
+                       classes=30)
+        check_bodies(f"vid_eval {name} roi_align", kernels[1], gather7x2=n,
+                     gather14x2=0)
+        f32_map = run["out"]["metrics"]["mAP50"]
+        sets = [match_rows(per_class_rows(g), per_class_rows(w))
+                for g, w in zip(run["dets"], plain)]
+        out[name] = dict(config=cfg_path, gts=dict(count=n_gts,
+                                                   score_threshold=thr),
+                         plain_f32_map50=plain_map, plain_f32_s=plain_s,
+                         kernel_f32_map50=f32_map,
+                         kernel_f32_cli_fps=run["out"]["summary"]["fps"],
+                         unmatched_rows=sum(x["unmatched"] for x in sets),
+                         peak_mem_gb=run["peak_gb"])
+        if plain_map != 1.0 or f32_map < EVAL_F32_MAP:
+            raise AssertionError(f"vid_eval {name}: mAP50 plain {plain_map}, "
+                                 f"kernels {f32_map}")
+        counts = [a + b for a, b in zip(counts, run["counts"])]
+        add_counts(bodies, {k: run["bodies"][k] for k in (
+            "roi_align", "roi_align_backward")})
+    phase("vid_eval", card=smi, tree=VID_TREE, runs=out,
+          kernel_f32_gate=EVAL_F32_MAP,
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t)
     return counts, bodies
 
 
@@ -3491,6 +3971,18 @@ def main() -> int:
         runs.append(dark_train(dev, smi, path_kernels, root, ann))
         runs.append(dark_stream(dev, smi, path_kernels, root, ann))
         runs.append(fastdvd_train(dev, smi, path_kernels, root, ann))
+    # the flow-based ImageNet-VID families, and SELSA, FGFA and DFF
+    # training and evaluation from an ImageNet-VID tree of PNG frames
+    from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
+        write_imagenet_vid_tree)
+    runs.append(fgfa_stream(dev, smi, path_kernels))
+    runs.append(dff_stream(dev, smi, path_kernels))
+    with tempfile.TemporaryDirectory(prefix="_smoke_vid_", dir=REPO) as root:
+        train_ann, val_ann = write_imagenet_vid_tree(root, **VID_TREE)
+        prefix = f"{root}/Data/VID"
+        runs.append(vid_train(dev, smi, path_kernels, prefix, train_ann))
+        fgfa_agree(dev, roi_align, roi_align_backward)
+        runs.append(vid_eval(dev, smi, path_kernels, prefix, val_ann))
     for counts, bodies in runs:
         for name, n in zip(KERNEL_NAMES, counts):
             summary[name]["launches"] += n

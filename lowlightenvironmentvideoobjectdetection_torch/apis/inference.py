@@ -1,6 +1,7 @@
-"""Public streaming inference API for SELSA, the counterpart of the JAX
-package's ``apis/inference.py`` (``VIDModel``, ``init_model``,
-``inference_vid``, ``result_to_per_class``)."""
+"""Public streaming inference API for the video detectors (SELSA and its
+low-light family, FGFA, DFF), the counterpart of the JAX package's
+``apis/inference.py`` (``VIDModel``, ``init_model``, ``inference_vid``,
+``result_to_per_class``)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from ..data.preprocess import prepare_frames
+from ..models.vid import fgfa as FG
 from ..models.vid import selsa as S
 from ..utils.device import resolve_device
 
@@ -26,53 +28,77 @@ def result_to_per_class(dets, num_classes: int) -> List[np.ndarray]:
 
 
 class VIDModel:
-    """A built SELSA video detector with its streaming memo.
+    """A built video detector with its streaming memo.
 
-    ``ref_method``: 'adaptive' keeps the frame-0 memo for the whole video;
-    'fix' rolls each streamed frame's own K/V into it every
-    ``frame_stride`` frames. ``state_dict`` None gives seeded random weights
-    (``init_params`` with a CPU generator seeded by ``seed``); of a darkfarm
-    or FastDVD state dict (``SelsaDarkfarmDetector``'s,
+    ``model_type`` SELSA streams ``models/vid/selsa.py``'s step; FGFA and
+    DFF their own (``models/vid/fgfa.py``), as the JAX ``VIDModel``
+    dispatches: FGFA's memo of frames and maps rolls every frame, DFF runs
+    the backbone every ``key_frame_interval`` frames from frame 0.
+    ``ref_method`` (SELSA): 'adaptive' keeps the frame-0 memo for the whole
+    video; 'fix' rolls each streamed frame's own K/V into it every
+    ``frame_stride`` frames. ``state_dict`` None gives seeded random
+    weights (``init_params`` with a CPU generator seeded by ``seed``); for
+    SELSA, of a darkfarm or FastDVD state dict (``SelsaDarkfarmDetector``'s,
     ``FastDVDSelsaDetector``'s) it takes the ``selsa.`` entries, the
-    detector (``detector_state``). The config comes from ``cfg_kwargs``
-    (``SelsaConfig`` fields, e.g. ``roi_extractor="temporal",
-    num_shared_fcs=3``, or a dark backbone's ``backbone_variant``).
-    ``device`` None builds on the card and raises without one; pass
-    ``device="cpu"`` for the CPU. ``impl = "plain"`` (an attribute, for
-    comparisons only) runs the kernels' plain versions."""
+    detector (``detector_state``); FGFA and DFF load the whole tree. The
+    config comes from ``cfg_kwargs`` (``SelsaConfig`` fields, e.g.
+    ``roi_extractor="temporal", num_shared_fcs=3``, or a dark backbone's
+    ``backbone_variant``). ``device`` None builds on the card and raises
+    without one; pass ``device="cpu"`` for the CPU. ``impl = "plain"`` (an
+    attribute, for comparisons only) runs the kernels' plain versions."""
 
     impl = None
 
     def __init__(self, model_type: str = "SELSA", state_dict=None,
                  seed: int = 0, ref_method: str = "adaptive",
-                 frame_stride: int = 1, device=None, **cfg_kwargs):
-        if model_type != "SELSA":
-            raise ValueError(f"model type {model_type!r}: the port has SELSA "
-                             "only")
+                 frame_stride: int = 1, device=None,
+                 key_frame_interval: int = 10, **cfg_kwargs):
+        if model_type not in ("SELSA", "FGFA", "DFF"):
+            raise ValueError(f"model type {model_type!r}: the port streams "
+                             "SELSA, FGFA and DFF")
         if ref_method not in ("adaptive", "fix"):
             raise ValueError(f"unknown ref_method {ref_method!r}")
+        self.model_type = model_type
         self.cfg = S.SelsaConfig(**cfg_kwargs)
         self.device = resolve_device(device)
-        model = S.SelsaDetector(self.cfg)
+        if model_type == "FGFA":
+            model = FG.FGFA(self.cfg)
+        elif model_type == "DFF":
+            model = FG.DFF(self.cfg, key_frame_interval)
+        else:
+            model = S.SelsaDetector(self.cfg)
         if state_dict is None:
             S.init_params(model, torch.Generator().manual_seed(seed))
         else:
-            model.load_state_dict(detector_state(state_dict), strict=True)
+            model.load_state_dict(detector_state(state_dict)
+                                  if model_type == "SELSA" else state_dict,
+                                  strict=True)
         self.model = S.cast_for_inference(model.to(self.device).eval())
         self.anchors = S.make_anchors(self.cfg, self.device)
         self.ref_method = ref_method
         self.frame_stride = max(int(frame_stride), 1)
-        self.state: Optional[S.VideoState] = None
+        self.state = None
 
     def _step(self, img, img_shape, sf, frame_id, refs):
+        m, a, impl = self.model, self.anchors, self.impl
+        if self.model_type == "FGFA":  # the memo rolls every frame
+            if frame_id == 0:
+                self.state = FG.fgfa_init_state(m, refs)
+            self.state, dets = FG.fgfa_inference_step(
+                m, self.state, img, img_shape, sf, a, impl=impl)
+            return dets
+        if self.model_type == "DFF":  # frame 0 is a key frame
+            if frame_id == 0:
+                self.state = FG.dff_init_state()
+            self.state, dets = FG.dff_inference_step(
+                m, self.state, img, img_shape, sf, a, impl=impl)
+            return dets
         if frame_id == 0:
-            self.state = S.init_video_state(self.model, refs, img_shape,
-                                            self.anchors, impl=self.impl)
+            self.state = S.init_video_state(m, refs, img_shape, a, impl=impl)
         do = self.ref_method != "fix" or frame_id % self.frame_stride == 0
         self.state, dets = S.inference_step(
-            self.model, self.state, img, img_shape, sf, self.anchors,
-            update_memo=self.ref_method == "fix", do_update=do,
-            impl=self.impl)
+            m, self.state, img, img_shape, sf, a,
+            update_memo=self.ref_method == "fix", do_update=do, impl=impl)
         return dets
 
     def inference_vid(self, frame: np.ndarray, frame_id: int,
@@ -136,7 +162,8 @@ class VIDModel:
 
 def detector_state(state_dict: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-    """A SELSA detector's state dict: as given, or the ``selsa.`` entries of
+    """A SELSA detector's state dict (FGFA and DFF stream their whole
+    tree): as given, or the ``selsa.`` entries of
     a darkfarm one (without the cleaner's and the aggregator's: streaming
     runs neither, as in the JAX package; ROADMAP F7) or of a
     ``SelsaFastDVDnetDetect`` one (without the denoiser's: the JAX package
@@ -150,7 +177,7 @@ def detector_state(state_dict: Dict[str, torch.Tensor]
 def init_model(model_type: str = "SELSA", checkpoint=None, **kwargs
                ) -> VIDModel:
     """Build a VIDModel; ``checkpoint`` is a saved port ``state_dict`` (a
-    SELSA or darkfarm model's) or a ``TrainState`` checkpoint of
+    SELSA, darkfarm, FGFA or DFF model's) or a ``TrainState`` checkpoint of
     ``utils/checkpoint.py``, whose model it takes."""
     if checkpoint is not None:
         sd = torch.load(checkpoint, map_location="cpu", weights_only=True)

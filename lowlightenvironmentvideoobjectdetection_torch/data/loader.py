@@ -10,7 +10,8 @@ process moves the clip to ``device`` and runs the rest of the pipeline
 there (``Compose.device_stage``: resize, brighten, flip, normalise, pad
 and formatting, or the RAW and noise steps), pads the frames to the
 model's static ``pad_h`` x ``pad_w`` and the key frame's gts to
-``MAX_GTS``, and builds a ``DarkfarmBatch`` of one sample.
+``MAX_GTS``, and builds a ``DarkfarmBatch`` of one sample (a ``TrainBatch``
+for the ImageNet-VID families).
 
 A spawned worker imports the program's main module: one that sets CUDA
 state when imported (``torch.backends.cuda`` flags, for one) makes the
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 from torch.utils.data import DataLoader, Dataset, Sampler, get_worker_info
 
+from ..models.vid.selsa import TrainBatch
 from ..models.vid.selsa_darkfarm import DarkfarmBatch
 from .datasets import DATASETS, CocoVideoDataset
 from .pipelines import Compose, to_device
@@ -176,8 +178,18 @@ def make_batch(d: Dict[str, torch.Tensor], in_channels: int
         imgs, d["img_shape"], d["gt_boxes"], d["gt_labels"], d["gt_valid"])))
 
 
+def make_frame_batch(d: Dict[str, torch.Tensor]) -> TrainBatch:
+    """The JAX ``make_batch`` of the ImageNet-VID families (SELSA, FGFA,
+    DFF), with a leading batch axis of 1: the frames' first 3 channels (the
+    noisy half of a pair)."""
+    return TrainBatch(*(t[None] for t in (
+        d["imgs"][..., :3], d["img_shape"], d["gt_boxes"], d["gt_labels"],
+        d["gt_valid"])))
+
+
 class TrainLoader:
-    """Iterates ``DarkfarmBatch``es of one sample for global steps
+    """Iterates ``DarkfarmBatch``es (with ``pairs=False`` ``TrainBatch``es,
+    ``make_frame_batch``) of one sample for global steps
     ``start``, ``start + 1``, ... (see the module docstring). ``timings``
     gets one dict a batch: ``host_ms`` (the worker's sampling, annotations
     and decoding), ``wait_ms`` (how long the main process waited for it)
@@ -186,7 +198,7 @@ class TrainLoader:
 
     def __init__(self, cfg: dict, pad_h: int, pad_w: int, in_channels: int,
                  seed: int = 0, start: int = 0, device="cuda",
-                 workers: Optional[int] = None):
+                 workers: Optional[int] = None, pairs: bool = True):
         dcfg = cfg["data"]["train"]
         self.device = torch.device(device)
         self.pipeline = Compose(dcfg["pipeline"], device=self.device)
@@ -194,6 +206,7 @@ class TrainLoader:
         if not len(self.dataset):
             raise ValueError(f"{dcfg['ann_file']}: no training frames")
         self.pad_h, self.pad_w, self.in_channels = pad_h, pad_w, in_channels
+        self.pairs = pairs
         if workers is None:
             workers = loader_workers(cfg)
         self.order = StepOrder(len(self.dataset), seed, start)
@@ -211,18 +224,20 @@ class TrainLoader:
         self.timings: List[Dict[str, float]] = []
         self._it: Optional[Iterator] = None
 
-    def device_batch(self, item) -> DarkfarmBatch:
+    def device_batch(self, item):
         """The device stages of one host sample, padded and batched."""
         rng = item["rng"]
         out = self.pipeline.device_stage(
             to_device(item["frames"], self.device), rng)
-        return make_batch(pad_batch(out, self.pad_h, self.pad_w),
-                          self.in_channels)
+        padded = pad_batch(out, self.pad_h, self.pad_w)
+        if not self.pairs:
+            return make_frame_batch(padded)
+        return make_batch(padded, self.in_channels)
 
     def __iter__(self):
         return self
 
-    def __next__(self) -> DarkfarmBatch:
+    def __next__(self):
         if self._it is None:
             self._it = iter(self.loader)
         t = time.perf_counter()

@@ -1,17 +1,20 @@
 """Config model dict -> port model, the counterpart of the JAX package's
-``zoo.py`` (``_selsa_cfg``, ``_darkfarm``, the darkfarm factories and
+``zoo.py`` (``_selsa_cfg``, the ImageNet-VID factories ``SELSA``, ``FGFA``
+and ``DFF``, ``_darkfarm``, the darkfarm factories and
 ``SelsaFastDVDnetDetect``) for the model types that the JAX
-``tools/train.py`` trains with ``darkfarm_loss`` or ``fastdvd_selsa_loss``
-and the port can build. A config's
-``backbone_variant`` builds a dark backbone (``backbones/dark_resnet.py``)
-with its ``backbone_overrides``.
+``tools/train.py`` trains (with ``selsa_loss``, ``fgfa_loss``,
+``dff_loss``, ``darkfarm_loss`` or ``fastdvd_selsa_loss``) and the port can
+build. A config's ``backbone_variant`` builds a dark backbone
+(``backbones/dark_resnet.py``) with its ``backbone_overrides``.
 
 ``vid_model_kwargs`` maps a config to the streaming ``VIDModel``, as the
 JAX ``tools/test.py`` and ``tools/train.py`` do.
 
 Each factory takes the config's model dict (without ``type``) and gives a
-``DarkfarmConfig`` (a ``FastDVDSelsaConfig`` for
-``SelsaFastDVDnetDetect``); ``build_model`` builds the model with seeded
+``SelsaConfig`` for the ImageNet-VID families (DFF's
+``key_frame_interval`` goes to the model, as in JAX), a ``DarkfarmConfig``
+for the darkfarm family and a ``FastDVDSelsaConfig`` for
+``SelsaFastDVDnetDetect``; ``build_model`` builds the model with seeded
 weights and its anchors, and says which half of the pairs the loss trains
 on (the clean half for the ``SelsaClean*`` oracles). Keys that only choose
 how the JAX package runs on a TPU are dropped: ``remat``, ``input_packed``,
@@ -28,7 +31,8 @@ from typing import Optional, Union
 import torch
 
 from ..registry import MODELS
-from .vid.selsa import SelsaConfig
+from .vid.fgfa import DFF, FGFA, dff_loss, fgfa_loss, make_dff, make_fgfa
+from .vid.selsa import SelsaConfig, SelsaDetector, make_selsa, selsa_loss
 from .vid.selsa_darkfarm import DarkfarmConfig, darkfarm_loss, make_darkfarm
 from .vid.selsa_fastdvd import (FastDVDSelsaConfig, fastdvd_selsa_loss,
                                 make_fastdvd_selsa)
@@ -46,7 +50,9 @@ CLEAN_TYPES = ("SelsaCleanDetect", "SelsaCleanDarkfarmDetect")
 # SELSA: the training-only knobs
 TRAIN_ONLY_KEYS = ("loss_type", "with_aggregator", "agg_rdb", "agg_taf",
                    "dual_branch", "denoiser", "with_cleaner")
-NOT_PORTED_VID = ("FGFA", "DFF", "FasterRCNN")
+NOT_PORTED_VID = ("FasterRCNN",)
+# the ImageNet-VID families: plain frames, their own loss and streaming
+VID_FAMILIES = ("SELSA", "FGFA", "DFF")
 # SelsaDarkDetect's backbone when its config names none
 DARK_DETECT_BACKBONE = "DarkResNet"
 
@@ -68,6 +74,23 @@ def _selsa_cfg(num_classes=30, pad_h=608, pad_w=1024, out_indices=(3,),
             kw[k] = tuple(kw[k])
     return SelsaConfig(num_classes=num_classes, pad_h=pad_h, pad_w=pad_w,
                        out_indices=tuple(out_indices), **kw)
+
+
+@MODELS.register("SELSA")
+def build_selsa(num_classes=30, **kw):
+    return _selsa_cfg(num_classes=num_classes, **kw)
+
+
+@MODELS.register("FGFA")
+def build_fgfa(num_classes=30, **kw):
+    return _selsa_cfg(num_classes=num_classes, **kw)
+
+
+@MODELS.register("DFF")
+def build_dff(num_classes=30, key_frame_interval=10, **kw):
+    """``key_frame_interval`` is the model's (``build_model``), not the
+    config's."""
+    return _selsa_cfg(num_classes=num_classes, **kw)
 
 
 def _darkfarm(num_classes, loss_type, with_cleaner, out_indices,
@@ -163,7 +186,8 @@ def build_selsa_fastdvd(num_classes=8, denoiser="fastdvd", **kw):
                               denoiser=denoiser)
 
 
-ModelConfig = Union[DarkfarmConfig, FastDVDSelsaConfig]
+ModelConfig = Union[SelsaConfig, DarkfarmConfig, FastDVDSelsaConfig]
+VID_MAKERS = {"SELSA": make_selsa, "FGFA": make_fgfa, "DFF": make_dff}
 
 
 @dataclasses.dataclass
@@ -178,7 +202,26 @@ class System:
     def cfg(self) -> ModelConfig:
         return self.model.cfg
 
+    @property
+    def detector_cfg(self) -> SelsaConfig:
+        """The detector's ``SelsaConfig`` (sizes, classes)."""
+        return getattr(self.cfg, "selsa", self.cfg)
+
+    @property
+    def pairs(self) -> bool:
+        """Whether the model trains on (noise, clean) pairs, the darkfarm
+        and FastDVD families; the ImageNet-VID families take plain
+        frames (``TrainBatch``)."""
+        return not isinstance(self.cfg, SelsaConfig)
+
     def loss_fn(self, model, sample, generator):
+        if isinstance(model, FGFA):
+            return fgfa_loss(model, sample, self.anchors, generator=generator)
+        if isinstance(model, DFF):
+            return dff_loss(model, sample, self.anchors, generator=generator)
+        if isinstance(model, SelsaDetector):
+            return selsa_loss(model, sample, self.anchors,
+                              generator=generator)
         if isinstance(self.cfg, FastDVDSelsaConfig):
             return fastdvd_selsa_loss(model, sample, self.anchors,
                                       generator=generator)
@@ -187,8 +230,9 @@ class System:
 
 
 def model_config(model_cfg: dict, tiny: bool = False) -> ModelConfig:
-    """The config's ``model`` dict -> its ``DarkfarmConfig`` (or
-    ``FastDVDSelsaConfig``); ``tiny`` applies TINY_KW."""
+    """The config's ``model`` dict -> its ``SelsaConfig`` (the ImageNet-VID
+    families), ``DarkfarmConfig`` or ``FastDVDSelsaConfig``; ``tiny``
+    applies TINY_KW."""
     kw = dict(model_cfg)
     mtype = kw.pop("type")
     if mtype not in MODELS:
@@ -204,11 +248,18 @@ def build_model(model_cfg: dict, tiny: bool = False, seed: int = 0,
     """Build the config's model with weights seeded by ``seed`` on
     ``device`` (None: the card, raising without one)."""
     cfg = model_config(model_cfg, tiny)
-    make = (make_fastdvd_selsa if isinstance(cfg, FastDVDSelsaConfig)
-            else make_darkfarm)
-    model, anchors = make(cfg, torch.Generator().manual_seed(seed),
-                          device=device)
-    branch = "clean" if model_cfg["type"] in CLEAN_TYPES else "noise"
+    gen = torch.Generator().manual_seed(seed)
+    mtype = model_cfg["type"]
+    if mtype == "DFF":
+        model, anchors = make_dff(
+            cfg, model_cfg.get("key_frame_interval", 10), gen, device=device)
+    elif mtype in VID_MAKERS:
+        model, anchors = VID_MAKERS[mtype](cfg, gen, device=device)
+    elif isinstance(cfg, FastDVDSelsaConfig):
+        model, anchors = make_fastdvd_selsa(cfg, gen, device=device)
+    else:
+        model, anchors = make_darkfarm(cfg, gen, device=device)
+    branch = "clean" if mtype in CLEAN_TYPES else "noise"
     return System(model, anchors, branch)
 
 
@@ -226,18 +277,22 @@ def vid_model_kwargs(model_cfg: dict, sampler: Optional[dict] = None,
     ``denoiser``: the JAX package streams it without, ROADMAP F11); ``tiny``
     applies TINY_KW; a ``test_with_fix_stride`` sampler gives
     ``ref_method="fix"`` with its ``stride`` and a memo of its frame range
-    (unless the model dict sets them)."""
+    (unless the model dict sets them). The ImageNet-VID families stream as
+    themselves (``model_type`` SELSA, FGFA or DFF, DFF with its
+    ``key_frame_interval``)."""
     kw = dict(model_cfg)
     mtype = kw.pop("type")
     if mtype in NOT_PORTED_VID:
         raise NotImplementedError(
-            f"model type {mtype!r}: the port streams SELSA and the darkfarm "
-            "family only (ROADMAP.md Queue 1, the other VID families and "
-            "the mmdet zoo)")
-    if mtype != "SELSA":
-        if mtype not in MODELS:
-            raise KeyError(f"model type {mtype!r}: the port streams SELSA "
-                           f"and {sorted(MODELS.keys())}")
+            f"model type {mtype!r}: the image detectors are not ported "
+            "(ROADMAP.md Queue 1, the mmdet zoo)")
+    if mtype not in MODELS:
+        raise KeyError(f"model type {mtype!r}: the port streams "
+                       f"{sorted(MODELS.keys())}")
+    out = dict(model_type=mtype if mtype in VID_FAMILIES else "SELSA")
+    if mtype == "DFF":
+        out["key_frame_interval"] = kw.pop("key_frame_interval", 10)
+    if mtype not in VID_FAMILIES:
         kw["out_indices"] = (3,)
         if mtype == "SelsaDarkDetect":  # streams the backbone it trains (F12)
             kw.setdefault("backbone_variant", DARK_DETECT_BACKBONE)
@@ -248,7 +303,6 @@ def vid_model_kwargs(model_cfg: dict, sampler: Optional[dict] = None,
             kw.pop(k, None)
     if tiny:
         kw.update(TINY_KW)
-    out = dict(model_type="SELSA")
     for k in ("ref_method", "frame_stride"):
         if k in kw:
             out[k] = kw.pop(k)

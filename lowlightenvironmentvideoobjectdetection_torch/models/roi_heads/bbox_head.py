@@ -1,7 +1,8 @@
-"""Second-stage Shared2FC bbox head with per-FC SELSA aggregation, its
-training targets and loss, and its decode, the counterpart of the JAX
-package's ``models/roi_heads/bbox_head.py`` (the joint ``__call__`` as
-``forward``, ``ref_transform_kv``, ``forward_cached_stream_kv``,
+"""Second-stage Shared2FC bbox head with per-FC SELSA aggregation (or
+without it, Faster R-CNN's), its training targets and loss, and its
+decode, the counterpart of the JAX package's
+``models/roi_heads/bbox_head.py`` (the joint ``__call__`` as ``forward``,
+``ref_transform_kv``, ``forward_cached_stream_kv``,
 ``BBoxTargets``, ``bbox_targets``, ``BBoxLossOut``, ``bbox_loss``,
 ``bbox_decode``). The streaming forward and the decode also take a leading
 stream axis S (the counterpart of ``jax.vmap`` over them)."""
@@ -21,7 +22,9 @@ BBOX_STDS = (0.2, 0.2, 0.2, 0.2)
 
 
 class Shared2FCBBoxHead(nn.Module):
-    """Shared FCs, each followed by a SELSA aggregator, then cls/reg linears.
+    """Shared FCs, each followed by a SELSA aggregator, then cls/reg linears;
+    with ``with_selsa=False`` (Faster R-CNN's head, as FGFA and DFF use it)
+    the shared FCs with ReLU alone.
 
     RoI features enter as [N, 7, 7, C]; their row-major flatten is the
     (7, 7, C) row order of the first FC's input, as in the JAX head. Plain
@@ -31,27 +34,36 @@ class Shared2FCBBoxHead(nn.Module):
     num_attention_blocks = 16
 
     def __init__(self, in_features: int, num_classes: int = 30,
-                 num_shared_fcs: int = 2, dtype=torch.float32):
+                 num_shared_fcs: int = 2, dtype=torch.float32,
+                 with_selsa: bool = True):
         super().__init__()
         c = self.fc_out_channels
         self.num_shared_fcs = num_shared_fcs
+        self.with_selsa = with_selsa
         for i in range(num_shared_fcs):
             self.add_module(f"shared_fc{i}", Linear(
                 in_features if i == 0 else c, c, dtype=dtype))
-            self.add_module(f"aggregator{i}", SelsaAggregator(
-                c, self.num_attention_blocks, dtype=dtype))
+            if with_selsa:
+                self.add_module(f"aggregator{i}", SelsaAggregator(
+                    c, self.num_attention_blocks, dtype=dtype))
         self.fc_cls = Linear(c, num_classes + 1, dtype=dtype)
         self.fc_reg = Linear(c, 4 * num_classes, dtype=dtype)
 
     def _stage(self, i: int):
         return getattr(self, f"shared_fc{i}"), getattr(self, f"aggregator{i}")
 
-    def forward(self, x: torch.Tensor, ref_x: torch.Tensor,
+    def forward(self, x: torch.Tensor, ref_x: Optional[torch.Tensor] = None,
                 ref_mask: Optional[torch.Tensor] = None):
         """Joint forward (training): key rois x [N, 7, 7, C] attend over the
         reference rois ref_x [M, 7, 7, C] (ref_mask [M]) after each shared
-        FC. Returns (cls_score [N, C+1], bbox_pred [N, 4C])."""
-        x, ref_x = x.flatten(-3), ref_x.flatten(-3)
+        FC; without SELSA, x alone. Returns (cls_score [N, C+1], bbox_pred
+        [N, 4C])."""
+        x = x.flatten(-3)
+        if not self.with_selsa:
+            for i in range(self.num_shared_fcs):
+                x = F.relu(getattr(self, f"shared_fc{i}")(x))
+            return self.fc_cls(x), self.fc_reg(x)
+        ref_x = ref_x.flatten(-3)
         for i in range(self.num_shared_fcs):
             fc, agg = self._stage(i)
             x, ref_x = fc(x), fc(ref_x)

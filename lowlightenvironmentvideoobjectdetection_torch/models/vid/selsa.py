@@ -3,7 +3,7 @@ counterpart of the JAX package's ``models/vid/selsa.py`` (``SelsaConfig``,
 ``SelsaDetector``, ``TrainBatch``, ``selsa_loss``, ``VideoState``,
 ``make_anchors``, ``empty_video_state``, ``init_video_state``,
 ``inference_step``, ``inference_clip``, ``inference_clip_batch``,
-``init_params``).
+``init_params``, ``make_selsa``).
 
 Multi-stream serving: a ``VideoState`` with a leading stream axis S on every
 leaf holds S independent memos, and ``inference_step_batch`` (the
@@ -42,6 +42,7 @@ import torch.nn as nn
 from ...core.anchors import AnchorGenerator
 from ...core.nms import DetResult
 from ...ops.roi_align import roi_align
+from ...utils.device import resolve_device
 from ..backbones.dark_resnet import make_dark_backbone
 from ..backbones.resnet import FrozenBatchNorm, ResNet
 from ..dense_heads import rpn_head as rpn
@@ -187,6 +188,24 @@ def make_anchors(cfg: SelsaConfig, device=None) -> torch.Tensor:
     gen = AnchorGenerator(strides=[cfg.stride], ratios=list(cfg.anchor_ratios),
                           scales=list(cfg.anchor_scales))
     return torch.as_tensor(gen.grid_anchors([cfg.feat_hw])[0], device=device)
+
+
+def place(model: nn.Module, cfg: SelsaConfig,
+          generator: Optional[torch.Generator], device):
+    """(model, anchors of ``cfg``): the model with seeded flax-style weights
+    from ``generator`` (a CPU generator; None leaves PyTorch's init), on
+    ``device`` (None: the card, raising without one)."""
+    device = resolve_device(device)
+    if generator is not None:
+        init_params(model, generator)
+    return model.to(device), make_anchors(cfg, device)
+
+
+def make_selsa(cfg: Optional[SelsaConfig] = None,
+               generator: Optional[torch.Generator] = None, device=None):
+    """(model, anchors): ``SelsaDetector`` placed as ``place`` says."""
+    cfg = cfg or SelsaConfig()
+    return place(SelsaDetector(cfg), cfg, generator, device)
 
 
 def _lecun_normal_(w: torch.Tensor, generator: torch.Generator,

@@ -35,11 +35,10 @@ import torch
 import torch.nn as nn
 
 from ...core import losses
-from ...utils.device import resolve_device
 from ..aggregators.denoising_aggregator import Denoising2Aggregator
 from ..cleaners.resclean import ResCleaner
 from .selsa import (LossUniforms, SelsaConfig, SelsaDetector, detection_loss,
-                    init_params, loss_uniforms, make_anchors)
+                    loss_uniforms, place)
 
 FEATURE_LOSSES = {"l1": losses.l1_loss, "l2": losses.mse_loss,
                   "smooth_l1": losses.smooth_l1_loss}
@@ -210,8 +209,4 @@ def make_darkfarm(cfg: Optional[DarkfarmConfig] = None,
     init), on ``device`` (None: the card, raising without one; pass
     ``device="cpu"`` for the CPU)."""
     cfg = cfg or DarkfarmConfig()
-    device = resolve_device(device)
-    model = SelsaDarkfarmDetector(cfg)
-    if generator is not None:
-        init_params(model, generator)
-    return model.to(device), make_anchors(cfg.selsa, device)
+    return place(SelsaDarkfarmDetector(cfg), cfg.selsa, generator, device)

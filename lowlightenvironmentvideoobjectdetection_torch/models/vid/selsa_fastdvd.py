@@ -23,10 +23,9 @@ import torch
 import torch.nn as nn
 
 from ...core import losses
-from ...utils.device import resolve_device
 from ..cleaners.video_denoisers import FastDVDnet, Unet, fastdvd_denoise_clip
 from .selsa import (LossUniforms, SelsaConfig, SelsaDetector, TrainBatch,
-                    init_params, make_anchors, selsa_loss)
+                    place, selsa_loss)
 
 DENOISERS = {"fastdvd": FastDVDnet, "unet": Unet}
 
@@ -109,8 +108,4 @@ def make_fastdvd_selsa(cfg: Optional[FastDVDSelsaConfig] = None,
     weights from ``generator`` (a CPU generator; None leaves PyTorch's
     init), on ``device`` (None: the card, raising without one)."""
     cfg = cfg or FastDVDSelsaConfig()
-    device = resolve_device(device)
-    model = FastDVDSelsaDetector(cfg)
-    if generator is not None:
-        init_params(model, generator)
-    return model.to(device), make_anchors(cfg.selsa, device)
+    return place(FastDVDSelsaDetector(cfg), cfg.selsa, generator, device)

@@ -9,9 +9,11 @@ root ``tools/test.py``'s video-detection route:
 
 Reads the config (``_base_`` files and ``--cfg-options`` applied), builds
 the streaming ``VIDModel`` of its model (``models/builder.py``
-``vid_model_kwargs``: a darkfarm-family config streams its noisy branch
-through SELSA, on its dark backbone if it has one) with the weights of ``--checkpoint`` (a port ``state_dict``
-or a ``TrainState`` checkpoint of the training CLI) or seeded ones, on the
+``vid_model_kwargs``: SELSA, FGFA and DFF stream as themselves; a
+darkfarm-family config streams its noisy branch through SELSA, on its dark
+backbone if it has one) with the weights of ``--checkpoint`` (a port
+``state_dict`` or a ``TrainState`` checkpoint of the training CLI) or
+seeded ones, on the
 card (``--device cpu`` for the CPU; without a card and without
 ``--device`` it raises), and streams the config's ``data.test`` through it
 (``apis/test.py``; ``data.workers_per_gpu`` loader processes decode the

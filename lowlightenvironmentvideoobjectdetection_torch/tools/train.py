@@ -15,7 +15,9 @@ on batches of its ``data.train`` (``data/loader.py``: COCO-VID annotations
 and PNG frames, ``data.workers_per_gpu`` loader processes) or, with
 ``--synthetic``, on uniform noise as the JAX CLI's synthetic batches
 (``DarkfarmBatch``es of (noise, clean) pairs; ``FastDVDBatch``es of the
-same pairs for ``SelsaFastDVDnetDetect``).
+same pairs for ``SelsaFastDVDnetDetect``; ``TrainBatch``es of plain
+frames for the ImageNet-VID families SELSA, FGFA and DFF, which train on
+the pipeline's key and references, their first 3 channels).
 ``--tiny`` shrinks the bucket and the proposal counts as the JAX CLI's
 ``TINY_KW`` and computes in float32. Appends a line to
 ``WORK_DIR/train_log.json`` and saves ``WORK_DIR/step_<N>.pt`` with
@@ -44,6 +46,7 @@ from ..config import Config, apply_cli_options
 from ..data.loader import TrainLoader, build_dataset, loader_workers
 from ..data.pipelines import Compose
 from ..models.builder import build_model, vid_model_kwargs
+from ..models.vid.selsa import TrainBatch
 from ..models.vid.selsa_darkfarm import DarkfarmBatch
 from ..models.vid.selsa_fastdvd import FastDVDBatch, FastDVDSelsaConfig
 from ..utils.checkpoint import checkpoint_step, save_checkpoint
@@ -69,20 +72,23 @@ def parse_args(argv: Optional[List[str]] = None):
     return p.parse_args(argv)
 
 
-def synthetic_batches(cfg, device, seed: int):
+def synthetic_batches(system, device, seed: int):
     """The JAX CLI's synthetic batches: frames U(-2, 2) [3, pad_h, pad_w,
-    2C], 2 valid gts of 4, one sample a batch."""
+    2C] (3 channels for the ImageNet-VID families, as ``TrainBatch``es),
+    2 valid gts of 4, one sample a batch."""
     rng = np.random.RandomState(seed)
-    s = cfg.selsa
+    s = system.detector_cfg
+    channels = 2 * system.cfg.in_channels if system.pairs else 3
+    batch = DarkfarmBatch if system.pairs else TrainBatch
     while True:
-        imgs = rng.uniform(-2, 2, (3, s.pad_h, s.pad_w, 2 * cfg.in_channels))
+        imgs = rng.uniform(-2, 2, (3, s.pad_h, s.pad_w, channels))
         fields = (imgs.astype(np.float32),
                   np.asarray([s.pad_h, s.pad_w], np.float32),
                   np.asarray([[8.0, 8.0, 40.0, 40.0]] * 4, np.float32),
                   np.asarray([1] * 4, np.int64),
                   np.asarray([True, True, False, False]))
-        yield DarkfarmBatch(*(torch.as_tensor(a, device=device)[None]
-                              for a in fields))
+        yield batch(*(torch.as_tensor(a, device=device)[None]
+                      for a in fields))
 
 
 def make_eval_fn(cfg, vcfg: dict, model: torch.nn.Module, tiny: bool,
@@ -91,8 +97,9 @@ def make_eval_fn(cfg, vcfg: dict, model: torch.nn.Module, tiny: bool,
     streaming ``VIDModel`` of the config (``vid_model_kwargs``), the split
     ``vcfg``'s test dataset and pipeline once; each call copies the
     training ``state``'s current detector weights into the ``VIDModel``
-    (``detector_state``: the ``selsa.`` entries; the cleaner and the
-    aggregator play no part in streaming) in its own storage and dtypes,
+    (``detector_state``: the ``selsa.`` entries of a darkfarm model, whose
+    cleaner and aggregator play no part in streaming; the whole tree of
+    the ImageNet-VID families) in its own storage and dtypes,
     streams the split (``single_device_test``) and returns
     ``evaluate_bbox``'s ``{"mAP50": ...}``. Nothing of the trainer is
     written: its parameters, optimizer state, generators and modes stay as
@@ -136,12 +143,12 @@ def main(argv: Optional[List[str]] = None,
     start = checkpoint_step(args.resume_from) if args.resume_from else 0
     loader = None
     if args.synthetic:
-        data = synthetic_batches(system.cfg, device, args.seed)
+        data = synthetic_batches(system, device, args.seed)
     else:
-        s = system.cfg.selsa
-        loader = data = TrainLoader(cfg, s.pad_h, s.pad_w,
-                                    system.cfg.in_channels, seed=args.seed,
-                                    start=start, device=device)
+        s = system.detector_cfg
+        loader = data = TrainLoader(
+            cfg, s.pad_h, s.pad_w, getattr(system.cfg, "in_channels", 3),
+            seed=args.seed, start=start, device=device, pairs=system.pairs)
     if isinstance(system.cfg, FastDVDSelsaConfig):  # the same pairs
         data = (FastDVDBatch(*b) for b in data)
     metrics, evals = [], []

@@ -1,18 +1,20 @@
 """JAX (flax) variables -> port ``state_dict``.
 
-Takes the SELSA (or darkfarm, or FastDVD) variable tree as nested dicts of
-numpy arrays (``{"params": ..., "batch_stats": ...}``, e.g.
+Takes the SELSA (or darkfarm, FastDVD, FGFA or DFF) variable tree as nested
+dicts of numpy arrays (``{"params": ..., "batch_stats": ...}``, e.g.
 ``jax.tree.map(np.asarray, variables)``) and returns a ``state_dict`` for
 ``SelsaDetector`` (or ``SelsaDarkfarmDetector``, whose ``selsa`` and
-``cleaner.resnet`` modules are named as the flax ones, or
-``FastDVDSelsaDetector``, ``denoiser`` and ``selsa``). Module names match
+``cleaner.resnet`` modules are named as the flax ones,
+``FastDVDSelsaDetector``, ``denoiser`` and ``selsa``, or ``FGFA`` and
+``DFF``, ``detector``, ``motion`` and ``aggregator``). Module names match
 the flax names, so a leaf's key is its path joined by dots with the leaf
 renamed:
 
 - conv ``kernel`` [kh, kw, in, out] -> ``weight`` [out, in, kh, kw];
 - a ``ConvTranspose`` ``kernel`` [kh, kw, in, out] (where ``model``, the
   port module the state dict is for, has an ``nn.ConvTranspose2d``: the
-  denoisers' up-convolutions) -> ``weight`` [in, out, kh, kw] flipped in
+  denoisers' up-convolutions, FlowNetSimple's ``upsample_flow*`` and
+  ``deconv*``) -> ``weight`` [in, out, kh, kw] flipped in
   both spatial axes: flax's transposed conv (``transpose_kernel=False``)
   does not flip its kernel, PyTorch's (the adjoint of a convolution) does;
 - dense ``kernel`` [in, out] -> ``weight`` [out, in] (``shared_fc0``'s
@@ -26,7 +28,9 @@ renamed:
 Any other collection or leaf raises. ``grads_from_jax`` maps a JAX gradient
 tree (the structure of ``params``) the same way, so gradients compare leaf
 by leaf with the port's ``.grad``. ``video_state_from_jax`` turns a JAX
-``VideoState`` (single or batched) into the port's. Needs numpy only.
+``VideoState`` (single or batched) into the port's, ``fgfa_state_from_jax``
+and ``dff_state_from_jax`` an ``FGFAState`` and a ``DFFState`` (their
+int32 counters become host ints). Needs numpy only.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..models.vid.fgfa import DFFState, FGFAState
 from ..models.vid.selsa import VideoState
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
@@ -128,3 +133,15 @@ def video_state_from_jax(state) -> VideoState:
         return VideoState(kv, valid, int(slot), maps)
     return VideoState(kv, valid, torch.from_numpy(slot.astype(np.int64)),
                       maps)
+
+
+def fgfa_state_from_jax(state) -> FGFAState:
+    """A JAX ``FGFAState`` as numpy arrays -> the port's, on the CPU."""
+    return FGFAState(_tensor(state.ref_imgs), _tensor(state.ref_feats),
+                     int(np.asarray(state.next_slot)))
+
+
+def dff_state_from_jax(state) -> DFFState:
+    """A JAX ``DFFState`` as numpy arrays -> the port's, on the CPU."""
+    return DFFState(_tensor(state.key_img), _tensor(state.key_feat),
+                    int(np.asarray(state.frames_since_key)))

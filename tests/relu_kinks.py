@@ -4,13 +4,15 @@ sample of the gradient parity tests.
 A ReLU pre-activation within the two frameworks' f32 rounding of 0 passes
 its gradient on one side and blocks it on the other, and no rounding
 tolerance covers what that does to a leaf's gradient. For a case of
-``test_torch_port_fastdvd.py`` (``fastdvd``, ``unet``) or
-``test_torch_port_dark_selsa.py`` (``lstm``, ``insert_plugins``) and a
-sample seed this script runs both packages' loss and gradients, lists the
-leaves outside the tests' tolerance, then takes the port's ReLU
-pre-activations nearest 0 (relative to the largest |x| of their call) and
-flips each one's gradient in turn (the other branch's gradient at that one
-element; the value stays, so that no later ReLU moves). A flip after which
+``test_torch_port_fastdvd.py`` (``fastdvd``, ``unet``),
+``test_torch_port_dark_selsa.py`` (``lstm``, ``insert_plugins``) or
+``test_torch_port_fgfa.py`` (``fgfa``) or ``test_torch_port_dff.py``
+(``dff``) and a sample seed this script runs both packages' loss and
+gradients, lists the leaves outside the tests' tolerance, then takes the
+port's ReLU (and leaky ReLU) pre-activations nearest 0 (relative to the
+largest |x| of their call) and flips each one's gradient in turn (the
+other branch's gradient at that one element; the value stays, so that no
+later ReLU moves). A flip after which
 every leaf is within tolerance is the kink: the script prints its call
 site, element and pre-activation. Where the best flip leaves fewer leaves
 outside, or the worst leaf nearer its tolerance, it is kept and the search
@@ -39,40 +41,48 @@ MAX_FLIPS = 2
 
 
 class Relu:
-    """``F.relu`` that records each call's input and site, or flips the
-    decision at some elements: ``flips`` holds (call, flat index) pairs."""
+    """``F.relu`` (and ``F.leaky_relu``, whose kink passes 1 on one side
+    and its slope on the other) that records each call's input and site,
+    or flips the decision at some elements: ``flips`` holds (call, flat
+    index) pairs."""
 
     def __init__(self, model):
         self.names = {id(m): n for n, m in model.named_modules()}
-        self.orig = F.relu
+        self.orig, self.orig_leaky = F.relu, F.leaky_relu
         self.calls, self.flips, self.record = [], (), False
         self.n = 0
 
     def __call__(self, x, inplace=False):
+        return self._decide(x, self.orig(x), 1.0)
+
+    def leaky(self, x, negative_slope=0.01, inplace=False):
+        return self._decide(x, self.orig_leaky(x, negative_slope),
+                            1.0 - negative_slope)
+
+    def _decide(self, x, out, gap):
         i, self.n = self.n, self.n + 1
         if self.record:
-            frame = sys._getframe(1)  # the module whose forward calls it
+            frame = sys._getframe(2)  # the module whose forward calls it
             while id(frame.f_locals.get("self")) not in self.names:
                 frame = frame.f_back
             site = (f"{self.names[id(frame.f_locals['self'])]} "
                     f"({os.path.basename(frame.f_code.co_filename)}:"
                     f"{frame.f_lineno})")
             self.calls.append((site, x.detach().clone()))
-        out = self.orig(x)
         mine = [j for c, j in self.flips if c == i]
         if mine:  # the same value, the other branch's gradient
             turn = torch.zeros_like(x).flatten()
             turn[mine] = 1 - 2 * (x.flatten()[mine] > 0).to(x.dtype)
-            out = out + (x - x.detach()) * turn.view_as(x)
+            out = out + (x - x.detach()) * turn.view_as(x) * gap
         return out
 
     def run(self, port, record=False, flips=()):
         self.n, self.record, self.flips = 0, record, flips
-        F.relu = self
+        F.relu, F.leaky_relu = self, self.leaky
         try:
             return port()
         finally:
-            F.relu = self.orig
+            F.relu, F.leaky_relu = self.orig, self.orig_leaky
 
 
 def mismatches(got, want):
@@ -90,6 +100,10 @@ def mismatches(got, want):
 def loss_and_grads(case, seed):
     if case in ("fastdvd", "unet"):
         from test_torch_port_fastdvd import loss_and_grads as fn
+    elif case == "fgfa":
+        from test_torch_port_fgfa import loss_and_grads as fn
+    elif case == "dff":
+        from test_torch_port_dff import loss_and_grads as fn
     else:
         from test_torch_port_dark_selsa import loss_and_grads as fn
     return fn(case, seed)
@@ -149,7 +163,7 @@ def describe(relu, i, j, rel):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("case", choices=("fastdvd", "unet", "lstm",
-                                     "insert_plugins"))
+                                     "insert_plugins", "fgfa", "dff"))
     ap.add_argument("seeds", type=int, nargs="+")
     ap.add_argument("--candidates", type=int, default=CANDIDATES)
     args = ap.parse_args()

@@ -4,7 +4,7 @@ fresh interpreter with those names blocked in ``sys.modules`` (an import
 of a blocked name raises), every module of the port and ``chip_smoke``
 import, and the canonical config's data path runs: a tree of PNG pairs is
 written and read back, a training batch is built from it, and the test
-CLI evaluates the config on it."""
+CLI evaluates the config on it; the FGFA config streams two frames."""
 
 import os
 import pkgutil
@@ -25,7 +25,9 @@ def test_port_runs_without_jax_cv2_or_pil(tmp_path):
         ".data.image_io", ".tools.train", ".data.loader", ".tools.test",
         ".apis.test", ".core.eval.mean_ap", ".models.backbones.dark_resnet",
         ".models.cleaners.video_denoisers",
-        ".models.vid.selsa_fastdvd")} <= set(mods)
+        ".models.vid.selsa_fastdvd", ".ops.grid_sample",
+        ".models.motion.flownet_simple", ".models.detectors.faster_rcnn",
+        ".models.vid.fgfa")} <= set(mods)
     code = f"""
 import importlib, sys
 for name in {BLOCKED!r}:
@@ -52,6 +54,11 @@ out = test.main(["configs/vid/llvod/"
                  "data.test.img_prefix={tmp_path}/",
                  "model.neck_channels=32", "data.workers_per_gpu=0"])
 assert out["summary"]["frames"] == 4 and "mAP50" in out["summary"]
+out = test.main(["configs/vid/fgfa/fgfa_faster_rcnn_r50_dc5_1x_imagenetvid.py",
+                 "--tiny", "--device", "cpu", "--synthetic", "2",
+                 "--cfg-options", "model.neck_channels=32",
+                 "model.num_ref_frames=2"])
+assert out["summary"]["frames"] == 2
 loaded = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}
           and sys.modules[m] is not None]
 assert not loaded, loaded

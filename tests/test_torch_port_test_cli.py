@@ -233,8 +233,7 @@ def test_a_dark_variant_config_streams(world, monkeypatch):
     (["model.type=SiamRPN"], "single-object tracking"),
     (["model.type=FasterRCNN", "data.test.type=CocoDataset"],
      "image detectors"),
-    (["model.type=FGFA"], "other VID families"),
-], ids=["mot_model", "mot_data", "sot", "image", "fgfa"])
+], ids=["mot_model", "mot_data", "sot", "image"])
 def test_routes_the_port_lacks_raise(world, opts, match):
     with pytest.raises(NotImplementedError, match=match):
         tcli.main([CANONICAL, "--tiny", "--device", "cpu", "--cfg-options"]

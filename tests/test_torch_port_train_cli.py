@@ -244,7 +244,8 @@ def test_model_config_accepts_every_llvod_config(path):
 
 def test_tiny_and_selsa_dark_detect():
     """``--tiny`` sizes; ``SelsaDarkDetect`` builds its ConvLSTM
-    DarkResNet (stage 2's blocks); FGFA is not a port model type."""
+    DarkResNet (stage 2's blocks); FGFA builds its ``SelsaConfig`` and
+    the image detector ``FasterRCNN`` is not a port model type."""
     cfg = tb.model_config(tconfig.load_config(CANONICAL)["model"], tiny=True)
     assert (cfg.selsa.pad_h, cfg.selsa.pad_w) == (64, 64)
     assert cfg.selsa.compute_dtype == torch.float32
@@ -254,5 +255,6 @@ def test_tiny_and_selsa_dark_detect():
     assert system.cfg.selsa.backbone_variant == "DarkResNet"
     assert type(backbone.layer2_0).__name__ == "ConvLSTMBottleneck"
     assert type(backbone.layer3_0).__name__ == "Bottleneck"
-    with pytest.raises(KeyError, match="FGFA"):
-        tb.model_config(dict(type="FGFA"))
+    assert tb.model_config(dict(type="FGFA"), tiny=True).pad_h == 64
+    with pytest.raises(KeyError, match="FasterRCNN"):
+        tb.model_config(dict(type="FasterRCNN"))
