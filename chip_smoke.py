@@ -8,7 +8,8 @@ source in parallel), ``kernels`` (each kernel against its plain torch
 version at the main paths' shapes, f32 and bf16, with CUDA-event times:
 first a known-answer check of the tensor-core body's fragment layouts, then
 kernel A single-stream and stream-batched at S = 4, kernel B at the
-single-stream, S = 4 serve and memo-fill shapes, kernel C alone and against
+single-stream (also a MOT detector's), S = 4 serve, memo-fill, training
+and Tracktor's ``regress`` (64 rois) shapes, kernel C alone and against
 kernel A on the same keys; each timed beside its plain version and, for A
 and C, one ``F.scaled_dot_product_attention`` call on the same inputs as a
 yardstick, with its bound from the shapes), ``stream`` (full-width SELSA
@@ -123,9 +124,23 @@ VID_WORKERS loader processes: step ms, idle share, peak memory; B and D
 twice a step for SELSA, once for FGFA and DFF), ``fgfa_agree`` (FGFA's f32
 loss and gradients, kernels B and D against the plain RoIAlign) and
 ``vid_eval`` (FGFA and DFF through the test CLI on the val split: the
-plain f32 run's detections as gts, the f32 kernel path's mAP50). Then one
-JSON line of kernel summaries (A-G), and a last line ``{"ok": true,
-"device": {...}}``. Any failure exits non-zero.
+plain f32 run's detections as gts, the f32 kernel path's mAP50). Then
+tracking: ``mot_stream`` (DeepSORT at the MOT config's defaults through
+``inference_mot``: random 1080x1920 frames into the 608x1024 bucket, bf16
+detector, the ReID R50 bf16 on up to 48 crops of 256x128; frame ms and
+its split into the detector, crops + ReID and the host association, the
+idle share, peak memory; B once a frame on ``gather7x2``; the f32 kernel
+path against the plain path on one frame, detections as sets and the
+embeddings of the same boxes), ``tracktor_stream`` (Tracktor with ECC and
+linear motion over a panning 1080x1920 sequence: B once at frame 0 and
+twice a frame after, ``regress`` ms on 64 boxes, ECC ms, the pan
+recovered against the known one), ``sot_stream`` (SiamRPN++ at 127 / 255,
+f32: init and step ms, idle share; one step on the card against the CPU
+from the same state) and ``track_eval`` (the test CLI's MOT route with
+DeepSORT on a MOT tree of PNG frames with public detections, MOTA at
+least MOT_MOTA_FLOOR, and its SOT route on a LaSOT tree, finite OPE;
+frames/s of both). Then one JSON line of kernel summaries (A-G), and a
+last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
     python3 chip_smoke.py --roi-grad-times ROOT
     python3 chip_smoke.py --dcn-times ROOT
@@ -166,7 +181,8 @@ ROI_SHAPES = (("single", 1, 300),
               (f"serve_s{SERVE_S}", SERVE_S, SERVE_S * 300),
               ("memo_fill", 14, 4200),
               ("train_key", 1, 256),
-              ("train_refs", 2, 600))
+              ("train_refs", 2, 600),
+              ("tracktor_regress", 1, 64))  # Tracktor's track boxes
 # kernel D's shapes on the training path, the reference maps' first
 ROI_GRAD_SHAPES = (("train_refs", 2, 600), ("train_key", 1, 256))
 ROI_GRAD_F32_REL = 1e-5    # of max |grad|: the atomic order varies per run
@@ -267,6 +283,28 @@ FLOW_AGREE_FRAMES = 3   # f32 kernel path against plain (DFF: key, 2 warps)
 VID_TREE = dict(videos=2, frames=12, hw=(720, 1280))  # ImageNet-VID frames
 VID_STEPS, VID_TIMED = 6, 2  # vid_train: 2 warm-up, 2 timed, 2 profiled
 VID_WORKERS = 4
+# tracking: DeepSORT, Tracktor and SiamRPN++ at the configs' widths
+MOT_CFG = "configs/mot/deepsort/deepsort_faster-rcnn_fpn_4e_mot17-private-half.py"
+TRACKTOR_CFG = ("configs/mot/tracktor/"
+                "tracktor_faster-rcnn_r50_fpn_4e_mot17-private-half.py")
+SOT_CFG = "configs/sot/siamese_rpn/siamese_rpn_r50_1x_lasot.py"
+MOT_HW = (1080, 1920)   # MOT17's frames
+MOT_FRAMES, MOT_PROFILED = 21, 3  # mot_stream: frame 0, 20 steady, profiled
+MOT_EMBED_REL = 1e-3    # f32 embeddings, kernel path vs plain, of max |e|
+# seeded weights score detections near 0.5: track every detection, so the
+# association works on the frame's 48
+MOT_TRACKER = dict(obj_score_thr=0.05)
+TRACKTOR_FRAMES = 21    # frame 0 and 20 steady
+TRACKTOR_PAN = (6, 2)   # px a frame (dx, dy)
+TRACKTOR_PAN_TOL = 0.1  # px: ECC's translation against the known pan
+# seeded weights score detections near 0.5: keep every track alive
+TRACKTOR_TRACKER = dict(obj_score_thr=0.05, regression_score_thr=0.0)
+SOT_FRAMES, SOT_PROFILED = 21, 3  # init, 20 steady steps, profiled
+SOT_BOX_TOL = 1e-2      # px: one step on the card against the CPU
+MOT_TREE = dict(videos=1, frames=8, hw=(1080, 1920), objects=4, seed=0,
+                jitter=2.0)
+SOT_TREE = dict(videos=2, frames=6, hw=(720, 1280), seed=0)
+MOT_MOTA_FLOOR = 0.9
 # --loader-close: rounds of opening, reading and closing the loader
 LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
@@ -3588,6 +3626,368 @@ def vid_eval(dev, smi, kernels, prefix, ann):
     return counts, bodies
 
 
+# ---------------------------------------------------------------------------
+# tracking: DeepSORT, Tracktor (MOT) and SiamRPN++ (SOT)
+
+
+def mot_model(cfg_path, dev, tracker=None, **model_overrides):
+    """The MOT model the test CLI builds for ``cfg_path`` (seed 0), with
+    ``tracker`` entries over the config's tracker dict."""
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        load_config)
+    from lowlightenvironmentvideoobjectdetection_torch.models.builder import (
+        build_mot_model)
+    cfg = load_config(str(REPO / cfg_path))
+    return build_mot_model(dict(cfg["model"], **model_overrides),
+                           dict(cfg.get("tracker") or {}, **(tracker or {})),
+                           device=dev)
+
+
+def host_ms(fn, n=10):
+    """Median host ms of ``fn()`` over n calls, synchronised after each."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def mot_stream(dev, smi, kernels):
+    """DeepSORT at the MOT config's defaults (the 608x1024 bucket, bf16
+    detector, 1 class; the ReID R50 bf16 on up to 48 crops of 256x128),
+    seeded weights, the tracker's score threshold lowered (MOT_TRACKER) so
+    every detection is associated, MOT_FRAMES random 1080x1920 frames
+    through
+    ``inference_mot``: frame ms, the split of a steady frame (detector;
+    crops + ReID on its top 48 boxes; host association), the device's
+    idle share over MOT_PROFILED more frames, peak memory; kernel B once a
+    frame, all on ``gather7x2``. Then the f32 kernel path against the
+    plain path on one frame: detections as sets, the embeddings of the
+    same boxes within MOT_EMBED_REL. Returns the launch counts (A-G) and
+    B's bodies."""
+    import copy
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        inference_mot)
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    from lowlightenvironmentvideoobjectdetection_torch.models.detectors import (
+        faster_rcnn as FR)
+    from lowlightenvironmentvideoobjectdetection_torch.models.mot.deep_sort import (  # noqa: E501
+        crop_and_resize)
+    from lowlightenvironmentvideoobjectdetection_torch.models.reid.base_reid import (  # noqa: E501
+        BaseReID)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(11)
+    n = MOT_FRAMES + MOT_PROFILED
+    raw = rng.randint(0, 256, (n,) + MOT_HW + (3,)).astype(np.uint8)
+    model = mot_model(MOT_CFG, dev, tracker=MOT_TRACKER)
+    cfg = model.detector.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    lat, tracks, dets = [], [], []
+    for fid in range(MOT_FRAMES):
+        t = time.perf_counter()
+        out = inference_mot(model, raw[fid], fid)
+        lat.append((time.perf_counter() - t) * 1e3)
+        tracks.append(len(out["track_bboxes"]))
+        dets.append(len(out["det_bboxes"]))
+        if not (np.isfinite(out["track_bboxes"]).all()
+                and out["det_bboxes"].shape[1] == 5
+                and len(out["det_bboxes"]) <= model.max_reid_dets):
+            raise AssertionError("mot_stream: bad result")
+    frames = iter(range(MOT_FRAMES, n))
+    window = flow_profiled(lambda: inference_mot(model, raw[next(frames)],
+                                                 MOT_FRAMES),
+                           MOT_PROFILED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = [k.launches for k in kernels]
+    if counts != [0, n, 0, 0, 0, 0, 0]:
+        raise AssertionError(f"mot_stream: launch counts {counts} for {n} "
+                             "frames, want one of B a frame")
+    check_bodies("mot_stream roi_align", kernels[1], gather7x2=n,
+                 gather14x2=0)
+    bodies = dict(roi_align=dict(kernels[1].body_launches),
+                  roi_align_backward={})
+    # the split of a steady frame
+    imgs, shape, _ = prepare_frames(raw[:1], cfg.pad_h, cfg.pad_w,
+                                    device=dev)
+    img = imgs[0]
+    det = FR.faster_rcnn_detect(model.detector, img, shape, model.anchors)
+    top = det.boxes[:model.max_reid_dets][det.valid[:model.max_reid_dets]]
+    boxes, scores, labels, embeds = model.detect(img, shape)
+    tracker = copy.deepcopy(model.tracker)
+    # one copy of the tracker for each timed call, made before the timing
+    copies = [copy.deepcopy(tracker) for _ in range(10)]
+
+    def associate():
+        model.tracker = copies.pop()
+        model.tracker.track(MOT_FRAMES + 1, boxes, scores, labels, embeds)
+
+    split = dict(detector=host_ms(lambda: FR.faster_rcnn_detect(
+        model.detector, img, shape, model.anchors)),
+        crops_reid=host_ms(lambda: model.embed(img, top)),
+        crops_only=host_ms(lambda: crop_and_resize(img, top)),
+        association=host_ms(associate, len(copies)),
+        reid_crops=int(top.shape[0]), tracks_before=len(tracker.tracks))
+    # each part synchronised alone: the parts do not add up to the frame,
+    # which overlaps the host's launches with the device's work
+    split["frame_median"] = statistics.median(lat[1:])
+    model.tracker = tracker
+    # f32: the kernel path against the plain path on one frame
+    m32 = mot_model(MOT_CFG, dev, compute_dtype="float32")
+    m32.reid = BaseReID(dtype=torch.float32).to(dev).eval()
+    m32.reid.load_state_dict(model.reid.state_dict())
+    imgs, shape, _ = prepare_frames(raw[1:2], cfg.pad_h, cfg.pad_w,
+                                    device=dev)
+    reset_counts(*kernels)
+    got = FR.faster_rcnn_detect(m32.detector, imgs[0], shape, m32.anchors)
+    if kernels[1].launches != 1:
+        raise AssertionError("mot_stream agree: B not launched")
+    want = FR.faster_rcnn_detect(m32.detector, imgs[0], shape, m32.anchors,
+                                 impl="plain")
+    sets = match_sets(got, want)
+    k_boxes = got.boxes[:m32.max_reid_dets][got.valid[:m32.max_reid_dets]]
+    p_boxes = want.boxes[:m32.max_reid_dets][want.valid[
+        :m32.max_reid_dets]]
+    e_k, e_p = m32.embed(imgs[0], k_boxes), m32.embed(imgs[0], p_boxes)
+    emb_err = float(np.abs(e_k - e_p).max() / max(np.abs(e_p).max(), 1e-30)) \
+        if e_p.shape == e_k.shape and len(e_p) else None
+    if sets["unmatched"] or sets["n_got"] != sets["n_want"] \
+            or emb_err is None or emb_err > MOT_EMBED_REL:
+        raise AssertionError(f"mot_stream agree: sets {sets}, embeddings "
+                             f"{emb_err}")
+    phase("mot_stream", card=smi, config=MOT_CFG, frame_hw=MOT_HW,
+          frames=n, bucket=[cfg.pad_h, cfg.pad_w],
+          detector_dtype=str(cfg.compute_dtype), reid_dtype=str(
+              model.reid.compute_dtype), frame0_ms=lat[0],
+          median_frame_ms=split["frame_median"], frame_ms=lat[1:],
+          split_ms=split, device_window=window, peak_mem_gb=peak,
+          detections_per_frame=dets, tracks_per_frame=tracks,
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          f32_kernel_vs_plain=dict(sets=sets, embed_max_rel_err=emb_err,
+                                   embed_rel_tol=MOT_EMBED_REL),
+          phase_s=time.perf_counter() - t_phase)
+    del model, m32
+    torch.cuda.empty_cache()
+    return counts, bodies
+
+
+def panning(rng, n, hw, pan):
+    """n frames [H, W, 3] uint8 of a smooth textured scene seen by a camera
+    moving ``pan`` (dx, dy) px a frame."""
+    h, w = hw
+    dx, dy = pan
+    big = rng.randint(0, 256, (h // 8 + abs(dy) * n // 8 + 2,
+                               w // 8 + abs(dx) * n // 8 + 2, 3))
+    scene = torch.nn.functional.interpolate(
+        torch.from_numpy(big).float().permute(2, 0, 1)[None], scale_factor=8,
+        mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
+    scene = scene.round().clamp(0, 255).to(torch.uint8).numpy()
+    return [np.ascontiguousarray(scene[dy * f:dy * f + h, dx * f:dx * f + w])
+            for f in range(n)]
+
+
+def tracktor_stream(dev, smi, kernels):
+    """Tracktor (the Tracktor config: bf16 detector, ECC camera motion
+    compensation on the raw frames; linear motion on too) through
+    ``inference_mot`` over TRACKTOR_FRAMES frames at 1080x1920 of a camera
+    panning TRACKTOR_PAN px a frame; the tracker's thresholds lowered
+    (TRACKTOR_TRACKER) so seeded weights keep tracks: kernel B once at
+    frame 0 and twice a frame after (detection, and ``regress`` on at most
+    64 track boxes). Prints the frame ms, ``regress`` ms on 64 boxes, ECC
+    ms at 1080x1920 (the frame's preparation and the estimate), the pan
+    recovered against the known one. Returns the launch counts (A-G) and
+    B's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        inference_mot)
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(12)
+    raw = panning(rng, TRACKTOR_FRAMES, MOT_HW, TRACKTOR_PAN)
+    model = mot_model(TRACKTOR_CFG, dev, tracker=TRACKTOR_TRACKER,
+                      with_linear_motion=True)
+    if not (model.with_cmc and model.with_linear_motion):
+        raise AssertionError("tracktor_stream: CMC or linear motion off")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    lat, tracks = [], []
+    for fid, frame in enumerate(raw):
+        t = time.perf_counter()
+        out = inference_mot(model, frame, fid)
+        lat.append((time.perf_counter() - t) * 1e3)
+        tracks.append(len(out["track_bboxes"]))
+        if not np.isfinite(out["track_bboxes"]).all():
+            raise AssertionError("tracktor_stream: non-finite tracks")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = [k.launches for k in kernels]
+    n = len(raw)
+    want = 1 + 2 * (n - 1)
+    if counts != [0, want, 0, 0, 0, 0, 0] or min(tracks) == 0:
+        raise AssertionError(f"tracktor_stream: launch counts {counts}, "
+                             f"want {want} of B; tracks {tracks}")
+    check_bodies("tracktor_stream roi_align", kernels[1], gather7x2=want,
+                 gather14x2=0)
+    bodies = dict(roi_align=dict(kernels[1].body_launches),
+                  roi_align_backward={})
+    # regress on 64 boxes, ECC on two frames, the recovered pan
+    cur = torch.as_tensor(raw[1]).to(dev)
+    prev = torch.as_tensor(raw[0]).to(dev)
+    imgs, _, _ = prepare_frames(cur[None], model.detector.cfg.pad_h,
+                                model.detector.cfg.pad_w, device=dev)
+    with torch.no_grad():
+        feat = model.detector.extract_feat(imgs[0][None])
+    xy = rng.uniform(0, 900, (64, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(40, 200, (64, 2))],
+                           1).astype(np.float32)
+    reset_counts(*kernels)
+    n_regress = 10
+    regress_ms = host_ms(lambda: model.regress(feat, boxes), n_regress)
+    if kernels[1].launches != n_regress:
+        raise AssertionError("tracktor_stream: regress did not launch B")
+    cmc = model.cmc
+    p_prev, p_cur = cmc.prepare(prev, dev), cmc.prepare(cur, dev)
+    warp = cmc.estimate(p_cur, p_prev)
+    known = [-float(TRACKTOR_PAN[0]), -float(TRACKTOR_PAN[1])]
+    pan_err = float(np.abs(warp[:, 2] - known).max())
+    ecc = dict(prepare_ms=host_ms(lambda: cmc.prepare(cur, dev)),
+               estimate_ms=host_ms(lambda: cmc.estimate(p_cur, p_prev), 3),
+               warp=warp.tolist(), known_translation=known,
+               translation_err_px=pan_err)
+    if pan_err > TRACKTOR_PAN_TOL or np.abs(warp[:, :2] - np.eye(2)).max() \
+            > 1e-3:
+        raise AssertionError(f"tracktor_stream: ECC recovered {warp}, "
+                             f"known pan {TRACKTOR_PAN}")
+    phase("tracktor_stream", card=smi, config=TRACKTOR_CFG, frame_hw=MOT_HW,
+          frames=n, pan_px_per_frame=TRACKTOR_PAN, tracker=TRACKTOR_TRACKER,
+          frame0_ms=lat[0], median_frame_ms=statistics.median(lat[1:]),
+          frame_ms=lat[1:], tracks_per_frame=tracks,
+          regress_64_boxes_ms=regress_ms, ecc=ecc, peak_mem_gb=peak,
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t_phase)
+    del model, feat
+    torch.cuda.empty_cache()
+    return counts, bodies
+
+
+def sot_stream(dev, smi, kernels):
+    """SiamRPN++ at the config's 127 / 255 crops, f32, seeded weights,
+    through ``inference_sot`` over SOT_FRAMES random 1080x1920 frames: the
+    template's init ms, the steady track-step ms, the device's idle share
+    over SOT_PROFILED more steps; no kernel of the table on this path.
+    Then one step on the card against the CPU from the same state and
+    frame: the same best anchor, the box within SOT_BOX_TOL px. Returns
+    the launch counts (all 0) and no bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        SOTModel)
+    from lowlightenvironmentvideoobjectdetection_torch.models.sot import (
+        siamrpn as SR)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(13)
+    n = SOT_FRAMES + SOT_PROFILED
+    raw = rng.randint(0, 256, (n,) + MOT_HW + (3,)).astype(np.uint8)
+    box = np.array([900.0, 500.0, 1000.0, 640.0], np.float32)
+    model = SOTModel(seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    lat = []
+    for fid in range(SOT_FRAMES):
+        t = time.perf_counter()
+        out = model.inference_sot(raw[fid], box if fid == 0 else None, fid)
+        lat.append((time.perf_counter() - t) * 1e3)
+        if not np.isfinite(out["track_bboxes"]).all():
+            raise AssertionError("sot_stream: non-finite box")
+    frames = iter(range(SOT_FRAMES, n))
+    window = flow_profiled(lambda: model.inference_sot(
+        raw[next(frames)], None, 1), SOT_PROFILED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = [k.launches for k in kernels]
+    if any(counts):
+        raise AssertionError(f"sot_stream: launch counts {counts}")
+    # the card against the CPU from the same state and frame
+    frame = torch.as_tensor(raw[1])
+    state = model.state
+    _, s_dev, b_dev, x_dev = SR.sot_track(model.model, state,
+                                          frame.to(dev).float(),
+                                          model.anchors, model.window)
+    cpu = SOTModel(state_dict={k: v.cpu() for k, v in
+                               model.model.state_dict().items()},
+                   device="cpu")
+    cpu_state = SR.SOTState(tuple(z.cpu() for z in state.z_feats),
+                            state.bbox.cpu())
+    _, s_cpu, b_cpu, x_cpu = SR.sot_track(cpu.model, cpu_state,
+                                          frame.float(), cpu.anchors,
+                                          cpu.window)
+    box_err = float((x_dev.cpu() - x_cpu).abs().max())
+    if int(b_dev) != int(b_cpu) or box_err > SOT_BOX_TOL:
+        raise AssertionError(f"sot_stream: card best {int(b_dev)} box "
+                             f"{x_dev.tolist()}, CPU {int(b_cpu)} "
+                             f"{x_cpu.tolist()}")
+    phase("sot_stream", card=smi, config=SOT_CFG, frame_hw=MOT_HW,
+          crops=[model.cfg.exemplar_size, model.cfg.search_size],
+          score_map=model.cfg.score_size, frames=n, init_ms=lat[0],
+          median_step_ms=statistics.median(lat[1:]), step_ms=lat[1:],
+          device_window=window, peak_mem_gb=peak,
+          card_vs_cpu=dict(best=int(b_dev), box_max_abs_err_px=box_err,
+                           score_err=abs(float(s_dev) - float(s_cpu)),
+                           box_tol_px=SOT_BOX_TOL),
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t_phase)
+    del model, cpu
+    torch.cuda.empty_cache()
+    return counts, dict(roi_align={}, roi_align_backward={})
+
+
+def track_eval(dev, smi, kernels, root):
+    """The test CLI's tracking routes on the card from PNG trees written
+    with the port's PNG writer under ``root``: DeepSORT (its config) on a
+    MOT tree (MOT_TREE: textured objects moving linearly, far apart, the
+    ground truth jittered as the public ``detection_file``), whose MOTA
+    must reach MOT_MOTA_FLOOR with seeded weights (one detection inside
+    each track's gates, so the association does not need trained
+    weights); SiamRPN++ on a LaSOT tree (SOT_TREE), whose OPE numbers must
+    be finite. Frames/s of both. Returns the launch counts (A-G) and B's
+    bodies (the public path runs no detector: no B)."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
+        write_lasot_tree, write_mot_tree)
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        test as tcli)
+    t_phase = time.perf_counter()
+    ann, dets = write_mot_tree(f"{root}/mot", **MOT_TREE)
+    reset_counts(*kernels)
+    mot = tcli.main([str(REPO / MOT_CFG), "--eval", "track",
+                     "--cfg-options", f"data.test.ann_file={ann}",
+                     f"data.test.img_prefix={root}/mot/",
+                     f"data.test.detection_file={dets}"])
+    counts = [k.launches for k in kernels]
+    lann = write_lasot_tree(f"{root}/lasot", **SOT_TREE)
+    sot = tcli.main([str(REPO / SOT_CFG), "--cfg-options",
+                     f"data.test.ann_file={lann}",
+                     f"data.test.img_prefix={root}/lasot/"])
+    counts = [a + k.launches for a, k in zip(counts, kernels)]
+    if any(counts):
+        raise AssertionError(f"track_eval: launch counts {counts}")
+    if mot["metrics"]["MOTA"] < MOT_MOTA_FLOOR or not all(
+            np.isfinite(v) for v in sot["metrics"].values()):
+        raise AssertionError(f"track_eval: MOT {mot['metrics']}, SOT "
+                             f"{sot['metrics']}")
+    phase("track_eval", card=smi, mot_tree=MOT_TREE, sot_tree=SOT_TREE,
+          mot=dict(config=MOT_CFG, frames=mot["summary"]["frames"],
+                   fps=mot["summary"]["fps"], metrics=mot["metrics"],
+                   mota_floor=MOT_MOTA_FLOOR),
+          sot=dict(config=SOT_CFG, frames=sot["summary"]["frames"],
+                   fps=sot["summary"]["fps"], metrics=sot["metrics"]),
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t_phase)
+    return counts, dict(roi_align={}, roi_align_backward={})
+
+
 def build_checkout(root) -> Path:
     """Put the checkout at ROOT first on the import path, check that the
     port's package comes from there, build its kernels and print the
@@ -3983,6 +4383,13 @@ def main() -> int:
         runs.append(vid_train(dev, smi, path_kernels, prefix, train_ann))
         fgfa_agree(dev, roi_align, roi_align_backward)
         runs.append(vid_eval(dev, smi, path_kernels, prefix, val_ann))
+    # tracking: DeepSORT, Tracktor and SiamRPN++ at full width, then the
+    # test CLI's MOT and SOT routes from PNG trees
+    runs.append(mot_stream(dev, smi, path_kernels))
+    runs.append(tracktor_stream(dev, smi, path_kernels))
+    runs.append(sot_stream(dev, smi, path_kernels))
+    with tempfile.TemporaryDirectory(prefix="_smoke_track_", dir=REPO) as root:
+        runs.append(track_eval(dev, smi, path_kernels, root))
     for counts, bodies in runs:
         for name, n in zip(KERNEL_NAMES, counts):
             summary[name]["launches"] += n

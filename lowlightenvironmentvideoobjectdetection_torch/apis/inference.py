@@ -1,7 +1,10 @@
-"""Public streaming inference API for the video detectors (SELSA and its
-low-light family, FGFA, DFF), the counterpart of the JAX package's
-``apis/inference.py`` (``VIDModel``, ``init_model``, ``inference_vid``,
-``result_to_per_class``)."""
+"""Public streaming inference API, the counterpart of the JAX package's
+``apis/inference.py``: the video detectors (SELSA and its low-light
+family, FGFA, DFF: ``VIDModel``, ``init_model``, ``inference_vid``,
+``result_to_per_class``), multi-object tracking (``inference_mot`` on a
+DeepSORT or Tracktor model of ``models/builder.py`` ``build_mot_model``)
+and single-object tracking (``SOTModel``, ``init_sot_model``,
+``inference_sot``: SiamRPN++)."""
 
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ import numpy as np
 import torch
 
 from ..data.preprocess import prepare_frames
+from ..models.mot.deep_sort import rescale_result
+from ..models.sot import siamrpn as SR
 from ..models.vid import fgfa as FG
 from ..models.vid import selsa as S
 from ..utils.device import resolve_device
@@ -188,3 +193,77 @@ def init_model(model_type: str = "SELSA", checkpoint=None, **kwargs
 def inference_vid(model: VIDModel, frame: np.ndarray, frame_id: int,
                   ref_frames: Optional[np.ndarray] = None) -> Dict:
     return model.inference_vid(frame, frame_id, ref_frames)
+
+
+def inference_mot(model, img: np.ndarray, frame_id: int,
+                  public_bboxes: Optional[np.ndarray] = None) -> Dict:
+    """MOT streaming (mmtrack's ``inference_mot``): feed raw BGR frames
+    [H, W, 3] of one video in order to a DeepSORT or Tracktor model. The
+    frame is resized into the detector's bucket and tracked there; the
+    result's boxes are divided by the scale factor, so they are in the
+    original frame (ROADMAP fault F15: the JAX API leaves them resized).
+    ``public_bboxes`` [N, 5] (x1, y1, x2, y2, score in the original frame)
+    replace the detector and are scaled into the bucket. Tracktor gets the
+    raw frame for its camera motion compensation."""
+    dev = model.anchors.device
+    cfg = model.detector.cfg
+    frame = torch.as_tensor(np.asarray(img)).to(dev)
+    imgs, img_shape, sf = prepare_frames(frame[None], cfg.pad_h, cfg.pad_w,
+                                         device=dev)
+    if public_bboxes is not None:
+        public_bboxes = np.array(public_bboxes, np.float32).reshape(-1, 5)
+        public_bboxes[:, :4] *= sf
+    r = model.track_frame(frame_id, imgs[0], img_shape,
+                          public_bboxes=public_bboxes, raw_img=frame)
+    return rescale_result(r, sf)
+
+
+class SOTModel:
+    """A SiamRPN++ tracker and its state (mmtrack's ``init_model`` +
+    ``inference_sot``): ``inference_sot(img, init_bbox, frame_id)`` takes
+    the template at frame 0 and tracks afterwards, returning
+    ``dict(track_bboxes=[x1, y1, x2, y2, score])``. ``model_kwargs`` are
+    ``SiamRPNConfig`` fields; ``state_dict`` None gives seeded weights
+    (``seed``); ``device`` None is the card."""
+
+    def __init__(self, state_dict=None, seed: int = 0, device=None,
+                 **model_kwargs):
+        self.cfg = SR.SiamRPNConfig(**model_kwargs)
+        self.device = resolve_device(device)
+        model = SR.SiamRPN(self.cfg)
+        if state_dict is None:
+            S.init_params(model, torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(state_dict, strict=True)
+        self.model = model.to(self.device).eval()
+        n = self.cfg.score_size
+        self.anchors = torch.as_tensor(SR.sot_grid_anchors(self.cfg, n),
+                                       device=self.device)
+        self.window = torch.as_tensor(
+            SR.hanning_window(n, self.cfg.num_anchors), device=self.device)
+        self.state = None
+
+    def inference_sot(self, img, init_bbox, frame_id: int) -> Dict:
+        """img: a frame [H, W, 3] (numpy or tensor, any dtype)."""
+        frame = torch.as_tensor(img).to(self.device).float()
+        if frame_id == 0:
+            self.state = SR.sot_init(self.model, frame, np.asarray(
+                init_bbox, np.float32))
+            b = np.asarray(init_bbox, np.float32)
+            return dict(track_bboxes=np.concatenate([b, [1.0]]))
+        self.state, score, _, xyxy = SR.sot_track(
+            self.model, self.state, frame, self.anchors, self.window)
+        out = torch.cat([xyxy, score[None]]).cpu().numpy()
+        return dict(track_bboxes=out.astype(np.float64))
+
+
+def init_sot_model(checkpoint=None, **kwargs) -> SOTModel:
+    """A SOTModel; ``checkpoint`` is a saved ``SiamRPN`` state dict."""
+    if checkpoint is not None:
+        kwargs["state_dict"] = torch.load(checkpoint, map_location="cpu",
+                                          weights_only=True)
+    return SOTModel(**kwargs)
+
+
+def inference_sot(model: SOTModel, img, init_bbox, frame_id: int) -> Dict:
+    return model.inference_sot(img, init_bbox, frame_id)

@@ -18,8 +18,23 @@ tracked as one instance through its video, and is a training frame.
     ROOT/Data/VID/<split>/ILSVRC2015_<split>_<v:08d>/<frame:06d>.png
 
 Every frame has 1-8 boxes of ImageNet-VID's 30 classes (ids 1-30), every
-train frame is a training frame. The PNGs have no row filter and zlib level
-1, written by 8 threads.
+train frame is a training frame.
+
+``write_mot_tree``, a MOT17-style tree for the tracking route
+(``MOTChallengeDataset``)::
+
+    ROOT/annotations/mot_test.json      COCO-VID, one class "pedestrian"
+    ROOT/annotations/mot_dets.json      public detections, per frame
+    ROOT/<video>/img1/<frame:06d>.png
+
+Each video holds textured objects that move linearly, spaced so that each
+stays far outside the others' motion gates; the public detections are
+the ground truth jittered, with scores in [0.8, 1). ``write_lasot_tree``,
+a LaSOT-style tree (``LaSOTDataset``): one textured object a video moving
+linearly, ``ROOT/annotations/lasot_test.json`` and
+``ROOT/<video>/img/<frame:08d>.png``.
+
+The PNGs have no row filter and zlib level 1, written by 8 threads.
 """
 
 from __future__ import annotations
@@ -140,3 +155,107 @@ def write_imagenet_vid_tree(root: str, videos: int = 2, frames: int = 12,
                                   _frames(rng, hw, boxes)[1])])
         paths.append(_write(root, jobs, ann, f"imagenet_vid_{split}.json"))
     return paths[0], paths[1]
+
+
+def _textured_frames(rng, videos, frames, hw, n_obj, speed, spacing):
+    """Per video: a fixed textured background and ``n_obj`` textured
+    objects in a row, each moving by its velocity (at most ``speed`` px a
+    frame); returns per video (background, objects [(x, y, w, h, vx, vy,
+    patch)])."""
+    h, w = hw
+    out = []
+    for _ in range(videos):
+        bg = (rng.integers(60, 120, (h, w, 3))).astype(np.uint8)
+        ow = max(w // (3 * n_obj), 4)
+        oh = max(h // 4, 6)
+        objs = []
+        for k in range(n_obj):
+            x = k * w // n_obj + spacing
+            y = int(rng.integers(0, max(h - oh - speed * frames, 1)))
+            vx, vy = rng.uniform(-speed, speed), rng.uniform(0, speed)
+            patch = np.clip(rng.integers(0, 256, (oh, ow, 3)).astype(
+                np.int64) // 2 + 120 + 40 * k, 0, 255).astype(np.uint8)
+            objs.append((x, y, ow, oh, vx, vy, patch))
+        out.append((bg, objs))
+    return out
+
+
+def _draw(bg, objs, f):
+    img = bg.copy()
+    boxes = []
+    h, w = bg.shape[:2]
+    for x, y, ow, oh, vx, vy, patch in objs:
+        bx = int(np.clip(round(x + vx * f), 0, w - ow))
+        by = int(np.clip(round(y + vy * f), 0, h - oh))
+        img[by:by + oh, bx:bx + ow] = patch
+        boxes.append([bx, by, ow, oh])
+    return img, boxes
+
+
+def write_mot_tree(root: str, videos: int = 1, frames: int = 4,
+                   hw: Tuple[int, int] = (64, 64), objects: int = 2,
+                   seed: int = 0, jitter: float = 1.0) -> Tuple[str, str]:
+    """Write the MOT tree under ``root``; returns the annotation file's and
+    the detection file's paths."""
+    rng = np.random.default_rng(seed)
+    ann = dict(videos=[], images=[], annotations=[],
+               categories=[dict(id=1, name="pedestrian")])
+    dets, jobs = [], []
+    speed = max(hw[1] / 200.0, 1.0)
+    for v, (bg, objs) in enumerate(_textured_frames(
+            rng, videos, frames, hw, objects, speed, 2)):
+        name = f"MOT17-{v + 2:02d}-SYN"
+        ann["videos"].append(dict(id=v + 1, name=name))
+        for f in range(frames):
+            img, boxes = _draw(bg, objs, f)
+            img_id = len(ann["images"]) + 1
+            file_name = f"{name}/img1/{f + 1:06d}.png"
+            ann["images"].append(dict(id=img_id, video_id=v + 1, frame_id=f,
+                                      width=hw[1], height=hw[0],
+                                      file_name=file_name))
+            frame_dets = []
+            for k, (bx, by, bw, bh) in enumerate(boxes):
+                ann["annotations"].append(dict(
+                    id=len(ann["annotations"]) + 1, video_id=v + 1,
+                    image_id=img_id, category_id=1, instance_id=k + 1,
+                    bbox=[bx, by, bw, bh], area=bw * bh, iscrowd=False,
+                    visibility=1.0))
+                d = np.array([bx, by, bx + bw, by + bh], np.float64) \
+                    + rng.uniform(-jitter, jitter, 4)
+                frame_dets.append(d.tolist() + [float(rng.uniform(0.8, 1))])
+            dets.append(frame_dets)
+            jobs.append((os.path.join(root, file_name), img))
+    path = _write(root, jobs, ann, "mot_test.json")
+    det_path = os.path.join(root, "annotations", "mot_dets.json")
+    with open(det_path, "w") as f:
+        json.dump(dets, f)
+    return path, det_path
+
+
+def write_lasot_tree(root: str, videos: int = 2, frames: int = 4,
+                     hw: Tuple[int, int] = (96, 128), seed: int = 0) -> str:
+    """Write the LaSOT tree under ``root``; returns the annotation file's
+    path."""
+    rng = np.random.default_rng(seed)
+    ann = dict(videos=[], images=[], annotations=[],
+               categories=[dict(id=1, name="object")])
+    jobs = []
+    speed = max(hw[1] / 100.0, 1.0)
+    for v, (bg, objs) in enumerate(_textured_frames(
+            rng, videos, frames, hw, 1, speed, hw[1] // 4)):
+        name = f"object-{v + 1}"
+        ann["videos"].append(dict(id=v + 1, name=name))
+        for f in range(frames):
+            img, boxes = _draw(bg, objs, f)
+            img_id = len(ann["images"]) + 1
+            file_name = f"{name}/img/{f + 1:08d}.png"
+            ann["images"].append(dict(id=img_id, video_id=v + 1, frame_id=f,
+                                      width=hw[1], height=hw[0],
+                                      file_name=file_name))
+            bx, by, bw, bh = boxes[0]
+            ann["annotations"].append(dict(
+                id=len(ann["annotations"]) + 1, video_id=v + 1,
+                image_id=img_id, category_id=1, instance_id=1,
+                bbox=[bx, by, bw, bh], area=bw * bh, iscrowd=False))
+            jobs.append((os.path.join(root, file_name), img))
+    return _write(root, jobs, ann, "lasot_test.json")

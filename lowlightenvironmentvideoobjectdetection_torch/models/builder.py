@@ -8,7 +8,11 @@ build. A config's ``backbone_variant`` builds a dark backbone
 (``backbones/dark_resnet.py``) with its ``backbone_overrides``.
 
 ``vid_model_kwargs`` maps a config to the streaming ``VIDModel``, as the
-JAX ``tools/test.py`` and ``tools/train.py`` do.
+JAX ``tools/test.py`` and ``tools/train.py`` do. The tracking configs are
+not in ``MODELS`` (nothing trains them in the port yet):
+``build_mot_model`` builds DeepSORT or Tracktor from a config's ``model``
+and ``tracker`` dicts, as the JAX zoo and CLI do, and ``sot_model_kwargs``
+maps a SiamRPN config to ``apis/inference.py``'s ``SOTModel``.
 
 Each factory takes the config's model dict (without ``type``) and gives a
 ``SelsaConfig`` for the ImageNet-VID families (DFF's
@@ -26,13 +30,19 @@ how the JAX package runs on a TPU are dropped: ``remat``, ``input_packed``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+import inspect
+from typing import Dict, Optional, Union
 
 import torch
 
 from ..registry import MODELS
+from .detectors.faster_rcnn import make_faster_rcnn
+from .mot.deep_sort import DeepSORT, Tracktor
+from .mot.trackers import SortTracker, TracktorTracker
+from .reid.base_reid import BaseReID
 from .vid.fgfa import DFF, FGFA, dff_loss, fgfa_loss, make_dff, make_fgfa
-from .vid.selsa import SelsaConfig, SelsaDetector, make_selsa, selsa_loss
+from .vid.selsa import (SelsaConfig, SelsaDetector, cast_for_inference,
+                        init_params, make_selsa, selsa_loss)
 from .vid.selsa_darkfarm import DarkfarmConfig, darkfarm_loss, make_darkfarm
 from .vid.selsa_fastdvd import (FastDVDSelsaConfig, fastdvd_selsa_loss,
                                 make_fastdvd_selsa)
@@ -318,3 +328,94 @@ def vid_model_kwargs(model_cfg: dict, sampler: Optional[dict] = None,
     out.update({f.name: getattr(scfg, f.name)
                 for f in dataclasses.fields(scfg)})
     return out
+
+
+# ---------------------------------------------------------------------------
+# tracking: the JAX zoo's ``DeepSORT`` / ``Tracktor`` factories and the JAX
+# CLI's mapping of a config's ``model`` and ``tracker`` dicts
+# (``tools/test.py`` ``run_mot_eval``, ``run_sot_eval``)
+
+MOT_TYPES = ("DeepSORT", "Tracktor")
+SOT_TYPES = ("SiamRPN",)
+# the JAX CLI's --tiny for MOT (the ReID net stays bfloat16, as there)
+TINY_MOT_KW = dict(pad_h=64, pad_w=64, test_nms_pre=64, test_nms_post=16,
+                   compute_dtype=torch.float32)
+# and for SOT: the smallest crops the template's center 7x7 allows
+TINY_SOT_KW = dict(exemplar_size=64, search_size=128)
+TRACKER_ALIASES = {"reid_thr": "reid_sim_thr", "iou_thr": "match_iou_thr"}
+TRACKERS = {"DeepSORT": SortTracker, "Tracktor": TracktorTracker}
+
+
+def sot_model_kwargs(model_cfg: dict, tiny: bool = False) -> dict:
+    """A SOT config's ``model`` dict (type SiamRPN and ``SiamRPNConfig``
+    fields) -> ``SOTModel`` keyword arguments; ``tiny`` gives TINY_SOT_KW
+    where the dict sets no crop size, as the JAX CLI does."""
+    kw = dict(model_cfg)
+    mtype = kw.pop("type")
+    if mtype not in SOT_TYPES:
+        raise ValueError(f"model type {mtype!r}: SOT types are {SOT_TYPES}")
+    if tiny:
+        for k, v in TINY_SOT_KW.items():
+            kw.setdefault(k, v)
+    return kw
+
+
+def tracker_kwargs(tracker_cls, tracker_cfg: Optional[dict]) -> dict:
+    """A config's ``tracker`` dict -> the tracker's keyword arguments:
+    ``reid_thr`` is ``reid_sim_thr``, ``iou_thr`` is ``match_iou_thr``, and
+    keys the tracker does not take are dropped (``regression_thr``), as the
+    JAX CLI maps them."""
+    names = set(inspect.signature(tracker_cls).parameters)
+    kw = {TRACKER_ALIASES.get(k, k): v for k, v in (tracker_cfg or {}).items()}
+    return {k: v for k, v in kw.items() if k in names}
+
+
+def build_mot_model(model_cfg: dict, tracker_cfg: Optional[dict] = None,
+                    tiny: bool = False, seed: int = 0, device=None,
+                    state_dict: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Union[DeepSORT, Tracktor]:
+    """A MOT config's ``model`` dict (type DeepSORT or Tracktor, with
+    ``num_classes``, DeepSORT's ``with_reid``, Tracktor's ``with_cmc``,
+    ``with_linear_motion``, ``linear_motion_num_samples`` and the
+    detector's ``SelsaConfig`` fields) and ``tracker`` dict -> the model
+    on ``device`` (None: the card). Tracktor's ``with_cmc`` and
+    ``with_linear_motion`` may come from the tracker dict, where the
+    configs put them. The detector is Faster R-CNN on the DC5 ResNet, as
+    the JAX zoo builds it; weights seeded from ``seed`` (the ReID net's from
+    ``seed + 1``) or from ``state_dict`` (``detector.`` and ``reid.``
+    entries). ``tiny`` applies TINY_MOT_KW."""
+    kw = dict(model_cfg)
+    mtype = kw.pop("type")
+    if mtype not in MOT_TYPES:
+        raise ValueError(f"model type {mtype!r}: MOT types are {MOT_TYPES}")
+    tcfg = dict(tracker_cfg or {})
+    if tiny:
+        kw.update(TINY_MOT_KW)
+    num_classes = kw.pop("num_classes", 1)
+    if mtype == "Tracktor":
+        opts = dict(
+            with_cmc=bool(kw.pop("with_cmc", tcfg.pop("with_cmc", False))),
+            with_linear_motion=bool(kw.pop(
+                "with_linear_motion", tcfg.pop("with_linear_motion", False))),
+            linear_motion_num_samples=kw.pop("linear_motion_num_samples", 2))
+    else:
+        with_reid = kw.pop("with_reid", True)
+    gen = torch.Generator().manual_seed(seed)
+    detector, anchors = make_faster_rcnn(
+        _selsa_cfg(num_classes=num_classes, **kw), gen, device=device)
+    tracker = TRACKERS[mtype](**tracker_kwargs(TRACKERS[mtype], tcfg))
+    if mtype == "Tracktor":
+        model = Tracktor(detector, anchors, tracker, **opts)
+    else:
+        reid = None
+        if with_reid:
+            reid = BaseReID()  # seeded on the CPU, then moved
+            init_params(reid, torch.Generator().manual_seed(seed + 1))
+            reid = reid.to(anchors.device)
+        model = DeepSORT(detector, anchors, reid, tracker)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    cast_for_inference(model.detector.eval())
+    if getattr(model, "reid", None) is not None:
+        cast_for_inference(model.reid.eval())
+    return model

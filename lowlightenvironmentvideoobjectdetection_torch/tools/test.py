@@ -22,28 +22,56 @@ frames), in ``--num-shards`` whole-video shards (``--shard`` runs one).
 streams N frames of uniform noise instead, with no data. Prints one JSON
 line, ``{"frames", "fps", "eval"[, "mAP50"]}``; ``--out`` writes it with
 the per-frame results (``summary`` and ``results``, as the JAX CLI).
-The tracking (MOT, SOT) and image-detector routes of the JAX CLI raise
-``NotImplementedError``: their models are not in the port.
+
+The tracking routes, as the JAX CLI's ``run_mot_eval`` and
+``run_sot_eval``:
+
+- MOT (model type DeepSORT or Tracktor, or a ``MOTChallengeDataset``):
+  ``models/builder.py`` ``build_mot_model`` with the config's ``tracker``
+  dict, the weights of ``--checkpoint`` (the model's ``state_dict()``:
+  ``detector.`` and ``reid.`` entries) or seeded ones; every frame of
+  ``data.test`` (PNG, read with ``data/image_io.py``; JPEG waits for
+  ROADMAP.md Queue 1's JPEG item) resized into the bucket, tracked with
+  the ``detection_file``'s public boxes (scaled into the bucket) if the
+  config has one, Tracktor with the raw frame for its camera motion
+  compensation (ROADMAP fault F16: the JAX CLI gives none), the result
+  mapped back to the original frame (F15). Prints ``{"frames", "fps",
+  "model", "eval"[, "track"]}``: ``--eval track`` adds CLEAR-MOT;
+  ``--out`` writes the MOT txt files into ``mot_results/`` beside it.
+- SOT (SiamRPN, or a ``LaSOTDataset``): ``apis/inference.py``
+  ``init_sot_model`` (``--checkpoint``: a ``SiamRPN`` state dict), each
+  video tracked from its first ground-truth box; prints ``{"frames",
+  "fps", "model", "eval", "sot"}`` with OPE success, precision and
+  normalized precision.
+
+``--tiny`` gives the JAX CLI's sizes there too: a 64x64 bucket and a
+float32 detector for MOT (the ReID net stays bfloat16), 64 / 128 crops
+for SOT. The image-detector route raises ``NotImplementedError``: its
+models are not in the port.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-from ..apis.inference import init_model
+from ..apis.inference import init_model, inference_mot, init_sot_model
 from ..apis.test import evaluate_bbox, multi_device_test
 from ..config import Config, apply_cli_options
+from ..data.image_io import imread
 from ..data.loader import build_dataset, loader_workers
+from ..data.mot_sot_datasets import LaSOTDataset, MOTChallengeDataset
 from ..data.pipelines import Compose
-from ..models.builder import vid_model_kwargs
+from ..models.builder import (MOT_TYPES, SOT_TYPES, build_mot_model,
+                              sot_model_kwargs, vid_model_kwargs)
 from ..utils.device import resolve_device
 
-MOT_TYPES = ("DeepSORT", "Tracktor")
 VIDEO_DATASETS = ("ImagenetVIDDataset", "DarkFarmVIDDataset",
                   "CocoVideoDataset", "MOTChallengeDataset", "LaSOTDataset",
                   "SOTTrainDataset")
@@ -70,23 +98,99 @@ def parse_args(argv: Optional[List[str]] = None):
     return p.parse_args(argv)
 
 
-def check_route(cfg) -> None:
-    """Raise for the JAX CLI's routes whose models the port lacks."""
+def check_route(cfg) -> str:
+    """The JAX CLI's route for a config, "mot", "sot" or "vid"; raises for
+    the image detectors, which the port lacks."""
     mtype = cfg["model"]["type"]
     dtype = ((cfg.get("data") or {}).get("test") or {}).get("type")
     if mtype in MOT_TYPES or dtype == "MOTChallengeDataset":
-        raise NotImplementedError(
-            f"{mtype}: multi-object tracking is not ported (ROADMAP.md "
-            "Queue 1 item 7, MOT and SOT)")
-    if mtype == "SiamRPN" or dtype == "LaSOTDataset":
-        raise NotImplementedError(
-            f"{mtype}: single-object tracking is not ported (ROADMAP.md "
-            "Queue 1 item 7, MOT and SOT)")
+        return "mot"
+    if mtype in SOT_TYPES or dtype == "LaSOTDataset":
+        return "sot"
     if mtype in VID_TYPES or dtype in VIDEO_DATASETS:
-        return
+        return "vid"
     raise NotImplementedError(
         f"{mtype} on {dtype}: the image detectors are not ported (ROADMAP.md "
         "Queue 1 item 9, the mmdet zoo)")
+
+
+def read_frame(info: dict, img_prefix: str) -> np.ndarray:
+    """A dataset frame as BGR uint8 [H, W, 3] (PNG; a JPEG raises with
+    ROADMAP.md's JPEG item)."""
+    return imread(os.path.join(img_prefix or "", info.get("file_name")
+                               or info.get("filename", "")))
+
+
+def run_mot(args, cfg, device) -> dict:
+    """Stream ``data.test`` through DeepSORT or Tracktor; CLEAR-MOT with
+    ``--eval track``."""
+    dcfg = cfg["data"]["test"]
+    sd = None
+    if args.checkpoint:
+        sd = torch.load(args.checkpoint, map_location="cpu",
+                        weights_only=True)
+    model = build_mot_model(dict(cfg["model"]), cfg.get("tracker"),
+                            tiny=args.tiny, device=device, state_dict=sd)
+    ds = MOTChallengeDataset(
+        ann_file=dcfg["ann_file"], img_prefix=dcfg.get("img_prefix", ""),
+        test_mode=True, detection_file=dcfg.get("detection_file"))
+    results = []
+    t0 = time.perf_counter()
+    for i, info in enumerate(ds.data_infos):
+        public = None if ds.detections is None else ds.detections[i]
+        results.append(inference_mot(model, read_frame(info, ds.img_prefix),
+                                     info.get("frame_id", i),
+                                     public_bboxes=public))
+    dt = time.perf_counter() - t0
+    summary = dict(frames=len(results),
+                   fps=round(len(results) / dt, 2) if dt > 0 else 0.0,
+                   model=cfg["model"]["type"], eval=args.eval)
+    metrics = {}
+    if "track" in args.eval:
+        metrics = ds.evaluate(results)
+        summary["track"] = {k: round(float(v), 4) for k, v in metrics.items()}
+    if args.out:
+        out_dir = os.path.dirname(args.out) or "."
+        ds.format_results(results, os.path.join(out_dir, "mot_results"))
+    print(json.dumps(summary))
+    return dict(summary=summary, results=results, metrics=metrics,
+                timings=None)
+
+
+def run_sot(args, cfg, device) -> dict:
+    """Track every video of ``data.test`` from its first box; OPE."""
+    model = init_sot_model(checkpoint=args.checkpoint, device=device,
+                           **sot_model_kwargs(cfg["model"], args.tiny))
+    dcfg = cfg["data"]["test"]
+    ds = LaSOTDataset(ann_file=dcfg["ann_file"],
+                      img_prefix=dcfg.get("img_prefix", ""), test_mode=True)
+    results = []
+    nframes = 0
+    t0 = time.perf_counter()
+    for v in range(ds.num_videos):
+        video = ds.get_video(v)
+        gt = video["gt_bboxes"]
+        boxes = []
+        for t, info in enumerate(video["frames"]):
+            img = read_frame(info, ds.img_prefix)
+            if t == 0:
+                init = gt[0] if not np.isnan(gt[0]).any() else \
+                    np.asarray([0.0, 0.0, 16.0, 16.0], np.float32)
+                r = model.inference_sot(img, init, 0)
+            else:
+                r = model.inference_sot(img, None, t)
+            boxes.append(np.asarray(r["track_bboxes"][:4], np.float32))
+            nframes += 1
+        results.append(np.stack(boxes))
+    dt = time.perf_counter() - t0
+    summary = dict(frames=nframes,
+                   fps=round(nframes / dt, 2) if dt > 0 else 0.0,
+                   model="SiamRPN", eval=args.eval)
+    metrics = ds.evaluate(results)
+    summary["sot"] = {k: round(float(v), 4) for k, v in metrics.items()}
+    print(json.dumps(summary))
+    return dict(summary=summary, results=results, metrics=metrics,
+                timings=None)
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -96,8 +200,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
     cfg = Config.fromfile(args.config)
     apply_cli_options(cfg, args.cfg_options)
-    check_route(cfg)
+    route = check_route(cfg)
     device = resolve_device(args.device)
+    if route == "mot":
+        return run_mot(args, cfg, device)
+    if route == "sot":
+        return run_sot(args, cfg, device)
     dcfg = (cfg.get("data") or {}).get("test") or {}
     model = init_model(checkpoint=args.checkpoint, device=device,
                        **vid_model_kwargs(cfg["model"],

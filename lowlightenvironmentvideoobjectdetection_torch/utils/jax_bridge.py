@@ -6,7 +6,11 @@ dicts of numpy arrays (``{"params": ..., "batch_stats": ...}``, e.g.
 ``SelsaDetector`` (or ``SelsaDarkfarmDetector``, whose ``selsa`` and
 ``cleaner.resnet`` modules are named as the flax ones,
 ``FastDVDSelsaDetector``, ``denoiser`` and ``selsa``, or ``FGFA`` and
-``DFF``, ``detector``, ``motion`` and ``aggregator``). Module names match
+``DFF``, ``detector``, ``motion`` and ``aggregator``; for tracking,
+``FasterRCNN``, ``BaseReID`` (``backbone``, ``head.fc0``,
+``head.fc_out``) and ``SiamRPN``, whose flax ``LayerNorm`` scale and bias
+become ``weight`` and ``bias`` and whose root parameters
+``cls_weights`` / ``reg_weights`` keep their names). Module names match
 the flax names, so a leaf's key is its path joined by dots with the leaf
 renamed:
 
@@ -45,6 +49,7 @@ from ..models.vid.fgfa import DFFState, FGFAState
 from ..models.vid.selsa import VideoState
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+_ROOT_PARAMS = ("cls_weights", "reg_weights")  # SiamRPN's level weights
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -83,6 +88,8 @@ def from_jax_variables(variables: Mapping,
                     and "conv_offset" in _node(tree, mods) and a.ndim == 4
                     and a.shape[:2] == (3, 3)):
                 a = a.transpose(3, 2, 0, 1)  # the DCN's raw [3, 3, in, out]
+            elif coll == "params" and not mods and leaf_name in _ROOT_PARAMS:
+                pass
             elif leaf_name not in names or not mods:
                 raise KeyError(f"unconsumed leaf {coll}/{'/'.join(path)}")
             elif leaf_name == "kernel":

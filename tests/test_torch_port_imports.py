@@ -4,7 +4,9 @@ fresh interpreter with those names blocked in ``sys.modules`` (an import
 of a blocked name raises), every module of the port and ``chip_smoke``
 import, and the canonical config's data path runs: a tree of PNG pairs is
 written and read back, a training batch is built from it, and the test
-CLI evaluates the config on it; the FGFA config streams two frames."""
+CLI evaluates the config on it; the FGFA config streams two frames; the
+test CLI's MOT route tracks a tiny MOT tree of PNG frames with DeepSORT
+(the JV solver built from ``csrc/lap.cpp``, ECC-free) and CLEAR-MOT."""
 
 import os
 import pkgutil
@@ -27,7 +29,12 @@ def test_port_runs_without_jax_cv2_or_pil(tmp_path):
         ".models.cleaners.video_denoisers",
         ".models.vid.selsa_fastdvd", ".ops.grid_sample",
         ".models.motion.flownet_simple", ".models.detectors.faster_rcnn",
-        ".models.vid.fgfa")} <= set(mods)
+        ".models.vid.fgfa", ".core.motion.kalman", ".core.motion.linear",
+        ".core.motion.cmc", ".core.track_utils", ".core.eval.mot",
+        ".core.eval.sot", ".ops.lap", ".ops.scale_translate",
+        ".models.mot.trackers", ".models.mot.deep_sort",
+        ".models.reid.base_reid", ".models.sot.siamrpn",
+        ".data.mot_sot_datasets")} <= set(mods)
     code = f"""
 import importlib, sys
 for name in {BLOCKED!r}:
@@ -59,6 +66,15 @@ out = test.main(["configs/vid/fgfa/fgfa_faster_rcnn_r50_dc5_1x_imagenetvid.py",
                  "--cfg-options", "model.neck_channels=32",
                  "model.num_ref_frames=2"])
 assert out["summary"]["frames"] == 2
+from {port.__name__}.data.synthetic import write_mot_tree
+mann, mdets = write_mot_tree({str(tmp_path / "mot")!r}, frames=3)
+out = test.main(["configs/mot/deepsort/"
+                 "deepsort_faster-rcnn_fpn_4e_mot17-private-half.py",
+                 "--tiny", "--device", "cpu", "--eval", "track",
+                 "--cfg-options", "data.test.ann_file=" + mann,
+                 "data.test.img_prefix={tmp_path / "mot"}/",
+                 "data.test.detection_file=" + mdets])
+assert out["summary"]["frames"] == 3 and "MOTA" in out["summary"]["track"]
 loaded = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}
           and sys.modules[m] is not None]
 assert not loaded, loaded

@@ -12,8 +12,9 @@
 - a dark-backbone config (``llvod_lstm_darkfarm.py``: ``SelsaDarkDetect``,
   the ConvLSTM DarkResNet) streams with its backbone, equal to
   ``apis/test.py`` with the same seeded model;
-- the JAX CLI's tracking and image-detector routes raise
-  ``NotImplementedError``;
+- the JAX CLI's image-detector route raises ``NotImplementedError``; its
+  tracking routes (MOT, SOT) are taken (``test_torch_port_track_cli.py``
+  runs them);
 - without ``--device cpu`` and with no card it raises ``RuntimeError``.
 
 The gts are the port's own top detections (2 a frame).
@@ -227,17 +228,25 @@ def test_a_dark_variant_config_streams(world, monkeypatch):
     assert got["metrics"] == evaluate_bbox(dets, anns)
 
 
-@pytest.mark.parametrize("opts,match", [
-    (["model.type=DeepSORT"], "multi-object tracking"),
-    (["data.test.type=MOTChallengeDataset"], "multi-object tracking"),
-    (["model.type=SiamRPN"], "single-object tracking"),
+@pytest.mark.parametrize("opts,want", [
+    (["model.type=DeepSORT"], "mot"),
+    (["data.test.type=MOTChallengeDataset"], "mot"),
+    (["model.type=SiamRPN"], "sot"),
     (["model.type=FasterRCNN", "data.test.type=CocoDataset"],
      "image detectors"),
 ], ids=["mot_model", "mot_data", "sot", "image"])
-def test_routes_the_port_lacks_raise(world, opts, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_routes_the_port_lacks_raise(world, opts, want):
+    """Only the image-detector route is still missing: it raises; the
+    tracking configs take the MOT or SOT route."""
+    argv = opts + options(world["ann"], world["prefix"])[1:]
+    if want in ("mot", "sot"):
+        cfg = Config.fromfile(CANONICAL)
+        apply_cli_options(cfg, argv)
+        assert tcli.check_route(cfg) == want
+        return
+    with pytest.raises(NotImplementedError, match=want):
         tcli.main([CANONICAL, "--tiny", "--device", "cpu", "--cfg-options"]
-                  + opts + options(world["ann"], world["prefix"])[1:])
+                  + argv)
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(world, monkeypatch):
