@@ -139,8 +139,24 @@ f32: init and step ms, idle share; one step on the card against the CPU
 from the same state) and ``track_eval`` (the test CLI's MOT route with
 DeepSORT on a MOT tree of PNG frames with public detections, MOTA at
 least MOT_MOTA_FLOOR, and its SOT route on a LaSOT tree, finite OPE;
-frames/s of both). Then one JSON line of kernel summaries (A-G), and a
-last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+frames/s of both). Then JPEG frames, the learning check and checkpoint
+import: ``jpeg_decode`` (the host decoder ``csrc/jpeg_decode.cpp`` built
+with g++: every committed fixture of ``tests/data/jpeg`` against its
+manifest's sha256 of cv2's pixels; the 1080x1920 4:2:0 frame's decode ms
+beside the same pixels as PNG), ``jpeg_train`` (the canonical config
+through the training CLI on a DarkFarm tree of .JPG frames, 4 loader
+workers: B and D twice and E, F, G 12 times a step, finite losses),
+``jpeg_eval`` (its test CLI on the tree's val split, f32: the plain run's
+detections as gts, the kernel path's mAP50), ``learning`` (the port's
+``tools/learning_smoke.py`` at its 1000 steps for 2 or 3 seeds: mAP50
+before below LEARNING_MAP_BEFORE_MAX, the median of 3 after at least
+LEARNING_MAP_FLOOR, B and D counted) and ``torch_import`` (a seeded mmtrack
+SELSA checkpoint saved, loaded with ``weights_only=True``, imported and
+streamed at f32 over IMPORT_FRAMES frames through the kernels and the plain
+path: equal detection sets). The entry points run there start from
+PyTorch's TF32 defaults and must turn TF32 off. Then one JSON line of
+kernel summaries (A-G), and a last line ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero.
 
     python3 chip_smoke.py --roi-grad-times ROOT
     python3 chip_smoke.py --dcn-times ROOT
@@ -305,6 +321,22 @@ MOT_TREE = dict(videos=1, frames=8, hw=(1080, 1920), objects=4, seed=0,
                 jitter=2.0)
 SOT_TREE = dict(videos=2, frames=6, hw=(720, 1280), seed=0)
 MOT_MOTA_FLOOR = 0.9
+# JPEG frames, the learning check and checkpoint import
+JPEG_FIXTURES = REPO / "tests" / "data" / "jpeg"
+JPEG_TIMED = "darkfarm_0_low.jpg"  # 1080x1920 4:2:0, DarkFarm's frame size
+JPEG_DECODES = 5        # jpeg_decode: the median of this many decodes
+JPEG_TREE = dict(videos=2, val_videos=2, frames=6)
+JPEG_STEPS, JPEG_PROFILED = 4, 2
+LEARNING_STEPS, LEARNING_EVAL_IMAGES = 1000, 16
+LEARNING_JAX_MAP_AFTER = 0.049  # the JAX tool, CPU, 1000 steps (PERF.md)
+LEARNING_MAP_FLOOR = 0.5 * LEARNING_JAX_MAP_AFTER
+LEARNING_MAP_BEFORE_MAX = 0.1
+# a run from scratch sometimes collapses (PERF.md, "The learning floor"):
+# the median of three seeds' mAP50 is gated, and the third seed runs only
+# where the first two disagree
+LEARNING_SEEDS = (0, 1, 2)
+IMPORT_FRAMES = 4       # torch_import: frame 0 (the memo fill) and 3 more
+IMPORT_CLS_SCALE = 4.0  # the synthetic fc_cls's spread over the init's
 # --loader-close: rounds of opening, reading and closing the loader
 LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
@@ -2531,15 +2563,8 @@ def png_decode_ms(root):
     path = sorted(glob.glob(f"{root}/*/GT/*.png"))[0]
     paeth = f"{root}/paeth.png"
     image_io.imwrite_png(paeth, image_io.imread(path), filters=4, level=1)
-    out = {}
-    for name, p in (("none", path), ("paeth", paeth)):
-        ts = []
-        for _ in range(3):
-            t = time.perf_counter()
-            image_io.imread(p)
-            ts.append((time.perf_counter() - t) * 1e3)
-        out[name] = statistics.median(ts)
-    return out
+    return {name: decode_ms(lambda: image_io.imread(p), 3)
+            for name, p in (("none", path), ("paeth", paeth))}
 
 
 def data_train(dev, smi, kernels, root):
@@ -3988,6 +4013,340 @@ def track_eval(dev, smi, kernels, root):
     return counts, dict(roi_align={}, roi_align_backward={})
 
 
+# ---------------------------------------------------------------------------
+# JPEG frames, the learning check and the original code's checkpoints
+
+
+def decode_ms(fn, n=JPEG_DECODES):
+    """Median host ms of ``n`` calls."""
+    ts = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ts)
+
+
+def jpeg_decode(smi):
+    """The host JPEG decoder (``csrc/jpeg_decode.cpp``, built with g++ at
+    its first use): every committed fixture of ``tests/data/jpeg`` decoded
+    on this host, its shape and the sha256 of its bytes equal to the
+    manifest's (cv2's ``imread``, where the fixtures were written); then
+    the 1080x1920 4:2:0 fixture's decode ms (median of JPEG_DECODES)
+    beside the same pixels as PNG, written without a row filter and with
+    Paeth on every row."""
+    import hashlib
+    from lowlightenvironmentvideoobjectdetection_torch.data import (
+        image_io, jpeg)
+    t = time.perf_counter()
+    jpeg.load_library()
+    build_s = time.perf_counter() - t
+    with open(JPEG_FIXTURES / "manifest.json") as f:
+        manifest = json.load(f)
+    bad = []
+    for name, entry in sorted(manifest.items()):
+        img = image_io.imread(str(JPEG_FIXTURES / name))
+        if list(img.shape) != entry["shape"] or hashlib.sha256(
+                img.tobytes()).hexdigest() != entry["sha256"]:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"jpeg_decode: not the manifest's pixels: {bad}")
+    path = str(JPEG_FIXTURES / JPEG_TIMED)
+    img = image_io.imread(path)
+    png_ms = {}
+    with tempfile.TemporaryDirectory(prefix="_smoke_jpeg_", dir=REPO) as d:
+        for name, filters in (("none", 0), ("paeth", 4)):
+            p = f"{d}/{name}.png"
+            image_io.imwrite_png(p, img, filters=filters, level=1)
+            png_ms[name] = decode_ms(lambda: image_io.imread(p))
+    phase("jpeg_decode", card=smi, fixtures=len(manifest),
+          all_match_manifest=True, decoder_build_s=build_s,
+          timed=dict(file=JPEG_TIMED, shape=list(img.shape),
+                     jpeg_bytes=(JPEG_FIXTURES / JPEG_TIMED).stat().st_size,
+                     decodes=JPEG_DECODES),
+          jpeg_decode_ms=decode_ms(lambda: image_io.imread(path)),
+          png_decode_ms=png_ms)
+
+
+def tf32_defaults():
+    """PyTorch's TF32 defaults, which an entry point must turn off."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def tf32_turned_off(name):
+    """The TF32 flags after an entry point ran, which must be off."""
+    from lowlightenvironmentvideoobjectdetection_torch.utils.device import (
+        precision_flags)
+    flags = precision_flags()
+    if any(flags.values()):
+        raise AssertionError(f"{name}: TF32 left on: {flags}")
+    return flags
+
+
+def jpeg_train(dev, smi, kernels, root):
+    """The canonical config through the training CLI on a DarkFarm tree of
+    .JPG frames (``write_darkfarm_jpeg_tree``: JPEG_TREE's videos, every
+    frame a copy of a committed 1080x1920 low / GT pair), as ``data_train``
+    runs it on PNG: JPEG_STEPS steps with DATA_WORKERS loader processes, B
+    and D twice and E, F, G 12 times a step, finite losses, the loader's
+    ms a batch, the device's idle share over the last JPEG_PROFILED steps.
+    The TF32 flags are set to PyTorch's defaults before and must be off
+    after (the CLI turns them off). Returns the run's counts, B's and D's
+    bodies and the val split's annotation file."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
+        write_darkfarm_jpeg_tree)
+    t = time.perf_counter()
+    train_ann, val_ann = write_darkfarm_jpeg_tree(root, **JPEG_TREE)
+    tree_s = time.perf_counter() - t
+    tf32_defaults()
+    argv = [str(REPO / CANONICAL_CFG), "--seed", "0", "--work-dir",
+            f"{root}/work"] + data_options(root, train_ann, DATA_WORKERS)
+    run = cli_run("jpeg_train", argv, kernels, DATA_PER_STEP, JPEG_STEPS,
+                  JPEG_STEPS - JPEG_PROFILED)
+    phase("jpeg_train", card=smi, config=CANONICAL_CFG, tree=JPEG_TREE,
+          frame_hw=[1080, 1920], tree_write_s=tree_s, steps=JPEG_STEPS,
+          workers=DATA_WORKERS, step_ms=run["step_ms"],
+          loss_per_step=[m["loss"] for m in run["metrics"]],
+          loader_ms_per_batch=run["timings"],
+          loader_median_ms=loader_summary(run["timings"], 1),
+          device_window=run["window"], peak_mem_gb=run["peak_gb"],
+          launches_per_step=dict(zip(KERNEL_NAMES, DATA_PER_STEP)),
+          tf32_after_cli=tf32_turned_off("jpeg_train"))
+    return (run["counts"], run["bodies"]), val_ann
+
+
+def jpeg_eval(dev, smi, kernels, root, ann):
+    """The canonical config's test CLI on the JPEG tree's val split (its
+    VID route: frames stream through the loader's DATA_WORKERS processes),
+    gated as ``eval`` gates: the plain path at f32 makes the gts
+    (``eval_gts``; its own mAP50 must be 1), the kernel path at f32
+    through the CLI scores mAP50 at least EVAL_F32_MAP against them; A 3
+    times and B once a frame, B once more a memo fill. Reports the
+    per-frame times of the CLI run and the detection sets against the
+    plain run's. Returns the counts (A-G) and B's and D's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.test import (
+        evaluate_bbox)
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        load_config)
+    from lowlightenvironmentvideoobjectdetection_torch.data.loader import (
+        build_dataset)
+    t = time.perf_counter()
+    cfg_path = str(REPO / CANONICAL_CFG)
+    frames, videos = JPEG_TREE["frames"], JPEG_TREE["val_videos"]
+    n = frames * videos
+    per_run = (3 * n, n + videos, 0, 0, 0, 0, 0)
+    plain, plain_s = eval_reference(dev, cfg_path, root, ann, kernels)
+    gts = f"{root}/jpeg_eval_gts.json"
+    thr, n_gts = eval_gts(ann, plain, gts)
+    test_cfg = load_config(cfg_path)["data"]["test"]
+    ds = build_dataset(dict(test_cfg, ann_file=gts, img_prefix=f"{root}/"),
+                       test_mode=True)
+    plain_map = evaluate_bbox(plain, [ds.get_ann_info(i)
+                                      for i in ds.data_infos])["mAP50"]
+    tf32_defaults()
+    run = eval_cli("jpeg_eval f32", [cfg_path]
+                   + eval_options(root, gts, DATA_WORKERS)
+                   + ["model.compute_dtype=float32"], kernels, per_run)
+    check_bodies("jpeg_eval attention", kernels[0], fma=3 * n, mma=0)
+    check_bodies("jpeg_eval roi_align", kernels[1], gather7x2=n + videos,
+                 gather14x2=0)
+    f32_map = run["out"]["metrics"]["mAP50"]
+    sets = [match_rows(per_class_rows(g), per_class_rows(w))
+            for g, w in zip(run["dets"], plain)]
+    phase("jpeg_eval", card=smi, config=CANONICAL_CFG, tree=JPEG_TREE,
+          gts=dict(count=n_gts, score_threshold=thr), plain_f32_s=plain_s,
+          plain_f32_map50=plain_map, kernel_f32_map50=f32_map,
+          kernel_f32_gate=EVAL_F32_MAP, workers=DATA_WORKERS,
+          unmatched_rows=sum(x["unmatched"] for x in sets),
+          frames_with_unmatched=sum(1 for x in sets if x["unmatched"]),
+          times=eval_times(run, frames),
+          tf32_after_cli=tf32_turned_off("jpeg_eval"),
+          launches=dict(zip(KERNEL_NAMES, run["counts"])),
+          phase_s=time.perf_counter() - t)
+    if plain_map != 1.0 or f32_map < EVAL_F32_MAP:
+        raise AssertionError(f"jpeg_eval: mAP50 plain {plain_map}, kernels "
+                             f"{f32_map}")
+    return run["counts"], {k: run["bodies"][k] for k in (
+        "roi_align", "roi_align_backward")}
+
+
+def learning(dev, smi, kernels):
+    """The port's learning check (``tools/learning_smoke.py``) on the card
+    at its defaults with the seeds of LEARNING_SEEDS, until the median of
+    the three is decided: Faster R-CNN from scratch on the synthetic
+    shapes, LEARNING_STEPS steps of Adam, mAP50 on LEARNING_EVAL_IMAGES
+    images before and after. Gates: every ``map_before`` below
+    LEARNING_MAP_BEFORE_MAX, the median ``map_after`` (two of the three)
+    at least LEARNING_MAP_FLOOR (half the JAX tool's on the CPU at the
+    same steps), B once a step and once an evaluated image, D once a step;
+    TF32 off after each entry. Returns the counts (A-G) and B's and D's
+    bodies."""
+    import io
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        learning_smoke)
+    reset_counts(*kernels)
+    runs = []
+    for seed in LEARNING_SEEDS:
+        passed = sum(r["map_after"] >= LEARNING_MAP_FLOOR for r in runs)
+        if 2 in (passed, len(runs) - passed):
+            break  # the median is decided
+        tf32_defaults()
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            out = learning_smoke.main([
+                "--steps", str(LEARNING_STEPS), "--eval-images",
+                str(LEARNING_EVAL_IMAGES), "--seed", str(seed)])
+        torch.cuda.synchronize()
+        if json.loads(printed.getvalue().strip().splitlines()[-1]) != out:
+            raise AssertionError("learning: the printed line is not the "
+                                 "result")
+        runs.append(dict(seed=seed, wall_s=time.perf_counter() - t,
+                         tf32_after_entry=tf32_turned_off("learning"), **out))
+    counts = [k.launches for k in kernels]
+    want = [0] * len(kernels)
+    want[1] = len(runs) * (LEARNING_STEPS + 2 * LEARNING_EVAL_IMAGES)
+    want[3] = len(runs) * LEARNING_STEPS
+    check_bodies("learning roi_align", kernels[1], gather7x2=want[1],
+                 gather14x2=0)
+    passed = sum(r["map_after"] >= LEARNING_MAP_FLOOR for r in runs)
+    phase("learning", card=smi, runs=runs, runs_at_floor=passed,
+          floor=LEARNING_MAP_FLOOR, jax_cpu_map_after=LEARNING_JAX_MAP_AFTER,
+          map_before_max=LEARNING_MAP_BEFORE_MAX,
+          launches=dict(zip(KERNEL_NAMES, counts)))
+    if counts != want:
+        raise AssertionError(f"learning: launch counts {counts}, want {want}")
+    if max(r["map_before"] for r in runs) >= LEARNING_MAP_BEFORE_MAX or \
+            passed < 2:
+        raise AssertionError(f"learning: mAP50 {runs}, floor "
+                             f"{LEARNING_MAP_FLOOR} for the median")
+    return counts, dict(roi_align=dict(kernels[1].body_launches),
+                        roi_align_backward=dict(kernels[3].body_launches))
+
+
+def original_name(name):
+    """A port SELSA parameter's name -> the mmtrack checkpoint's (the
+    inverse of ``utils/torch_import.py``'s renaming)."""
+    import re
+    name = re.sub(r"layer(\d)_(\d+)\.", r"layer\1.\2.", name)
+    name = name.replace("downsample_conv.", "downsample.0.")
+    name = name.replace("downsample_bn.", "downsample.1.")
+    name = name.replace("neck.conv0.", "neck.convs.0.conv.")
+    name = re.sub(r"^bbox_head\.shared_fc(\d)\.",
+                  r"roi_head.bbox_head.shared_fcs.\1.", name)
+    name = re.sub(r"^bbox_head\.aggregator(\d)\.",
+                  r"roi_head.bbox_head.aggregator.\1.", name)
+    return "detector." + re.sub(r"^bbox_head\.(fc_cls|fc_reg)\.",
+                                r"roi_head.bbox_head.\1.", name)
+
+
+def mmtrack_state_dict(cfg, seed):
+    """A seeded SELSA checkpoint in the original's names and layout: the
+    port's flax-style init at ``cfg``, BN statistics and biases perturbed,
+    ``fc_cls`` IMPORT_CLS_SCALE times wider (random-init scores of 31
+    classes crowd near 1/31, and rows at the top-100 cut would lie within
+    SET_SCORE_TOL of each other), the first shared FC's input columns in
+    torch's (C, 7, 7) order, a ``num_batches_tracked`` beside each BN.
+    Returns it and the port state dict it must import to."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S)
+    model = S.SelsaDetector(cfg)
+    S.init_params(model, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    want, sd = {}, {}
+    for k, v in model.state_dict().items():
+        v = v.float().clone()
+        if k.endswith("running_var"):
+            v *= 0.8 + 0.45 * torch.rand(v.shape, generator=g)
+        elif k.endswith(("bias", "running_mean")):
+            v += 0.02 * torch.randn(v.shape, generator=g)
+        elif k == "bbox_head.fc_cls.weight":
+            v *= IMPORT_CLS_SCALE
+        want[k] = v
+        if k == "bbox_head.shared_fc0.weight":
+            v = v.reshape(v.shape[0], 7, 7, -1).permute(0, 3, 1, 2).reshape(
+                v.shape[0], -1)
+        sd[original_name(k)] = v.contiguous()
+        if k.endswith("running_var"):
+            sd[original_name(k).replace("running_var",
+                                        "num_batches_tracked")] = \
+                torch.tensor(0)
+    return sd, want
+
+
+def torch_import(dev, smi, kernels):
+    """The original code's checkpoint into the port: a seeded SELSA
+    R50-DC5 ``state_dict`` at full width in mmtrack's names
+    (``mmtrack_state_dict``) saved with ``torch.save``, loaded with
+    ``weights_only=True``, imported (``utils/torch_import.py``), saved
+    and given to ``init_model``; the import equals the weights it was
+    made from. Then IMPORT_FRAMES random 600x1000 frames streamed at f32
+    through ``inference_vid`` on the kernels and on the plain path
+    (``impl = "plain"``): per frame equal detection sets within
+    SET_BOX_TOL / SET_SCORE_TOL; A twice a frame, B once a frame and once
+    more the memo fill. Returns the counts (A-G) and B's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        inference_vid, init_model)
+    from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+        selsa as S)
+    from lowlightenvironmentvideoobjectdetection_torch.utils.torch_import import (  # noqa: E501
+        import_selsa_checkpoint)
+    t = time.perf_counter()
+    sd, want = mmtrack_state_dict(S.SelsaConfig(), seed=7)
+    models = {}
+    with tempfile.TemporaryDirectory(prefix="_smoke_import_", dir=REPO) as d:
+        torch.save(sd, f"{d}/selsa_mmtrack.pth")
+        port = import_selsa_checkpoint(torch.load(
+            f"{d}/selsa_mmtrack.pth", map_location="cpu", weights_only=True))
+        if port.keys() != want.keys() or not all(
+                torch.equal(port[k], want[k]) for k in want):
+            raise AssertionError("torch_import: not the weights it was "
+                                 "made from")
+        torch.save(port, f"{d}/selsa_port.pt")
+        for impl in ("kernels", "plain"):
+            models[impl] = init_model("SELSA", checkpoint=f"{d}/selsa_port.pt",
+                                      device=dev, compute_dtype=torch.float32)
+    models["plain"].impl = "plain"
+    rng = np.random.RandomState(7)
+    frames = rng.randint(0, 256, (IMPORT_FRAMES, 600, 1000, 3)).astype(
+        np.uint8)
+    refs = rng.randint(0, 256, (14, 600, 1000, 3)).astype(np.uint8)
+    results = {}
+    for impl, model in models.items():
+        reset_counts(*kernels)
+        results[impl] = [inference_vid(model, frames[f], f, ref_frames=refs
+                                       if f == 0 else None)["bbox_results"]
+                         for f in range(IMPORT_FRAMES)]
+        if impl == "kernels":
+            counts = [k.launches for k in kernels]
+            bodies = dict(roi_align=dict(kernels[1].body_launches),
+                          roi_align_backward={})
+            check_bodies("torch_import attention", kernels[0], mma=0,
+                         fma=2 * IMPORT_FRAMES)
+        elif any(k.launches for k in kernels):
+            raise AssertionError("torch_import: the plain run launched a "
+                                 "kernel")
+    want_counts = [2 * IMPORT_FRAMES, IMPORT_FRAMES + 1, 0, 0, 0, 0, 0]
+    sets = [match_rows(per_class_rows(a), per_class_rows(b))
+            for a, b in zip(results["kernels"], results["plain"])]
+    phase("torch_import", card=smi, config="SelsaConfig() (R50-DC5, "
+          "608x1024, 30 classes), f32", keys=len(sd), imported=len(port),
+          frames=IMPORT_FRAMES, kernel_vs_plain_sets=sets,
+          tolerances=dict(box_px=SET_BOX_TOL, score=SET_SCORE_TOL),
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t)
+    if counts != want_counts:
+        raise AssertionError(f"torch_import: launch counts {counts}, want "
+                             f"{want_counts}")
+    if any(x["unmatched"] or x["n_got"] != x["n_want"] or not x["n_want"]
+           for x in sets):
+        raise AssertionError(f"torch_import: the kernel path's detections "
+                             f"differ from the plain path's: {sets}")
+    return counts, bodies
+
+
 def build_checkout(root) -> Path:
     """Put the checkout at ROOT first on the import path, check that the
     port's package comes from there, build its kernels and print the
@@ -4390,6 +4749,14 @@ def main() -> int:
     runs.append(sot_stream(dev, smi, path_kernels))
     with tempfile.TemporaryDirectory(prefix="_smoke_track_", dir=REPO) as root:
         runs.append(track_eval(dev, smi, path_kernels, root))
+    # JPEG frames, the learning check and the original code's checkpoints
+    jpeg_decode(smi)
+    with tempfile.TemporaryDirectory(prefix="_smoke_jpeg_", dir=REPO) as root:
+        run, val_ann = jpeg_train(dev, smi, path_kernels, root)
+        runs.append(run)
+        runs.append(jpeg_eval(dev, smi, path_kernels, root, val_ann))
+    runs.append(learning(dev, smi, path_kernels))
+    runs.append(torch_import(dev, smi, path_kernels))
     for counts, bodies in runs:
         for name, n in zip(KERNEL_NAMES, counts):
             summary[name]["launches"] += n

@@ -18,7 +18,7 @@ from ..models.mot.deep_sort import rescale_result
 from ..models.sot import siamrpn as SR
 from ..models.vid import fgfa as FG
 from ..models.vid import selsa as S
-from ..utils.device import resolve_device
+from ..utils.device import full_f32_precision, resolve_device
 
 
 def result_to_per_class(dets, num_classes: int) -> List[np.ndarray]:
@@ -66,6 +66,7 @@ class VIDModel:
         self.model_type = model_type
         self.cfg = S.SelsaConfig(**cfg_kwargs)
         self.device = resolve_device(device)
+        full_f32_precision()
         if model_type == "FGFA":
             model = FG.FGFA(self.cfg)
         elif model_type == "DFF":
@@ -230,6 +231,7 @@ class SOTModel:
                  **model_kwargs):
         self.cfg = SR.SiamRPNConfig(**model_kwargs)
         self.device = resolve_device(device)
+        full_f32_precision()
         model = SR.SiamRPN(self.cfg)
         if state_dict is None:
             S.init_params(model, torch.Generator().manual_seed(seed))

@@ -20,6 +20,7 @@ import torch.nn as nn
 from ..parallel.train import (Trainer, TrainState, make_lr_schedule,
                               make_optimizer)
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.device import full_f32_precision
 
 
 def step_generators(seed: int, step: int, batch_size: int
@@ -87,7 +88,8 @@ def train_model(loss_fn: Callable, model: nn.Module, data_iter: Iterable,
     checkpoint (parameters, momentum, step) into ``model``, so the schedule
     and the samples continue where they left off. ``loop_kwargs`` go to
     ``TrainLoop`` (``eval_fn`` and ``eval_interval`` among them). Returns
-    the final state."""
+    the final state. TF32 is turned off (``full_f32_precision``)."""
+    full_f32_precision()
     opt = make_optimizer(model, lr=make_lr_schedule(
         base_lr, iters_per_epoch=iters_per_epoch))
     trainer = Trainer(loss_fn=loss_fn, optimizer=opt)

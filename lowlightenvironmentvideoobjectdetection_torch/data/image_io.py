@@ -1,18 +1,20 @@
 """Frame files without cv2 or PIL: the counterpart of ``cv2.imread(path,
-cv2.IMREAD_COLOR)`` for PNG (the JAX package's
-``data/pipelines/transforms.py::_imread``) and a PNG writer, with ``zlib``
-and numpy only.
+cv2.IMREAD_COLOR)`` (the JAX package's
+``data/pipelines/transforms.py::_imread``) for PNG and JPEG, and a PNG
+writer. ``imread`` picks the decoder by the file's signature, not its name.
 
-``imread`` decodes 8-bit, non-interlaced PNG (gray, gray with alpha, RGB,
-RGBA, palette) into BGR uint8 [H, W, 3] as cv2 does: gray is repeated into
-the three channels, alpha is dropped. It undoes the five PNG row filters.
-Sub, Avg and Paeth depend on the byte to the left and Up, Avg and Paeth on
-the row above, so an image with filtered rows is unfiltered along
-anti-diagonals of pixels (the row above and the pixel to the left lie on
-the previous diagonal), all rows of a diagonal at once; an image without
-filtered rows is copied as it is.
-Other PNG variants (16-bit, low bit depths, interlaced) and other formats
-raise: JPEG frames wait for ROADMAP.md Queue 1's JPEG item.
+JPEG goes to ``data/jpeg.py`` (host C++, bit for bit cv2's libjpeg-turbo;
+the variants it reads and raises on are listed there).
+
+PNG is read with ``zlib`` and numpy: 8-bit, non-interlaced PNG (gray, gray
+with alpha, RGB, RGBA, palette) into BGR uint8 [H, W, 3] as cv2 does: gray
+is repeated into the three channels, alpha is dropped. It undoes the five
+PNG row filters. Sub, Avg and Paeth depend on the byte to the left and Up,
+Avg and Paeth on the row above, so an image with filtered rows is
+unfiltered along anti-diagonals of pixels (the row above and the pixel to
+the left lie on the previous diagonal), all rows of a diagonal at once; an
+image without filtered rows is copied as it is. Other PNG variants (16-bit,
+low bit depths, interlaced) and other formats raise ``UnsupportedImage``.
 """
 
 from __future__ import annotations
@@ -23,15 +25,12 @@ from typing import Sequence, Union
 
 import numpy as np
 
+from .jpeg import SIGNATURE as JPEG_SIGNATURE
+from .jpeg import UnsupportedImage, decode_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel (at 8 bits, a byte each)
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-JPEG_ITEM = ("JPEG frames are not read yet (ROADMAP.md, Queue 1, the JPEG "
-             "frames item); convert them to PNG")
-
-
-class UnsupportedImage(ValueError):
-    """A frame file the port cannot decode."""
 
 
 def _chunks(data: bytes, path: str):
@@ -123,16 +122,18 @@ def read_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
 
 
 def imread(path: str) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for PNG: BGR uint8 [H, W, 3].
-    Raises FileNotFoundError for a missing file and UnsupportedImage for
-    another format (naming the JPEG item for a JPEG)."""
+    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for PNG and JPEG, told apart by
+    their signatures: BGR uint8 [H, W, 3]. Raises FileNotFoundError for a
+    missing file and UnsupportedImage for another format or variant."""
     try:
         with open(path, "rb") as f:
             data = f.read()
     except FileNotFoundError:
         raise FileNotFoundError(path) from None
-    if data.startswith(b"\xff\xd8\xff"):
-        raise UnsupportedImage(f"{path}: {JPEG_ITEM}")
+    if data.startswith(JPEG_SIGNATURE):
+        return decode_jpeg(data, path)
+    if not data.startswith(PNG_SIGNATURE):
+        raise UnsupportedImage(f"{path}: neither PNG nor JPEG")
     img = read_png(data, path)
     if img.shape[-1] <= 2:  # gray (with alpha): repeat the gray
         return np.repeat(img[..., :1], 3, axis=-1)

@@ -4,8 +4,8 @@ the counterpart of the JAX package's ``tools/train.py::dataset_iterator``
 background loading and of the frame preparation in ``apis/test.py``.
 
 A ``DataLoader`` with ``workers`` processes (spawned) runs the host stages
-of each sample: the reference-frame sampler, the annotations and the PNG
-decoding (``Compose.host``); a thread pins what they hand over. The main
+of each sample: the reference-frame sampler, the annotations and the PNG or
+JPEG decoding (``Compose.host``); a thread pins what they hand over. The main
 process moves the clip to ``device`` and runs the rest of the pipeline
 there (``Compose.device_stage``: resize, brighten, flip, normalise, pad
 and formatting, or the RAW and noise steps), pads the frames to the

@@ -101,7 +101,9 @@ class Compose:
 
 @PIPELINES.register("LoadImageFromFile")
 class LoadImageFromFile(_SeqMixin):
-    """The frame at ``img_prefix / filename`` as BGR uint8 [H, W, 3]."""
+    """The frame at ``img_prefix / filename``, PNG or JPEG (told apart by
+    the file's signature, ``data/image_io.imread``), as BGR uint8
+    [H, W, 3], cv2's pixels."""
 
     on_host = True
 
@@ -135,15 +137,17 @@ class LoadMultiImagesFromFile(LoadImageFromFile):
 
 def gt_sibling_path(path: str) -> str:
     """The original's path surgery: the clean frame of
-    ``<video>/<noisy dir>/<name>`` is ``<video>/GT/<name>``."""
+    ``<video>/<noisy dir>/<name>`` is ``<video>/GT/<name>`` (DarkFarm's
+    ``<video>/low/<name>.JPG`` -> ``<video>/GT/<name>.JPG``)."""
     d, fname = os.path.split(path)
     return os.path.join(os.path.dirname(d), "GT", fname)
 
 
 @PIPELINES.register("LoadImagePairsFromFile")
 class LoadImagePairsFromFile(LoadImageFromFile):
-    """The noisy frame and its clean ``GT/`` sibling, concatenated on the
-    channels: BGR uint8 [H, W, 6], noisy first."""
+    """The noisy frame and its clean ``GT/`` sibling (PNG or JPEG, as
+    ``LoadImageFromFile`` reads them), concatenated on the channels: BGR
+    uint8 [H, W, 6], noisy first."""
 
     def load(self, path):
         return np.concatenate([imread(path), imread(gt_sibling_path(path))],

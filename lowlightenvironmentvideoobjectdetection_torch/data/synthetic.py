@@ -1,6 +1,7 @@
 """Synthetic trees of PNG frames and their COCO-VID annotation files, made
 from a seed, for smoke runs and tests (the datasets' frames are not in the
-repository).
+repository), and a DarkFarm tree of JPEG frames copied from committed
+fixtures.
 
 ``write_darkfarm_tree``, the DarkFarm layout of frame pairs::
 
@@ -10,6 +11,13 @@ repository).
 
 Every frame has 1-8 boxes of DarkFarm's 8 classes (category ids 1-8), each
 tracked as one instance through its video, and is a training frame.
+
+``write_darkfarm_jpeg_tree``, the same layout with DarkFarm's own names
+(``ROOT/video_<v>/low/<frame>.JPG`` and ``ROOT/video_<v>/GT/<frame>.JPG``)
+and a train and a val annotation file: the host of the card cannot encode
+JPEG, so every frame of a video is a copy of one of the 1080x1920 low / GT
+pairs of ``tests/data/jpeg`` (cv2-written), annotated with the boxes drawn
+into it (``manifest.json``). The frames repeat, which a smoke run allows.
 
 ``write_imagenet_vid_tree``, the ImageNet-VID layout of single frames
 (``img_prefix`` ROOT/Data/VID, as the configs' ``data_root``)::
@@ -41,6 +49,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
@@ -48,6 +57,9 @@ import numpy as np
 
 from .datasets import DARKFARM_CLASSES, IMAGENET_VID_CLASSES
 from .image_io import imwrite_png
+
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "tests", "data", "jpeg")
 
 
 def _frames(rng, hw, boxes):
@@ -134,6 +146,54 @@ def write_darkfarm_tree(root: str, videos: int = 2, frames: int = 10,
                         lambda v: f"video_{v}",
                         lambda v, f: f"video_{v}/low/{f:06d}.png", pair)
     return _write(root, jobs, ann, "darkfarm_train.json")
+
+
+def write_darkfarm_jpeg_tree(root: str, videos: int = 2,
+                             val_videos: int = 2, frames: int = 10,
+                             fixtures: str = JPEG_FIXTURES
+                             ) -> Tuple[str, str]:
+    """Write the DarkFarm JPEG tree under ``root``: ``videos`` training and
+    ``val_videos`` validation videos of ``frames`` frames, video v copying
+    fixture pair ``v % 2``. Returns the paths of
+    ``annotations/darkfarm_train.json`` and ``darkfarm_val.json``."""
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = []
+    for split, n_videos, first in (("train", videos, 0),
+                                   ("val", val_videos, videos)):
+        ann = dict(videos=[], images=[], annotations=[],
+                   categories=[dict(id=i + 1, name=n)
+                               for i, n in enumerate(DARKFARM_CLASSES)])
+        for v in range(first, first + n_videos):
+            pair = {kind: os.path.join(fixtures,
+                                       f"darkfarm_{v % 2}_{kind}.jpg")
+                    for kind in ("low", "gt")}
+            entry = manifest[os.path.basename(pair["low"])]
+            h, w = entry["shape"][:2]
+            video = f"video_{v}"
+            ann["videos"].append(dict(id=v + 1, name=video))
+            for sub in ("low", "GT"):
+                os.makedirs(os.path.join(root, video, sub), exist_ok=True)
+            for fid in range(frames):
+                img_id = len(ann["images"]) + 1
+                name = f"{video}/low/{fid}.JPG"
+                shutil.copyfile(pair["low"], os.path.join(root, name))
+                shutil.copyfile(pair["gt"], os.path.join(
+                    root, video, "GT", f"{fid}.JPG"))
+                ann["images"].append(dict(
+                    id=img_id, video_id=v + 1, frame_id=fid, width=w,
+                    height=h, file_name=name, is_vid_train_frame=True))
+                for i, (x, y, bw, bh, c) in enumerate(entry["boxes"]):
+                    ann["annotations"].append(dict(
+                        id=len(ann["annotations"]) + 1, video_id=v + 1,
+                        image_id=img_id, category_id=c, instance_id=i + 1,
+                        bbox=[x, y, bw, bh], area=bw * bh, iscrowd=False))
+        os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+        path = os.path.join(root, "annotations", f"darkfarm_{split}.json")
+        with open(path, "w") as f:
+            json.dump(ann, f)
+        out.append(path)
+    return out[0], out[1]
 
 
 def write_imagenet_vid_tree(root: str, videos: int = 2, frames: int = 12,

@@ -2,10 +2,8 @@
 the counterpart of the JAX package's ``ops/lap.py``.
 
 The solver is the host C++ of ``csrc/lap.cpp`` (a copy of the JAX package's
-``native/lap.cpp``), compiled with the host's ``g++`` into ``_build/`` at
-first use (named by a hash of the source and flags, like the CUDA library
-of ``cuda_build.py``, which does not build it; no ``-march=native``, so a
-library built on one host loads on another) and loaded with ``ctypes``.
+``native/lap.cpp``), compiled with the host's ``g++`` by
+``utils/host_build.py`` at first use and loaded with ``ctypes``.
 Pairs, not only the cost, must be those of the JAX package: on ties and on
 1e6-gated costs SciPy's solver returns other pairs of equal cost, and track
 ids then differ. So where the build fails this module raises; it has no
@@ -16,56 +14,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "lap.cpp"
-BUILD_DIR = _PKG / "_build"
-CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+from ..utils import host_build
+
+SOURCE = host_build.PKG / "csrc" / "lap.cpp"
 
 _DP = ctypes.POINTER(ctypes.c_double)
 _IP = ctypes.POINTER(ctypes.c_int32)
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"liblap_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile ``csrc/lap.cpp`` unless a library for its hash exists."""
-    out = library_path()
-    if out.exists():
-        return out
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the JV solver (csrc/lap.cpp) is "
-                           "built with the host's g++")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        lib = os.path.join(tmpdir, out.name)
-        proc = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", lib],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on {SOURCE.name} "
-                               f"({proc.returncode}):\n{proc.stderr}")
-        os.replace(lib, out)  # atomic: a concurrent loader sees all or none
-    return out
-
-
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """The built solver, loaded once per process."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(host_build.build(SOURCE)))
     lib.lap_solve.restype = ctypes.c_double
     lib.lap_solve.argtypes = [_DP, ctypes.c_int32, ctypes.c_int32, _IP, _IP]
     lib.greedy_solve.restype = ctypes.c_int32

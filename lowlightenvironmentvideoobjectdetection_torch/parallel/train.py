@@ -17,6 +17,15 @@ sum runs over the leaves in another order):
 - frozen leaves (the stem and stage 1, by name prefix) take no decay, no
   trace and no update, so they stay bit-identical. A trainable leaf with no
   gradient counts as a zero gradient, as in JAX.
+
+``Adam`` is optax's ``chain(clip_by_global_norm(10), adam(lr))``, the
+optimizer of the learning smoke, with the same interface and mask: the
+same clip rule; ``mu = (1 - b1) * g + b1 * mu`` and
+``nu = (1 - b2) * g ** 2 + b2 * nu``; bias corrections ``1 - b ** count``
+in float32, ``count`` counting this update; the update
+``-lr * (mu / c1) / (sqrt(nu / c2) + eps)``, eps outside the root. It
+runs each of these as one multi-tensor op over the trainable leaves
+(``torch._foreach_*``), elementwise as optax.
 """
 
 from __future__ import annotations
@@ -110,6 +119,61 @@ class Optimizer:
             trace[n] = t
             p.add_(t * step_size)
         return OptState(state.count + 1, trace), float(norm)
+
+
+class AdamState(NamedTuple):
+    count: int  # updates applied so far
+    mu: Dict[str, torch.Tensor]  # first moment per trainable leaf
+    nu: Dict[str, torch.Tensor]  # second moment per trainable leaf
+
+
+@dataclasses.dataclass
+class Adam:
+    """Adam after a global-norm clip, with optax's semantics; see the
+    module docstring. ``trainable`` and ``lr`` as in ``Optimizer``."""
+
+    trainable: Dict[str, bool]
+    lr: Callable[[int], float]
+    b1 = 0.9
+    b2 = 0.999
+    eps = 1e-8
+    grad_clip_norm = 10.0
+
+    def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
+        zeros = {n: torch.zeros_like(p) for n, p in params.items()
+                 if self.trainable[n]}
+        return AdamState(0, zeros, {n: z.clone() for n, z in zeros.items()})
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor], state: AdamState
+             ) -> Tuple[AdamState, float]:
+        """Apply one update to ``params`` in place from their ``.grad``.
+        Returns the new state and the gradients' global norm."""
+        grads = {n: p.grad for n, p in params.items() if p.grad is not None}
+        norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
+        names = [n for n in params if self.trainable[n]]
+        g = [grads[n] if n in grads else torch.zeros_like(params[n])
+             for n in names]
+        if bool(norm >= self.grad_clip_norm):
+            g = torch._foreach_mul(torch._foreach_div(g, norm),
+                                   self.grad_clip_norm)
+        count = state.count + 1
+        f32 = np.float32
+        c1 = float(f32(1) - f32(self.b1) ** count)
+        c2 = float(f32(1) - f32(self.b2) ** count)
+        mu = torch._foreach_add(
+            torch._foreach_mul(g, 1 - self.b1),
+            torch._foreach_mul([state.mu[n] for n in names], self.b1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(g, g), 1 - self.b2),
+            torch._foreach_mul([state.nu[n] for n in names], self.b2))
+        den = torch._foreach_sqrt(torch._foreach_div(nu, c2))
+        torch._foreach_add_(den, self.eps)
+        update = torch._foreach_div(torch._foreach_div(mu, c1), den)
+        torch._foreach_mul_(update, -float(self.lr(state.count)))
+        torch._foreach_add_([params[n] for n in names], update)
+        return (AdamState(count, dict(zip(names, mu)), dict(zip(names, nu))),
+                float(norm))
 
 
 def make_optimizer(model: nn.Module, lr=0.01) -> Optimizer:

@@ -30,8 +30,8 @@ The tracking routes, as the JAX CLI's ``run_mot_eval`` and
   ``models/builder.py`` ``build_mot_model`` with the config's ``tracker``
   dict, the weights of ``--checkpoint`` (the model's ``state_dict()``:
   ``detector.`` and ``reid.`` entries) or seeded ones; every frame of
-  ``data.test`` (PNG, read with ``data/image_io.py``; JPEG waits for
-  ROADMAP.md Queue 1's JPEG item) resized into the bucket, tracked with
+  ``data.test`` (PNG or JPEG, read with ``data/image_io.py``) resized
+  into the bucket, tracked with
   the ``detection_file``'s public boxes (scaled into the bucket) if the
   config has one, Tracktor with the raw frame for its camera motion
   compensation (ROADMAP fault F16: the JAX CLI gives none), the result
@@ -70,7 +70,7 @@ from ..data.mot_sot_datasets import LaSOTDataset, MOTChallengeDataset
 from ..data.pipelines import Compose
 from ..models.builder import (MOT_TYPES, SOT_TYPES, build_mot_model,
                               sot_model_kwargs, vid_model_kwargs)
-from ..utils.device import resolve_device
+from ..utils.device import full_f32_precision, resolve_device
 
 VIDEO_DATASETS = ("ImagenetVIDDataset", "DarkFarmVIDDataset",
                   "CocoVideoDataset", "MOTChallengeDataset", "LaSOTDataset",
@@ -115,8 +115,8 @@ def check_route(cfg) -> str:
 
 
 def read_frame(info: dict, img_prefix: str) -> np.ndarray:
-    """A dataset frame as BGR uint8 [H, W, 3] (PNG; a JPEG raises with
-    ROADMAP.md's JPEG item)."""
+    """A dataset frame, PNG or JPEG, as BGR uint8 [H, W, 3]
+    (``data/image_io.imread``: cv2's pixels)."""
     return imread(os.path.join(img_prefix or "", info.get("file_name")
                                or info.get("filename", "")))
 
@@ -202,6 +202,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     apply_cli_options(cfg, args.cfg_options)
     route = check_route(cfg)
     device = resolve_device(args.device)
+    full_f32_precision()
     if route == "mot":
         return run_mot(args, cfg, device)
     if route == "sot":

@@ -12,7 +12,7 @@ its model (``models/builder.py``) with weights seeded by ``--seed`` on the
 card (``--device cpu`` for the CPU; without a card and without
 ``--device`` it raises), and trains it through ``apis.train.train_model``
 on batches of its ``data.train`` (``data/loader.py``: COCO-VID annotations
-and PNG frames, ``data.workers_per_gpu`` loader processes) or, with
+and PNG or JPEG frames, ``data.workers_per_gpu`` loader processes) or, with
 ``--synthetic``, on uniform noise as the JAX CLI's synthetic batches
 (``DarkfarmBatch``es of (noise, clean) pairs; ``FastDVDBatch``es of the
 same pairs for ``SelsaFastDVDnetDetect``; ``TrainBatch``es of plain
@@ -50,7 +50,7 @@ from ..models.vid.selsa import TrainBatch
 from ..models.vid.selsa_darkfarm import DarkfarmBatch
 from ..models.vid.selsa_fastdvd import FastDVDBatch, FastDVDSelsaConfig
 from ..utils.checkpoint import checkpoint_step, save_checkpoint
-from ..utils.device import resolve_device
+from ..utils.device import full_f32_precision, resolve_device
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -134,6 +134,7 @@ def main(argv: Optional[List[str]] = None,
     cfg = Config.fromfile(args.config)
     apply_cli_options(cfg, args.cfg_options)
     device = resolve_device(args.device)
+    full_f32_precision()
     system = build_model(cfg["model"], tiny=args.tiny, seed=args.seed,
                          device=device)
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs")

@@ -1,6 +1,7 @@
 """The port's entry points build on the card unless the caller asks for the
 CPU, and raise where there is no card; so does a pipeline's device
-stage (``Compose``)."""
+stage (``Compose``). Each entry point turns TF32 off for float32 matmuls
+and cuDNN convolutions (ROADMAP O2), from PyTorch's defaults."""
 
 import pytest
 import torch
@@ -68,3 +69,43 @@ def test_compose_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Compose(steps)
+
+
+SELSA_CFG = "configs/vid/selsa/selsa_faster_rcnn_r50_dc5_1x_imagenetvid.py"
+
+
+class Built(Exception):
+    """Raised where a CLI builds its model: the flags are set before."""
+
+
+def _entry(name, monkeypatch):
+    from lowlightenvironmentvideoobjectdetection_torch.apis import (
+        inference, train)
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        test as test_cli, train as train_cli)
+
+    def built(*args, **kwargs):
+        raise Built
+
+    if name == "VIDModel":
+        VIDModel(device="cpu", **TINY)
+    elif name == "SOTModel":
+        inference.SOTModel(device="cpu")
+    elif name == "train_model":
+        train.train_model(lambda *a: None, torch.nn.Linear(2, 2), iter(()), 0)
+    else:
+        cli = test_cli if name == "test_cli" else train_cli
+        monkeypatch.setattr(cli, "init_model" if cli is test_cli
+                            else "build_model", built)
+        with pytest.raises(Built):
+            cli.main([SELSA_CFG, "--tiny", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", ["VIDModel", "SOTModel", "train_model",
+                                  "test_cli", "train_cli"])
+def test_entry_points_turn_tf32_off(name, monkeypatch):
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    _entry(name, monkeypatch)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32

@@ -4,8 +4,9 @@ Decoding is byte-exact: on PNGs that cv2 writes (libpng's adaptive row
 filters) at compression 0, 3 and 9; on PNGs written with each of the five
 filter types forced on every row, and with a random type a row; on gray,
 gray with alpha, RGB, RGBA and palette images; on odd widths. The writer
-round-trips through both readers. JPEG and the PNG variants the port does
-not read raise."""
+round-trips through both readers. A JPEG decodes as cv2 reads it
+(``tests/test_torch_port_jpeg.py`` holds the decoder to cv2 in full); the
+PNG variants the port does not read raise."""
 
 import struct
 import zlib
@@ -98,8 +99,8 @@ def test_jpeg_and_unsupported_pngs_raise(tmp_path):
     img = _image(5, (16, 16, 3))
     jpg = str(tmp_path / "a.jpg")
     assert cv2.imwrite(jpg, img)
-    with pytest.raises(io.UnsupportedImage, match="JPEG"):
-        io.imread(jpg)
+    np.testing.assert_array_equal(io.imread(jpg),
+                                  cv2.imread(jpg, cv2.IMREAD_COLOR))
     deep = tmp_path / "d.png"
     deep.write_bytes(_png(np.zeros((4, 24), np.uint8), 4, 4, 2, depth=16))
     with pytest.raises(io.UnsupportedImage, match="bit depth 16"):

@@ -1,13 +1,18 @@
 """The port and ``chip_smoke.py`` need none of ``jax``, ``cv2``, ``PIL``
-and the JAX package: the machine with the card has none of them. In a
-fresh interpreter with those names blocked in ``sys.modules`` (an import
-of a blocked name raises), every module of the port and ``chip_smoke``
-import, and the canonical config's data path runs: a tree of PNG pairs is
-written and read back, a training batch is built from it, and the test
-CLI evaluates the config on it; the FGFA config streams two frames; the
-test CLI's MOT route tracks a tiny MOT tree of PNG frames with DeepSORT
-(the JV solver built from ``csrc/lap.cpp``, ECC-free) and CLEAR-MOT."""
+and the JAX package: the machine with the card has none of them. No source
+file of the port or ``chip_smoke.py`` names one of them in an import
+statement, guarded or not (a ``try: import cv2`` would pass in the blocked
+interpreter below and read frames otherwise here than on the card). In a
+fresh interpreter with those names blocked in ``sys.modules`` (an import of
+a blocked name raises), every module of the port and ``chip_smoke`` import,
+a JPEG fixture decodes, and the canonical config's data path runs: a tree
+of PNG pairs is written and read back, a training batch is built from it,
+and the test CLI evaluates the config on it; the FGFA config streams two
+frames; the test CLI's MOT route tracks a tiny MOT tree of PNG frames with
+DeepSORT (the JV solver built from ``csrc/lap.cpp``, ECC-free) and
+CLEAR-MOT."""
 
+import ast
 import os
 import pkgutil
 import subprocess
@@ -34,13 +39,16 @@ def test_port_runs_without_jax_cv2_or_pil(tmp_path):
         ".core.eval.sot", ".ops.lap", ".ops.scale_translate",
         ".models.mot.trackers", ".models.mot.deep_sort",
         ".models.reid.base_reid", ".models.sot.siamrpn",
-        ".data.mot_sot_datasets")} <= set(mods)
+        ".data.mot_sot_datasets", ".data.jpeg", ".utils.host_build",
+        ".utils.torch_import", ".tools.learning_smoke")} <= set(mods)
     code = f"""
 import importlib, sys
 for name in {BLOCKED!r}:
     sys.modules[name] = None  # 'import name' raises ImportError
 for m in {mods!r} + ["chip_smoke"]:
     importlib.import_module(m)
+from {port.__name__}.data.image_io import imread
+assert imread("tests/data/jpeg/progressive_420.jpg").shape == (48, 64, 3)
 from {port.__name__}.config import Config, apply_cli_options
 from {port.__name__}.data.loader import TrainLoader
 from {port.__name__}.data.synthetic import write_darkfarm_tree
@@ -82,3 +90,23 @@ assert not loaded, loaded
     env = dict(os.environ, PYTHONPATH=ROOT)
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=ROOT, timeout=180)
+
+
+def test_no_source_file_imports_jax_cv2_or_pil():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(port.__path__[0])
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    found = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(path, node.lineno, n) for n in names
+                      if n.split(".")[0] in BLOCKED]
+    assert len(files) > 90 and not found, found

@@ -75,8 +75,8 @@ def test_ties_and_gates_pick_the_jax_pairs_not_scipys():
 
 
 def test_a_failed_build_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(T, "BUILD_DIR", tmp_path / "_build")
-    monkeypatch.setattr(T.shutil, "which", lambda name: None)
+    monkeypatch.setattr(T.host_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(T.host_build.shutil, "which", lambda name: None)
     T.load_library.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="g\\+\\+"):

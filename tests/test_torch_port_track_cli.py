@@ -19,8 +19,8 @@ initialisation, bridged into a port checkpoint):
 - ``siamese_rpn_r50_1x_lasot.py`` on a LaSOT tree of
   ``write_lasot_tree``: equal OPE success, precision and normalized
   precision;
-- a JPEG frame (MOT17's and LaSOT's format) raises, naming ROADMAP.md's
-  JPEG item.
+- a JPEG frame (MOT17's and LaSOT's format) is read; a corrupt one raises
+  ``UnsupportedImage``, naming the file.
 """
 
 import contextlib
@@ -30,6 +30,7 @@ import json
 import os
 import sys
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -190,13 +191,19 @@ def test_a_jpeg_frame_raises_with_the_jpeg_item(tmp_path):
     ann, dets = write_mot_tree(str(tmp_path), frames=2)
     with open(ann) as f:
         coco = json.load(f)
-    name = coco["images"][0]["file_name"].replace(".png", ".jpg")
+    png = coco["images"][0]["file_name"]
+    name = png.replace(".png", ".jpg")
     coco["images"][0]["file_name"] = name
     with open(ann, "w") as f:
         json.dump(coco, f)
+    frame = tcli.read_frame(dict(file_name=png), f"{tmp_path}/")
+    assert cv2.imwrite(str(tmp_path / name), frame)
+    np.testing.assert_array_equal(
+        tcli.read_frame(dict(file_name=name), f"{tmp_path}/"),
+        cv2.imread(str(tmp_path / name), cv2.IMREAD_COLOR))
     with open(tmp_path / name, "wb") as f:
         f.write(b"\xff\xd8\xff\xe0" + bytes(64))
-    with pytest.raises(UnsupportedImage, match="JPEG frames"):
+    with pytest.raises(UnsupportedImage, match=f"{name}: corrupt JPEG"):
         tcli.main([DEEPSORT, "--tiny", "--device", "cpu", "--cfg-options",
                    f"data.test.ann_file={ann}",
                    f"data.test.img_prefix={tmp_path}/",
