@@ -337,6 +337,22 @@ LEARNING_MAP_BEFORE_MAX = 0.1
 LEARNING_SEEDS = (0, 1, 2)
 IMPORT_FRAMES = 4       # torch_import: frame 0 (the memo fill) and 3 more
 IMPORT_CLS_SCALE = 4.0  # the synthetic fc_cls's spread over the init's
+# tracking training and the image detectors
+SOT_TRAIN_TREE = dict(videos=2, frames=12, hw=(720, 1280), seed=0)
+SOT_TRAIN_STEPS, SOT_TRAIN_SKIP = 20, 15  # the last 5 steps profiled
+DET_FPN_CFG = "configs/det/faster_rcnn_r50_fpn_1x_coco.py"
+DET_RETINA_CFG = "configs/det/retinanet_r50_fpn_1x_coco.py"
+DET_DC5_CFG = "configs/det/faster_rcnn_r50_dc5_1x_coco.py"
+DET_STREAM = (("FasterRCNNFPN", DET_FPN_CFG), ("RetinaNet", DET_RETINA_CFG),
+              ("FasterRCNN", DET_DC5_CFG))
+DET_HW = (480, 640)
+DET_IMAGES, DET_PROFILED = 20, 4
+COCO_TREE = dict(images=8, val_images=8, hw=DET_HW, seed=0)
+DET_TRAIN_STEPS, DET_TRAIN_SKIP = 6, 3
+# the configs' resize: into 1333 x 800, RetinaNet's into its 1280 x 768 bucket
+DET_TRAIN_SCALE = {DET_FPN_CFG: (1333, 800), DET_RETINA_CFG: (1280, 768)}
+DET_GTS_PER_IMAGE = 8
+PARAM_GRID = ["obj_score_thr=0.05,0.3", "match_iou_thr=0.3,0.7"]
 # --loader-close: rounds of opening, reading and closing the loader
 LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
@@ -358,13 +374,16 @@ def attention_cost(s, n, nb, m1, m2, hd=64, q_bytes=2, kv_bytes=2):
 
 
 def roi_align_cost(n_maps, h, w, c, n_rois, feat_bytes=2, bind_bytes=0,
-                   out_size=7, sampling_ratio=2):
-    """(bytes, FLOPs) of kernel B: the maps, the f32 rois [N, 4] and, for a
+                   out_size=7, sampling_ratio=2, map_pixels=None):
+    """(bytes, FLOPs) of kernel B: the maps (or only ``map_pixels`` of their
+    pixels, where the rois touch fewer), the f32 rois [N, 4] and, for a
     batch, the per-roi map index (``bind_bytes`` each) read once, the output
     in the feature dtype written once; 2 FLOPs per corner of each of the
     sampling_ratio^2 samples of an output element."""
     out_elems = n_rois * out_size * out_size * c
-    nbytes = (n_maps * h * w * c * feat_bytes + 16 * n_rois
+    if map_pixels is None:
+        map_pixels = n_maps * h * w
+    nbytes = (map_pixels * c * feat_bytes + 16 * n_rois
               + bind_bytes * n_rois + feat_bytes * out_elems)
     return nbytes, 8 * sampling_ratio ** 2 * out_elems
 
@@ -2933,7 +2952,10 @@ def eval_phase(dev, smi, kernels, root, ann):
     # memo fill (one a video)
     per_run = (3 * n, n + videos, 0, 0, 0, 0, 0)
 
-    plain, plain_s = eval_reference(dev, cfg_path, root, ann, kernels)
+    from lowlightenvironmentvideoobjectdetection_torch.models.roi_heads import (  # noqa: E501
+        temporal_roi_align as troi)
+    with TopKPin(troi) as plain_pin:  # records TROI's choices frame by frame
+        plain, plain_s = eval_reference(dev, cfg_path, root, ann, kernels)
     gts = f"{root}/eval_gts.json"
     thr, n_gts = eval_gts(ann, plain, gts)
     test_cfg = load_config(cfg_path)["data"]["test"]
@@ -2955,6 +2977,36 @@ def eval_phase(dev, smi, kernels, root, ann):
     if f32_map < EVAL_F32_MAP:
         raise AssertionError(f"eval: f32 kernel path mAP50 {f32_map} < "
                              f"{EVAL_F32_MAP}; sets {sets}")
+    # O1: the same run with TROI's top-k pinned to the plain run's, call by
+    # call: what is left unmatched is not a top-k choice
+    with TopKPin(troi, plain_pin.indices) as pin:
+        pinned = eval_cli("eval f32 pinned", [cfg_path]
+                          + eval_options(root, gts, 0)
+                          + ["model.compute_dtype=float32"], kernels,
+                          per_run)
+    if len(pin.indices) != len(plain_pin.indices):
+        raise AssertionError(f"eval pinned: {len(pin.indices)} top-k calls, "
+                             f"the plain run {len(plain_pin.indices)}")
+    pinned_sets = [match_rows(per_class_rows(g), per_class_rows(w))
+                   for g, w in zip(pinned["dets"], plain)]
+    pinned_unmatched = sum(x["unmatched"] for x in pinned_sets)
+    first = next((i for i, x in enumerate(pinned_sets) if x["unmatched"]),
+                 None)
+    o1 = dict(unpinned_unmatched=sum(x["unmatched"] for x in sets),
+              unpinned_rows=sum(x["n_want"] for x in sets),
+              pinned_unmatched=pinned_unmatched,
+              pinned_rows=sum(x["n_want"] for x in pinned_sets),
+              topk_calls=len(pin.indices), topk_rows_flipped=pin.flips,
+              first_unmatched_frame=first,
+              pinned_max_box_px=max(x["box"] for x in pinned_sets),
+              pinned_max_score=max(x["score"] for x in pinned_sets),
+              pinned_map50=pinned["out"]["metrics"]["mAP50"])
+    print("eval_o1: " + json.dumps(o1), flush=True)
+    if pinned_unmatched:
+        raise AssertionError(f"eval: {pinned_unmatched} f32 rows unmatched "
+                             f"with TROI's top-k pinned, from frame {first}: "
+                             f"{pinned_sets[first]}")
+    del pinned
 
     runs, counts, bodies = {}, [0] * len(kernels), {}
     for workers in EVAL_WORKERS:
@@ -3040,6 +3092,7 @@ def eval_phase(dev, smi, kernels, root, ann):
                                       for x in sets),
               detections=[x["n_got"] for x in sets],
               tolerances=dict(box_px=SET_BOX_TOL, score=SET_SCORE_TOL)),
+          topk_pinned=o1,
           bf16_map50=runs[EVAL_WORKERS[0]]["mAP50"],
           bf16_by_workers=runs, launches_per_run=dict(zip(KERNEL_NAMES,
                                                           per_run)),
@@ -4014,6 +4067,528 @@ def track_eval(dev, smi, kernels, root):
 
 
 # ---------------------------------------------------------------------------
+# Tracking training and the image detectors
+
+
+def sot_train(dev, smi, kernels, root):
+    """SiamRPN++ training through the training CLI's SOT route on a LaSOT
+    tree written under ``root`` (SOT_TRAIN_TREE): ``SOTTrainDataset``
+    pairs, the SOT augmentations, 127 / 255 crops, ``siamrpn_loss`` at full
+    width in f32, SiamRPN++'s schedule with the backbone frozen (epoch 0);
+    SOT_TRAIN_STEPS steps, the last ones profiled for the idle share.
+    Gates: every loss finite, the backbone unchanged, the heads changed.
+    No kernel of the table on this path. Returns the launch counts (all 0)
+    and no bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
+        write_lasot_tree)
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        train as cli)
+    t_phase = time.perf_counter()
+    ann = write_lasot_tree(f"{root}/lasot_train", **SOT_TRAIN_TREE)
+    d = dict(type="SOTTrainDataset", ann_file=ann,
+             img_prefix=f"{root}/lasot_train/")
+    window = StepWindow(SOT_TRAIN_STEPS, SOT_TRAIN_SKIP)
+    before = {}
+
+    def on_step(state, metrics):
+        if not before:  # the weights after step 1 (the backbone's stay)
+            before.update({n: p.detach().clone() for n, p in
+                           state.model.named_parameters()})
+        window(state, metrics)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    out = cli.main([str(REPO / SOT_CFG), "--seed", "0", "--work-dir",
+                    f"{root}/work_sot", "--steps", str(SOT_TRAIN_STEPS),
+                    "--cfg-options", f"data.train={d!r}"], on_step=on_step)
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + window.stamps,
+                                            window.stamps)]
+    counts = [k.launches for k in kernels]
+    losses = [m["loss"] for m in out["metrics"]]
+    if any(counts) or len(losses) != SOT_TRAIN_STEPS or not all(
+            np.isfinite(v) for m in out["metrics"] for v in m.values()):
+        raise AssertionError(f"sot_train: counts {counts}, metrics "
+                             f"{out['metrics']}")
+    after = dict(out["state"].model.named_parameters())
+    moved = [n for n in before if not torch.equal(before[n], after[n])]
+    if any(n.startswith("backbone.") for n in moved) or not any(
+            n.startswith("cls_head") for n in moved):
+        raise AssertionError(f"sot_train: changed leaves {moved[:5]}...")
+    timed_ms = step_ms[1:SOT_TRAIN_SKIP]
+    phase("sot_train", card=smi, config=SOT_CFG, tree=SOT_TRAIN_TREE,
+          steps=SOT_TRAIN_STEPS, first_step_ms=step_ms[0],
+          median_step_ms=statistics.median(timed_ms),
+          min_step_ms=min(timed_ms), max_step_ms=max(timed_ms),
+          step_ms=step_ms, device_window=window.window,
+          first_loss=out["metrics"][0], last_loss=out["metrics"][-1],
+          losses=losses, positive_pairs_note="loss_rpn_bbox 0: no anchor "
+          "reaches IoU 0.6 in the JAX crops (ROADMAP F21)",
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+          changed_leaves=len(moved), launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t_phase)
+    del out
+    torch.cuda.empty_cache()
+    return counts, dict(roi_align={}, roi_align_backward={})
+
+
+def detector_kwargs(cfg_path, **overrides):
+    kw = model_dict(cfg_path, **overrides)
+    return kw.pop("type"), kw
+
+
+def sized_rois(dev, n, level, hw, g):
+    """n rois whose scale maps to FPN ``level`` (sides in [56, 112) x
+    2^level px, the last level from 448 px up) inside an image ``hw``."""
+    lo = 56.0 * 2 ** level
+    side = lo * (1 + torch.rand(n, 2, generator=g))
+    side = torch.minimum(side, torch.tensor([hw[1], hw[0]]) - 1)
+    xy = torch.rand(n, 2, generator=g) * (torch.tensor([hw[1], hw[0]])
+                                          - side)
+    return torch.cat([xy, xy + side], 1).to(dev)
+
+
+def roi_footprint_pixels(rois, scale, h, w):
+    """The pixels of an [h, w] map that RoIAlign 7x7 (sampling ratio 2)
+    reads with a nonzero weight for these rois: the nonzero entries of the
+    plain version's gradient on a one-channel map."""
+    from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
+        roi_align_plain)
+    m = torch.zeros((1, h, w, 1), device=rois.device, requires_grad=True)
+    b = torch.zeros(rois.shape[0], dtype=torch.int64, device=rois.device)
+    roi_align_plain(m, rois, scale, batch_inds=b).sum().backward()
+    return int((m.grad != 0).sum())
+
+
+def fpn_level_times(det, raw, roi_align):
+    """Kernel B on one frame's P2-P5 slices of FPN Faster R-CNN's test
+    proposals (f32 maps, as the model pools them) and, on the same maps,
+    on test_nms_post rois sized for each level (``sized_rois``; seeded
+    weights put almost every proposal on P2): each launch against the
+    plain version (plain, kernel, kernel, plain), its error, and its bound
+    from the map pixels the rois read (``roi_footprint_pixels``), not the
+    whole map."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    from lowlightenvironmentvideoobjectdetection_torch.models.detectors import (
+        fpn_faster_rcnn as FF)
+    m = det.model
+    imgs, shape, _ = prepare_frames(raw[None], det.pad_h, det.pad_w,
+                                    device=det.device)
+    with torch.no_grad():
+        feats = m.extract_feat(imgs)
+        props = FF._proposals(m, m.rpn_forward(feats), m.anchors(feats),
+                              shape, False)
+    rois = props.boxes
+    lvl = FF.map_roi_levels(rois)
+    g = torch.Generator().manual_seed(19)
+    out = {}
+    for i in range(FF.NUM_ROI_LEVELS):
+        f = feats[i].float().contiguous()
+        sized = sized_rois(f.device, m.test_nms_post, i,
+                           (det.pad_h, det.pad_w), g)
+        if not torch.equal(FF.map_roi_levels(sized), torch.full_like(
+                FF.map_roi_levels(sized), i)):
+            raise AssertionError(f"sized rois off level {i}")
+        for case, r in (("frame", rois[lvl == i].contiguous()),
+                        ("sized", sized)):
+            key = f"P{i + 2}_{case}"
+            if not r.shape[0]:
+                out[key] = dict(rois=0, map=list(f.shape[1:]))
+                continue
+            b = torch.zeros(r.shape[0], dtype=torch.int64, device=r.device)
+            scale = 1.0 / FF.FPN_STRIDES[i]
+            got = roi_align(f, r, scale, batch_inds=b)
+            want = roi_align(f, r, scale, batch_inds=b, impl="plain")
+            check_close(f"fpn {key}", got, want, 0.0, ROI_F32_ATOL)
+            ms, plain_ms, _ = compare_times(
+                lambda: roi_align(f, r, scale, batch_inds=b),
+                lambda: roi_align(f, r, scale, batch_inds=b, impl="plain"))
+            pixels = roi_footprint_pixels(r, scale, f.shape[1], f.shape[2])
+            nbytes, flops = roi_align_cost(1, f.shape[1], f.shape[2],
+                                           f.shape[3], r.shape[0], 4, 8,
+                                           map_pixels=pixels)
+            bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+            out[key] = dict(
+                rois=int(r.shape[0]), map=list(f.shape[1:]),
+                map_pixels_read=pixels,
+                map_share_read=pixels / (f.shape[1] * f.shape[2]),
+                max_abs_err=max_err(got, want), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, library_ms=None)
+    return out
+
+
+def det_stream(dev, smi, kernels):
+    """The image detectors at full width with seeded weights through
+    ``DetectorModel``: FPN Faster R-CNN (800 x 1344, bf16), RetinaNet (768 x
+    1280, bf16) and the DC5 Faster R-CNN (608 x 1024, bf16), DET_IMAGES
+    random 480 x 640 frames each: frame ms, the device's idle share over
+    DET_PROFILED more; B's launches (FPN: once a non-empty level, on the
+    7x7 gather; DC5: once a frame; RetinaNet: none) with the rois and
+    launches per FPN level; B's times at one frame's P2-P5 slices against
+    their bounds. Gate: at f32 the kernel path's detections equal the
+    plain path's as sets (SET_BOX_TOL / SET_SCORE_TOL) for each model.
+    Returns the launch counts (A-G) and B's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        DetectorModel)
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    from lowlightenvironmentvideoobjectdetection_torch.models.detectors import (
+        fpn_faster_rcnn as FF)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(17)
+    n = DET_IMAGES + DET_PROFILED
+    raw = rng.randint(0, 256, (n,) + DET_HW + (3,)).astype(np.uint8)
+    roi_align = kernels[1]
+    total, bodies, runs = [0] * len(kernels), {}, {}
+    levels = []
+    real = FF.multilevel_roi_align
+
+    def counting(*a, **kw):
+        kw["level_counts"] = levels
+        return real(*a, **kw)
+
+    for name, cfg_path in DET_STREAM:
+        mtype, kw = detector_kwargs(cfg_path)
+        det = DetectorModel(mtype, device=dev, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        levels.clear()
+        lat, ndet = [], []
+        FF.multilevel_roi_align = counting
+        try:
+            for i in range(DET_IMAGES):
+                t = time.perf_counter()
+                res = det.inference_detector(raw[i])
+                lat.append((time.perf_counter() - t) * 1e3)
+                ndet.append(sum(len(r) for r in res))
+                if len(res) != det.num_classes or not all(
+                        np.isfinite(r).all() for r in res):
+                    raise AssertionError(f"det_stream {name}: bad result")
+            frames = iter(range(DET_IMAGES, n))
+            window = flow_profiled(lambda: det.inference_detector(
+                raw[next(frames)]), DET_PROFILED)
+        finally:
+            FF.multilevel_roi_align = real
+        counts = [k.launches for k in kernels]
+        want_b = {"FasterRCNNFPN": sum(sum(1 for c in lv if c)
+                                       for lv in levels),
+                  "RetinaNet": 0, "FasterRCNN": n}[name]
+        if counts != [0, want_b, 0, 0, 0, 0, 0] or (
+                name == "FasterRCNNFPN" and len(levels) != n):
+            raise AssertionError(f"det_stream {name}: launch counts {counts},"
+                                 f" want B {want_b}")
+        check_bodies(f"det_stream {name}", roi_align, gather7x2=want_b,
+                     gather14x2=0)
+        add_counts(bodies, dict(roi_align=roi_align.body_launches))
+        steady = lat[1:]
+        run = dict(bucket=[det.pad_h, det.pad_w], frames=n,
+                   frame0_ms=lat[0], median_frame_ms=statistics.median(steady),
+                   min_frame_ms=min(steady), max_frame_ms=max(steady),
+                   frame_ms=steady, device_window=window,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                   detections_per_frame=ndet, launches=dict(
+                       zip(KERNEL_NAMES, counts)))
+        if name == "FasterRCNNFPN":
+            per = np.asarray(levels)
+            run["levels"] = dict(
+                rois_per_level_frame0=per[0].tolist(),
+                rois_per_level_mean=per.mean(0).tolist(),
+                launches_per_level=(per > 0).sum(0).tolist())
+            run["kernel_b_per_level"] = fpn_level_times(det, raw[0],
+                                                        roi_align)
+        runs[name] = run
+        total = [a + b for a, b in zip(total, counts)]
+        del det
+        torch.cuda.empty_cache()
+    # f32: the kernel path against the plain path, one frame a model
+    agree = {}
+    for name, cfg_path in DET_STREAM:
+        key = "compute_dtype" if name == "FasterRCNN" else "dtype"
+        mtype, kw = detector_kwargs(cfg_path, **{key: "float32"})
+        det = DetectorModel(mtype, device=dev, **kw)
+        imgs, shape, sf = prepare_frames(raw[:1], det.pad_h, det.pad_w,
+                                         device=dev)
+        sf = torch.as_tensor(sf, device=dev)
+        got = det.detect(imgs[0], shape, sf)
+        det.impl = "plain"
+        want = det.detect(imgs[0], shape, sf)
+        sets = match_sets(got, want)
+        if sets["unmatched"] or sets["n_got"] != sets["n_want"] or \
+                not sets["n_want"]:
+            raise AssertionError(f"det_stream {name} f32: sets {sets}")
+        agree[name] = sets
+        del det
+        torch.cuda.empty_cache()
+    phase("det_stream", card=smi, frame_hw=DET_HW, models=runs,
+          f32_kernel_vs_plain=dict(sets=agree, tolerances=dict(
+              box_px=SET_BOX_TOL, score=SET_SCORE_TOL)),
+          launches=dict(zip(KERNEL_NAMES, total)),
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward={})
+
+
+def det_train(dev, smi, kernels, root):
+    """The training CLI's image route at full width from a COCO tree of PNG
+    images written under ``root`` (COCO_TREE), ``data.train`` by
+    ``--cfg-options``: FPN Faster R-CNN and RetinaNet (their configs, bf16,
+    seeded weights), DET_TRAIN_STEPS steps each, the last ones profiled.
+    Gates: finite losses; on the FPN path B launches at least once a step
+    (once a non-empty level) and D as often as B, on their 7x7 bodies;
+    RetinaNet none. Returns the launch counts (A-G), B's and D's bodies
+    and the val annotation file."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
+        write_coco_tree)
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        train as cli)
+    from lowlightenvironmentvideoobjectdetection_torch.models.detectors import (
+        fpn_faster_rcnn as FF)
+    t_phase = time.perf_counter()
+    train_ann, val_ann = write_coco_tree(f"{root}/coco", **COCO_TREE)
+    total, bodies, runs = [0] * len(kernels), {}, {}
+    levels = []
+    real = FF.multilevel_roi_align
+
+    def counting(*a, **kw):
+        kw["level_counts"] = levels
+        return real(*a, **kw)
+
+    for cfg_path, scale in DET_TRAIN_SCALE.items():
+        pipeline = [dict(type="LoadImageFromFile"),
+                    dict(type="LoadAnnotations", with_bbox=True),
+                    dict(type="Resize", img_scale=scale),
+                    dict(type="RandomFlip", flip_ratio=0.5),
+                    dict(type="Normalize"), dict(type="Pad", size_divisor=32)]
+        d = dict(type="CocoDataset", ann_file=train_ann,
+                 img_prefix=f"{root}/coco/", pipeline=pipeline)
+        window = StepWindow(DET_TRAIN_STEPS, DET_TRAIN_SKIP)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        levels.clear()
+        FF.multilevel_roi_align = counting
+        t0 = time.perf_counter()
+        try:
+            out = cli.main([str(REPO / cfg_path), "--seed", "0",
+                            "--work-dir", f"{root}/work_det", "--steps",
+                            str(DET_TRAIN_STEPS), "--cfg-options",
+                            f"data.train={d!r}", "data.workers_per_gpu=0"],
+                           on_step=window)
+        finally:
+            FF.multilevel_roi_align = real
+        counts = [k.launches for k in kernels]
+        fpn = cfg_path == DET_FPN_CFG
+        b, dd = counts[1], counts[3]
+        ok = (b >= DET_TRAIN_STEPS and dd == b == sum(
+            sum(1 for c in lv if c) for lv in levels)) if fpn \
+            else b == dd == 0
+        if not ok or counts[0] or counts[2] or any(counts[4:]) or not all(
+                np.isfinite(v) for m in out["metrics"] for v in m.values()):
+            raise AssertionError(f"det_train {cfg_path}: counts {counts}, "
+                                 f"metrics {out['metrics']}")
+        check_bodies(f"det_train {cfg_path} roi_align", kernels[1],
+                     gather7x2=b, gather14x2=0)
+        check_bodies(f"det_train {cfg_path} roi_align_backward", kernels[3],
+                     scatter7x2=dd, scatter14x2=0)
+        add_counts(bodies, dict(roi_align=kernels[1].body_launches,
+                                roi_align_backward=kernels[3].body_launches))
+        step_ms = [(y - x) * 1e3 for x, y in zip([t0] + window.stamps,
+                                                window.stamps)]
+        timed_ms = step_ms[1:DET_TRAIN_SKIP]
+        runs[cfg_path] = dict(
+            steps=DET_TRAIN_STEPS, first_step_ms=step_ms[0],
+            median_step_ms=statistics.median(timed_ms), step_ms=step_ms,
+            device_window=window.window, losses=out["metrics"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            launches=dict(zip(KERNEL_NAMES, counts)),
+            rois_per_level_a_step=levels[:] if fpn else None,
+            loader_ms=loader_summary(out["timings"], 1))
+        total = [a + c for a, c in zip(total, counts)]
+        del out
+        torch.cuda.empty_cache()
+    phase("det_train", card=smi, tree=COCO_TREE, runs=runs,
+          launches=dict(zip(KERNEL_NAMES, total)),
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward=bodies.get("roi_align_backward",
+                                                     {})), val_ann
+
+
+def image_gts(ann, det_lists, path):
+    """``eval_gts`` for an image split: every detection of ``det_lists``
+    (per-class [N, 5] a val image, in dataset order) scored above a
+    threshold that starts at EVAL_GT_SCORE and rises above each image's
+    (DET_GTS_PER_IMAGE + 1)-th score and above every sub-pixel box, as the
+    COCO annotations of ``ann``'s images, written to ``path``. Returns the
+    threshold and the number of gts."""
+    with open(ann) as f:
+        data = json.load(f)
+    rows = [per_class_rows(d) for d in det_lists]
+    thr = EVAL_GT_SCORE
+    for r in rows:
+        scores = sorted((s for _, _, s in r), reverse=True)
+        if len(scores) > DET_GTS_PER_IMAGE:
+            thr = max(thr, scores[DET_GTS_PER_IMAGE])
+        thr = max([thr] + [s for _, b, s in r
+                           if b[2] - b[0] < 1 or b[3] - b[1] < 1])
+    anns = []
+    for img, r in zip(data["images"], rows):
+        for c, b, s in r:
+            if s > thr:
+                x1, y1, x2, y2 = (float(v) for v in b)
+                anns.append(dict(id=len(anns) + 1, image_id=img["id"],
+                                 category_id=c + 1,
+                                 bbox=[x1, y1, x2 - x1, y2 - y1],
+                                 area=(x2 - x1) * (y2 - y1), iscrowd=0))
+    data["annotations"] = anns
+    with open(path, "w") as f:
+        json.dump(data, f)
+    return thr, len(anns)
+
+
+def det_eval(dev, smi, kernels, root, val_ann):
+    """The test CLI's image route on the card over the COCO tree's val
+    split, for the two FPN configs: the plain path at f32
+    (``DetectorModel`` with ``impl = "plain"``) makes the gts
+    (``image_gts``; its own mAP50 must be 1); the CLI at f32 (the kernel
+    path) against them, mAP50 at least EVAL_F32_MAP, its detection sets
+    against the plain run's; the CLI at the config's bf16: mAP50,
+    frames/s and its summary line. Returns the bf16 runs' launch counts
+    (A-G) and B's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        DetectorModel)
+    from lowlightenvironmentvideoobjectdetection_torch.apis.test import (
+        evaluate_bbox)
+    from lowlightenvironmentvideoobjectdetection_torch.data.coco_det import (
+        CocoDataset)
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        test as tcli)
+    import io
+    t_phase = time.perf_counter()
+    total, bodies, runs = [0] * len(kernels), {}, {}
+    ds = CocoDataset(val_ann, img_prefix=f"{root}/coco/", test_mode=True)
+    frames = [tcli.read_frame(i, ds.img_prefix).astype(np.float32)
+              for i in ds.data_infos]
+    for cfg_path in (DET_FPN_CFG, DET_RETINA_CFG):
+        mtype, kw = detector_kwargs(cfg_path, dtype="float32")
+        ref = DetectorModel(mtype, device=dev, **kw)
+        ref.impl = "plain"
+        reset_counts(*kernels)
+        plain = [ref.inference_detector(f) for f in frames]
+        if any(k.launches for k in kernels):
+            raise AssertionError("det_eval: the plain run launched a kernel")
+        del ref
+        gts = f"{root}/coco_gts_{mtype}.json"
+        thr, n_gts = image_gts(val_ann, plain, gts)
+        anns = [CocoDataset(gts, test_mode=True).get_ann_info(i)
+                for i in ds.data_infos]
+        plain_map = evaluate_bbox(plain, anns)["mAP50"]
+        if plain_map != 1.0 or not n_gts:
+            raise AssertionError(f"det_eval {mtype}: the plain run's own "
+                                 f"mAP50 {plain_map} on {n_gts} gts")
+        test = dict(type="CocoDataset", ann_file=gts,
+                    img_prefix=f"{root}/coco/")
+        argv = [str(REPO / cfg_path), "--cfg-options", f"data.test={test!r}"]
+        reset_counts(*kernels)
+        f32 = tcli.main(argv + ["model.dtype=float32"])
+        f32_map = f32["metrics"]["mAP50"]
+        sets = [match_rows(per_class_rows(g), per_class_rows(w))
+                for g, w in zip(f32["dets"], plain)]
+        if f32_map < EVAL_F32_MAP:
+            raise AssertionError(f"det_eval {mtype}: f32 mAP50 {f32_map}; "
+                                 f"sets {sets}")
+        torch.cuda.synchronize()
+        reset_counts(*kernels)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bf16 = tcli.main(argv)
+        line = buf.getvalue().strip().splitlines()[-1]
+        print(line, flush=True)
+        counts = [k.launches for k in kernels]
+        fpn = cfg_path == DET_FPN_CFG
+        if (counts[1] == 0) == fpn or counts[0] or any(counts[2:]):
+            raise AssertionError(f"det_eval {mtype}: counts {counts}")
+        add_counts(bodies, dict(roi_align=kernels[1].body_launches))
+        total = [a + c for a, c in zip(total, counts)]
+        runs[mtype] = dict(
+            config=cfg_path, gts=dict(count=n_gts, score_threshold=thr),
+            plain_f32_map50=plain_map, kernel_f32_map50=f32_map,
+            kernel_f32_gate=EVAL_F32_MAP,
+            kernel_f32_vs_plain_sets=dict(
+                unmatched=sum(x["unmatched"] for x in sets),
+                max_box_px=max(x["box"] for x in sets),
+                max_score=max(x["score"] for x in sets)),
+            bf16_map50=bf16["metrics"]["mAP50"],
+            bf16_frames_per_s=bf16["summary"]["fps"], summary_line=line,
+            launches=dict(zip(KERNEL_NAMES, counts)))
+    phase("det_eval", card=smi, images=len(frames), runs=runs,
+          launches=dict(zip(KERNEL_NAMES, total)),
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward={})
+
+
+def param_search(dev, smi, kernels, root):
+    """The port's ``tools/mot_param_search.py`` on a dets json written from
+    the MOT config's detector and ReID pass (seeded weights, as
+    ``mot_stream``) over a MOT tree under ``root`` (MOT_TREE): per frame the
+    boxes in the frame's coordinates, scores, labels and embeddings; then
+    the search over PARAM_GRID: MOTA and IDF1 at each point. Gate: the
+    tool returns. Returns the detector pass's launch counts (A-G) and B's
+    bodies (B once a frame)."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
+        write_mot_tree)
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        mot_param_search as search, test as tcli)
+    from lowlightenvironmentvideoobjectdetection_torch.data.mot_sot_datasets import (  # noqa: E501
+        MOTChallengeDataset)
+    t_phase = time.perf_counter()
+    ann, _ = write_mot_tree(f"{root}/mot_search", **MOT_TREE)
+    ds = MOTChallengeDataset(ann_file=ann, img_prefix=f"{root}/mot_search/",
+                             test_mode=True)
+    model = mot_model(MOT_CFG, dev)
+    cfg = model.detector.cfg
+    reset_counts(*kernels)
+    frames = []
+    for info in ds.data_infos:
+        raw = tcli.read_frame(info, ds.img_prefix)
+        imgs, shape, sf = prepare_frames(raw[None], cfg.pad_h, cfg.pad_w,
+                                         device=dev)
+        boxes, scores, labels, embeds = model.detect(imgs[0], shape)
+        frames.append(dict(det_bboxes=(boxes / sf).tolist(),
+                           det_scores=scores.tolist(),
+                           det_labels=labels.tolist(),
+                           embeds=embeds.tolist()))
+    counts = [k.launches for k in kernels]
+    if counts != [0, len(frames), 0, 0, 0, 0, 0]:
+        raise AssertionError(f"param_search: detector counts {counts}")
+    bodies = dict(roi_align=dict(kernels[1].body_launches),
+                  roi_align_backward={})
+    dets = f"{root}/mot_search_dets.json"
+    with open(dets, "w") as f:
+        json.dump(frames, f)
+    out = search.main(["--ann-file", ann, "--dets", dets, "--search"]
+                      + PARAM_GRID + ["--log", f"{root}/mot_search.log"])
+    phase("param_search", card=smi, tree=MOT_TREE, grid=PARAM_GRID,
+          frames=len(frames),
+          detections_per_frame=[len(fr["det_bboxes"]) for fr in frames],
+          table=[dict(settings=kw, MOTA=m["MOTA"], IDF1=m["IDF1"])
+                 for kw, m in out["table"]],
+          best=dict(settings=out["best"][1], MOTA=out["best"][0]),
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t_phase)
+    del model
+    torch.cuda.empty_cache()
+    return counts, bodies
+
+
+# ---------------------------------------------------------------------------
 # JPEG frames, the learning check and the original code's checkpoints
 
 
@@ -4749,6 +5324,15 @@ def main() -> int:
     runs.append(sot_stream(dev, smi, path_kernels))
     with tempfile.TemporaryDirectory(prefix="_smoke_track_", dir=REPO) as root:
         runs.append(track_eval(dev, smi, path_kernels, root))
+        runs.append(param_search(dev, smi, path_kernels, root))
+        runs.append(sot_train(dev, smi, path_kernels, root))
+    # the image detectors: FPN Faster R-CNN, RetinaNet and the DC5 Faster
+    # R-CNN streamed, trained and evaluated from a COCO tree
+    runs.append(det_stream(dev, smi, path_kernels))
+    with tempfile.TemporaryDirectory(prefix="_smoke_det_", dir=REPO) as root:
+        counts, bodies, val_ann = det_train(dev, smi, path_kernels, root)
+        runs.append((counts, bodies))
+        runs.append(det_eval(dev, smi, path_kernels, root, val_ann))
     # JPEG frames, the learning check and the original code's checkpoints
     jpeg_decode(smi)
     with tempfile.TemporaryDirectory(prefix="_smoke_jpeg_", dir=REPO) as root:

@@ -1,0 +1,243 @@
+"""The image-detector families: how to build, train and run each image
+detector type of a config, the counterpart of the JAX package's
+``apis/families.py`` (``Family``, ``get_family``, ``make_synth_batch``,
+``init_variables``) for the types the port has:
+
+- ``FasterRCNN``: the DC5 Faster R-CNN (``models/detectors/faster_rcnn.py``);
+- ``FastRCNN``: it, driven by a fixed grid of 64 proposals
+  (``_grid_proposals``) where the JAX CLI has no proposal file;
+- ``RPN``: its RPN alone; detections are the class-agnostic proposals;
+- ``FasterRCNNFPN``: ``models/detectors/fpn_faster_rcnn.py``;
+- ``RetinaNet``: ``models/dense_heads/retina_head.py``.
+
+An entry's ``build(mcfg, tiny, seed, device)`` gives (model, aux) with
+seeded flax-style weights (``aux``: the DC5 families' anchors, else None:
+the FPN families make theirs from the maps), ``loss(model, aux, batch,
+generator, uniforms)`` the (total, metrics) of a ``DetTrainBatch`` (the
+samplers draw their uniforms from ``generator`` unless given them) and
+``detect(model, aux, img, img_shape, scale_factor, impl)`` a fixed-shape
+``DetResult``. ``tiny`` applies the JAX CLI's sizes and float32.
+
+``get_family`` of any other family name the JAX package has raises
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 9; of a name that is
+no image family at all it returns None.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.nms import DetResult
+from ..models.builder import (DTYPES, IMAGE_FAMILIES,
+                               NOT_PORTED_IMAGE_FAMILIES, TINY_KW,
+                               _selsa_cfg)
+from ..models.dense_heads import retina_head as R
+from ..models.detectors import fpn_faster_rcnn as FF
+from ..models.detectors import more_rcnn as MR
+from ..models.detectors.faster_rcnn import (DetTrainBatch, FasterRCNN,
+                                            faster_rcnn_detect,
+                                            faster_rcnn_loss)
+from ..models.vid.selsa import init_params, make_anchors
+from ..utils.device import resolve_device
+
+ZOO_ITEM = FF.ZOO_ITEM
+# the JAX family table's other names (apis/families.py FAMILIES)
+NOT_PORTED = NOT_PORTED_IMAGE_FAMILIES
+# the JAX families' --tiny sizes
+FPN_TINY_KW = dict(pad_h=128, pad_w=128, train_nms_post=32,
+                   test_nms_post=16, num_roi_samples=16)
+DENSE_TINY_HW = (128, 128)
+DENSE_PAD_HW = (768, 1280)  # the JAX DetectorModel's bucket without a cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    build: Callable  # (mcfg, tiny, seed, device) -> (model, aux)
+    loss: Callable  # (model, aux, batch, generator, uniforms) -> loss
+    detect: Callable  # (model, aux, img, img_shape, sf, impl) -> DetResult
+    # the synthetic batches' size when the model has no SelsaConfig bucket
+    input_hw: Optional[Tuple[int, int]] = None
+
+
+def _seeded(model: torch.nn.Module, seed: int, device) -> torch.nn.Module:
+    """Seeded flax-style weights (on the CPU), then ``device``."""
+    init_params(model, torch.Generator().manual_seed(seed))
+    return model.to(resolve_device(device))
+
+
+def _dc5_build(cls, default_classes: int):
+    def build(mcfg, tiny, seed=0, device=None):
+        kw = dict(mcfg)
+        kw.setdefault("num_classes", default_classes)
+        if tiny:
+            kw.update(TINY_KW)
+        cfg = _selsa_cfg(**kw)
+        model = _seeded(cls(cfg), seed, device)
+        return model, make_anchors(cfg, next(model.parameters()).device)
+    return build
+
+
+def _dense_kw(mcfg, tiny, tiny_kw=None) -> dict:
+    """The JAX ``_dense_build`` / ``_build_fpn_frcnn`` keyword mapping:
+    ``compute_dtype`` is ``dtype``, dtype names become dtypes, the
+    single-level windows go; ``tiny`` gives float32 and ``tiny_kw``."""
+    kw = dict(mcfg)
+    if "compute_dtype" in kw:
+        kw.setdefault("dtype", kw.pop("compute_dtype"))
+    if tiny:
+        kw["dtype"] = torch.float32
+        kw.update(tiny_kw or {})
+    if isinstance(kw.get("dtype"), str):
+        kw["dtype"] = DTYPES[kw["dtype"]]
+    for k in ("train_nms_pre", "test_nms_pre"):
+        kw.pop(k, None)
+    return kw
+
+
+def _fpn_build(mcfg, tiny, seed=0, device=None):
+    model = FF.FPNFasterRCNN(**_dense_kw(mcfg, tiny, FPN_TINY_KW))
+    return _seeded(model, seed, device), None
+
+
+def _retina_build(mcfg, tiny, seed=0, device=None):
+    return _seeded(R.RetinaNet(**_dense_kw(mcfg, tiny)), seed, device), None
+
+
+def _grid_proposals(hw, n: int = 64, device=None):
+    """The JAX CLI's fixed proposal grid for Fast R-CNN without a proposal
+    file: sqrt(n) x sqrt(n) half-image boxes from the top left quarter
+    (``hw`` the padded image's size, host ints)."""
+    h, w = float(hw[0]), float(hw[1])
+    side = int(np.sqrt(n))
+    ys = np.linspace(0, h * 0.5, side)
+    xs = np.linspace(0, w * 0.5, side)
+    boxes = [[x, y, min(x + w * 0.5, w), min(y + h * 0.5, h)]
+             for y in ys for x in xs]
+    return (torch.as_tensor(np.asarray(boxes, np.float32), device=device),
+            torch.ones(len(boxes), dtype=torch.bool, device=device))
+
+
+def _uniforms(uniforms, shape, generator, device):
+    if uniforms is not None:
+        return uniforms
+    if generator is None:
+        raise ValueError("pass uniforms or a generator")
+    return torch.rand(shape, generator=generator,
+                      device=generator.device).to(device)
+
+
+def _fast_loss(m, a, b, generator=None, uniforms=None):
+    props, pv = _grid_proposals(b.img.shape[:2], device=b.img.device)
+    fb = MR.FastRCNNBatch(b.img, b.img_shape, props, pv, b.gt_boxes,
+                          b.gt_labels, b.gt_valid)
+    u = _uniforms(uniforms, (3, b.gt_boxes.shape[0] + props.shape[0]),
+                  generator, b.img.device)
+    return MR.fast_rcnn_loss(m, fb, u)
+
+
+def _fast_detect(m, a, img, ishape, sf=None, impl=None):
+    props, pv = _grid_proposals(img.shape[:2], device=img.device)
+    return MR.fast_rcnn_detect(m, img, ishape, props, pv, scale_factor=sf,
+                               impl=impl)
+
+
+def _rpn_loss(m, a, b, generator=None, uniforms=None):
+    u = _uniforms(uniforms, (2, a.shape[0]), generator, b.img.device)
+    return MR.rpn_only_loss(m, b, a, u)
+
+
+def _rpn_detect(m, a, img, ishape, sf=None, impl=None):
+    props = MR.rpn_propose(m, img, ishape, a)
+    boxes = props.boxes
+    if sf is not None:
+        boxes = boxes / torch.as_tensor(sf, dtype=boxes.dtype,
+                                        device=boxes.device)
+    return DetResult(boxes, props.scores,
+                     torch.zeros(boxes.shape[0], dtype=torch.int64,
+                                 device=boxes.device), props.valid)
+
+
+FAMILIES: Dict[str, Family] = {
+    "FasterRCNN": Family(
+        _dc5_build(FasterRCNN, 30),
+        lambda m, a, b, generator=None, uniforms=None: faster_rcnn_loss(
+            m, b, a, generator=generator, uniforms=uniforms),
+        lambda m, a, img, ishape, sf=None, impl=None: faster_rcnn_detect(
+            m, img, ishape, a, scale_factor=sf, impl=impl)),
+    "FastRCNN": Family(_dc5_build(MR.FastRCNN, 80), _fast_loss,
+                       _fast_detect),
+    "RPN": Family(_dc5_build(MR.RPN, 1), _rpn_loss, _rpn_detect),
+    "FasterRCNNFPN": Family(
+        _fpn_build,
+        lambda m, a, b, generator=None, uniforms=None:
+            FF.fpn_faster_rcnn_loss(m, b, generator=generator,
+                                    uniforms=uniforms),
+        lambda m, a, img, ishape, sf=None, impl=None:
+            FF.fpn_faster_rcnn_detect(m, img, ishape, scale_factor=sf,
+                                      impl=impl),
+        input_hw=DENSE_TINY_HW),
+    "RetinaNet": Family(
+        _retina_build,
+        lambda m, a, b, generator=None, uniforms=None: R.retinanet_loss(m, b),
+        lambda m, a, img, ishape, sf=None, impl=None: R.retinanet_detect(
+            m, img, ishape, scale_factor=sf),
+        input_hw=DENSE_TINY_HW),
+}
+
+
+def get_family(mtype: str) -> Optional[Family]:
+    """The port's family of ``mtype``; NotImplementedError for the JAX
+    package's other families; None for a type that is no image family."""
+    if mtype in FAMILIES:
+        return FAMILIES[mtype]
+    if mtype in NOT_PORTED:
+        raise NotImplementedError(f"image detector {mtype!r} is not ported "
+                                  f"({ZOO_ITEM})")
+    return None
+
+
+def is_image_family(mtype: str) -> bool:
+    """Whether the JAX family table has ``mtype`` (ported or not)."""
+    return mtype in IMAGE_FAMILIES
+
+
+def pad_hw(model, fam: Family, tiny: bool) -> Tuple[int, int]:
+    """The bucket images are padded to: a DC5 family's config pad, FPN
+    Faster R-CNN's own ``pad_h`` x ``pad_w`` (800 x 1344; 128 x 128 with
+    ``tiny``), RetinaNet's 768 x 1280 (128 x 128 with ``tiny``), as the JAX
+    ``DetectorModel`` pads save for FPN (ROADMAP fault F18)."""
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None:
+        return cfg.pad_h, cfg.pad_w
+    if isinstance(model, FF.FPNFasterRCNN):
+        return model.pad_h, model.pad_w
+    return fam.input_hw if tiny else DENSE_PAD_HW
+
+
+def num_classes(model) -> int:
+    cfg = getattr(model, "cfg", None)
+    return cfg.num_classes if cfg is not None else model.num_classes
+
+
+def make_synth_batch(model, fam: Family, rng: np.random.RandomState,
+                     device=None) -> DetTrainBatch:
+    """The JAX CLI's synthetic ``DetTrainBatch`` for the family: U(-2, 2)
+    at ``input_hw`` (else the config's bucket), 2 valid gts of 4."""
+    if fam.input_hw is not None:
+        h, w = fam.input_hw
+    else:
+        h, w = model.cfg.pad_h, model.cfg.pad_w
+    fields = (rng.uniform(-2, 2, (h, w, 3)).astype(np.float32),
+              np.asarray([float(h), float(w)], np.float32),
+              np.asarray([[8.0, 8.0, h * 0.45, w * 0.45],
+                          [4.0, 4.0, h * 0.3, w * 0.6],
+                          [0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0]],
+                         np.float32),
+              np.asarray([1, 2, 0, 0], np.int64),
+              np.asarray([True, True, False, False]))
+    return DetTrainBatch(*(torch.as_tensor(f, device=device)
+                           for f in fields))

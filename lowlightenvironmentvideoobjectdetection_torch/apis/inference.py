@@ -1,7 +1,9 @@
 """Public streaming inference API, the counterpart of the JAX package's
 ``apis/inference.py``: the video detectors (SELSA and its low-light
 family, FGFA, DFF: ``VIDModel``, ``init_model``, ``inference_vid``,
-``result_to_per_class``), multi-object tracking (``inference_mot`` on a
+``result_to_per_class``), the image detectors (``DetectorModel``,
+``init_detector``, ``inference_detector``: the families of
+``apis/families.py``), multi-object tracking (``inference_mot`` on a
 DeepSORT or Tracktor model of ``models/builder.py`` ``build_mot_model``)
 and single-object tracking (``SOTModel``, ``init_sot_model``,
 ``inference_sot``: SiamRPN++)."""
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from ..data.preprocess import prepare_frames
+from . import families as FAM
 from ..models.mot.deep_sort import rescale_result
 from ..models.sot import siamrpn as SR
 from ..models.vid import fgfa as FG
@@ -194,6 +197,70 @@ def init_model(model_type: str = "SELSA", checkpoint=None, **kwargs
 def inference_vid(model: VIDModel, frame: np.ndarray, frame_id: int,
                   ref_frames: Optional[np.ndarray] = None) -> Dict:
     return model.inference_vid(frame, frame_id, ref_frames)
+
+
+class DetectorModel:
+    """A built image detector (mmdet's ``init_detector`` /
+    ``inference_detector``): any family of ``apis/families.py``, weights
+    seeded by ``seed`` or from ``state_dict``, on ``device`` (None: the
+    card, raising without one). Images are resized into the family's
+    bucket (``families.pad_hw``: a DC5 family's config pad, 608 x 1024;
+    FPN Faster R-CNN's own 800 x 1344; RetinaNet's 768 x 1280; 64 x 64 or
+    128 x 128 with ``tiny``, which also computes in float32), or
+    ``pad_hw``. Results are per-class [N, 5] arrays in the original
+    image's coordinates. ``impl = "plain"`` (an attribute, for comparisons
+    only) runs the kernels' plain versions."""
+
+    impl = None
+
+    def __init__(self, model_type: str = "FasterRCNN", state_dict=None,
+                 seed: int = 0, tiny: bool = False, pad_hw=None, device=None,
+                 **model_kwargs):
+        fam = FAM.get_family(model_type)
+        if fam is None:
+            raise ValueError(f"model type {model_type!r} is no image "
+                             f"detector (the port runs "
+                             f"{sorted(FAM.FAMILIES)})")
+        self.model_type, self.family = model_type, fam
+        self.device = resolve_device(device)
+        full_f32_precision()
+        model, self.aux = fam.build(dict(model_kwargs), tiny, seed,
+                                    self.device)
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        self.model = S.cast_for_inference(model.eval())
+        self.num_classes = FAM.num_classes(model)
+        self.pad_h, self.pad_w = (tuple(pad_hw) if pad_hw is not None
+                                  else FAM.pad_hw(model, fam, tiny))
+
+    def detect(self, img: torch.Tensor, img_shape, scale_factor):
+        """A padded, normalized image [pad_h, pad_w, 3] on the device ->
+        the fixed-shape ``DetResult``."""
+        return self.family.detect(self.model, self.aux, img, img_shape,
+                                  scale_factor, impl=self.impl)
+
+    def inference_detector(self, img) -> List[np.ndarray]:
+        """A raw BGR image [H, W, 3] (numpy or tensor) -> per-class
+        [N, 5]."""
+        imgs, img_shape, sf = prepare_frames(img[None], self.pad_h,
+                                             self.pad_w, device=self.device)
+        dets = self.detect(imgs[0], img_shape,
+                           torch.as_tensor(sf, device=self.device))
+        return result_to_per_class(dets, self.num_classes)
+
+
+def init_detector(model_type: str = "FasterRCNN", checkpoint=None,
+                  **kwargs) -> DetectorModel:
+    """A DetectorModel; ``checkpoint`` is a saved port ``state_dict`` or a
+    ``TrainState`` checkpoint of the training CLI."""
+    if checkpoint is not None:
+        sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        kwargs["state_dict"] = sd.get("model", sd)
+    return DetectorModel(model_type=model_type, **kwargs)
+
+
+def inference_detector(model: DetectorModel, img) -> List[np.ndarray]:
+    return model.inference_detector(img)
 
 
 def inference_mot(model, img: np.ndarray, frame_id: int,

@@ -80,17 +80,18 @@ class TrainLoop:
 def train_model(loss_fn: Callable, model: nn.Module, data_iter: Iterable,
                 num_steps: int, base_lr: float = 0.01,
                 iters_per_epoch: int = 1000, seed: int = 0,
-                resume_from: Optional[str] = None, **loop_kwargs
-                ) -> TrainState:
+                resume_from: Optional[str] = None, optimizer=None,
+                **loop_kwargs) -> TrainState:
     """One-call training: the JAX ``make_optimizer`` with the mmcv step
     schedule, a ``Trainer`` over ``loss_fn(model, sample, generator)`` and a
     ``TrainLoop``. ``resume_from`` restores a whole ``TrainState``
     checkpoint (parameters, momentum, step) into ``model``, so the schedule
-    and the samples continue where they left off. ``loop_kwargs`` go to
+    and the samples continue where they left off. ``optimizer`` replaces
+    the default one (SiamRPN++'s schedule and mask). ``loop_kwargs`` go to
     ``TrainLoop`` (``eval_fn`` and ``eval_interval`` among them). Returns
     the final state. TF32 is turned off (``full_f32_precision``)."""
     full_f32_precision()
-    opt = make_optimizer(model, lr=make_lr_schedule(
+    opt = optimizer or make_optimizer(model, lr=make_lr_schedule(
         base_lr, iters_per_epoch=iters_per_epoch))
     trainer = Trainer(loss_fn=loss_fn, optimizer=opt)
     state = trainer.init_state(model)

@@ -1,13 +1,14 @@
 """Anchor generation (host-side numpy), the counterpart of the JAX package's
 ``core/anchors.py`` (at its default centre offset 0): scale-major base
 anchors, grid anchors row-major with the per-cell base anchors contiguous.
-Re-implemented rather than imported: the JAX package imports jax at package
-import."""
+The scales are given, or RetinaNet's octaves: ``octave_base_scale`` times
+2^(i / ``scales_per_octave``). Re-implemented rather than imported: the JAX
+package imports jax at package import."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -16,18 +17,35 @@ import numpy as np
 class AnchorGenerator:
     strides: Sequence[int]
     ratios: Sequence[float]
-    scales: Sequence[float]
+    scales: Optional[Sequence[float]] = None
+    octave_base_scale: Optional[int] = None
+    scales_per_octave: Optional[int] = None
+
+    def __post_init__(self):
+        if (self.scales is None) == (self.octave_base_scale is None):
+            raise ValueError("give scales or octave_base_scale, not both")
+        if self.scales is None and not self.scales_per_octave:
+            raise ValueError("octave_base_scale needs scales_per_octave")
+
+    @property
+    def _scales(self) -> np.ndarray:
+        if self.scales is not None:
+            return np.asarray(self.scales, np.float32)
+        octave = np.array([2 ** (i / self.scales_per_octave)
+                           for i in range(self.scales_per_octave)],
+                          np.float32)
+        return octave * self.octave_base_scale
 
     @property
     def num_base_anchors(self) -> int:
-        return len(self.ratios) * len(self.scales)
+        return len(self.ratios) * len(self._scales)
 
     def base_anchors(self, level: int) -> np.ndarray:
         """[A, 4] base anchors for one level, scale-major ordering, centred
         at 0."""
         w = h = float(self.strides[level])
         ratios = np.asarray(self.ratios, np.float32)
-        scales = np.asarray(self.scales, np.float32)
+        scales = self._scales
         h_ratios = np.sqrt(ratios)
         w_ratios = 1.0 / h_ratios
         ws = (w * w_ratios[:, None] * scales[None, :]).reshape(-1)

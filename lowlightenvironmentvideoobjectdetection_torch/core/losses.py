@@ -1,8 +1,9 @@
 """Detection losses, the counterpart of the JAX package's ``core/losses.py``
 (``smooth_l1_loss``, ``l1_loss``, ``mse_loss``, ``softmax_cross_entropy``,
-``binary_cross_entropy``, ``accuracy``): per-element ``weight`` and an
-``avg_factor`` (clamped to at least 1), so masked fixed-size samples reduce
-as mmdet's dynamic lists do; without either, a plain mean.
+``binary_cross_entropy``, ``sigmoid_focal_loss``, ``accuracy``):
+per-element ``weight`` and an ``avg_factor`` (clamped to at least 1), so
+masked fixed-size samples reduce as mmdet's dynamic lists do; without
+either, a plain mean.
 """
 
 from __future__ import annotations
@@ -50,6 +51,19 @@ def binary_cross_entropy(logits, labels, weight=None, avg_factor=None):
     loss = (torch.maximum(logits, torch.zeros_like(logits)) - logits * labels
             + torch.log1p(torch.exp(-logits.abs())))
     return _reduce(loss, weight, avg_factor)
+
+
+def sigmoid_focal_loss(logits, labels, gamma=2.0, alpha=0.25, weight=None,
+                       avg_factor=None):
+    """Per-class sigmoid focal loss with one-hot (float) ``labels`` of the
+    logits' shape: alpha_t (1 - p_t)^gamma times the stable sigmoid cross
+    entropy."""
+    p = torch.sigmoid(logits)
+    ce = (torch.maximum(logits, torch.zeros_like(logits)) - logits * labels
+          + torch.log1p(torch.exp(-logits.abs())))
+    p_t = p * labels + (1 - p) * (1 - labels)
+    alpha_t = alpha * labels + (1 - alpha) * (1 - labels)
+    return _reduce(alpha_t * (1 - p_t) ** gamma * ce, weight, avg_factor)
 
 
 def accuracy(logits, labels, mask=None):

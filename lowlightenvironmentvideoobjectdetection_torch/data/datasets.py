@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 from torch.utils.data import Dataset
 
+from .coco_det import CocoDataset
 from .coco_vid import CocoVID
 
 IMAGENET_VID_CLASSES = (
@@ -202,4 +203,5 @@ def distributed_video_split(data_infos: Sequence[dict], num_shards: int
 
 
 DATASETS = {"ImagenetVIDDataset": ImagenetVIDDataset,
-            "DarkFarmVIDDataset": DarkFarmVIDDataset}
+            "DarkFarmVIDDataset": DarkFarmVIDDataset,
+            "CocoDataset": CocoDataset}

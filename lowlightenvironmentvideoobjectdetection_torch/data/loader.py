@@ -11,7 +11,8 @@ there (``Compose.device_stage``: resize, brighten, flip, normalise, pad
 and formatting, or the RAW and noise steps), pads the frames to the
 model's static ``pad_h`` x ``pad_w`` and the key frame's gts to
 ``MAX_GTS``, and builds a ``DarkfarmBatch`` of one sample (a ``TrainBatch``
-for the ImageNet-VID families).
+for the ImageNet-VID families, a ``DetTrainBatch`` for the image detectors
+on an image dataset such as ``CocoDataset``).
 
 A spawned worker imports the program's main module: one that sets CUDA
 state when imported (``torch.backends.cuda`` flags, for one) makes the
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 from torch.utils.data import DataLoader, Dataset, Sampler, get_worker_info
 
+from ..models.detectors.faster_rcnn import DetTrainBatch
 from ..models.vid.selsa import TrainBatch
 from ..models.vid.selsa_darkfarm import DarkfarmBatch
 from .datasets import DATASETS, CocoVideoDataset
@@ -178,6 +180,14 @@ def make_batch(d: Dict[str, torch.Tensor], in_channels: int
         imgs, d["img_shape"], d["gt_boxes"], d["gt_labels"], d["gt_valid"])))
 
 
+def make_image_batch(d: Dict[str, torch.Tensor]) -> DetTrainBatch:
+    """The JAX ``make_batch`` of the image families, with a leading batch
+    axis of 1: the image's first 3 channels [1, H, W, 3]."""
+    return DetTrainBatch(*(t[None] for t in (
+        d["imgs"][0, ..., :3], d["img_shape"], d["gt_boxes"],
+        d["gt_labels"], d["gt_valid"])))
+
+
 def make_frame_batch(d: Dict[str, torch.Tensor]) -> TrainBatch:
     """The JAX ``make_batch`` of the ImageNet-VID families (SELSA, FGFA,
     DFF), with a leading batch axis of 1: the frames' first 3 channels (the
@@ -189,7 +199,8 @@ def make_frame_batch(d: Dict[str, torch.Tensor]) -> TrainBatch:
 
 class TrainLoader:
     """Iterates ``DarkfarmBatch``es (with ``pairs=False`` ``TrainBatch``es,
-    ``make_frame_batch``) of one sample for global steps
+    ``make_frame_batch``; from an image dataset ``DetTrainBatch``es,
+    ``make_image_batch``) of one sample for global steps
     ``start``, ``start + 1``, ... (see the module docstring). ``timings``
     gets one dict a batch: ``host_ms`` (the worker's sampling, annotations
     and decoding), ``wait_ms`` (how long the main process waited for it)
@@ -229,6 +240,10 @@ class TrainLoader:
         rng = item["rng"]
         out = self.pipeline.device_stage(
             to_device(item["frames"], self.device), rng)
+        if not getattr(self.dataset, "is_video", True):
+            padded = pad_batch(out[0] if isinstance(out, list) else out,
+                               self.pad_h, self.pad_w)
+            return make_image_batch(padded)
         padded = pad_batch(out, self.pad_h, self.pad_w)
         if not self.pairs:
             return make_frame_batch(padded)

@@ -8,15 +8,15 @@
   CLEAR-MOT evaluation (L212) via ``core.eval.mot.eval_mot``.
 - LaSOTDataset: mmtrack/datasets/lasot_dataset.py:9 — single-object test
   videos (``get_video``) with OPE evaluation (``core.eval.sot.eval_sot_ope``).
-
-The training pair sampler (``SOTTrainDataset``) is not ported (ROADMAP.md
-Queue 1, SiamRPN training).
+- SOTTrainDataset: mmtrack/datasets/sot_train_dataset.py — template and
+  search pairs for SiamRPN++ training, drawn from a ``random.Random``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -146,3 +146,38 @@ class LaSOTDataset(CocoVideoDataset):
             gts.append([g[t] for t in range(len(g)) if keep[t]])
             preds.append([p[t] for t in range(len(p)) if keep[t]])
         return eval_sot_ope(preds, gts)
+
+
+class SOTTrainDataset(CocoVideoDataset):
+    """Template and search pairs (mmtrack's ``sot_train_dataset.py``): a
+    positive pair is the frame and another of its video within
+    ``max_frame_range``; with probability ``neg_pair_ratio`` the search
+    frame is any frame of the dataset instead, a negative pair unless it
+    falls in the same video."""
+
+    CLASSES = ("object",)
+
+    def __init__(self, *args, max_frame_range: int = 100,
+                 neg_pair_ratio: float = 0.2, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.max_frame_range = max_frame_range
+        self.neg_pair_ratio = neg_pair_ratio
+
+    def sample_pair(self, idx: int, rng: Optional[random.Random] = None):
+        """(template sample, search sample, is_positive), every draw from
+        ``rng`` (the dataset's own when None) in the JAX package's order:
+        the pair kind, then the reference frame or the other index."""
+        rng = rng if rng is not None else self.rng
+        info = dict(self.data_infos[idx])
+        is_positive = rng.random() >= self.neg_pair_ratio
+        if is_positive:
+            other = self.ref_img_sampling(
+                info, frame_range=self.max_frame_range, num_ref_imgs=1,
+                filter_key_img=False, method="uniform", rng=rng)[0]
+        else:
+            other = dict(self.data_infos[rng.randrange(len(self.data_infos))])
+            if other.get("video_id") == info.get("video_id"):
+                is_positive = True  # the same video: a positive pair
+        t = dict(img_info=info, ann=self.get_ann_info(info))
+        s = dict(img_info=other, ann=self.get_ann_info(other))
+        return t, s, is_positive

@@ -550,3 +550,195 @@ class SeqAddNoise(AddNoise):
             return [self.apply(r, _device_generator(seed, r["img"].device))
                     for r in results]
         return [super(SeqAddNoise, self).__call__(r, rng) for r in results]
+
+
+# ---------------------------------------------------------------------------
+# SOT augmentations (SiamRPN++ training pairs), on the host
+# ---------------------------------------------------------------------------
+#
+# The JAX package's steps call cv2 and draw from Python's global ``random``
+# and numpy's global generator. These take an explicit ``random.Random``
+# (the pipeline's ``rng``) and, for the colour mix, an
+# ``np.random.RandomState`` (``np_rng``; by default one seeded from
+# ``rng``): seeded as the JAX package's globals, they make the same crops.
+# ``cv2.copyMakeBorder`` is a constant pad here, ``cv2.resize`` the
+# cv2-exact ``resize_linear_u8`` (uint8 frames) and ``cv2.blur`` a
+# normalised box filter with reflect-101 borders.
+
+
+def _resize_u8_np(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    return resize_linear_u8(torch.from_numpy(np.ascontiguousarray(img)),
+                            nh, nw).numpy()
+
+
+def _np_rng(rng, np_rng):
+    if np_rng is not None:
+        return np_rng
+    return np.random.RandomState(rng.getrandbits(32))
+
+
+def _crop_with_context(img: np.ndarray, bbox, context_amount: float,
+                       out_size: int, pad_value):
+    """SiamFC's crop around ``bbox`` (xyxy) with context: the square of
+    side sqrt((w + c(w + h)) (h + c(w + h))) centred on the box, padded
+    with ``pad_value`` (per channel, rounded as cv2 saturates it) where it
+    leaves the frame, resized to ``out_size``. Returns (crop, the box in
+    the crop's frame)."""
+    x1, y1, x2, y2 = bbox
+    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+    w, h = x2 - x1, y2 - y1
+    wc = w + context_amount * (w + h)
+    hc = h + context_amount * (w + h)
+    s = np.sqrt(max(wc * hc, 1e-6))
+    half = s / 2
+    xa, ya = cx - half, cy - half
+    xb, yb = cx + half, cy + half
+    H, W = img.shape[:2]
+    pad_l, pad_t = max(0, -int(np.floor(xa))), max(0, -int(np.floor(ya)))
+    pad_r, pad_b = max(0, int(np.ceil(xb)) - W), max(0, int(np.ceil(yb)) - H)
+    fill = np.asarray(pad_value, np.float64)
+    if img.dtype == np.uint8:  # cv2's saturate_cast: round half to even
+        fill = np.clip(np.rint(fill), 0, 255)
+    padded = np.empty((H + pad_t + pad_b, W + pad_l + pad_r)
+                      + img.shape[2:], img.dtype)
+    padded[...] = fill.astype(img.dtype)
+    padded[pad_t:pad_t + H, pad_l:pad_l + W] = img
+    xa_i, ya_i = int(np.floor(xa)) + pad_l, int(np.floor(ya)) + pad_t
+    crop = padded[ya_i:ya_i + int(round(s)), xa_i:xa_i + int(round(s))]
+    crop = _resize_u8_np(crop, out_size, out_size)
+    scale = out_size / max(s, 1e-6)
+    new_bbox = np.array([
+        (x1 - (cx - half)) * scale, (y1 - (cy - half)) * scale,
+        (x2 - (cx - half)) * scale, (y2 - (cy - half)) * scale,
+    ], np.float32)
+    return crop, new_bbox
+
+
+@PIPELINES.register("SeqCropLikeSiamFC")
+class SeqCropLikeSiamFC:
+    """Each frame cropped around its first gt box with context
+    (``_crop_with_context``) to ``crop_size`` / ``exemplar_size`` times
+    the exemplar, padded with the frame's mean."""
+
+    on_host = True
+
+    def __init__(self, context_amount: float = 0.5, exemplar_size: int = 127,
+                 crop_size: int = 511):
+        self.context_amount = context_amount
+        self.exemplar_size = exemplar_size
+        self.crop_size = crop_size
+
+    def __call__(self, results, rng=None):
+        singleton = isinstance(results, dict)
+        outs = []
+        for r in _frames(results):
+            img = r["img"]
+            mean_val = tuple(float(m) for m in img.mean(axis=(0, 1)))
+            scale = self.crop_size / self.exemplar_size
+            crop, new_bbox = _crop_with_context(
+                img, r["gt_bboxes"][0], self.context_amount,
+                int(self.exemplar_size * scale), mean_val)
+            r["img"] = crop
+            r["gt_bboxes"] = new_bbox[None]
+            r["img_shape"] = crop.shape[:2]
+            outs.append(r)
+        return outs[0] if singleton else outs
+
+
+@PIPELINES.register("SeqShiftScaleAug")
+class SeqShiftScaleAug:
+    """Frame i (the template, then the search frame) cropped at a random
+    shift and scale around its centre and resized to
+    ``target_size[i]``."""
+
+    on_host = True
+
+    def __init__(self, target_size=(127, 255), shift=(4, 64),
+                 scale=(0.05, 0.18)):
+        self.target_size = target_size
+        self.shift = shift
+        self.scale = scale
+
+    def __call__(self, results, rng):
+        outs = []
+        for i, r in enumerate(results):
+            size = self.target_size[min(i, len(self.target_size) - 1)]
+            shift = self.shift[min(i, len(self.shift) - 1)]
+            scale = self.scale[min(i, len(self.scale) - 1)]
+            img = r["img"]
+            h, w = img.shape[:2]
+            sj = 1.0 + rng.uniform(-scale, scale)
+            crop_sz = min(int(size * sj), h - 1, w - 1)
+            cx = w // 2 + rng.randint(-shift, shift)
+            cy = h // 2 + rng.randint(-shift, shift)
+            x1 = int(np.clip(cx - crop_sz / 2, 0, w - crop_sz))
+            y1 = int(np.clip(cy - crop_sz / 2, 0, h - crop_sz))
+            crop = img[y1:y1 + crop_sz, x1:x1 + crop_sz]
+            r["img"] = _resize_u8_np(crop, size, size)
+            rs = size / crop_sz
+            if "gt_bboxes" in r and len(r["gt_bboxes"]):
+                b = (r["gt_bboxes"] - [x1, y1, x1, y1]) * rs
+                r["gt_bboxes"] = np.clip(b, 0, size).astype(np.float32)
+            r["img_shape"] = r["img"].shape[:2]
+            outs.append(r)
+        return outs
+
+
+@PIPELINES.register("SeqColorAug")
+class SeqColorAug:
+    """With probability ``prob[i]``, frame i's colours mixed by I + U(-0.05,
+    0.05) [3, 3] (float32, clipped to [0, 255])."""
+
+    on_host = True
+
+    def __init__(self, prob=(1.0, 1.0)):
+        self.prob = prob
+
+    def __call__(self, results, rng, np_rng=None):
+        np_rng = _np_rng(rng, np_rng)
+        outs = []
+        for i, r in enumerate(results):
+            p = self.prob[min(i, len(self.prob) - 1)]
+            if rng.random() < p:
+                mix = np.eye(3, dtype=np.float32) \
+                    + np_rng.uniform(-0.05, 0.05, (3, 3)).astype(np.float32)
+                img = r["img"].astype(np.float32)
+                r["img"] = np.clip(img @ mix.T, 0, 255)
+            outs.append(r)
+        return outs
+
+
+def box_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.blur(img, (k, k))``: the mean over a k x k window with
+    reflect-101 borders; float32 sums in float64 (cv2's sum type), uint8
+    ones rounded half to even."""
+    p = k // 2
+    pad = [(p, p), (p, p)] + [(0, 0)] * (img.ndim - 2)
+    x = np.pad(img.astype(np.float64), pad, mode="reflect")
+    h, w = img.shape[:2]
+    rows = sum(x[:, j:j + w] for j in range(k))
+    s = sum(rows[i:i + h] for i in range(k))
+    out = s * (1.0 / (k * k))
+    if img.dtype == np.uint8:
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out.astype(img.dtype)
+
+
+@PIPELINES.register("SeqBlurAug")
+class SeqBlurAug:
+    """With probability ``prob[i]``, frame i box-blurred with a 3, 5 or 7
+    wide window."""
+
+    on_host = True
+
+    def __init__(self, prob=(0.0, 0.2)):
+        self.prob = prob
+
+    def __call__(self, results, rng):
+        outs = []
+        for i, r in enumerate(results):
+            p = self.prob[min(i, len(self.prob) - 1)]
+            if rng.random() < p:
+                r["img"] = box_blur(r["img"], rng.choice((3, 5, 7)))
+            outs.append(r)
+        return outs

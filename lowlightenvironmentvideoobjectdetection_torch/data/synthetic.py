@@ -42,6 +42,11 @@ a LaSOT-style tree (``LaSOTDataset``): one textured object a video moving
 linearly, ``ROOT/annotations/lasot_test.json`` and
 ``ROOT/<video>/img/<frame:08d>.png``.
 
+``write_coco_tree``, a COCO-style image detection tree
+(``CocoDataset``): ``ROOT/annotations/coco_{train,val}.json`` and
+``ROOT/{train,val}2017/<image:012d>.png``, each image textured with 1-4
+filled boxes of COCO's 80 classes (ids 1-80).
+
 The PNGs have no row filter and zlib level 1, written by 8 threads.
 """
 
@@ -55,6 +60,7 @@ from typing import Tuple
 
 import numpy as np
 
+from .coco_det import COCO_CLASSES
 from .datasets import DARKFARM_CLASSES, IMAGENET_VID_CLASSES
 from .image_io import imwrite_png
 
@@ -319,3 +325,39 @@ def write_lasot_tree(root: str, videos: int = 2, frames: int = 4,
                 bbox=[bx, by, bw, bh], area=bw * bh, iscrowd=False))
             jobs.append((os.path.join(root, file_name), img))
     return _write(root, jobs, ann, "lasot_test.json")
+
+
+def write_coco_tree(root: str, images: int = 8, val_images: int = 8,
+                    hw: Tuple[int, int] = (480, 640), seed: int = 0
+                    ) -> Tuple[str, str]:
+    """Write the COCO tree under ``root``: ``images`` training and
+    ``val_images`` validation images. Returns the train and the val
+    annotation files' paths."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    paths = []
+    for split, n in (("train", images), ("val", val_images)):
+        ann = dict(images=[], annotations=[],
+                   categories=[dict(id=i + 1, name=c)
+                               for i, c in enumerate(COCO_CLASSES)])
+        jobs = []
+        for i in range(n):
+            img = rng.integers(40, 120, (h, w, 3)).astype(np.uint8)
+            img_id = len(ann["images"]) + 1
+            name = f"{split}2017/{img_id:012d}.png"
+            ann["images"].append(dict(id=img_id, width=w, height=h,
+                                      file_name=name))
+            for _ in range(int(rng.integers(1, 5))):
+                bw = int(rng.integers(w // 10, w // 3))
+                bh = int(rng.integers(h // 10, h // 3))
+                x = int(rng.integers(0, w - bw))
+                y = int(rng.integers(0, h - bh))
+                c = int(rng.integers(1, len(COCO_CLASSES) + 1))
+                img[y:y + bh, x:x + bw] = rng.integers(130, 256, 3)
+                ann["annotations"].append(dict(
+                    id=len(ann["annotations"]) + 1, image_id=img_id,
+                    category_id=c, bbox=[x, y, bw, bh], area=bw * bh,
+                    iscrowd=0))
+            jobs.append((os.path.join(root, name), img))
+        paths.append(_write(root, jobs, ann, f"coco_{split}.json"))
+    return paths[0], paths[1]

@@ -60,9 +60,25 @@ CLEAN_TYPES = ("SelsaCleanDetect", "SelsaCleanDarkfarmDetect")
 # SELSA: the training-only knobs
 TRAIN_ONLY_KEYS = ("loss_type", "with_aggregator", "agg_rdb", "agg_taf",
                    "dual_branch", "denoiser", "with_cleaner")
-NOT_PORTED_VID = ("FasterRCNN",)
 # the ImageNet-VID families: plain frames, their own loss and streaming
 VID_FAMILIES = ("SELSA", "FGFA", "DFF")
+# the JAX image-detector family table's names (its apis/families.py
+# FAMILIES): the port's families (apis/families.py) and the others, which
+# raise NotImplementedError
+PORTED_IMAGE_FAMILIES = ("FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
+                         "RetinaNet")
+NOT_PORTED_IMAGE_FAMILIES = (
+    "ATSS", "CascadeRCNN", "CascadeRPN", "CentripetalNet", "CornerNet",
+    "DETR", "DoubleHeadRCNN", "DoubleHeadRoIHead", "DynamicRCNN", "FCOS",
+    "FOVEA", "FSAF", "FoveaBox", "FreeAnchor", "FreeAnchorRetinaNet",
+    "GAFasterRCNN", "GARPNHead", "GARetinaNet", "GFL", "GRoIEFasterRCNN",
+    "GenericRoIExtractor", "GridRCNN", "GuidedAnchoring", "HTC",
+    "HybridTaskCascade", "LibraFasterRCNN", "LibraRCNN", "MaskRCNN",
+    "MaskScoringRCNN", "NASFCOS", "NASFPNRetinaNet", "PAA", "PISA",
+    "PISAFasterRCNN", "PISARetinaNet", "PISARoIHead", "PointRend",
+    "RepPoints", "RepPointsDetector", "SABL", "SABLRetinaNet", "SCNet",
+    "SSD", "SparseRCNN", "TridentFasterRCNN", "VFNet", "YOLACT", "YOLOV3")
+IMAGE_FAMILIES = frozenset(PORTED_IMAGE_FAMILIES + NOT_PORTED_IMAGE_FAMILIES)
 # SelsaDarkDetect's backbone when its config names none
 DARK_DETECT_BACKBONE = "DarkResNet"
 
@@ -292,10 +308,11 @@ def vid_model_kwargs(model_cfg: dict, sampler: Optional[dict] = None,
     ``key_frame_interval``)."""
     kw = dict(model_cfg)
     mtype = kw.pop("type")
-    if mtype in NOT_PORTED_VID:
+    if mtype in IMAGE_FAMILIES:
         raise NotImplementedError(
-            f"model type {mtype!r}: the image detectors are not ported "
-            "(ROADMAP.md Queue 1, the mmdet zoo)")
+            f"model type {mtype!r}: streaming the image detectors through "
+            "VIDModel is not ported; the test CLI's image route "
+            "(apis/inference.py DetectorModel) runs them")
     if mtype not in MODELS:
         raise KeyError(f"model type {mtype!r}: the port streams "
                        f"{sorted(MODELS.keys())}")

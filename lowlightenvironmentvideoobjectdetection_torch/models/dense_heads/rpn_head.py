@@ -1,7 +1,12 @@
 """RPN head, its loss and static-shape proposal generation, the counterpart
 of the JAX package's ``models/dense_heads/rpn_head.py`` (``RPNHead``,
-``RPNLossOut``, ``rpn_loss``, ``Proposals``, ``rpn_proposals``) at one level
-(the DC5 detectors have one)."""
+``RPNLossOut``, ``rpn_loss``, ``Proposals``, ``rpn_proposals``). The loss
+and the proposals take one level (the DC5 detectors have one) or lists of
+levels (FPN): the levels are flattened and concatenated, so the loss
+assigns over every anchor at once and the proposals decode every anchor of
+every level before one NMS over the top ``nms_pre`` of all levels, as the
+JAX package does (ROADMAP fault F19: mmdet keeps ``nms_pre`` a level and
+runs NMS on each level apart)."""
 
 from __future__ import annotations
 
@@ -43,21 +48,35 @@ class RPNHead(nn.Module):
                 self.rpn_reg(h).permute(0, 2, 3, 1))
 
 
+def _flatten_levels(cls, reg, anchors):
+    """cls [..., H, W, A] and reg [..., H, W, 4A] with anchors [H*W*A, 4],
+    or lists of them a level -> ([..., N], [..., N, 4], [N, 4]) over all
+    levels."""
+    if not isinstance(cls, (list, tuple)):
+        lead = cls.shape[:-3]
+        return (cls.reshape(*lead, -1).float(),
+                reg.reshape(*lead, -1, 4).float(), anchors)
+    lead = cls[0].shape[:-3]
+    return (torch.cat([c.reshape(*lead, -1).float() for c in cls], -1),
+            torch.cat([r.reshape(*lead, -1, 4).float() for r in reg], -2),
+            torch.cat(list(anchors)))
+
+
 class RPNLossOut(NamedTuple):
     loss_cls: torch.Tensor
     loss_bbox: torch.Tensor
 
 
-def rpn_loss(cls: torch.Tensor, reg: torch.Tensor, anchors: torch.Tensor,
-             gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
-             uniforms: torch.Tensor, img_shape) -> RPNLossOut:
-    """Single-image RPN loss from cls [H, W, A] and reg [H, W, 4A]: anchors
-    fully inside ``img_shape`` (h, w) are assigned to the gts, 256 are
-    sampled with ``uniforms`` [2, H*W*A] (``random_sample_masks``), then
+def rpn_loss(cls, reg, anchors, gt_boxes: torch.Tensor,
+             gt_valid: torch.Tensor, uniforms: torch.Tensor, img_shape
+             ) -> RPNLossOut:
+    """Single-image RPN loss from cls [H, W, A] and reg [H, W, 4A] (or
+    lists of them and of the anchors, a level each): anchors fully inside
+    ``img_shape`` (h, w) are assigned to the gts, 256 are sampled with
+    ``uniforms`` [2, N] over all N anchors (``random_sample_masks``), then
     sigmoid cross entropy over the sample and SmoothL1 on the positives'
     deltas, both averaged over the sample size."""
-    cls_all = cls.reshape(-1).float()
-    reg_all = reg.reshape(-1, 4).float()
+    cls_all, reg_all, anchors = _flatten_levels(cls, reg, anchors)
     h, w = img_shape[0], img_shape[1]
     valid = ((anchors[:, 0] >= 0) & (anchors[:, 1] >= 0)
              & (anchors[:, 2] <= w) & (anchors[:, 3] <= h))
@@ -86,18 +105,18 @@ class Proposals(NamedTuple):
     valid: torch.Tensor  # [num] bool
 
 
-def rpn_proposals(cls: torch.Tensor, reg: torch.Tensor, anchors: torch.Tensor,
-                  img_shape, nms_pre: int = 6000, nms_post: int = 600,
-                  iou_threshold: float = 0.7) -> Proposals:
+def rpn_proposals(cls, reg, anchors, img_shape, nms_pre: int = 6000,
+                  nms_post: int = 600, iou_threshold: float = 0.7
+                  ) -> Proposals:
     """Fixed-count proposals for one image from its RPN outputs
-    (cls [H, W, A], reg [H, W, 4A]): decode every anchor, clip to
-    ``img_shape`` (h, w), then one NMS over the top ``nms_pre``. With a
-    leading stream axis (cls [S, H, W, A], reg [S, H, W, 4A], img_shape
-    [S, 2]) all S images share one NMS call and the fields are [S, num]."""
-    lead = cls.shape[:-3]
-    scores = torch.sigmoid(cls.reshape(*lead, -1).float())
-    boxes = box_ops.delta2bbox(anchors, reg.reshape(*lead, -1, 4).float(),
-                               max_shape=img_shape)
+    (cls [H, W, A], reg [H, W, 4A], or lists of them and of the anchors, a
+    level each): decode every anchor, clip to ``img_shape`` (h, w), then
+    one NMS over the top ``nms_pre`` of all levels. With a leading stream
+    axis (cls [S, H, W, A], reg [S, H, W, 4A], img_shape [S, 2]) all S
+    images share one NMS call and the fields are [S, num]."""
+    logits, deltas, anchors = _flatten_levels(cls, reg, anchors)
+    scores = torch.sigmoid(logits)
+    boxes = box_ops.delta2bbox(anchors, deltas, max_shape=img_shape)
     res = nms_ops.nms_fixed(boxes, scores, iou_threshold, nms_post,
                             pre_top_k=nms_pre)
     return Proposals(res.boxes, res.scores, res.valid)

@@ -175,14 +175,16 @@ def bbox_loss(cls_score, bbox_pred, targets: BBoxTargets,
 def bbox_decode(rois, cls_score, bbox_pred, img_shape,
                 roi_valid: Optional[torch.Tensor] = None,
                 scale_factor: Optional[torch.Tensor] = None,
-                nms_pre: Optional[int] = 2048) -> nms_ops.DetResult:
-    """Softmax scores, per-class delta decode (stds 0.2) clipped to
+                nms_pre: Optional[int] = 2048,
+                stds=BBOX_STDS) -> nms_ops.DetResult:
+    """Softmax scores, per-class delta decode (``stds``, by default 0.2)
+    clipped to
     ``img_shape``, division by ``scale_factor`` [4], then fixed-shape
     multiclass NMS (score > 1e-4, IoU 0.5, at most 100; the reference test
     config). Batched: rois [S, N, 4], head outputs [S, N, ...], img_shape
     [S, 2], scale_factor [S, 4], roi_valid [S, N]; one NMS for all S."""
     scores = torch.softmax(cls_score.float(), dim=-1)
-    decoded = box_ops.delta2bbox(rois, bbox_pred.float(), stds=BBOX_STDS,
+    decoded = box_ops.delta2bbox(rois, bbox_pred.float(), stds=stds,
                                  max_shape=img_shape)
     if scale_factor is not None:
         k = decoded.shape[-1] // 4

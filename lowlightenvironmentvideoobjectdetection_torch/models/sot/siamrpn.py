@@ -14,8 +14,11 @@ head's [H, W, 2A] output flattens to (H*W*A, 2) in HWC order; the
 correlation is a cross-correlation; the crops pad with the frame's
 per-channel mean by shifting the frame before resampling
 (``ops/scale_translate.py``, antialiased as in JAX: ROADMAP fault F14).
-Training (``siamrpn_loss``, the pair dataset) is not ported (ROADMAP.md
-Queue 1).
+
+Training: ``siamrpn_loss`` is the pair loss of a template and a search
+crop (the JAX ``siamrpn_loss``); its two samplers take their uniforms as an
+argument, as ``core/assigners.py`` does, so a test feeds both sides the
+same draws.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...core import boxes as box_ops
+from ...core.assigners import _rank_by_random
 from ...ops.scale_translate import scale_and_translate
 from ..backbones.resnet import Conv2d, ResNet
 
@@ -299,3 +303,55 @@ def sot_track(model: SiamRPN, state: SOTState, img: torch.Tensor,
     xyxy = torch.stack([new_cx - new_w / 2, new_cy - new_h / 2,
                         new_cx + new_w / 2, new_cy + new_h / 2])
     return SOTState(state.z_feats, new_bbox), best_score, best, xyxy
+
+
+def cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (cx, cy, w, h) -> [..., 4] (x1, y1, x2, y2)."""
+    return torch.stack([b[..., 0] - b[..., 2] / 2, b[..., 1] - b[..., 3] / 2,
+                        b[..., 0] + b[..., 2] / 2, b[..., 1] + b[..., 3] / 2],
+                       dim=-1)
+
+
+def siamrpn_loss(model: SiamRPN, z_img: torch.Tensor, x_img: torch.Tensor,
+                 gt_cxcywh, anchors: torch.Tensor, is_positive_pair,
+                 uniforms: torch.Tensor, pos_iou_thr: float = 0.6,
+                 neg_iou_thr: float = 0.3, num_pos: int = 16,
+                 num_total: int = 64):
+    """The pair training loss (mmtrack's ``siamese_rpn_head`` targets and
+    loss): z_img [1, 127, 127, 3] and x_img [1, 255, 255, 3] normalized
+    crops, the search crop's gt (cx, cy, w, h) in the anchors' frame,
+    anchors [H*W*A, 4] cxcywh. Positive candidates are anchors with IoU
+    above ``pos_iou_thr`` on a positive pair; negative ones those below
+    ``neg_iou_thr``, and every anchor of a negative pair. Up to
+    ``num_pos`` positives are sampled in the order of ``uniforms[0]``, then
+    negatives in the order of ``uniforms[1]`` up to ``num_total``
+    (``uniforms`` [2, H*W*A] in [0, 1)). Cross entropy over the sampled
+    anchors, L1 over the positives' deltas; total = cls + 1.2 bbox.
+    Returns (total, metrics)."""
+    cls, reg = model(z_img, x_img)
+    n = cls.shape[0] * cls.shape[1] * model.cfg.num_anchors
+    logits = cls.reshape(n, 2).float()
+    deltas = reg.reshape(n, 4).float()
+    dev = logits.device
+    anc_xyxy = cxcywh_to_xyxy(anchors.float())
+    gt_xyxy = cxcywh_to_xyxy(torch.as_tensor(
+        gt_cxcywh, dtype=torch.float32, device=dev))[None]
+    ious = box_ops.bbox_overlaps(anc_xyxy, gt_xyxy)[:, 0]
+    positive = torch.as_tensor(is_positive_pair, dtype=torch.bool,
+                               device=dev)
+    pos_cand = (ious > pos_iou_thr) & positive
+    neg_cand = (ious < neg_iou_thr) | (~positive & (ious >= 0))
+    pos_sel = pos_cand & (_rank_by_random(pos_cand, uniforms[0]) < num_pos)
+    n_pos = pos_sel.sum()
+    neg_sel = neg_cand & (_rank_by_random(neg_cand, uniforms[1])
+                          < num_total - n_pos)
+    weights = (pos_sel | neg_sel).float()
+    logp = F.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, 1, pos_sel.long()[:, None])[:, 0]
+    loss_cls = (ce * weights).sum() / weights.sum().clamp_min(1.0)
+    targets = box_ops.bbox2delta(anc_xyxy, gt_xyxy.expand_as(anc_xyxy))
+    l1 = (deltas - targets).abs().sum(-1)
+    loss_bbox = (l1 * pos_sel).sum() / n_pos.float().clamp_min(1.0)
+    total = loss_cls + 1.2 * loss_bbox
+    return total, {"loss": total, "loss_rpn_cls": loss_cls,
+                   "loss_rpn_bbox": loss_bbox}

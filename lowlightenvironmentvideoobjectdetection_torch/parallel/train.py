@@ -18,6 +18,12 @@ sum runs over the leaves in another order):
   trace and no update, so they stay bit-identical. A trainable leaf with no
   gradient counts as a zero gradient, as in JAX.
 
+``make_sot_lr_schedule`` and ``unfreeze_mask_at_epoch`` are SiamRPN++'s
+schedule and backbone unfreezing (the JAX package's functions of those
+names); ``sot_trainable`` combines the latter with ``frozen_mask`` into an
+``Optimizer``'s mask. A leaf that turns trainable starts with a zero
+momentum trace.
+
 ``Adam`` is optax's ``chain(clip_by_global_norm(10), adam(lr))``, the
 optimizer of the learning smoke, with the same interface and mask: the
 same clip rule; ``mu = (1 - b1) * g + b1 * mu`` and
@@ -75,6 +81,60 @@ def make_lr_schedule(base_lr: float = 0.01, iters_per_epoch: int = 1000
     return sched
 
 
+def make_sot_lr_schedule(base_lr: float = 0.005, warmup_epochs: int = 5,
+                         total_epochs: int = 20, iters_per_epoch: int = 1000,
+                         start_factor: float = 0.2,
+                         end_lr_factor: float = 0.1
+                         ) -> Callable[[int], np.float32]:
+    """SiamRPN++'s schedule (mmtrack's ``sot_lr_updater.py``): linear
+    warm-up from ``start_factor`` of the rate over the first epochs, then
+    a log-space decay to ``end_lr_factor`` of it, in float32 in the JAX
+    schedule's order of operations."""
+    f32 = np.float32
+    warm_iters = warmup_epochs * iters_per_epoch
+    total_iters = total_epochs * iters_per_epoch
+
+    def sched(count: int) -> np.float32:
+        frac = np.clip(f32(count) / f32(max(warm_iters, 1)), f32(0), f32(1))
+        warm = f32(base_lr) * (f32(start_factor)
+                               + f32(1 - start_factor) * frac)
+        decay_frac = np.clip(f32(count - warm_iters)
+                             / f32(max(total_iters - warm_iters, 1)),
+                             f32(0), f32(1))
+        decay = f32(base_lr) * np.exp(np.log(f32(end_lr_factor))
+                                      * decay_frac)
+        return f32(warm if count < warm_iters else decay)
+
+    return sched
+
+
+def unfreeze_mask_at_epoch(names: Sequence[str], epoch: int,
+                           unfreeze_epoch: int = 10,
+                           backbone_prefix: str = "backbone"
+                           ) -> Dict[str, bool]:
+    """name -> trainable under SiamRPN++'s backbone unfreezing (mmtrack's
+    ``sot_optimizer_hook.py``): the backbone's leaves (``backbone_prefix``
+    a segment of the path) from ``unfreeze_epoch`` on, every other leaf
+    always."""
+    unfrozen = epoch >= unfreeze_epoch
+
+    def trainable(name):
+        in_backbone = f"/{backbone_prefix}/" in "/" + name.replace(".", "/") \
+            + "/"
+        return (not in_backbone) or unfrozen
+
+    return {n: trainable(n) for n in names}
+
+
+def sot_trainable(names: Sequence[str], epoch: int,
+                  unfreeze_epoch: int = 10) -> Dict[str, bool]:
+    """The SiamRPN++ mask at ``epoch``: ``unfreeze_mask_at_epoch`` and
+    ``frozen_mask`` (the stem and stage 1 stay frozen throughout)."""
+    um = unfreeze_mask_at_epoch(names, epoch, unfreeze_epoch)
+    fm = frozen_mask(names)
+    return {n: um[n] and fm[n] for n in names}
+
+
 class OptState(NamedTuple):
     count: int  # updates applied so far
     trace: Dict[str, torch.Tensor]  # momentum per trainable leaf
@@ -115,7 +175,8 @@ class Optimizer:
             elif clip:
                 g = g / norm * self.grad_clip_norm
             g = g + self.weight_decay * p
-            t = g + self.momentum * state.trace[n]
+            prev = state.trace.get(n)  # None: the leaf was frozen so far
+            t = g if prev is None else g + self.momentum * prev
             trace[n] = t
             p.add_(t * step_size)
         return OptState(state.count + 1, trace), float(norm)

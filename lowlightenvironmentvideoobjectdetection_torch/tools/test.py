@@ -44,10 +44,22 @@ The tracking routes, as the JAX CLI's ``run_mot_eval`` and
   "fps", "model", "eval", "sot"}`` with OPE success, precision and
   normalized precision.
 
+The image-detector route, as the JAX CLI's ``run_image_detector`` (a
+type of ``apis/families.py`` whose test data is no video dataset:
+FasterRCNN, FastRCNN, RPN, FasterRCNNFPN, RetinaNet; the JAX package's
+other families raise ``NotImplementedError``): ``apis/inference.py``
+``init_detector`` (``--checkpoint``: the model's state dict or a training
+checkpoint), then every image of ``data.test`` (a ``CocoDataset``, PNG or
+JPEG, read with ``data/image_io.py``) or ``--synthetic N`` noise images
+through ``inference_detector``; prints ``{"frames", "fps", "eval",
+"model"[, "mAP50"]}`` (mAP at IoU 0.5 with ``--eval bbox``); ``--out``
+writes it with the per-image results. The configs have no ``data``
+section: pass ``data.test=dict(type='CocoDataset', ann_file=...,
+img_prefix=...)`` with ``--cfg-options``.
+
 ``--tiny`` gives the JAX CLI's sizes there too: a 64x64 bucket and a
 float32 detector for MOT (the ReID net stays bfloat16), 64 / 128 crops
-for SOT. The image-detector route raises ``NotImplementedError``: its
-models are not in the port.
+for SOT, the families' tiny sizes and float32 for the image detectors.
 """
 
 from __future__ import annotations
@@ -61,7 +73,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..apis.inference import init_model, inference_mot, init_sot_model
+from ..apis.families import get_family
+from ..apis.inference import (init_detector, init_model, inference_mot,
+                              init_sot_model)
 from ..apis.test import evaluate_bbox, multi_device_test
 from ..config import Config, apply_cli_options
 from ..data.image_io import imread
@@ -99,19 +113,19 @@ def parse_args(argv: Optional[List[str]] = None):
 
 
 def check_route(cfg) -> str:
-    """The JAX CLI's route for a config, "mot", "sot" or "vid"; raises for
-    the image detectors, which the port lacks."""
+    """The JAX CLI's route for a config: "mot", "sot", "image" (a family of
+    ``apis/families.py`` on data that is no video dataset; the families
+    the port lacks raise ``NotImplementedError``) or "vid"."""
     mtype = cfg["model"]["type"]
     dtype = ((cfg.get("data") or {}).get("test") or {}).get("type")
     if mtype in MOT_TYPES or dtype == "MOTChallengeDataset":
         return "mot"
     if mtype in SOT_TYPES or dtype == "LaSOTDataset":
         return "sot"
-    if mtype in VID_TYPES or dtype in VIDEO_DATASETS:
-        return "vid"
-    raise NotImplementedError(
-        f"{mtype} on {dtype}: the image detectors are not ported (ROADMAP.md "
-        "Queue 1 item 9, the mmdet zoo)")
+    if (mtype not in VID_TYPES and dtype not in VIDEO_DATASETS
+            and get_family(mtype) is not None):
+        return "image"
+    return "vid"
 
 
 def read_frame(info: dict, img_prefix: str) -> np.ndarray:
@@ -193,6 +207,49 @@ def run_sot(args, cfg, device) -> dict:
                 timings=None)
 
 
+def run_image(args, cfg, device) -> dict:
+    """Detect every image of ``data.test`` (or ``--synthetic`` noise) with
+    the config's image detector; mAP50 with ``--eval bbox``."""
+    mcfg = dict(cfg["model"])
+    mtype = mcfg.pop("type")
+    det = init_detector(mtype, checkpoint=args.checkpoint, tiny=args.tiny,
+                        device=device, **mcfg)
+    results, det_lists, anns = [], [], []
+    t0 = time.perf_counter()
+    if args.synthetic:
+        rng = np.random.RandomState(0)
+        for i in range(args.synthetic):
+            img = rng.randint(0, 255, (det.pad_h, det.pad_w, 3)
+                              ).astype(np.float32)
+            r = det.inference_detector(img)
+            results.append(dict(image=i, num_dets=int(sum(len(x)
+                                                          for x in r))))
+    else:
+        ds = build_dataset(cfg["data"]["test"], test_mode=True)
+        for i in range(len(ds)):
+            s = ds[i]
+            img = read_frame(s["img_info"], ds.img_prefix)
+            r = det.inference_detector(img.astype(np.float32))
+            det_lists.append(r)
+            anns.append(s["ann"])
+            results.append(dict(image=i, bbox_results=[b.tolist()
+                                                       for b in r]))
+    dt = time.perf_counter() - t0
+    summary = dict(frames=len(results),
+                   fps=round(len(results) / dt, 2) if dt > 0 else 0.0,
+                   eval=args.eval, model=mtype)
+    metrics = {}
+    if "bbox" in args.eval and det_lists:
+        metrics = evaluate_bbox(det_lists, anns)
+        summary["mAP50"] = round(metrics["mAP50"], 4)
+    print(json.dumps(summary))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(summary=summary, results=results), f)
+    return dict(summary=summary, results=results, metrics=metrics,
+                timings=None, dets=det_lists)
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     """Run the CLI on ``argv``. Returns the ``summary``, the per-frame
     ``results``, the evaluation's unrounded ``metrics`` and the loader's
@@ -207,6 +264,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         return run_mot(args, cfg, device)
     if route == "sot":
         return run_sot(args, cfg, device)
+    if route == "image":
+        return run_image(args, cfg, device)
     dcfg = (cfg.get("data") or {}).get("test") or {}
     model = init_model(checkpoint=args.checkpoint, device=device,
                        **vid_model_kwargs(cfg["model"],

@@ -26,6 +26,22 @@ parameters, momentum, step and the data order). With ``evaluation.interval``
 in the config and a ``data.val`` (else ``data.test``) whose ``ann_file``
 exists, every ``interval`` steps the current detector streams that split
 (``make_eval_fn``) and its ``mAP50`` is logged as ``eval: mAP50=...``.
+
+The image detectors (a type of ``apis/families.py``: FasterRCNN, FastRCNN,
+RPN, FasterRCNNFPN, RetinaNet; the JAX package's other families raise
+``NotImplementedError``) train through their family's loss, as the JAX
+CLI's family route: on ``--synthetic`` batches (``families.
+make_synth_batch``) or on a ``CocoDataset`` ``data.train`` (one image a
+``DetTrainBatch``, padded to the family's bucket, ``families.pad_hw``),
+which a user passes with ``--cfg-options`` (the configs have none). Their
+runs take no eval hook.
+
+SiamRPN++ (``model.type=SiamRPN``) trains on template and search pairs of
+a ``SOTTrainDataset`` ``data.train`` (``data/sot_pairs.py``: mmtrack's
+SOT augmentations), with ``siamrpn_loss``, SiamRPN++'s schedule
+(``make_sot_lr_schedule`` from the config's ``optimizer.lr``, 0.005 by
+default) and its backbone frozen until ``unfreeze_epoch`` (10; an epoch is
+1000 steps), the stem and stage 1 throughout (``sot_trainable``).
 """
 
 from __future__ import annotations
@@ -39,16 +55,23 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..apis import families as FAM
 from ..apis.inference import VIDModel, detector_state
 from ..apis.test import evaluate_bbox, single_device_test
 from ..apis.train import train_model
 from ..config import Config, apply_cli_options
 from ..data.loader import TrainLoader, build_dataset, loader_workers
+from ..data.mot_sot_datasets import SOTTrainDataset
 from ..data.pipelines import Compose
-from ..models.builder import build_model, vid_model_kwargs
-from ..models.vid.selsa import TrainBatch
+from ..data.sot_pairs import sot_batches
+from ..models.builder import (SOT_TYPES, build_model, sot_model_kwargs,
+                              vid_model_kwargs)
+from ..models.sot import siamrpn as SR
+from ..models.vid.selsa import TrainBatch, init_params
 from ..models.vid.selsa_darkfarm import DarkfarmBatch
 from ..models.vid.selsa_fastdvd import FastDVDBatch, FastDVDSelsaConfig
+from ..parallel.train import (Optimizer, make_sot_lr_schedule,
+                              sot_trainable)
 from ..utils.checkpoint import checkpoint_step, save_checkpoint
 from ..utils.device import full_f32_precision, resolve_device
 
@@ -89,6 +112,68 @@ def synthetic_batches(system, device, seed: int):
                   np.asarray([True, True, False, False]))
         yield batch(*(torch.as_tensor(a, device=device)[None]
                       for a in fields))
+
+
+def image_synthetic_batches(model, fam, device, seed: int):
+    """The JAX CLI's synthetic batches of an image family
+    (``families.make_synth_batch``), with a leading batch axis of 1."""
+    rng = np.random.RandomState(seed)
+    while True:
+        b = FAM.make_synth_batch(model, fam, rng, device)
+        yield type(b)(*(t[None] for t in b))
+
+
+class ImageSystem:
+    """An image family's model and its loss, in the shape of
+    ``models/builder.py``'s ``System`` that the CLI trains."""
+
+    def __init__(self, model_cfg: dict, tiny: bool, seed: int, device):
+        kw = dict(model_cfg)
+        self.family = FAM.get_family(kw.pop("type"))
+        self.model, self.aux = self.family.build(kw, tiny, seed, device)
+        self.pad_hw = FAM.pad_hw(self.model, self.family, tiny)
+
+    def loss_fn(self, model, sample, generator):
+        return self.family.loss(model, self.aux, sample, generator)
+
+
+class SOTSystem:
+    """SiamRPN++ with seeded weights, its anchors and ``siamrpn_loss``."""
+
+    iters_per_epoch = 1000
+    unfreeze_epoch = 10
+
+    def __init__(self, model_cfg: dict, tiny: bool, seed: int, device):
+        self.cfg = SR.SiamRPNConfig(**sot_model_kwargs(model_cfg, tiny))
+        self.model = SR.SiamRPN(self.cfg)
+        init_params(self.model, torch.Generator().manual_seed(seed))
+        self.model.to(device)
+        n = self.cfg.score_size
+        self.anchors = torch.as_tensor(SR.sot_grid_anchors(self.cfg, n),
+                                       device=device)
+
+    def loss_fn(self, model, sample, generator):
+        u = torch.rand((2, self.anchors.shape[0]), generator=generator,
+                       device=generator.device).to(self.anchors.device)
+        return SR.siamrpn_loss(model, sample.z_img[None], sample.x_img[None],
+                               sample.gt_cxcywh, self.anchors,
+                               sample.is_positive, u)
+
+    def optimizer(self, base_lr: float, start: int = 0) -> Optimizer:
+        """SGD with SiamRPN++'s schedule and the mask of step ``start``'s
+        epoch."""
+        names = [n for n, _ in self.model.named_parameters()]
+        return Optimizer(
+            sot_trainable(names, start // self.iters_per_epoch,
+                          self.unfreeze_epoch),
+            make_sot_lr_schedule(base_lr,
+                                 iters_per_epoch=self.iters_per_epoch))
+
+    def on_step(self, optimizer: Optimizer, step: int) -> None:
+        """The mask of the epoch that step ``step`` (1-based) ends."""
+        names = list(optimizer.trainable)
+        optimizer.trainable = sot_trainable(
+            names, step // self.iters_per_epoch, self.unfreeze_epoch)
 
 
 def make_eval_fn(cfg, vcfg: dict, model: torch.nn.Module, tiny: bool,
@@ -135,29 +220,50 @@ def main(argv: Optional[List[str]] = None,
     apply_cli_options(cfg, args.cfg_options)
     device = resolve_device(args.device)
     full_f32_precision()
-    system = build_model(cfg["model"], tiny=args.tiny, seed=args.seed,
-                         device=device)
+    sot = cfg["model"]["type"] in SOT_TYPES
+    image = not sot and FAM.get_family(cfg["model"]["type"]) is not None
+    if sot:
+        system = SOTSystem(cfg["model"], args.tiny, args.seed, device)
+    elif image:
+        system = ImageSystem(cfg["model"], args.tiny, args.seed, device)
+    else:
+        system = build_model(cfg["model"], tiny=args.tiny, seed=args.seed,
+                             device=device)
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs")
     os.makedirs(work_dir, exist_ok=True)
     steps = args.steps or cfg.get("total_epochs", 7) * 1000
     opt_cfg = cfg.get("optimizer", {})
     start = checkpoint_step(args.resume_from) if args.resume_from else 0
-    loader = None
-    if args.synthetic:
+    loader, optimizer = None, None
+    if sot:
+        d = cfg["data"]["train"]
+        data = sot_batches(SOTTrainDataset(
+            ann_file=d["ann_file"], img_prefix=d.get("img_prefix", "")),
+            args.seed, device, start, system.cfg.exemplar_size,
+            system.cfg.search_size)
+        optimizer = system.optimizer(opt_cfg.get("lr", 0.005), start)
+    elif image and args.synthetic:
+        data = image_synthetic_batches(system.model, system.family, device,
+                                       args.seed)
+    elif image:
+        loader = data = TrainLoader(cfg, *system.pad_hw, 3, seed=args.seed,
+                                    start=start, device=device, pairs=False)
+    elif args.synthetic:
         data = synthetic_batches(system, device, args.seed)
     else:
         s = system.detector_cfg
         loader = data = TrainLoader(
             cfg, s.pad_h, s.pad_w, getattr(system.cfg, "in_channels", 3),
             seed=args.seed, start=start, device=device, pairs=system.pairs)
-    if isinstance(system.cfg, FastDVDSelsaConfig):  # the same pairs
-        data = (FastDVDBatch(*b) for b in data)
+    if not (image or sot) and isinstance(system.cfg, FastDVDSelsaConfig):
+        data = (FastDVDBatch(*b) for b in data)  # the same pairs
     metrics, evals = [], []
     eval_fn, eval_interval = None, 0
     vcfg = (cfg.get("data") or {}).get("val") or (cfg.get("data") or {}).get(
         "test")
     interval = (cfg.get("evaluation") or {}).get("interval")
-    if interval and vcfg and os.path.exists(vcfg.get("ann_file", "")):
+    if (interval and vcfg and os.path.exists(vcfg.get("ann_file", ""))
+            and not (image or sot)):
         hook = make_eval_fn(cfg, vcfg, system.model, args.tiny, device)
         eval_interval = int(interval)
 
@@ -166,6 +272,8 @@ def main(argv: Optional[List[str]] = None,
             return evals[-1]
 
     def step_done(state, m):
+        if sot:
+            system.on_step(optimizer, state.step)
         metrics.append(m)
         if on_step is not None:
             on_step(state, m)
@@ -178,7 +286,8 @@ def main(argv: Optional[List[str]] = None,
             checkpoint_dir=work_dir,
             log_interval=cfg.get("log_config", {}).get("interval", 50),
             resume_from=args.resume_from, on_step=step_done,
-            eval_fn=eval_fn, eval_interval=eval_interval)
+            eval_fn=eval_fn, eval_interval=eval_interval,
+            optimizer=optimizer)
     finally:
         if loader is not None:
             loader.close()

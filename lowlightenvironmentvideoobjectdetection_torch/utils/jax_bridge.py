@@ -8,9 +8,14 @@ dicts of numpy arrays (``{"params": ..., "batch_stats": ...}``, e.g.
 ``FastDVDSelsaDetector``, ``denoiser`` and ``selsa``, or ``FGFA`` and
 ``DFF``, ``detector``, ``motion`` and ``aggregator``; for tracking,
 ``FasterRCNN``, ``BaseReID`` (``backbone``, ``head.fc0``,
-``head.fc_out``) and ``SiamRPN``, whose flax ``LayerNorm`` scale and bias
-become ``weight`` and ``bias`` and whose root parameters
-``cls_weights`` / ``reg_weights`` keep their names). Module names match
+``head.fc_out``, with a classifier ``head.classifier``) and ``SiamRPN``,
+whose flax ``LayerNorm`` scale and bias become ``weight`` and ``bias`` and
+whose root parameters ``cls_weights`` / ``reg_weights`` keep their names;
+for the image detectors ``FPNFasterRCNN`` (``neck.lateral{i}``,
+``neck.fpn_conv{i}``, ``rpn_head``, ``bbox_head``), ``RetinaNet``
+(``neck.extra_conv{k}``, ``bbox_head.{cls,reg}_conv{i}``,
+``bbox_head.retina_cls`` / ``retina_reg``) and ``FastRCNN`` / ``RPN``
+(``base.*``, the wrapped Faster R-CNN)). Module names match
 the flax names, so a leaf's key is its path joined by dots with the leaf
 renamed:
 

@@ -6,12 +6,14 @@ Counting rule: each input byte read once and each output byte written once;
 bias and output), kernel C on the same keys as one slab, kernel B on one
 38 x 64 x 512 bf16 map with 300 rois, on 4 maps with 1200 rois (a batched
 step of 4 streams) and on 14 maps with 4200 rois (a memo fill), the map
-indices int64. DCNv2's kernels E, F and G at the aggregator's stage 0
+indices int64; where rois touch part of a map (FPN's per-level slices),
+only the pixels they read with a nonzero weight. DCNv2's kernels E, F and G at the aggregator's stage 0
 (3 frames of 64 x 152 x 256, bf16 x, 8 deform groups, f32 offsets, mask,
 columns and gradients).
 """
 
 import pytest
+import torch
 
 import chip_smoke as cs
 
@@ -52,6 +54,20 @@ def test_roi_align_cost(maps, rois, bind_bytes, want):
                                       bind_bytes=bind_bytes)
     assert nbytes == want
     assert flops == rois * 7 * 7 * 512 * 4 * 4 * 2  # 4 corners x 2x2 samples
+
+
+@pytest.mark.parametrize("rois,pixels", [
+    ([[0.5, 0.5, 14.5, 14.5]], 15 * 15),  # samples 0.5 .. 13.5 a side
+    ([[0.5, 0.5, 14.5, 14.5]] * 3, 15 * 15),  # the union, not the sum
+    ([[0.5, 0.5, 14.5, 14.5], [100.0, 100.0, 120.0, 120.0]], 15 * 15),
+])
+def test_roi_footprint_counts_the_pixels_read(rois, pixels):
+    got = cs.roi_footprint_pixels(torch.tensor(rois), 1.0, 32, 32)
+    assert got == pixels
+    nbytes, _ = cs.roi_align_cost(1, 32, 32, 256, len(rois), 4, 8,
+                                  map_pixels=got)
+    assert nbytes == (pixels * 256 * 4 + len(rois) * (16 + 8)
+                      + len(rois) * 7 * 7 * 256 * 4)
 
 
 def test_bounds_and_what_bounds_them():

@@ -10,7 +10,7 @@ of PNG pairs is written and read back, a training batch is built from it,
 and the test CLI evaluates the config on it; the FGFA config streams two
 frames; the test CLI's MOT route tracks a tiny MOT tree of PNG frames with
 DeepSORT (the JV solver built from ``csrc/lap.cpp``, ECC-free) and
-CLEAR-MOT."""
+CLEAR-MOT; the image route detects a noise image with FPN Faster R-CNN."""
 
 import ast
 import os
@@ -40,7 +40,11 @@ def test_port_runs_without_jax_cv2_or_pil(tmp_path):
         ".models.mot.trackers", ".models.mot.deep_sort",
         ".models.reid.base_reid", ".models.sot.siamrpn",
         ".data.mot_sot_datasets", ".data.jpeg", ".utils.host_build",
-        ".utils.torch_import", ".tools.learning_smoke")} <= set(mods)
+        ".utils.torch_import", ".tools.learning_smoke", ".apis.families",
+        ".models.necks.fpn", ".models.detectors.fpn_faster_rcnn",
+        ".models.dense_heads.retina_head", ".models.detectors.more_rcnn",
+        ".data.coco_det", ".data.sot_pairs",
+        ".tools.mot_param_search")} <= set(mods)
     code = f"""
 import importlib, sys
 for name in {BLOCKED!r}:
@@ -83,6 +87,9 @@ out = test.main(["configs/mot/deepsort/"
                  "data.test.img_prefix={tmp_path / "mot"}/",
                  "data.test.detection_file=" + mdets])
 assert out["summary"]["frames"] == 3 and "MOTA" in out["summary"]["track"]
+out = test.main(["configs/det/faster_rcnn_r50_fpn_1x_coco.py", "--tiny",
+                 "--device", "cpu", "--synthetic", "1"])
+assert out["summary"]["model"] == "FasterRCNNFPN"
 loaded = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}
           and sys.modules[m] is not None]
 assert not loaded, loaded

@@ -12,7 +12,9 @@
 - a dark-backbone config (``llvod_lstm_darkfarm.py``: ``SelsaDarkDetect``,
   the ConvLSTM DarkResNet) streams with its backbone, equal to
   ``apis/test.py`` with the same seeded model;
-- the JAX CLI's image-detector route raises ``NotImplementedError``; its
+- the route of a config: the image detectors the port has take the
+  image route (``test_torch_port_image_cli.py`` runs it), the JAX
+  package's other image families raise ``NotImplementedError``, the
   tracking routes (MOT, SOT) are taken (``test_torch_port_track_cli.py``
   runs them);
 - without ``--device cpu`` and with no card it raises ``RuntimeError``.
@@ -232,14 +234,15 @@ def test_a_dark_variant_config_streams(world, monkeypatch):
     (["model.type=DeepSORT"], "mot"),
     (["data.test.type=MOTChallengeDataset"], "mot"),
     (["model.type=SiamRPN"], "sot"),
-    (["model.type=FasterRCNN", "data.test.type=CocoDataset"],
-     "image detectors"),
-], ids=["mot_model", "mot_data", "sot", "image"])
+    (["model.type=FasterRCNN", "data.test.type=CocoDataset"], "image"),
+    (["model.type=MaskRCNN", "data.test.type=CocoDataset"], "item 9"),
+], ids=["mot_model", "mot_data", "sot", "image", "zoo"])
 def test_routes_the_port_lacks_raise(world, opts, want):
-    """Only the image-detector route is still missing: it raises; the
-    tracking configs take the MOT or SOT route."""
+    """Only the image families the port lacks raise (naming ROADMAP
+    item 9); the ported image detectors take the image route, the
+    tracking configs the MOT or SOT route."""
     argv = opts + options(world["ann"], world["prefix"])[1:]
-    if want in ("mot", "sot"):
+    if want in ("mot", "sot", "image"):
         cfg = Config.fromfile(CANONICAL)
         apply_cli_options(cfg, argv)
         assert tcli.check_route(cfg) == want

@@ -5,9 +5,10 @@
 keys such as the serving config's ``input_packed`` dropped, as the port
 drops them), and ``vid_model_kwargs`` builds a ``VIDModel`` of the
 config's own family (DFF with its ``key_frame_interval``) that streams two
-frames at ``--tiny`` sizes (a 16-channel neck, a 2-frame memo). The
-image-detector route (``FasterRCNN``) still raises
-``NotImplementedError``.
+frames at ``--tiny`` sizes (a 16-channel neck, a 2-frame memo). An image
+detector (``FasterRCNN``) does not stream through ``VIDModel``:
+``vid_model_kwargs`` raises ``NotImplementedError`` (the test CLI's image
+route runs it).
 """
 
 import glob
