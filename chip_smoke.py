@@ -139,8 +139,22 @@ f32: init and step ms, idle share; one step on the card against the CPU
 from the same state) and ``track_eval`` (the test CLI's MOT route with
 DeepSORT on a MOT tree of PNG frames with public detections, MOTA at
 least MOT_MOTA_FLOOR, and its SOT route on a LaSOT tree, finite OPE;
-frames/s of both). Then JPEG frames, the learning check and checkpoint
-import: ``jpeg_decode`` (the host decoder ``csrc/jpeg_decode.cpp`` built
+frames/s of both). Then the image detectors: ``param_search`` and
+``sot_train`` on the tracking trees, ``det_stream`` (FPN Faster R-CNN,
+RetinaNet and the DC5 Faster R-CNN through ``DetectorModel``),
+``det_variants`` (GA Faster R-CNN, GRoIE and Libra R-CNN at 800 x 1344
+and GA-RetinaNet at 768 x 1280, bf16: image ms, idle share, B's and E's
+launches each image; f32 kernel path against the plain path as sets),
+then on a COCO tree of PNG images ``det_train``, ``det_eval``,
+``det_variants_train`` (the four variant configs through the training
+CLI: step ms, finite losses, the launches of B, D, E, F and G) and
+``voc_eval`` (``faster_rcnn_r50_dc5_1x_voc.py`` through the test CLI on a
+VOC tree of JPEG copies and XML: the plain f32 run's detections as gts,
+the f32 kernel path's mAP50, the bf16 run's). The ``kernels`` phase also
+holds E, F and G at GA-RPN's P2-P6 and GA-RetinaNet's P3-P7 shapes (one
+deform group, f32) and B and D at GRoIE's every-level pooling (300 rois
+on each of P2-P5), each beside its plain version and its bound. Then JPEG
+frames, the learning check and checkpoint import: ``jpeg_decode`` (the host decoder ``csrc/jpeg_decode.cpp`` built
 with g++: every committed fixture of ``tests/data/jpeg`` against its
 manifest's sha256 of cv2's pixels; the 1080x1920 4:2:0 frame's decode ms
 beside the same pixels as PNG), ``jpeg_train`` (the canonical config
@@ -353,6 +367,40 @@ DET_TRAIN_STEPS, DET_TRAIN_SKIP = 6, 3
 DET_TRAIN_SCALE = {DET_FPN_CFG: (1333, 800), DET_RETINA_CFG: (1280, 768)}
 DET_GTS_PER_IMAGE = 8
 PARAM_GRID = ["obj_score_thr=0.05,0.3", "match_iou_thr=0.3,0.7"]
+# the FPN-trunk variants and GA-RetinaNet (det_variants, det_variants_train)
+VARIANT_CFGS = (
+    ("GAFasterRCNN", "configs/det/ga_faster_r50_fpn_1x_coco.py"),
+    ("GRoIEFasterRCNN", "configs/det/faster_rcnn_r50_fpn_groie_1x_coco.py"),
+    ("LibraFasterRCNN", "configs/det/libra_faster_rcnn_r50_fpn_1x_coco.py"),
+    ("GARetinaNet", "configs/det/ga_retinanet_r50_fpn_1x_coco.py"))
+VARIANT_IMAGES, VARIANT_PROFILED = 20, 4
+VARIANT_TRAIN_STEPS, VARIANT_TRAIN_SKIP = 5, 3
+# the configs' resize: into 1333 x 800, GA-RetinaNet into its 1280 x 768
+VARIANT_TRAIN_SCALE = {"GAFasterRCNN": (1333, 800),
+                       "GRoIEFasterRCNN": (1333, 800),
+                       "LibraFasterRCNN": (1333, 800),
+                       "GARetinaNet": (1280, 768)}
+# kernel E's launches an image: GA-RPN's adaption on P2-P6, GA-RetinaNet's
+# two on P3-P7
+VARIANT_E_PER_IMAGE = {"GAFasterRCNN": 5, "GRoIEFasterRCNN": 0,
+                       "LibraFasterRCNN": 0, "GARetinaNet": 10}
+# DCNv1 (E, F, G; one deform group, f32 x) at the level shapes of GA-RPN at
+# 800 x 1344 (P2-P6) and of GA-RetinaNet at 768 x 1280 (P3-P7): (name, c, h,
+# w); offsets of N(0, 1.5^2) px, every 50th beyond the map
+GA_DCN_SHAPES = (("ga_rpn_P2", 256, 200, 336), ("ga_rpn_P3", 256, 100, 168),
+                 ("ga_rpn_P4", 256, 50, 84), ("ga_rpn_P5", 256, 25, 42),
+                 ("ga_rpn_P6", 256, 13, 21),
+                 ("ga_retina_P3", 256, 96, 160), ("ga_retina_P4", 256, 48, 80),
+                 ("ga_retina_P5", 256, 24, 40), ("ga_retina_P6", 256, 12, 20),
+                 ("ga_retina_P7", 256, 6, 10))
+GA_DCN_ITERS = 5        # timed calls a turn at these shapes
+# GRoIE: every roi on each of P2-P5 at 800 x 1344 (f32 maps)
+GROIE_LEVELS = ((200, 336), (100, 168), (50, 84), (25, 42))
+GROIE_ROIS = 300        # the test proposals (training samples 256)
+# voc_eval: faster_rcnn_r50_dc5_1x_voc.py on a VOC tree of JPEG copies
+VOC_CFG = "configs/det/faster_rcnn_r50_dc5_1x_voc.py"
+VOC_IMAGES = 8
+VOC_MIN_SIDE = 8.0      # px: a gt's smallest side (its XML rounds to ints)
 # --loader-close: rounds of opening, reading and closing the loader
 LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
@@ -693,11 +741,13 @@ def roi_grad_case(name, ops, plain_backward, maps_shape, rois, binds, g,
     return entry
 
 
-def dcn_inputs(dev, dtype, g, n, c, h, w, std=2.5, push=True):
+def dcn_inputs(dev, dtype, g, n, c, h, w, std=2.5, push=True,
+               groups=DCN_GROUPS):
     """DCN operands at one stage shape: x [n, c, h, w], offsets of N(0,
     std^2) px (at 2.5 many beyond 2 px, samples beyond the edges), with
-    ``push`` every 50th pushed beyond the map, masks in (0, 1)."""
-    gr = DCN_GROUPS
+    ``push`` every 50th pushed beyond the map, masks in (0, 1); ``groups``
+    deform groups."""
+    gr = groups
     x = torch.randn(n, c, h, w, generator=g).to(dev, dtype)
     off = torch.randn(n, gr * 18, h, w, generator=g) * std
     if push:
@@ -4340,7 +4390,7 @@ def det_train(dev, smi, kernels, root):
     Gates: finite losses; on the FPN path B launches at least once a step
     (once a non-empty level) and D as often as B, on their 7x7 bodies;
     RetinaNet none. Returns the launch counts (A-G), B's and D's bodies
-    and the val annotation file."""
+    and the train and val annotation files."""
     from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
         write_coco_tree)
     from lowlightenvironmentvideoobjectdetection_torch.tools import (
@@ -4415,7 +4465,7 @@ def det_train(dev, smi, kernels, root):
           phase_s=time.perf_counter() - t_phase)
     return total, dict(roi_align=bodies.get("roi_align", {}),
                        roi_align_backward=bodies.get("roi_align_backward",
-                                                     {})), val_ann
+                                                     {})), train_ann, val_ann
 
 
 def image_gts(ann, det_lists, path):
@@ -4530,6 +4580,444 @@ def det_eval(dev, smi, kernels, root, val_ann):
           phase_s=time.perf_counter() - t_phase)
     return total, dict(roi_align=bodies.get("roi_align", {}),
                        roi_align_backward={})
+
+
+def ga_dcn_kernels(dev, g, ops, errs):
+    """Kernels E, F and G (DCNv1: one deform group, f32 x, the mask all
+    ones as ``deform_conv`` passes it) at GA_DCN_SHAPES through
+    ``dcn_check`` (E's columns exact, the forward and F's and G's outputs
+    to DCN_REL of their largest values against the plain versions and
+    autograd), then each timed beside its plain version (plain, kernel,
+    kernel, plain; GA_DCN_ITERS calls a turn) and from a CUDA graph, with
+    its bound and the case's peak memory. Returns {E, F, G: {"ga_levels":
+    {name: entry}}}."""
+    out = {k: {} for k in "EFG"}
+    for name, c, h, w in GA_DCN_SHAPES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        x, off, _ = dcn_inputs(dev, torch.float32, g, 1, c, h, w, 1.5, True,
+                               groups=1)
+        mask = torch.ones((1, 9, h, w), device=dev)
+        tag = f"dcn_{name}_float32"
+        grad_cols = dcn_check(ops, tag, x, off, mask, g, errs)
+        runs = dict(
+            E=(lambda: ops.deform_columns(x, off, mask),
+               lambda: ops.deform_columns_plain(x, off, mask)),
+            F=(lambda: ops.deform_col2im(grad_cols, x, off, mask),
+               lambda: ops.modulated_deform_conv_backward_plain(
+                   grad_cols, x, off, mask)),
+            G=(lambda: ops.deform_col2im_coord(grad_cols, x, off, mask),
+               lambda: ops.modulated_deform_conv_backward_plain(
+                   grad_cols, x, off, mask)))
+        errs_of = dict(E=f"{tag}_columns", F=f"{tag}_grad_x",
+                       G=f"{tag}_grad_offset")
+        for kern, (kernel, plain) in runs.items():
+            nbytes, flops = dcn_cost(kern, 1, c, h, w, 1, 4)
+            bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+            p1 = timed(plain, GA_DCN_ITERS, 1)
+            k1, k2 = (timed(kernel, GA_DCN_ITERS, 1) for _ in range(2))
+            p2 = timed(plain, GA_DCN_ITERS, 1)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            gms = graph_ms(kernel, GA_DCN_ITERS)
+            out[kern][name] = dict(
+                max_abs_err=errs[errs_of[kern]], ms=ms, graph_ms=gms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms,
+                graph_share_of_bound=bound_ms / gms, library_ms=None,
+                library_note=NO_LIBRARY_DCN, bytes=nbytes, flops=flops,
+                shape=[1, c, h, w], groups=1, offset_std=1.5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for kern in "EFG":  # the check's plain autograd included
+            out[kern][name]["case_peak_mem_gb"] = peak
+        del x, off, mask, grad_cols
+        torch.cuda.empty_cache()
+    return {k: dict(ga_levels=v) for k, v in out.items()}
+
+
+def groie_roi_kernels(dev, g, ops, errs):
+    """Kernels B and D at GRoIE's shapes: GROIE_ROIS rois of every FPN
+    scale (``sized_rois``, a quarter a level, P2-sized ones covering all of
+    P5) on each of P2-P5 of the 800 x 1344 bucket, f32 maps [1, h, w, 256]
+    as the extractor pools them: B against its plain version (ROI_F32_ATOL)
+    and D against ``roi_align_backward_plain`` (ROI_GRAD_F32_REL x max
+    |grad|), each timed beside its plain version (plain, kernel, kernel,
+    plain) with its bound (B's from the map pixels the rois read). Returns
+    ({level: B entry}, {level: D entry})."""
+    gen = torch.Generator().manual_seed(23)
+    hw = (800, 1344)
+    rois = torch.cat([sized_rois(dev, GROIE_ROIS // 4, lv, hw, gen)
+                      for lv in range(4)])
+    binds = torch.zeros(rois.shape[0], dtype=torch.int64, device=dev)
+    b_out, d_out = {}, {}
+    for i, (h, w) in enumerate(GROIE_LEVELS):
+        scale = 1.0 / (4 * 2 ** i)
+        f = torch.randn((1, h, w, 256), generator=gen).to(dev)
+        got = ops.roi_align(f, rois, scale, batch_inds=binds)
+        want = ops.roi_align(f, rois, scale, batch_inds=binds, impl="plain")
+        check_close(f"groie B P{i + 2}", got, want, 0.0, ROI_F32_ATOL)
+        ms, plain_ms, _ = compare_times(
+            lambda: ops.roi_align(f, rois, scale, batch_inds=binds),
+            lambda: ops.roi_align(f, rois, scale, batch_inds=binds,
+                                  impl="plain"))
+        pixels = roi_footprint_pixels(rois, scale, h, w)
+        nbytes, flops = roi_align_cost(1, h, w, 256, rois.shape[0], 4, 8,
+                                       map_pixels=pixels)
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+        key = f"P{i + 2}"
+        errs[f"roi_align_groie_{key}"] = max_err(got, want)
+        b_out[key] = dict(
+            rois=int(rois.shape[0]), map=[h, w, 256], map_pixels_read=pixels,
+            map_share_read=pixels / (h * w), max_abs_err=max_err(got, want),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms, library_ms=None)
+        grad_out = torch.randn(got.shape, generator=gen).to(dev)
+        shape = (1, h, w, 256)
+        dk = ops.roi_align_backward(grad_out, rois, binds, shape, scale)
+        dp = ops.roi_align_backward_plain(grad_out, rois, binds, shape, scale)
+        check_close(f"groie D {key}", dk, dp, 0.0,
+                    ROI_GRAD_F32_REL * dp.abs().max().item())
+        ms, plain_ms, _ = compare_times(
+            lambda: ops.roi_align_backward(grad_out, rois, binds, shape,
+                                           scale),
+            lambda: ops.roi_align_backward_plain(grad_out, rois, binds,
+                                                 shape, scale))
+        nbytes, flops, atomics = roi_align_backward_cost(
+            1, h, w, 256, rois.shape[0], 4, 8)
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+        errs[f"roi_align_backward_groie_{key}"] = max_err(dk, dp)
+        d_out[key] = dict(
+            rois=int(rois.shape[0]), map=[h, w, 256],
+            max_abs_err=max_err(dk, dp), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms, atomic_adds=atomics,
+            library_ms=None)
+    return b_out, d_out
+
+
+def variant_counting(levels):
+    """A stand-in for ``multilevel_roi_align`` that appends each call's
+    rois a level to ``levels``; (the module, the real function)."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.detectors import (
+        fpn_faster_rcnn as FF)
+    real = FF.multilevel_roi_align
+
+    def counting(*a, **kw):
+        kw["level_counts"] = levels
+        return real(*a, **kw)
+
+    return FF, real, counting
+
+
+def open_loc_filter(model):
+    """Zero the prior bias of a guided-anchoring head's ``conv_loc``: at
+    the seeded init it puts sigmoid(loc) just under the 0.01 filter on
+    every cell, so a seeded GA model has no valid proposals (GA-RPN) or
+    detections (GA-RetinaNet); with 0 every cell passes."""
+    head = getattr(model, "rpn_head", None)
+    head = head if hasattr(head, "conv_loc") else getattr(
+        model, "bbox_head", None)
+    if hasattr(head, "conv_loc"):
+        with torch.no_grad():
+            head.conv_loc.bias.zero_()
+
+
+def det_variants(dev, smi, kernels):
+    """GA Faster R-CNN, GRoIE and Libra R-CNN (800 x 1344) and GA-RetinaNet
+    (768 x 1280) at full width, bf16, 80 classes, seeded weights, through
+    ``DetectorModel.inference_detector`` on VARIANT_IMAGES random 480 x 640
+    frames and VARIANT_PROFILED more under the profiler: image ms, the
+    device's idle share, peak memory, B's and E's launches each image
+    (GA-RPN: E on P2-P6 and B once a non-empty level; GRoIE: B on each of
+    P2-P5; Libra: B once a non-empty level; GA-RetinaNet: E twice on each
+    of P3-P7, no B); the GA models with ``open_loc_filter``. Gate: those
+    counts, B on ``gather7x2``, nothing else launched, finite results; at
+    f32 the kernel path's detections equal the plain path's as sets
+    (SET_BOX_TOL / SET_SCORE_TOL), none unmatched, some. Returns the launch
+    counts (A-G) and B's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        DetectorModel)
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(29)
+    n = VARIANT_IMAGES + VARIANT_PROFILED
+    raw = rng.randint(0, 256, (n,) + DET_HW + (3,)).astype(np.uint8)
+    roi_align, dcn_e = kernels[1], kernels[4]
+    total, bodies, runs, agree = [0] * len(kernels), {}, {}, {}
+    levels = []
+    FF, real, counting = variant_counting(levels)
+    for name, cfg_path in VARIANT_CFGS:
+        mtype, kw = detector_kwargs(cfg_path)
+        det = DetectorModel(mtype, device=dev, **kw)
+        open_loc_filter(det.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        levels.clear()
+        lat, ndet, b_each, e_each = [], [], [], []
+        FF.multilevel_roi_align = counting
+        try:
+            for i in range(VARIANT_IMAGES):
+                b0, e0 = roi_align.launches, dcn_e.launches
+                t = time.perf_counter()
+                res = det.inference_detector(raw[i])
+                lat.append((time.perf_counter() - t) * 1e3)
+                b_each.append(roi_align.launches - b0)
+                e_each.append(dcn_e.launches - e0)
+                ndet.append(sum(len(r) for r in res))
+                if len(res) != det.num_classes or not all(
+                        np.isfinite(r).all() for r in res):
+                    raise AssertionError(f"det_variants {name}: bad result")
+            frames = iter(range(VARIANT_IMAGES, n))
+            window = flow_profiled(lambda: det.inference_detector(
+                raw[next(frames)]), VARIANT_PROFILED)
+        finally:
+            FF.multilevel_roi_align = real
+        counts = [k.launches for k in kernels]
+        want_b = {"GRoIEFasterRCNN": 4 * n, "GARetinaNet": 0}.get(
+            name, sum(sum(1 for c in lv if c) for lv in levels))
+        want = [0, want_b, 0, 0, VARIANT_E_PER_IMAGE[name] * n, 0, 0]
+        if counts != want or (name in ("GAFasterRCNN", "LibraFasterRCNN")
+                              and len(levels) != n):
+            raise AssertionError(f"det_variants {name}: launch counts "
+                                 f"{counts}, want {want}")
+        check_bodies(f"det_variants {name}", roi_align, gather7x2=want_b,
+                     gather14x2=0)
+        add_counts(bodies, dict(roi_align=roi_align.body_launches))
+        steady = lat[1:]
+        runs[name] = dict(
+            config=cfg_path, bucket=[det.pad_h, det.pad_w], frames=n,
+            frame0_ms=lat[0], median_frame_ms=statistics.median(steady),
+            min_frame_ms=min(steady), max_frame_ms=max(steady),
+            frame_ms=steady, device_window=window,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            detections_per_frame=ndet, b_launches_per_image=b_each,
+            e_launches_per_image=e_each,
+            rois_per_level_frame0=levels[0] if levels else None,
+            launches=dict(zip(KERNEL_NAMES, counts)))
+        total = [a + b for a, b in zip(total, counts)]
+        del det
+        torch.cuda.empty_cache()
+        # f32: the kernel path against the plain path on one frame
+        mtype, kw = detector_kwargs(cfg_path, dtype="float32")
+        det = DetectorModel(mtype, device=dev, **kw)
+        open_loc_filter(det.model)
+        imgs, shape, sf = prepare_frames(raw[:1], det.pad_h, det.pad_w,
+                                         device=dev)
+        sf = torch.as_tensor(sf, device=dev)
+        reset_counts(*kernels)
+        got = det.detect(imgs[0], shape, sf)
+        if not roi_align.launches and not dcn_e.launches:
+            raise AssertionError(f"det_variants {name} f32: no kernel ran")
+        det.impl = "plain"
+        reset_counts(*kernels)
+        want_d = det.detect(imgs[0], shape, sf)
+        if any(k.launches for k in kernels):
+            raise AssertionError(f"det_variants {name}: the plain path "
+                                 f"launched a kernel")
+        sets = match_sets(got, want_d)
+        if sets["unmatched"] or sets["n_got"] != sets["n_want"] or \
+                not sets["n_want"]:
+            raise AssertionError(f"det_variants {name} f32: sets {sets}")
+        agree[name] = sets
+        del det, imgs
+        torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    phase("det_variants", card=smi, frame_hw=DET_HW, models=runs,
+          f32_kernel_vs_plain=dict(sets=agree, tolerances=dict(
+              box_px=SET_BOX_TOL, score=SET_SCORE_TOL)),
+          launches=dict(zip(KERNEL_NAMES, total)),
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward={})
+
+
+def det_variants_train(dev, smi, kernels, root, train_ann):
+    """The training CLI's image route for the four VARIANT_CFGS on the
+    COCO tree ``det_train`` wrote (VARIANT_TRAIN_SCALE: the configs'
+    resize), bf16, seeded weights, VARIANT_TRAIN_STEPS steps
+    each, the last ones profiled. Gates: finite losses with each family's
+    terms; D as often as B (GRoIE: 4 a step; GA-RPN and Libra once a
+    non-empty level; GA-RetinaNet none); E, F and G 5 times a step for
+    GA-RPN and 10 for GA-RetinaNet, none for the others. Returns the launch
+    counts (A-G) and B's and D's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        train as cli)
+    t_phase = time.perf_counter()
+    total, bodies, runs = [0] * len(kernels), {}, {}
+    levels = []
+    FF, real, counting = variant_counting(levels)
+    terms = {"GAFasterRCNN": "loss_anchor_shape", "GRoIEFasterRCNN":
+             "loss_bbox", "LibraFasterRCNN": "loss_bbox",
+             "GARetinaNet": "loss_shape"}
+    for name, cfg_path in VARIANT_CFGS:
+        scale = VARIANT_TRAIN_SCALE[name]
+        pipeline = [dict(type="LoadImageFromFile"),
+                    dict(type="LoadAnnotations", with_bbox=True),
+                    dict(type="Resize", img_scale=scale),
+                    dict(type="RandomFlip", flip_ratio=0.5),
+                    dict(type="Normalize"), dict(type="Pad", size_divisor=32)]
+        d = dict(type="CocoDataset", ann_file=train_ann,
+                 img_prefix=f"{root}/coco/", pipeline=pipeline)
+        window = StepWindow(VARIANT_TRAIN_STEPS, VARIANT_TRAIN_SKIP)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        levels.clear()
+        FF.multilevel_roi_align = counting
+        t0 = time.perf_counter()
+        try:
+            out = cli.main([str(REPO / cfg_path), "--seed", "0",
+                            "--work-dir", f"{root}/work_variants", "--steps",
+                            str(VARIANT_TRAIN_STEPS), "--cfg-options",
+                            f"data.train={d!r}", "data.workers_per_gpu=0"],
+                           on_step=window)
+        finally:
+            FF.multilevel_roi_align = real
+        counts = [k.launches for k in kernels]
+        steps = VARIANT_TRAIN_STEPS
+        want_b = {"GRoIEFasterRCNN": 4 * steps, "GARetinaNet": 0}.get(
+            name, sum(sum(1 for c in lv if c) for lv in levels))
+        e = VARIANT_E_PER_IMAGE[name] * steps
+        want = [0, want_b, 0, want_b, e, e, e]
+        if counts != want or not all(
+                np.isfinite(v) for m in out["metrics"] for v in m.values()) \
+                or not all(terms[name] in m for m in out["metrics"]):
+            raise AssertionError(f"det_variants_train {name}: counts "
+                                 f"{counts}, want {want}; metrics "
+                                 f"{out['metrics']}")
+        check_bodies(f"det_variants_train {name} roi_align", kernels[1],
+                     gather7x2=want_b, gather14x2=0)
+        check_bodies(f"det_variants_train {name} roi_align_backward",
+                     kernels[3], scatter7x2=want_b, scatter14x2=0)
+        add_counts(bodies, dict(roi_align=kernels[1].body_launches,
+                                roi_align_backward=kernels[3].body_launches))
+        step_ms = [(y - x) * 1e3 for x, y in zip([t0] + window.stamps,
+                                                window.stamps)]
+        runs[name] = dict(
+            config=cfg_path, steps=steps, first_step_ms=step_ms[0],
+            median_step_ms=statistics.median(step_ms[1:VARIANT_TRAIN_SKIP]),
+            step_ms=step_ms, device_window=window.window,
+            losses=out["metrics"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            launches=dict(zip(KERNEL_NAMES, counts)),
+            rois_per_level_a_step=levels[:] or None)
+        total = [a + c for a, c in zip(total, counts)]
+        del out
+        torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    phase("det_variants_train", card=smi, tree=COCO_TREE, runs=runs,
+          launches=dict(zip(KERNEL_NAMES, total)),
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward=bodies.get("roi_align_backward",
+                                                     {}))
+
+
+def voc_gt_objects(det_lists):
+    """VOC objects (``write_voc_xml``) from per-class detections of each
+    image: every row scored above a threshold that starts at EVAL_GT_SCORE
+    and rises above each image's (DET_GTS_PER_IMAGE + 1)-th score and
+    above every box with a side under VOC_MIN_SIDE px (the XML rounds to
+    whole pixels). Returns the objects and the threshold."""
+    from lowlightenvironmentvideoobjectdetection_torch.data.voc import (
+        VOC_CLASSES)
+    rows = [per_class_rows(d) for d in det_lists]
+    thr = EVAL_GT_SCORE
+    for r in rows:
+        scores = sorted((s for _, _, s in r), reverse=True)
+        if len(scores) > DET_GTS_PER_IMAGE:
+            thr = max(thr, scores[DET_GTS_PER_IMAGE])
+        thr = max([thr] + [s for _, b, s in r
+                           if min(b[2] - b[0], b[3] - b[1]) < VOC_MIN_SIDE])
+    objects = [[(VOC_CLASSES[c], tuple(float(v) + 1 for v in b), False)
+                for c, b, s in r if s > thr] for r in rows]
+    return objects, thr
+
+
+def voc_eval(dev, smi, kernels, root):
+    """The test CLI's image route on ``faster_rcnn_r50_dc5_1x_voc.py`` (the
+    DC5 Faster R-CNN, 20 classes) over a VOC tree under ``root``
+    (``write_voc_tree``: VOC_IMAGES copies of the committed 1080 x 1920
+    JPEG frames, VOC2007, XML): the plain path at f32 (``DetectorModel``
+    with ``impl = "plain"``) makes the gts (``voc_gt_objects``, written
+    as the tree's XML; its own mAP50 must be 1); the CLI at f32 (the kernel
+    path) against them, mAP50 at least EVAL_F32_MAP, its detection sets
+    against the plain run's; the CLI at the config's bf16: mAP50,
+    frames/s, B once an image. Returns the bf16 run's launch counts (A-G)
+    and B's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        DetectorModel)
+    from lowlightenvironmentvideoobjectdetection_torch.apis.test import (
+        evaluate_bbox)
+    from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
+        write_voc_tree)
+    from lowlightenvironmentvideoobjectdetection_torch.data.voc import (
+        VOCDataset)
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        test as tcli)
+    import io
+    t_phase = time.perf_counter()
+    vroot = f"{root}/voc"
+    ann, prefix = write_voc_tree(vroot, images=VOC_IMAGES)
+    ds = VOCDataset(ann_file=ann, img_prefix=prefix, test_mode=True)
+    frames = [tcli.read_frame(i, prefix).astype(np.float32)
+              for i in ds.data_infos]
+    mtype, kw = detector_kwargs(VOC_CFG, compute_dtype="float32")
+    ref = DetectorModel(mtype, device=dev, **kw)
+    ref.impl = "plain"
+    reset_counts(*kernels)
+    plain = [ref.inference_detector(f) for f in frames]
+    if any(k.launches for k in kernels):
+        raise AssertionError("voc_eval: the plain run launched a kernel")
+    del ref
+    objects, thr = voc_gt_objects(plain)
+    ann, prefix = write_voc_tree(vroot, images=VOC_IMAGES, objects=objects)
+    ds = VOCDataset(ann_file=ann, img_prefix=prefix, test_mode=True)
+    anns = [ds[i]["ann"] for i in range(len(ds))]
+    n_gts = sum(len(a["bboxes"]) for a in anns)
+    plain_map = evaluate_bbox(plain, anns)["mAP50"]
+    if plain_map != 1.0 or not n_gts:
+        raise AssertionError(f"voc_eval: the plain run's own mAP50 "
+                             f"{plain_map} on {n_gts} gts")
+    argv = [str(REPO / VOC_CFG), "--cfg-options",
+            f"data.test.ann_file={ann!r}", f"data.test.img_prefix={prefix!r}"]
+    reset_counts(*kernels)
+    f32 = tcli.main(argv + ["model.compute_dtype=float32"])
+    f32_map = f32["metrics"]["mAP50"]
+    sets = [match_rows(per_class_rows(g), per_class_rows(w))
+            for g, w in zip(f32["dets"], plain)]
+    if f32_map < EVAL_F32_MAP or kernels[1].launches != len(frames):
+        raise AssertionError(f"voc_eval: f32 mAP50 {f32_map}, B "
+                             f"{kernels[1].launches}; sets {sets}")
+    torch.cuda.synchronize()
+    reset_counts(*kernels)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bf16 = tcli.main(argv)
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(line, flush=True)
+    counts = [k.launches for k in kernels]
+    if counts != [0, len(frames), 0, 0, 0, 0, 0] or len(bf16["dets"]) != \
+            len(frames) or not all(len(d) == 20 for d in bf16["dets"]):
+        raise AssertionError(f"voc_eval: counts {counts}")
+    check_bodies("voc_eval", kernels[1], gather7x2=len(frames),
+                 gather14x2=0)
+    bodies = dict(roi_align=dict(kernels[1].body_launches))
+    phase("voc_eval", card=smi, config=VOC_CFG, images=len(frames),
+          image_hw=list(frames[0].shape[:2]), year=ds.year,
+          gts=dict(count=n_gts, score_threshold=thr),
+          plain_f32_map50=plain_map, kernel_f32_map50=f32_map,
+          kernel_f32_gate=EVAL_F32_MAP,
+          kernel_f32_vs_plain_sets=dict(
+              unmatched=sum(x["unmatched"] for x in sets),
+              max_box_px=max(x["box"] for x in sets),
+              max_score=max(x["score"] for x in sets)),
+          bf16_map50=bf16["metrics"]["mAP50"],
+          bf16_frames_per_s=bf16["summary"]["fps"], summary_line=line,
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t_phase)
+    return counts, dict(roi_align=bodies["roi_align"], roi_align_backward={})
 
 
 def param_search(dev, smi, kernels, root):
@@ -5141,6 +5629,14 @@ def main() -> int:
     dcn_names = ("dcn_im2col", "dcn_col2im", "dcn_col2im_coord")
     for name, kern in zip(dcn_names, "EFG"):
         summary[name] = dict(dcn[kern], launches=0)
+    # the FPN variants' shapes: E, F, G at GA-RPN's and GA-RetinaNet's
+    # levels, B and D at GRoIE's every-level pooling
+    ga_dcn = ga_dcn_kernels(dev, g, dcn_ops, errs)
+    for name, kern in zip(dcn_names, "EFG"):
+        summary[name].update(ga_dcn[kern])
+    summary["roi_align"]["groie_levels"], \
+        summary["roi_align_backward"]["groie_levels"] = groie_roi_kernels(
+            dev, g, roi_ops, errs)
     phase("kernels", card=smi, max_abs_err=errs, bf16_times=summary,
           tolerances=dict(attention_atol=ATTN_ATOL, library_atol=LIBRARY_TOL,
                           roi_f32_atol=ROI_F32_ATOL,
@@ -5329,10 +5825,17 @@ def main() -> int:
     # the image detectors: FPN Faster R-CNN, RetinaNet and the DC5 Faster
     # R-CNN streamed, trained and evaluated from a COCO tree
     runs.append(det_stream(dev, smi, path_kernels))
+    runs.append(det_variants(dev, smi, path_kernels))
     with tempfile.TemporaryDirectory(prefix="_smoke_det_", dir=REPO) as root:
-        counts, bodies, val_ann = det_train(dev, smi, path_kernels, root)
+        counts, bodies, train_ann, val_ann = det_train(dev, smi,
+                                                       path_kernels, root)
         runs.append((counts, bodies))
         runs.append(det_eval(dev, smi, path_kernels, root, val_ann))
+        # the FPN-trunk variants and GA-RetinaNet on the same tree
+        runs.append(det_variants_train(dev, smi, path_kernels, root,
+                                       train_ann))
+        # the VOC route: the DC5 config on a VOC tree of JPEG images
+        runs.append(voc_eval(dev, smi, path_kernels, root))
     # JPEG frames, the learning check and the original code's checkpoints
     jpeg_decode(smi)
     with tempfile.TemporaryDirectory(prefix="_smoke_jpeg_", dir=REPO) as root:

@@ -7,8 +7,13 @@ detector type of a config, the counterpart of the JAX package's
 - ``FastRCNN``: it, driven by a fixed grid of 64 proposals
   (``_grid_proposals``) where the JAX CLI has no proposal file;
 - ``RPN``: its RPN alone; detections are the class-agnostic proposals;
-- ``FasterRCNNFPN``: ``models/detectors/fpn_faster_rcnn.py``;
-- ``RetinaNet``: ``models/dense_heads/retina_head.py``.
+- ``FasterRCNNFPN``: ``models/detectors/fpn_faster_rcnn.py``, and its
+  variants ``GAFasterRCNN`` / ``GARPNHead`` (GA-RPN), ``GRoIEFasterRCNN`` /
+  ``GenericRoIExtractor`` (GRoIE) and ``LibraFasterRCNN`` / ``LibraRCNN``
+  (BFP, the IoU-balanced sampler and the balanced L1 loss);
+- ``RetinaNet``: ``models/dense_heads/retina_head.py``;
+- ``GARetinaNet`` / ``GuidedAnchoring``:
+  ``models/dense_heads/guided_anchor_head.py``.
 
 An entry's ``build(mcfg, tiny, seed, device)`` gives (model, aux) with
 seeded flax-style weights (``aux``: the DC5 families' anchors, else None:
@@ -35,6 +40,7 @@ from ..core.nms import DetResult
 from ..models.builder import (DTYPES, IMAGE_FAMILIES,
                                NOT_PORTED_IMAGE_FAMILIES, TINY_KW,
                                _selsa_cfg)
+from ..models.dense_heads import guided_anchor_head as GA
 from ..models.dense_heads import retina_head as R
 from ..models.detectors import fpn_faster_rcnn as FF
 from ..models.detectors import more_rcnn as MR
@@ -98,13 +104,27 @@ def _dense_kw(mcfg, tiny, tiny_kw=None) -> dict:
     return kw
 
 
-def _fpn_build(mcfg, tiny, seed=0, device=None):
-    model = FF.FPNFasterRCNN(**_dense_kw(mcfg, tiny, FPN_TINY_KW))
-    return _seeded(model, seed, device), None
+def _dense_build(cls, tiny_kw=None, **variant):
+    """The JAX ``_dense_build`` (``_build_fpn_frcnn`` for FPN Faster R-CNN,
+    with the zoo entry's ``variant`` keywords: ``rpn_type``,
+    ``roi_extract``, ``with_bfp``)."""
+    def build(mcfg, tiny, seed=0, device=None):
+        kw = dict(_dense_kw(mcfg, tiny, tiny_kw), **variant)
+        return _seeded(cls(**kw), seed, device), None
+    return build
 
 
-def _retina_build(mcfg, tiny, seed=0, device=None):
-    return _seeded(R.RetinaNet(**_dense_kw(mcfg, tiny)), seed, device), None
+def _fpn_family(sampler="random", reg_loss="smooth_l1", **variant):
+    return Family(
+        _dense_build(FF.FPNFasterRCNN, FPN_TINY_KW, **variant),
+        lambda m, a, b, generator=None, uniforms=None:
+            FF.fpn_faster_rcnn_loss(m, b, generator=generator,
+                                    uniforms=uniforms, sampler=sampler,
+                                    reg_loss=reg_loss),
+        lambda m, a, img, ishape, sf=None, impl=None:
+            FF.fpn_faster_rcnn_detect(m, img, ishape, scale_factor=sf,
+                                      impl=impl),
+        input_hw=DENSE_TINY_HW)
 
 
 def _grid_proposals(hw, n: int = 64, device=None):
@@ -171,22 +191,25 @@ FAMILIES: Dict[str, Family] = {
     "FastRCNN": Family(_dc5_build(MR.FastRCNN, 80), _fast_loss,
                        _fast_detect),
     "RPN": Family(_dc5_build(MR.RPN, 1), _rpn_loss, _rpn_detect),
-    "FasterRCNNFPN": Family(
-        _fpn_build,
-        lambda m, a, b, generator=None, uniforms=None:
-            FF.fpn_faster_rcnn_loss(m, b, generator=generator,
-                                    uniforms=uniforms),
-        lambda m, a, img, ishape, sf=None, impl=None:
-            FF.fpn_faster_rcnn_detect(m, img, ishape, scale_factor=sf,
-                                      impl=impl),
-        input_hw=DENSE_TINY_HW),
+    "FasterRCNNFPN": _fpn_family(),
     "RetinaNet": Family(
-        _retina_build,
+        _dense_build(R.RetinaNet),
         lambda m, a, b, generator=None, uniforms=None: R.retinanet_loss(m, b),
         lambda m, a, img, ishape, sf=None, impl=None: R.retinanet_detect(
             m, img, ishape, scale_factor=sf),
         input_hw=DENSE_TINY_HW),
 }
+FAMILIES["GAFasterRCNN"] = FAMILIES["GARPNHead"] = _fpn_family(rpn_type="ga")
+FAMILIES["GRoIEFasterRCNN"] = FAMILIES["GenericRoIExtractor"] = _fpn_family(
+    roi_extract="groie")
+FAMILIES["LibraFasterRCNN"] = FAMILIES["LibraRCNN"] = _fpn_family(
+    sampler="iou_balanced", reg_loss="balanced_l1", with_bfp=True)
+FAMILIES["GARetinaNet"] = FAMILIES["GuidedAnchoring"] = Family(
+    _dense_build(GA.GARetinaNet),
+    lambda m, a, b, generator=None, uniforms=None: GA.ga_retinanet_loss(m, b),
+    lambda m, a, img, ishape, sf=None, impl=None: GA.ga_retinanet_detect(
+        m, img, ishape, scale_factor=sf, impl=impl),
+    input_hw=DENSE_TINY_HW)
 
 
 def get_family(mtype: str) -> Optional[Family]:
@@ -208,7 +231,8 @@ def is_image_family(mtype: str) -> bool:
 def pad_hw(model, fam: Family, tiny: bool) -> Tuple[int, int]:
     """The bucket images are padded to: a DC5 family's config pad, FPN
     Faster R-CNN's own ``pad_h`` x ``pad_w`` (800 x 1344; 128 x 128 with
-    ``tiny``), RetinaNet's 768 x 1280 (128 x 128 with ``tiny``), as the JAX
+    ``tiny``; its variants too), RetinaNet's and GA-RetinaNet's 768 x 1280
+    (128 x 128 with ``tiny``), as the JAX
     ``DetectorModel`` pads save for FPN (ROADMAP fault F18)."""
     cfg = getattr(model, "cfg", None)
     if cfg is not None:

@@ -1,22 +1,28 @@
 """Target assignment and random sampling with static shapes, the
 counterpart of the JAX package's ``core/assigners.py`` (``max_iou_assign``,
-``random_sample_masks``, ``random_sample_gather``): mmdet's MaxIoUAssigner
-and RandomSampler as fixed-size masks and gathers.
+``random_sample_masks``, ``random_sample_gather``,
+``iou_balanced_sample_gather``): mmdet's MaxIoUAssigner (and, given the
+overlaps, ApproxMaxIoUAssigner), RandomSampler and Libra R-CNN's combined
+sampler as fixed-size masks and gathers.
 
 The samplers take their uniforms as an argument ([2, N] for the masks: the
 positives' and the negatives' ranks; [3, N] for the gather: those and the
-tiebreak), so a test can feed them the JAX package's ``jax.random`` draws.
+tiebreak; [4, N] for the IoU-balanced gather), so a test can feed them the
+JAX package's ``jax.random`` draws.
 Sorts are stable, as ``jnp.argsort``, so ties (the 2.0 and 1e9 fillers)
 fall in index order on both sides.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from .boxes import bbox_overlaps
+
+IOU_BINS = 3  # the IoU-balanced sampler's bins of negatives
 
 
 class AssignResult(NamedTuple):
@@ -33,22 +39,28 @@ def max_iou_assign(boxes: torch.Tensor, gt_boxes: torch.Tensor,
                    gt_labels: torch.Tensor, gt_valid: torch.Tensor,
                    pos_iou_thr: float, neg_iou_thr: float,
                    min_pos_iou: float = 0.0,
-                   box_valid: Optional[torch.Tensor] = None) -> AssignResult:
+                   box_valid: Optional[torch.Tensor] = None,
+                   overlaps: Optional[torch.Tensor] = None) -> AssignResult:
     """Assign each of N boxes [N, 4] to one of G padded gts [G, 4]:
     negatives below ``neg_iou_thr``, positives from ``pos_iou_thr``, then
     each valid gt claims every box tying its own best IoU (at least
     ``min_pos_iou`` and above 0), later gts overriding earlier ones (mmdet's
     low-quality matching with ``gt_max_assign_all``). Invalid gts and boxes
-    take IoU -1."""
-    n, g = boxes.shape[0], gt_boxes.shape[0]
-    overlaps = bbox_overlaps(gt_boxes, boxes)  # [G, N]
+    take IoU -1. ``overlaps`` [G, N] replaces ``bbox_overlaps(gt_boxes,
+    boxes)`` (``boxes`` may then be None): ApproxMaxIoUAssigner's per-square
+    maximum over its approximate anchors."""
+    g = gt_boxes.shape[0]
+    if overlaps is None:
+        overlaps = bbox_overlaps(gt_boxes, boxes)  # [G, N]
+    n = overlaps.shape[1]
     overlaps = torch.where(gt_valid[:, None], overlaps, -1.0)
     if box_valid is not None:
         overlaps = torch.where(box_valid[None, :], overlaps, -1.0)
     max_overlaps = overlaps.amax(dim=0)
     argmax = torch.argmax(overlaps, dim=0)  # the first of equal maxima
 
-    assigned = torch.full((n,), -1, dtype=torch.long, device=boxes.device)
+    assigned = torch.full((n,), -1, dtype=torch.long,
+                          device=overlaps.device)
     assigned = torch.where((max_overlaps >= 0) & (max_overlaps < neg_iou_thr),
                            0, assigned)
     assigned = torch.where(max_overlaps >= pos_iou_thr, argmax + 1, assigned)
@@ -57,7 +69,7 @@ def max_iou_assign(boxes: torch.Tensor, gt_boxes: torch.Tensor,
     claim_ok = gt_valid & (gt_max >= min_pos_iou)
     claim = ((overlaps == gt_max[:, None]) & claim_ok[:, None]
              & (gt_max[:, None] > 0))
-    gt_ids = torch.arange(1, g + 1, device=boxes.device)
+    gt_ids = torch.arange(1, g + 1, device=overlaps.device)
     claimed = torch.where(claim, gt_ids[:, None], 0).amax(dim=0)
     assigned = torch.where(claimed > 0, claimed, assigned)
 
@@ -66,15 +78,21 @@ def max_iou_assign(boxes: torch.Tensor, gt_boxes: torch.Tensor,
     return AssignResult(assigned, max_overlaps, labels)
 
 
+def _ranks(key: torch.Tensor) -> torch.Tensor:
+    """``argsort(argsort(key))`` with stable sorts: each element's place in
+    the key order, ties to the lower index."""
+    order = torch.sort(key, stable=True).indices
+    ranks = torch.empty_like(order)
+    ranks[order] = torch.arange(key.shape[0], device=key.device)
+    return ranks
+
+
 def _rank_by_random(mask: torch.Tensor, uniforms: torch.Tensor
                     ) -> torch.Tensor:
     """The rank (0-based) of each True element among the True elements in
     the order of ``uniforms``; N + 1 for False elements."""
-    n = mask.shape[0]
-    order = torch.sort(torch.where(mask, uniforms, 2.0), stable=True).indices
-    ranks = torch.empty_like(order)
-    ranks[order] = torch.arange(n, device=mask.device)
-    return torch.where(mask, ranks, n + 1)
+    return torch.where(mask, _ranks(torch.where(mask, uniforms, 2.0)),
+                       mask.shape[0] + 1)
 
 
 class SampleMasks(NamedTuple):
@@ -112,3 +130,57 @@ def random_sample_gather(assign: AssignResult, uniforms: torch.Tensor,
     priority = torch.where(sel, uniforms[2], 1e9)
     inds = torch.sort(priority, stable=True).indices[:num]
     return SampleResult(inds, masks.pos_mask[inds], sel[inds])
+
+
+def _segment_start(ranks: torch.Tensor, live: torch.Tensor,
+                   segment: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per element, the smallest rank among the live elements of its
+    segment (``jax.ops.segment_min`` over ``segment``, gathered back)."""
+    big = torch.iinfo(torch.int64).max
+    start = torch.full((num_segments,), big, dtype=torch.int64,
+                       device=ranks.device)
+    start = start.scatter_reduce(0, segment, torch.where(live, ranks, big),
+                                 reduce="amin")
+    return start[segment]
+
+
+def iou_balanced_sample_gather(assign: AssignResult, uniforms: torch.Tensor,
+                               num: int, pos_fraction: float
+                               ) -> SampleResult:
+    """Libra R-CNN's combined sampler as ``num`` gather indices (mmdet's
+    InstanceBalancedPosSampler and IoUBalancedNegSampler at the Libra
+    config's floor_thr -1 and 3 bins), as the JAX package forms it:
+    positives round-robin over their gts (each gt's positives in the order
+    of ``uniforms[0]``; the k-th of every gt before the (k + 1)-th of any),
+    up to ``num * pos_fraction``; negatives evenly from IOU_BINS bins of
+    IoU over [0, their largest IoU] (each bin's in the order of
+    ``uniforms[1]``, up to its quota), the shortfall refilled from the rest
+    (``uniforms[2]``); then the sampled boxes in the order of
+    ``uniforms[3]``, unsampled ones after them, flagged invalid. Ties fall
+    to the lower index, as JAX's stable sorts."""
+    is_pos = assign.assigned_gt_inds > 0
+    is_neg = assign.assigned_gt_inds == 0
+    n = is_pos.shape[0]
+    u_pos, u_neg, u_rest, u_tie = uniforms[:4]
+    gts = torch.where(is_pos, assign.assigned_gt_inds, 0)
+    grank = _ranks(torch.where(is_pos, gts.float() * 2.0 + u_pos, math.inf))
+    within = (grank - _segment_start(grank, is_pos, gts, n + 1)).float()
+    pos_rank = _ranks(torch.where(is_pos, within + u_pos * 0.5, math.inf))
+    pos_mask = is_pos & (pos_rank < int(num * pos_fraction))
+    num_neg = num - pos_mask.sum()
+
+    iou = assign.max_overlaps.clamp(0.0, 1.0)
+    max_iou = torch.where(is_neg, iou, 0.0).max().clamp_min(1e-6)
+    bin_idx = (iou / (max_iou / IOU_BINS)).long().clamp(0, IOU_BINS - 1)
+    grank = _ranks(torch.where(is_neg, bin_idx.float() * 2.0 + u_neg, 1e9))
+    seg = torch.where(is_neg, bin_idx, IOU_BINS)
+    within = grank - _segment_start(grank, is_neg, seg, IOU_BINS + 1)
+    bin_sel = is_neg & (within < num_neg // IOU_BINS)
+    rest = is_neg & ~bin_sel
+    rest_sel = rest & (_rank_by_random(rest, u_rest)
+                       < num_neg - bin_sel.sum())
+
+    sel = pos_mask | bin_sel | rest_sel
+    priority = torch.where(sel, u_tie, 1e9)
+    inds = torch.sort(priority, stable=True).indices[:num]
+    return SampleResult(inds, pos_mask[inds], sel[inds])

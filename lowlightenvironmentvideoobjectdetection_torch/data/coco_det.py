@@ -6,7 +6,18 @@ image on its own), the images without annotations dropped in training,
 sub-pixel boxes dropped). Registered in ``data/datasets.py``'s ``DATASETS``
 as ``CocoDataset``. Samples are ``dict(img_info, ann)``; ``get_sample``
 takes the loader's ``random.Random`` and draws nothing from it.
-``MultiScaleFlipAug`` is not ported (ROADMAP.md Queue 1 item 9).
+
+``MultiScaleFlipAug`` (mmdet's ``pipelines/test_time_aug.py``, registered
+in ``PIPELINES`` as the JAX package registers it) runs its inner steps once
+for each (scale, flip) on a copy of a frame and returns the list of
+prepared dicts, the scales major, each with ``scale_factor`` (from its
+``Resize``), ``flip`` and ``scale``. As in JAX, each scale has its own
+inner steps with the ``Resize``'s (or any step's) ``img_scale`` set to it,
+and the flip mirrors the prepared image (after any ``Normalize`` and
+``Pad``) along its width. It is a device step: the frame's image is a
+tensor when it runs, as ``Compose`` moves a frame to its device after the
+loading steps. The JAX package's ``merge_aug_detections`` and
+``unflip_boxes`` are not ported (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -15,8 +26,10 @@ import random
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 from torch.utils.data import Dataset
 
+from ..registry import PIPELINES
 from .coco_vid import CocoVID
 
 COCO_CLASSES = (
@@ -89,3 +102,53 @@ class CocoDataset(Dataset):
 
     def __getitem__(self, idx: int) -> dict:
         return self.get_sample(idx)
+
+
+def _copied(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, np.ndarray):
+        return v.copy()
+    return dict(v) if isinstance(v, dict) else v
+
+
+@PIPELINES.register("MultiScaleFlipAug")
+class MultiScaleFlipAug:
+    def __init__(self, transforms: List[dict], img_scale, flip: bool = False,
+                 flip_direction: str = "horizontal"):
+        if flip_direction != "horizontal":
+            raise ValueError(f"flip_direction {flip_direction!r}: the JAX "
+                             f"package flips horizontally only")
+        self.img_scales = (img_scale if isinstance(img_scale, list)
+                           else [img_scale])
+        self.flip = flip
+        self.flip_direction = flip_direction
+        self.pipelines = []
+        for scale in self.img_scales:
+            steps = []
+            for t in transforms:
+                cfg = dict(t)
+                if "img_scale" in cfg or cfg.get("type") == "Resize":
+                    cfg["img_scale"] = scale
+                step = PIPELINES.get(cfg.pop("type"))(**cfg)
+                if getattr(step, "on_host", False):
+                    raise ValueError("MultiScaleFlipAug: a loading step "
+                                     "belongs before it")
+                steps.append(step)
+            self.pipelines.append(steps)
+
+    def __call__(self, results: dict, rng=None) -> List[dict]:
+        outs = []
+        for steps, scale in zip(self.pipelines, self.img_scales):
+            for flip in ([False, True] if self.flip else [False]):
+                r = {k: _copied(v) for k, v in results.items()}
+                for step in steps:
+                    r = step(r, rng)
+                if flip:
+                    img = r["img"]
+                    r["img"] = (img.flip(1) if isinstance(img, torch.Tensor)
+                                else np.ascontiguousarray(img[:, ::-1]))
+                r["flip"] = flip
+                r["scale"] = scale
+                outs.append(r)
+        return outs

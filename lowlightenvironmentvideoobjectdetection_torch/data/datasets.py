@@ -20,6 +20,7 @@ from torch.utils.data import Dataset
 
 from .coco_det import CocoDataset
 from .coco_vid import CocoVID
+from .voc import VOCDataset, XMLDataset
 
 IMAGENET_VID_CLASSES = (
     "airplane", "antelope", "bear", "bicycle", "bird", "bus", "car",
@@ -204,4 +205,8 @@ def distributed_video_split(data_infos: Sequence[dict], num_shards: int
 
 DATASETS = {"ImagenetVIDDataset": ImagenetVIDDataset,
             "DarkFarmVIDDataset": DarkFarmVIDDataset,
-            "CocoDataset": CocoDataset}
+            "CocoDataset": CocoDataset,
+            "VOCDataset": VOCDataset,
+            "XMLDataset": XMLDataset}
+# the image datasets, which the test CLI's image route reads
+IMAGE_DATASETS = ("CocoDataset", "VOCDataset", "XMLDataset")

@@ -62,16 +62,20 @@ def sample_seed(seed: int, step: int, i: int) -> int:
 
 def build_dataset(dcfg: dict, test_mode: bool = False) -> CocoVideoDataset:
     """``data.train`` (or with ``test_mode`` ``data.test`` / ``data.val``)
-    of a config -> its dataset (COCO-VID types). A test dataset keeps every
-    frame, and one without a ``ref_img_sampler`` samples no references."""
+    of a config -> its dataset (``DATASETS``: the COCO-VID types and the
+    image datasets; an ``XMLDataset`` takes the config's ``classes``). A
+    test dataset keeps every frame, and one without a ``ref_img_sampler``
+    samples no references."""
     if dcfg["type"] not in DATASETS:
         raise ValueError(f"dataset type {dcfg['type']!r}: the port reads "
                          f"{sorted(DATASETS)}")
     sampler = dict(dcfg.get("ref_img_sampler") or {})
+    extra = ({"classes": dcfg["classes"]} if dcfg["type"] == "XMLDataset"
+             and "classes" in dcfg else {})
     return DATASETS[dcfg["type"]](
         ann_file=dcfg["ann_file"], img_prefix=dcfg.get("img_prefix", ""),
         ref_img_sampler=(sampler or None) if test_mode else sampler,
-        test_mode=test_mode)
+        test_mode=test_mode, **extra)
 
 
 def loader_workers(cfg: dict) -> int:

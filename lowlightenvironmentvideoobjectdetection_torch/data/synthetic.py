@@ -47,6 +47,17 @@ linearly, ``ROOT/annotations/lasot_test.json`` and
 ``ROOT/{train,val}2017/<image:012d>.png``, each image textured with 1-4
 filled boxes of COCO's 80 classes (ids 1-80).
 
+``write_voc_tree``, a Pascal VOC tree (``VOCDataset``)::
+
+    ROOT/VOC<year>/ImageSets/Main/test.txt   the image ids
+    ROOT/VOC<year>/Annotations/<id>.xml         size and objects
+    ROOT/VOC<year>/JPEGImages/<id>.jpg
+
+each image a copy of one of the 1080x1920 JPEG frames of ``tests/data/jpeg``
+(the host of the card cannot encode JPEG), its objects the boxes drawn
+into it (``manifest.json``) under VOC class names, every third one
+``difficult``; ``write_voc_xml`` writes one annotation file.
+
 The PNGs have no row filter and zlib level 1, written by 8 threads.
 """
 
@@ -55,14 +66,16 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import xml.etree.ElementTree as ET
 from concurrent.futures import ThreadPoolExecutor
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from .coco_det import COCO_CLASSES
 from .datasets import DARKFARM_CLASSES, IMAGENET_VID_CLASSES
 from .image_io import imwrite_png
+from .voc import VOC_CLASSES
 
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "tests", "data", "jpeg")
@@ -361,3 +374,62 @@ def write_coco_tree(root: str, images: int = 8, val_images: int = 8,
             jobs.append((os.path.join(root, name), img))
         paths.append(_write(root, jobs, ann, f"coco_{split}.json"))
     return paths[0], paths[1]
+
+
+VOC_FIXTURES = ("darkfarm_0_low.jpg", "darkfarm_1_low.jpg",
+                "darkfarm_0_gt.jpg", "darkfarm_1_gt.jpg")
+
+
+def write_voc_xml(path: str, filename: str, hw: Tuple[int, int],
+                  objects: Sequence[tuple]) -> None:
+    """A VOC annotation file: ``objects`` of (class name, (xmin, ymin, xmax,
+    ymax) in VOC's 1-based pixels, difficult)."""
+    root = ET.Element("annotation")
+    ET.SubElement(root, "filename").text = filename
+    size = ET.SubElement(root, "size")
+    for k, v in (("width", hw[1]), ("height", hw[0]), ("depth", 3)):
+        ET.SubElement(size, k).text = str(v)
+    for name, box, difficult in objects:
+        obj = ET.SubElement(root, "object")
+        ET.SubElement(obj, "name").text = name
+        ET.SubElement(obj, "difficult").text = str(int(difficult))
+        bnd = ET.SubElement(obj, "bndbox")
+        for k, v in zip(("xmin", "ymin", "xmax", "ymax"), box):
+            ET.SubElement(bnd, k).text = str(int(round(v)))
+    ET.ElementTree(root).write(path)
+
+
+def write_voc_tree(root: str, images: int = 8, year: int = 2007,
+                   objects: Optional[Sequence[Sequence[tuple]]] = None,
+                   fixtures: str = JPEG_FIXTURES) -> Tuple[str, str]:
+    """Write the VOC tree under ``root``: ``images`` images, image i a copy
+    of fixture ``VOC_FIXTURES[i % 4]``, with ``objects[i]`` (as
+    ``write_voc_xml`` takes them) or the fixture's boxes. Returns the
+    image-set file (``test.txt``) and the ``img_prefix``
+    (``ROOT/VOC<year>/``)."""
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    rng = np.random.default_rng(0)
+    prefix = os.path.join(root, f"VOC{year}")
+    for sub in ("ImageSets/Main", "Annotations", "JPEGImages"):
+        os.makedirs(os.path.join(prefix, sub), exist_ok=True)
+    ids = []
+    for i in range(images):
+        fixture = VOC_FIXTURES[i % len(VOC_FIXTURES)]
+        entry = manifest[fixture.replace("_gt", "_low")]
+        img_id = f"{year}_{i:06d}"
+        ids.append(img_id)
+        shutil.copyfile(os.path.join(fixtures, fixture),
+                        os.path.join(prefix, "JPEGImages", f"{img_id}.jpg"))
+        if objects is None:
+            objs = [(VOC_CLASSES[int(rng.integers(len(VOC_CLASSES)))],
+                     (x + 1, y + 1, x + bw, y + bh), k % 3 == 2)
+                    for k, (x, y, bw, bh, _) in enumerate(entry["boxes"])]
+        else:
+            objs = objects[i]
+        write_voc_xml(os.path.join(prefix, "Annotations", f"{img_id}.xml"),
+                      f"{img_id}.jpg", entry["shape"][:2], objs)
+    ann = os.path.join(prefix, "ImageSets", "Main", "test.txt")
+    with open(ann, "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return ann, prefix + "/"

@@ -32,7 +32,8 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
 def _bias(mask: torch.Tensor) -> torch.Tensor:

@@ -66,14 +66,15 @@ VID_FAMILIES = ("SELSA", "FGFA", "DFF")
 # FAMILIES): the port's families (apis/families.py) and the others, which
 # raise NotImplementedError
 PORTED_IMAGE_FAMILIES = ("FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
-                         "RetinaNet")
+                         "RetinaNet", "GAFasterRCNN", "GARPNHead",
+                         "GRoIEFasterRCNN", "GenericRoIExtractor",
+                         "LibraFasterRCNN", "LibraRCNN", "GARetinaNet",
+                         "GuidedAnchoring")
 NOT_PORTED_IMAGE_FAMILIES = (
     "ATSS", "CascadeRCNN", "CascadeRPN", "CentripetalNet", "CornerNet",
     "DETR", "DoubleHeadRCNN", "DoubleHeadRoIHead", "DynamicRCNN", "FCOS",
     "FOVEA", "FSAF", "FoveaBox", "FreeAnchor", "FreeAnchorRetinaNet",
-    "GAFasterRCNN", "GARPNHead", "GARetinaNet", "GFL", "GRoIEFasterRCNN",
-    "GenericRoIExtractor", "GridRCNN", "GuidedAnchoring", "HTC",
-    "HybridTaskCascade", "LibraFasterRCNN", "LibraRCNN", "MaskRCNN",
+    "GFL", "GridRCNN", "HTC", "HybridTaskCascade", "MaskRCNN",
     "MaskScoringRCNN", "NASFCOS", "NASFPNRetinaNet", "PAA", "PISA",
     "PISAFasterRCNN", "PISARetinaNet", "PISARoIHead", "PointRend",
     "RepPoints", "RepPointsDetector", "SABL", "SABLRetinaNet", "SCNet",

@@ -46,16 +46,21 @@ The tracking routes, as the JAX CLI's ``run_mot_eval`` and
 
 The image-detector route, as the JAX CLI's ``run_image_detector`` (a
 type of ``apis/families.py`` whose test data is no video dataset:
-FasterRCNN, FastRCNN, RPN, FasterRCNNFPN, RetinaNet; the JAX package's
-other families raise ``NotImplementedError``): ``apis/inference.py``
-``init_detector`` (``--checkpoint``: the model's state dict or a training
-checkpoint), then every image of ``data.test`` (a ``CocoDataset``, PNG or
-JPEG, read with ``data/image_io.py``) or ``--synthetic N`` noise images
-through ``inference_detector``; prints ``{"frames", "fps", "eval",
-"model"[, "mAP50"]}`` (mAP at IoU 0.5 with ``--eval bbox``); ``--out``
-writes it with the per-image results. The configs have no ``data``
-section: pass ``data.test=dict(type='CocoDataset', ann_file=...,
-img_prefix=...)`` with ``--cfg-options``.
+FasterRCNN, FastRCNN, RPN, FasterRCNNFPN and its GA-RPN, GRoIE and Libra
+variants, RetinaNet, GARetinaNet; the JAX package's other families raise
+``NotImplementedError``): ``apis/inference.py`` ``init_detector``
+(``--checkpoint``: the model's state dict or a training checkpoint), then
+every image of ``data.test`` (any image dataset of ``DATASETS``:
+``CocoDataset``, ``VOCDataset``, ``XMLDataset``; PNG or JPEG, read with
+``data/image_io.py``) or ``--synthetic N`` noise images through
+``inference_detector``; prints ``{"frames", "fps", "eval", "model"[,
+"mAP50"]}`` (``eval_map`` at IoU 0.5 with its area AP, VOC's difficult
+boxes ignored, with ``--eval bbox``, as the JAX CLI); ``--out`` writes it
+with the per-image results. The COCO configs have no ``data`` section:
+pass ``data.test=dict(type='CocoDataset', ann_file=..., img_prefix=...)``
+with ``--cfg-options``; ``faster_rcnn_r50_dc5_1x_voc.py`` reads
+``data/VOCdevkit/VOC2007`` unless given another ``data.test.ann_file`` /
+``img_prefix``.
 
 ``--tiny`` gives the JAX CLI's sizes there too: a 64x64 bucket and a
 float32 detector for MOT (the ReID net stays bfloat16), 64 / 128 crops

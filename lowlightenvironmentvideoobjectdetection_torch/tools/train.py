@@ -33,8 +33,10 @@ RPN, FasterRCNNFPN, RetinaNet; the JAX package's other families raise
 CLI's family route: on ``--synthetic`` batches (``families.
 make_synth_batch``) or on a ``CocoDataset`` ``data.train`` (one image a
 ``DetTrainBatch``, padded to the family's bucket, ``families.pad_hw``),
-which a user passes with ``--cfg-options`` (the configs have none). Their
-runs take no eval hook.
+which a user passes with ``--cfg-options`` (the configs have none); any
+other ``data.train`` type (a ``VOCDataset``, say) raises, as the JAX CLI
+feeds image detectors from a ``CocoDataset`` only. Their runs take no eval
+hook.
 
 SiamRPN++ (``model.type=SiamRPN``) trains on template and search pairs of
 a ``SOTTrainDataset`` ``data.train`` (``data/sot_pairs.py``: mmtrack's
@@ -246,6 +248,13 @@ def main(argv: Optional[List[str]] = None,
         data = image_synthetic_batches(system.model, system.family, device,
                                        args.seed)
     elif image:
+        dtype = cfg["data"]["train"]["type"]
+        if dtype != "CocoDataset":
+            raise ValueError(
+                f"data.train type {dtype!r}: the image route trains on a "
+                f"CocoDataset only, as the JAX package's tools/train.py "
+                f"feeds image detectors (VOC training is not a feature "
+                f"of either)")
         loader = data = TrainLoader(cfg, *system.pad_hw, 3, seed=args.seed,
                                     start=start, device=device, pairs=False)
     elif args.synthetic:

@@ -12,10 +12,17 @@ dicts of numpy arrays (``{"params": ..., "batch_stats": ...}``, e.g.
 whose flax ``LayerNorm`` scale and bias become ``weight`` and ``bias`` and
 whose root parameters ``cls_weights`` / ``reg_weights`` keep their names;
 for the image detectors ``FPNFasterRCNN`` (``neck.lateral{i}``,
-``neck.fpn_conv{i}``, ``rpn_head``, ``bbox_head``), ``RetinaNet``
+``neck.fpn_conv{i}``, ``rpn_head``, ``bbox_head``; GA-RPN's
+``rpn_head.feature_adaption`` (a DCN ``kernel`` [3, 3, in, out], as any
+conv kernel), ``offset_conv``, ``conv_loc``, ``conv_shape``,
+``conv_cls``, ``conv_reg``; GRoIE's ``roi_extractor.pre_module`` and
+``post_module.{query,value,proj}_conv``, ``appr_geom_fc_{x,y}`` (dense);
+Libra's ``bfp.refine.{theta,phi,g,conv_out}``), ``RetinaNet``
 (``neck.extra_conv{k}``, ``bbox_head.{cls,reg}_conv{i}``,
-``bbox_head.retina_cls`` / ``retina_reg``) and ``FastRCNN`` / ``RPN``
-(``base.*``, the wrapped Faster R-CNN)). Module names match
+``bbox_head.retina_cls`` / ``retina_reg``), ``GARetinaNet`` (the same
+and ``bbox_head.feature_adaption_{cls,reg}``, ``conv_loc``,
+``conv_shape``) and ``FastRCNN`` / ``RPN`` (``base.*``, the wrapped
+Faster R-CNN)). Module names match
 the flax names, so a leaf's key is its path joined by dots with the leaf
 renamed:
 

@@ -7,6 +7,8 @@ bridged variables (``FastRCNN`` and ``RPN`` wrap Faster R-CNN as
 - the table: the port's families and the names that raise
   ``NotImplementedError`` (naming ROADMAP item 9) are exactly the JAX
   table's names; no name raises ``KeyError``; an unknown type is None;
+  the FPN variants' and GA-RetinaNet's 8 names build their variant with
+  the JAX model's parameter count;
 - ``FasterRCNN``, ``FastRCNN`` (on the fixed proposal grid) and ``RPN``
   through each side's family entry: the loss terms to 1e-5 relative with
   JAX's uniforms, for Fast R-CNN and the RPN every gradient to 1e-4 (the
@@ -51,12 +53,25 @@ MCFG = dict(num_classes=4, neck_channels=32)
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 DC5 = ("FasterRCNN", "FastRCNN", "RPN")
+# the FPN variants' and GA-RetinaNet's names (the JAX zoo's aliases in
+# pairs) -> what each builds: (rpn_type, roi_extract, with_bfp), or the
+# model class's name
+VARIANTS = {
+    "GAFasterRCNN": ("ga", "single", False),
+    "GARPNHead": ("ga", "single", False),
+    "GRoIEFasterRCNN": ("rpn", "groie", False),
+    "GenericRoIExtractor": ("rpn", "groie", False),
+    "LibraFasterRCNN": ("rpn", "single", True),
+    "LibraRCNN": ("rpn", "single", True),
+    "GARetinaNet": "GARetinaNet",
+    "GuidedAnchoring": "GARetinaNet",
+}
 
 
 def test_the_table_covers_the_jax_names():
     ported = set(TF.FAMILIES)
     assert ported == {"FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
-                      "RetinaNet"}
+                      "RetinaNet"} | set(VARIANTS)
     assert ported | set(TF.NOT_PORTED) == set(JF.FAMILIES)
     assert ported | set(TF.NOT_PORTED) == TF.IMAGE_FAMILIES
     assert not ported & set(TF.NOT_PORTED)
@@ -64,6 +79,29 @@ def test_the_table_covers_the_jax_names():
         with pytest.raises(NotImplementedError, match="item 9"):
             TF.get_family(name)
     assert TF.get_family("SELSA") is None
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_the_variant_names_build(name):
+    """Each of the 8 names builds at ``tiny`` with the JAX zoo's variant
+    (``zoo.py`` ``_build_fpn_frcnn`` keywords, or GARetinaNet) and the
+    JAX model's parameter count."""
+    torch.set_num_threads(1)
+    model, aux = TF.get_family(name).build(dict(num_classes=4), True, 0,
+                                           "cpu")
+    want = VARIANTS[name]
+    if isinstance(want, str):
+        assert type(model).__name__ == want
+    else:
+        assert (model.rpn_type, model.roi_extract, model.with_bfp) == want
+        assert TF.pad_hw(model, TF.get_family(name), True) == (128, 128)
+    assert aux is None
+    jm, _ = JF.get_family(name).build(dict(num_classes=4), True)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 128, 128, 3)))
+    n_jax = sum(int(np.prod(a.shape)) for a in
+                jax.tree_util.tree_leaves(shapes["params"]))
+    assert sum(p.numel() for p in model.parameters()) == n_jax
 
 
 def _built(name):

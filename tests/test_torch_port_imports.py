@@ -10,7 +10,8 @@ of PNG pairs is written and read back, a training batch is built from it,
 and the test CLI evaluates the config on it; the FGFA config streams two
 frames; the test CLI's MOT route tracks a tiny MOT tree of PNG frames with
 DeepSORT (the JV solver built from ``csrc/lap.cpp``, ECC-free) and
-CLEAR-MOT; the image route detects a noise image with FPN Faster R-CNN."""
+CLEAR-MOT; the image route detects a noise image with FPN Faster R-CNN
+and evaluates the VOC config on a VOC tree of JPEG images and XML."""
 
 import ast
 import os
@@ -44,7 +45,8 @@ def test_port_runs_without_jax_cv2_or_pil(tmp_path):
         ".models.necks.fpn", ".models.detectors.fpn_faster_rcnn",
         ".models.dense_heads.retina_head", ".models.detectors.more_rcnn",
         ".data.coco_det", ".data.sot_pairs",
-        ".tools.mot_param_search")} <= set(mods)
+        ".tools.mot_param_search", ".models.necks.extra_necks",
+        ".models.dense_heads.guided_anchor_head", ".data.voc")} <= set(mods)
     code = f"""
 import importlib, sys
 for name in {BLOCKED!r}:
@@ -90,6 +92,14 @@ assert out["summary"]["frames"] == 3 and "MOTA" in out["summary"]["track"]
 out = test.main(["configs/det/faster_rcnn_r50_fpn_1x_coco.py", "--tiny",
                  "--device", "cpu", "--synthetic", "1"])
 assert out["summary"]["model"] == "FasterRCNNFPN"
+from {port.__name__}.data.synthetic import write_voc_tree
+vann, vprefix = write_voc_tree({str(tmp_path / "voc")!r}, images=2)
+out = test.main(["configs/det/faster_rcnn_r50_dc5_1x_voc.py", "--tiny",
+                 "--device", "cpu", "--cfg-options",
+                 "data.test.ann_file=" + vann,
+                 "data.test.img_prefix=" + vprefix,
+                 "model.neck_channels=32"])
+assert out["summary"]["frames"] == 2 and "mAP50" in out["summary"]
 loaded = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}
           and sys.modules[m] is not None]
 assert not loaded, loaded
