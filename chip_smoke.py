@@ -145,15 +145,24 @@ RetinaNet and the DC5 Faster R-CNN through ``DetectorModel``),
 ``det_variants`` (GA Faster R-CNN, GRoIE and Libra R-CNN at 800 x 1344
 and GA-RetinaNet at 768 x 1280, bf16: image ms, idle share, B's and E's
 launches each image; f32 kernel path against the plain path as sets),
-then on a COCO tree of PNG images ``det_train``, ``det_eval``,
-``det_variants_train`` (the four variant configs through the training
-CLI: step ms, finite losses, the launches of B, D, E, F and G) and
+``det_dense`` (the dense one-stage heads on the FPN trunk at 768 x 1280,
+bf16: FCOS, NAS-FCOS, ATSS, GFL, PAA, VFNet, FreeAnchor and
+PISA-RetinaNet, their classifiers' prior bias zeroed so that seeded
+weights detect; image ms, idle share, peak memory; E ten times an image
+for VFNet, no kernel for the others; VFNet's f32 kernel path against the
+plain path as sets), then on a COCO tree of PNG images ``det_train``,
+``det_eval``, ``det_variants_train`` (the four variant configs through
+the training CLI: step ms, finite losses, the launches of B, D, E, F and
+G), ``det_dense_train`` (the eight dense configs through the training
+CLI: step ms, idle share, finite losses; E, F and G ten times a step for
+VFNet) and
 ``voc_eval`` (``faster_rcnn_r50_dc5_1x_voc.py`` through the test CLI on a
 VOC tree of JPEG copies and XML: the plain f32 run's detections as gts,
 the f32 kernel path's mAP50, the bf16 run's). The ``kernels`` phase also
 holds E, F and G at GA-RPN's P2-P6 and GA-RetinaNet's P3-P7 shapes (one
 deform group, f32) and B and D at GRoIE's every-level pooling (300 rois
-on each of P2-P5), each beside its plain version and its bound. Then JPEG
+on each of P2-P5), and E, F and G at VFNet's P3 and P7 with star
+offsets, each beside its plain version and its bound. Then JPEG
 frames, the learning check and checkpoint import: ``jpeg_decode`` (the host decoder ``csrc/jpeg_decode.cpp`` built
 with g++: every committed fixture of ``tests/data/jpeg`` against its
 manifest's sha256 of cv2's pixels; the 1080x1920 4:2:0 frame's decode ms
@@ -265,6 +274,7 @@ SET_SCORE_TOL = 1e-5
 RAW_HW = (600, 1000)    # raw frames of the serve phase, before prepare
 PKG = "lowlightenvironmentvideoobjectdetection_torch"
 REPO = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 KERNEL_NAMES = ("attention", "roi_align", "attention_1slab",
                 "roi_align_backward", "dcn_im2col", "dcn_col2im",
                 "dcn_col2im_coord")
@@ -373,7 +383,7 @@ VARIANT_CFGS = (
     ("GRoIEFasterRCNN", "configs/det/faster_rcnn_r50_fpn_groie_1x_coco.py"),
     ("LibraFasterRCNN", "configs/det/libra_faster_rcnn_r50_fpn_1x_coco.py"),
     ("GARetinaNet", "configs/det/ga_retinanet_r50_fpn_1x_coco.py"))
-VARIANT_IMAGES, VARIANT_PROFILED = 20, 4
+VARIANT_IMAGES, VARIANT_PROFILED = 8, 4
 VARIANT_TRAIN_STEPS, VARIANT_TRAIN_SKIP = 5, 3
 # the configs' resize: into 1333 x 800, GA-RetinaNet into its 1280 x 768
 VARIANT_TRAIN_SCALE = {"GAFasterRCNN": (1333, 800),
@@ -384,6 +394,32 @@ VARIANT_TRAIN_SCALE = {"GAFasterRCNN": (1333, 800),
 # two on P3-P7
 VARIANT_E_PER_IMAGE = {"GAFasterRCNN": 5, "GRoIEFasterRCNN": 0,
                        "LibraFasterRCNN": 0, "GARetinaNet": 10}
+# the dense one-stage heads on the FPN trunk (det_dense, det_dense_train)
+DENSE_CFGS = (
+    ("FCOS", "configs/det/fcos_r50_fpn_1x_coco.py"),
+    ("NASFCOS", "configs/det/nas_fcos_r50_fpn_1x_coco.py"),
+    ("ATSS", "configs/det/atss_r50_fpn_1x_coco.py"),
+    ("GFL", "configs/det/gfl_r50_fpn_1x_coco.py"),
+    ("PAA", "configs/det/paa_r50_fpn_1x_coco.py"),
+    ("VFNet", "configs/det/vfnet_r50_fpn_1x_coco.py"),
+    ("FreeAnchor", "configs/det/retinanet_free_anchor_r50_fpn_1x_coco.py"),
+    ("PISA", "configs/det/pisa_retinanet_r50_fpn_1x_coco.py"))
+DENSE_IMAGES, DENSE_PROFILED = 10, 3
+DENSE_TRAIN_STEPS, DENSE_TRAIN_SKIP = 5, 3
+DENSE_TRAIN_SCALE = (1280, 768)  # into the 768 x 1280 bucket
+# kernel E's launches an image (F's and G's a training step): VFNet's two
+# star DCNs on each of P3-P7; the other seven launch no kernel
+DENSE_E_PER_IMAGE = {"VFNet": 10}
+DENSE_CLS = ("fcos_cls", "atss_cls", "gfl_cls", "vfnet_cls", "retina_cls")
+DENSE_TERM = {"FCOS": "loss_centerness", "NASFCOS": "loss_centerness",
+              "ATSS": "loss_centerness", "GFL": "loss_dfl", "PAA": "loss_iou",
+              "VFNet": "loss_bbox_refine", "FreeAnchor": "positive_bag_loss",
+              "PISA": "loss_carl"}
+# E, F, G at VFNet's P3 and P7 of 768 x 1280: (name, level, c, h, w), the
+# star offsets of distances REG_DENOMS[level] * exp(N(0, 0.5^2)) px (the
+# seeded head's are near REG_DENOMS)
+VFNET_DCN_SHAPES = (("vfnet_P3", 0, 256, 96, 160), ("vfnet_P7", 4, 256, 6, 10))
+VFNET_DIST_LOG_STD = 0.5
 # DCNv1 (E, F, G; one deform group, f32 x) at the level shapes of GA-RPN at
 # 800 x 1344 (P2-P6) and of GA-RetinaNet at 768 x 1280 (P3-P7): (name, c, h,
 # w); offsets of N(0, 1.5^2) px, every 50th beyond the map
@@ -481,6 +517,9 @@ def bound(nbytes, flops, flop_per_s):
 
 
 def phase(label, **fields):
+    """One phase's line; ``script_s``: seconds since the script started,
+    which dates each phase's end."""
+    fields.setdefault("script_s", time.perf_counter() - T_START)
     print(f"{label}: " + json.dumps(fields), flush=True)
 
 
@@ -4582,21 +4621,22 @@ def det_eval(dev, smi, kernels, root, val_ann):
                        roi_align_backward={})
 
 
-def ga_dcn_kernels(dev, g, ops, errs):
+def dcnv1_level_kernels(dev, g, ops, errs, shapes, inputs, key):
     """Kernels E, F and G (DCNv1: one deform group, f32 x, the mask all
-    ones as ``deform_conv`` passes it) at GA_DCN_SHAPES through
-    ``dcn_check`` (E's columns exact, the forward and F's and G's outputs
-    to DCN_REL of their largest values against the plain versions and
-    autograd), then each timed beside its plain version (plain, kernel,
-    kernel, plain; GA_DCN_ITERS calls a turn) and from a CUDA graph, with
-    its bound and the case's peak memory. Returns {E, F, G: {"ga_levels":
-    {name: entry}}}."""
+    ones as ``deform_conv`` passes it) at ``shapes`` ((name, c, h, w) or
+    (name, level, c, h, w)), operands from ``inputs(shape)`` -> (x,
+    offsets, a dict describing them), through ``dcn_check`` (E's columns
+    exact, the forward and F's and G's outputs to DCN_REL of their largest
+    values against the plain versions and autograd), then each timed beside
+    its plain version (plain, kernel, kernel, plain; GA_DCN_ITERS calls a
+    turn) and from a CUDA graph, with its bound and the case's peak memory.
+    Returns {E, F, G: {key: {name: entry}}}."""
     out = {k: {} for k in "EFG"}
-    for name, c, h, w in GA_DCN_SHAPES:
+    for shape in shapes:
+        name, (c, h, w) = shape[0], shape[-3:]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        x, off, _ = dcn_inputs(dev, torch.float32, g, 1, c, h, w, 1.5, True,
-                               groups=1)
+        x, off, about = inputs(shape)
         mask = torch.ones((1, 9, h, w), device=dev)
         tag = f"dcn_{name}_float32"
         grad_cols = dcn_check(ops, tag, x, off, mask, g, errs)
@@ -4625,13 +4665,45 @@ def ga_dcn_kernels(dev, g, ops, errs):
                 share_of_bound=bound_ms / ms,
                 graph_share_of_bound=bound_ms / gms, library_ms=None,
                 library_note=NO_LIBRARY_DCN, bytes=nbytes, flops=flops,
-                shape=[1, c, h, w], groups=1, offset_std=1.5)
+                shape=[1, c, h, w], groups=1, **about)
         peak = torch.cuda.max_memory_allocated() / 2**30
         for kern in "EFG":  # the check's plain autograd included
             out[kern][name]["case_peak_mem_gb"] = peak
         del x, off, mask, grad_cols
         torch.cuda.empty_cache()
-    return {k: dict(ga_levels=v) for k, v in out.items()}
+    return {k: {key: v} for k, v in out.items()}
+
+
+def ga_dcn_kernels(dev, g, ops, errs):
+    """E, F and G at GA_DCN_SHAPES: offsets of N(0, 1.5^2) px, every 50th
+    beyond the map (``dcnv1_level_kernels``, key ``ga_levels``)."""
+    def inputs(shape):
+        _, c, h, w = shape
+        x, off, _ = dcn_inputs(dev, torch.float32, g, 1, c, h, w, 1.5, True,
+                               groups=1)
+        return x, off, dict(offset_std=1.5)
+    return dcnv1_level_kernels(dev, g, ops, errs, GA_DCN_SHAPES, inputs,
+                               "ga_levels")
+
+
+def vfnet_dcn_kernels(dev, g, ops, errs):
+    """E, F and G at VFNET_DCN_SHAPES with VFNet's star offsets
+    (``vfnet_head.star_offsets`` of random initial distances;
+    ``dcnv1_level_kernels``, key ``vfnet_levels``)."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (  # noqa: E501
+        vfnet_head as VF)
+
+    def inputs(shape):
+        _, level, c, h, w = shape
+        x = torch.randn(1, c, h, w, generator=g).to(dev)
+        dist = VF.REG_DENOMS[level] * torch.exp(
+            VFNET_DIST_LOG_STD * torch.randn(1, h, w, 4, generator=g))
+        off = VF.star_offsets(dist, VF.VFNET_STRIDES[level])
+        return x, off.permute(0, 3, 1, 2).contiguous().to(dev), dict(
+            offsets="star", dist_log_std=VFNET_DIST_LOG_STD,
+            level=f"P{level + 3}")
+    return dcnv1_level_kernels(dev, g, ops, errs, VFNET_DCN_SHAPES, inputs,
+                               "vfnet_levels")
 
 
 def groie_roi_kernels(dev, g, ops, errs):
@@ -4912,6 +4984,174 @@ def det_variants_train(dev, smi, kernels, root, train_ann):
     return total, dict(roi_align=bodies.get("roi_align", {}),
                        roi_align_backward=bodies.get("roi_align_backward",
                                                      {}))
+
+
+def open_cls_prior(model):
+    """Zero the prior bias (-4.595) of a dense head's classifier: at the
+    seeded init it keeps every sigmoid score at 0.01, under the decodes'
+    0.05 floor (FCOS's and ATSS's further halved by the centerness), so a
+    seeded dense model detects nothing; with 0 the scores spread about
+    0.5."""
+    head = model.bbox_head
+    for name in DENSE_CLS:
+        if hasattr(head, name):
+            with torch.no_grad():
+                getattr(head, name).bias.zero_()
+            return
+    raise AssertionError(f"no classifier among {DENSE_CLS}")
+
+
+def det_dense(dev, smi, kernels):
+    """The dense one-stage heads of DENSE_CFGS at full width, bf16, 80
+    classes, seeded weights with ``open_cls_prior``, through
+    ``DetectorModel.inference_detector`` (the 768 x 1280 bucket) on
+    DENSE_IMAGES random 480 x 640 frames and DENSE_PROFILED more under the
+    profiler: image ms, the device's idle share, peak memory, E's launches
+    each image. Gates: E DENSE_E_PER_IMAGE times an image (VFNet 10),
+    nothing else launched (no B), finite results; VFNet at f32: the
+    kernel path's detections equal the plain path's as sets
+    (SET_BOX_TOL / SET_SCORE_TOL), none unmatched, some. Returns the
+    launch counts (A-G) and empty bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        DetectorModel)
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(31)
+    n = DENSE_IMAGES + DENSE_PROFILED
+    raw = rng.randint(0, 256, (n,) + DET_HW + (3,)).astype(np.uint8)
+    dcn_e = kernels[4]
+    total, runs, agree = [0] * len(kernels), {}, {}
+    for name, cfg_path in DENSE_CFGS:
+        mtype, kw = detector_kwargs(cfg_path)
+        det = DetectorModel(mtype, device=dev, **kw)
+        open_cls_prior(det.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        lat, ndet, e_each = [], [], []
+        for i in range(DENSE_IMAGES):
+            e0 = dcn_e.launches
+            t = time.perf_counter()
+            res = det.inference_detector(raw[i])
+            lat.append((time.perf_counter() - t) * 1e3)
+            e_each.append(dcn_e.launches - e0)
+            ndet.append(sum(len(r) for r in res))
+            if len(res) != det.num_classes or not all(
+                    np.isfinite(r).all() for r in res):
+                raise AssertionError(f"det_dense {name}: bad result")
+        frames = iter(range(DENSE_IMAGES, n))
+        window = flow_profiled(lambda: det.inference_detector(
+            raw[next(frames)]), DENSE_PROFILED)
+        counts = [k.launches for k in kernels]
+        want = [0, 0, 0, 0, DENSE_E_PER_IMAGE.get(name, 0) * n, 0, 0]
+        if counts != want:
+            raise AssertionError(f"det_dense {name}: launch counts {counts}, "
+                                 f"want {want}")
+        steady = lat[1:]
+        runs[name] = dict(
+            config=cfg_path, bucket=[det.pad_h, det.pad_w], frames=n,
+            frame0_ms=lat[0], median_frame_ms=statistics.median(steady),
+            min_frame_ms=min(steady), max_frame_ms=max(steady),
+            frame_ms=steady, device_window=window,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            detections_per_frame=ndet, e_launches_per_image=e_each,
+            launches=dict(zip(KERNEL_NAMES, counts)))
+        total = [a + b for a, b in zip(total, counts)]
+        del det
+        torch.cuda.empty_cache()
+        if name not in DENSE_E_PER_IMAGE:
+            continue
+        # f32: the kernel path against the plain path on one frame
+        mtype, kw = detector_kwargs(cfg_path, dtype="float32")
+        det = DetectorModel(mtype, device=dev, **kw)
+        open_cls_prior(det.model)
+        imgs, shape, sf = prepare_frames(raw[:1], det.pad_h, det.pad_w,
+                                         device=dev)
+        sf = torch.as_tensor(sf, device=dev)
+        reset_counts(*kernels)
+        got = det.detect(imgs[0], shape, sf)
+        if dcn_e.launches != DENSE_E_PER_IMAGE[name]:
+            raise AssertionError(f"det_dense {name} f32: E launched "
+                                 f"{dcn_e.launches} times")
+        det.impl = "plain"
+        reset_counts(*kernels)
+        want_d = det.detect(imgs[0], shape, sf)
+        if any(k.launches for k in kernels):
+            raise AssertionError(f"det_dense {name}: the plain path "
+                                 f"launched a kernel")
+        sets = match_sets(got, want_d)
+        if sets["unmatched"] or sets["n_got"] != sets["n_want"] or \
+                not sets["n_want"]:
+            raise AssertionError(f"det_dense {name} f32: sets {sets}")
+        agree[name] = sets
+        del det, imgs
+        torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    phase("det_dense", card=smi, frame_hw=DET_HW, models=runs,
+          f32_kernel_vs_plain=dict(sets=agree, tolerances=dict(
+              box_px=SET_BOX_TOL, score=SET_SCORE_TOL)),
+          launches=dict(zip(KERNEL_NAMES, total)),
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align={}, roi_align_backward={})
+
+
+def det_dense_train(dev, smi, kernels, root, train_ann):
+    """The training CLI's image route for the eight DENSE_CFGS on the COCO
+    tree ``det_train`` wrote (resized into the 768 x 1280 bucket), bf16,
+    seeded weights, DENSE_TRAIN_STEPS steps each, the last ones profiled:
+    step ms, idle share, peak memory. Gates: finite losses with each
+    family's terms (DENSE_TERM); E, F and G DENSE_E_PER_IMAGE times a step
+    (VFNet 10), no kernel for the others. Returns the launch counts (A-G)
+    and empty bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        train as cli)
+    t_phase = time.perf_counter()
+    total, runs = [0] * len(kernels), {}
+    pipeline = [dict(type="LoadImageFromFile"),
+                dict(type="LoadAnnotations", with_bbox=True),
+                dict(type="Resize", img_scale=DENSE_TRAIN_SCALE),
+                dict(type="RandomFlip", flip_ratio=0.5),
+                dict(type="Normalize"), dict(type="Pad", size_divisor=32)]
+    d = dict(type="CocoDataset", ann_file=train_ann,
+             img_prefix=f"{root}/coco/", pipeline=pipeline)
+    for name, cfg_path in DENSE_CFGS:
+        window = StepWindow(DENSE_TRAIN_STEPS, DENSE_TRAIN_SKIP)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        t0 = time.perf_counter()
+        out = cli.main([str(REPO / cfg_path), "--seed", "0",
+                        "--work-dir", f"{root}/work_dense", "--steps",
+                        str(DENSE_TRAIN_STEPS), "--cfg-options",
+                        f"data.train={d!r}", "data.workers_per_gpu=0"],
+                       on_step=window)
+        counts = [k.launches for k in kernels]
+        e = DENSE_E_PER_IMAGE.get(name, 0) * DENSE_TRAIN_STEPS
+        want = [0, 0, 0, 0, e, e, e]
+        if counts != want or not all(
+                np.isfinite(v) for m in out["metrics"] for v in m.values()) \
+                or not all(DENSE_TERM[name] in m for m in out["metrics"]):
+            raise AssertionError(f"det_dense_train {name}: counts {counts}, "
+                                 f"want {want}; metrics {out['metrics']}")
+        step_ms = [(y - x) * 1e3 for x, y in zip([t0] + window.stamps,
+                                                window.stamps)]
+        runs[name] = dict(
+            config=cfg_path, steps=DENSE_TRAIN_STEPS,
+            first_step_ms=step_ms[0],
+            median_step_ms=statistics.median(step_ms[1:DENSE_TRAIN_SKIP]),
+            step_ms=step_ms, device_window=window.window,
+            losses=out["metrics"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            launches=dict(zip(KERNEL_NAMES, counts)))
+        total = [a + c for a, c in zip(total, counts)]
+        del out
+        torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    phase("det_dense_train", card=smi, tree=COCO_TREE, runs=runs,
+          launches=dict(zip(KERNEL_NAMES, total)),
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align={}, roi_align_backward={})
 
 
 def voc_gt_objects(det_lists):
@@ -5634,6 +5874,10 @@ def main() -> int:
     ga_dcn = ga_dcn_kernels(dev, g, dcn_ops, errs)
     for name, kern in zip(dcn_names, "EFG"):
         summary[name].update(ga_dcn[kern])
+    # the dense heads: E, F, G at VFNet's P3 and P7 with star offsets
+    vf_dcn = vfnet_dcn_kernels(dev, g, dcn_ops, errs)
+    for name, kern in zip(dcn_names, "EFG"):
+        summary[name].update(vf_dcn[kern])
     summary["roi_align"]["groie_levels"], \
         summary["roi_align_backward"]["groie_levels"] = groie_roi_kernels(
             dev, g, roi_ops, errs)
@@ -5826,6 +6070,7 @@ def main() -> int:
     # R-CNN streamed, trained and evaluated from a COCO tree
     runs.append(det_stream(dev, smi, path_kernels))
     runs.append(det_variants(dev, smi, path_kernels))
+    runs.append(det_dense(dev, smi, path_kernels))
     with tempfile.TemporaryDirectory(prefix="_smoke_det_", dir=REPO) as root:
         counts, bodies, train_ann, val_ann = det_train(dev, smi,
                                                        path_kernels, root)
@@ -5834,6 +6079,9 @@ def main() -> int:
         # the FPN-trunk variants and GA-RetinaNet on the same tree
         runs.append(det_variants_train(dev, smi, path_kernels, root,
                                        train_ann))
+        # the dense one-stage heads on the same tree
+        runs.append(det_dense_train(dev, smi, path_kernels, root,
+                                    train_ann))
         # the VOC route: the DC5 config on a VOC tree of JPEG images
         runs.append(voc_eval(dev, smi, path_kernels, root))
     # JPEG frames, the learning check and the original code's checkpoints

@@ -13,7 +13,15 @@ detector type of a config, the counterpart of the JAX package's
   (BFP, the IoU-balanced sampler and the balanced L1 loss);
 - ``RetinaNet``: ``models/dense_heads/retina_head.py``;
 - ``GARetinaNet`` / ``GuidedAnchoring``:
-  ``models/dense_heads/guided_anchor_head.py``.
+  ``models/dense_heads/guided_anchor_head.py``;
+- the dense one-stage heads on the FPN trunk, each with its loss and
+  decode: ``FCOS`` (``fcos_head.py``), ``NASFCOS`` (``pisa_nasfcos.py``),
+  ``ATSS`` (``atss_head.py``), ``GFL`` (``gfl_head.py``), ``PAA``
+  (``paa_head.py``) and ``VFNet`` (``vfnet_head.py``), and RetinaNet's
+  tower with FreeAnchor's loss (``FreeAnchor`` / ``FreeAnchorRetinaNet``,
+  ``free_anchor_head.py``, 16 anchors a bag) or PISA's
+  (``PISA`` / ``PISARetinaNet``, ``pisa_nasfcos.py``), decoded as
+  RetinaNet.
 
 An entry's ``build(mcfg, tiny, seed, device)`` gives (model, aux) with
 seeded flax-style weights (``aux``: the DC5 families' anchors, else None:
@@ -40,8 +48,15 @@ from ..core.nms import DetResult
 from ..models.builder import (DTYPES, IMAGE_FAMILIES,
                                NOT_PORTED_IMAGE_FAMILIES, TINY_KW,
                                _selsa_cfg)
+from ..models.dense_heads import atss_head as AT
+from ..models.dense_heads import fcos_head as FC
+from ..models.dense_heads import free_anchor_head as FA
+from ..models.dense_heads import gfl_head as GF
 from ..models.dense_heads import guided_anchor_head as GA
+from ..models.dense_heads import paa_head as PA
+from ..models.dense_heads import pisa_nasfcos as PN
 from ..models.dense_heads import retina_head as R
+from ..models.dense_heads import vfnet_head as VF
 from ..models.detectors import fpn_faster_rcnn as FF
 from ..models.detectors import more_rcnn as MR
 from ..models.detectors.faster_rcnn import (DetTrainBatch, FasterRCNN,
@@ -212,6 +227,70 @@ FAMILIES["GARetinaNet"] = FAMILIES["GuidedAnchoring"] = Family(
     input_hw=DENSE_TINY_HW)
 
 
+def _totalled(ls) -> Tuple[torch.Tensor, dict]:
+    """A loss NamedTuple -> (its sum, its terms and ``loss``), as the JAX
+    ``_total``."""
+    total = sum(ls)
+    metrics = dict(ls._asdict())
+    metrics["loss"] = total
+    return total, metrics
+
+
+def _one_image(outs):
+    """Per-level outputs of a batch of one -> those of the image."""
+    return [tuple(t[0] for t in o) for o in outs]
+
+
+def _dense_family(cls, loss_fn, decode_fn, extra=lambda m: {}):
+    """The JAX ``dense(...)`` helper: ``loss_fn`` and ``decode_fn`` on one
+    image's level outputs, with ``extra(model)``'s keywords (GFL's
+    ``reg_max``)."""
+    def loss(m, a, b, generator=None, uniforms=None):
+        outs = _one_image(m(b.img[None]))
+        return _totalled(loss_fn(outs, b.gt_boxes, b.gt_labels, b.gt_valid,
+                                 m.num_classes, **extra(m)))
+
+    @torch.no_grad()
+    def detect(m, a, img, ishape, sf=None, impl=None):
+        outs = _one_image(m(img[None], impl=impl))
+        return decode_fn(outs, ishape, m.num_classes, scale_factor=sf,
+                         **extra(m))
+
+    return Family(_dense_build(cls), loss, detect, input_hw=DENSE_TINY_HW)
+
+
+def _retina_tower_family(loss_fn):
+    """RetinaNet's tower, anchors and decode with ``loss_fn(model, level
+    outputs of the image, anchors, batch)``."""
+    def loss(m, a, b, generator=None, uniforms=None):
+        outs = m(b.img[None])
+        return _totalled(loss_fn(m, _one_image(outs), m.anchors(outs), b))
+
+    return Family(
+        _dense_build(R.RetinaNet), loss,
+        lambda m, a, img, ishape, sf=None, impl=None: R.retinanet_detect(
+            m, img, ishape, scale_factor=sf),
+        input_hw=DENSE_TINY_HW)
+
+
+FAMILIES["FCOS"] = _dense_family(FC.FCOS, FC.fcos_loss, FC.fcos_decode)
+FAMILIES["NASFCOS"] = _dense_family(PN.NASFCOS, PN.nasfcos_loss,
+                                    PN.nasfcos_decode)
+FAMILIES["ATSS"] = _dense_family(AT.ATSS, AT.atss_loss, AT.atss_decode)
+FAMILIES["PAA"] = _dense_family(PA.PAA, PA.paa_loss, PA.paa_decode)
+FAMILIES["VFNet"] = _dense_family(VF.VFNet, VF.vfnet_loss, VF.vfnet_decode)
+FAMILIES["GFL"] = _dense_family(GF.GFL, GF.gfl_loss, GF.gfl_decode,
+                                extra=lambda m: dict(reg_max=m.reg_max))
+FAMILIES["FreeAnchor"] = FAMILIES["FreeAnchorRetinaNet"] = \
+    _retina_tower_family(lambda m, outs, anchors, b: FA.free_anchor_loss(
+        outs, anchors, b.gt_boxes, b.gt_labels, b.gt_valid, m.num_classes,
+        pre_anchor_topk=16))
+FAMILIES["PISA"] = FAMILIES["PISARetinaNet"] = _retina_tower_family(
+    lambda m, outs, anchors, b: PN.pisa_retina_loss(
+        outs, anchors, b.gt_boxes, b.gt_labels, b.gt_valid, b.img_shape,
+        m.num_classes))
+
+
 def get_family(mtype: str) -> Optional[Family]:
     """The port's family of ``mtype``; NotImplementedError for the JAX
     package's other families; None for a type that is no image family."""
@@ -231,8 +310,9 @@ def is_image_family(mtype: str) -> bool:
 def pad_hw(model, fam: Family, tiny: bool) -> Tuple[int, int]:
     """The bucket images are padded to: a DC5 family's config pad, FPN
     Faster R-CNN's own ``pad_h`` x ``pad_w`` (800 x 1344; 128 x 128 with
-    ``tiny``; its variants too), RetinaNet's and GA-RetinaNet's 768 x 1280
-    (128 x 128 with ``tiny``), as the JAX
+    ``tiny``; its variants too), the dense families' (RetinaNet,
+    GA-RetinaNet, FCOS and the rest) 768 x 1280 (128 x 128 with ``tiny``),
+    as the JAX
     ``DetectorModel`` pads save for FPN (ROADMAP fault F18)."""
     cfg = getattr(model, "cfg", None)
     if cfg is not None:

@@ -69,16 +69,16 @@ PORTED_IMAGE_FAMILIES = ("FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
                          "RetinaNet", "GAFasterRCNN", "GARPNHead",
                          "GRoIEFasterRCNN", "GenericRoIExtractor",
                          "LibraFasterRCNN", "LibraRCNN", "GARetinaNet",
-                         "GuidedAnchoring")
+                         "GuidedAnchoring", "ATSS", "FCOS", "NASFCOS", "GFL",
+                         "PAA", "VFNet", "FreeAnchor", "FreeAnchorRetinaNet",
+                         "PISA", "PISARetinaNet")
 NOT_PORTED_IMAGE_FAMILIES = (
-    "ATSS", "CascadeRCNN", "CascadeRPN", "CentripetalNet", "CornerNet",
-    "DETR", "DoubleHeadRCNN", "DoubleHeadRoIHead", "DynamicRCNN", "FCOS",
-    "FOVEA", "FSAF", "FoveaBox", "FreeAnchor", "FreeAnchorRetinaNet",
-    "GFL", "GridRCNN", "HTC", "HybridTaskCascade", "MaskRCNN",
-    "MaskScoringRCNN", "NASFCOS", "NASFPNRetinaNet", "PAA", "PISA",
-    "PISAFasterRCNN", "PISARetinaNet", "PISARoIHead", "PointRend",
-    "RepPoints", "RepPointsDetector", "SABL", "SABLRetinaNet", "SCNet",
-    "SSD", "SparseRCNN", "TridentFasterRCNN", "VFNet", "YOLACT", "YOLOV3")
+    "CascadeRCNN", "CascadeRPN", "CentripetalNet", "CornerNet", "DETR",
+    "DoubleHeadRCNN", "DoubleHeadRoIHead", "DynamicRCNN", "FOVEA", "FSAF",
+    "FoveaBox", "GridRCNN", "HTC", "HybridTaskCascade", "MaskRCNN",
+    "MaskScoringRCNN", "NASFPNRetinaNet", "PISAFasterRCNN", "PISARoIHead",
+    "PointRend", "RepPoints", "RepPointsDetector", "SABL", "SABLRetinaNet",
+    "SCNet", "SSD", "SparseRCNN", "TridentFasterRCNN", "YOLACT", "YOLOV3")
 IMAGE_FAMILIES = frozenset(PORTED_IMAGE_FAMILIES + NOT_PORTED_IMAGE_FAMILIES)
 # SelsaDarkDetect's backbone when its config names none
 DARK_DETECT_BACKBONE = "DarkResNet"

@@ -40,7 +40,7 @@ from ...core.anchors import AnchorGenerator
 from ...ops.deform_conv import deform_conv
 from ..backbones.resnet import Conv2d, ResNet
 from ..necks.fpn import FPN
-from .retina_head import PRIOR_BIAS, top_k_stable
+from .retina_head import PRIOR_BIAS, dense_decode
 
 GA_STRIDES = (8, 16, 32, 64, 128)
 # ga_retinanet config: approximate anchors at octave base scale 4, 3 scales
@@ -394,31 +394,17 @@ def ga_retina_decode(level_outs, img_shape, num_classes: int,
     0), the top GA_NMS_PRE (cell, class) pairs decoded on the guided
     anchors, then one class-aware NMS (IoU GA_NMS_IOU, scores above
     GA_SCORE_THR); boxes divided by ``scale_factor``."""
-    all_b, all_s, all_l = [], [], []
+    levels = []
     for li, (cls, reg, shape, loc) in enumerate(level_outs):
         h, w = cls.shape[-3], cls.shape[-2]
         anc = guided_anchors(shape.reshape(h, w, 2), GA_STRIDES[li], h, w)
         keep = torch.sigmoid(loc.reshape(-1)) >= GA_LOC_THR
         scores = torch.sigmoid(cls.reshape(-1, num_classes).float()) \
             * keep[:, None]
-        deltas = reg.reshape(-1, 4).float()
-        flat = scores.reshape(-1)
-        top_s, top_i = top_k_stable(flat, min(GA_NMS_PRE, flat.shape[0]))
-        bi = top_i // num_classes
-        all_b.append(box_ops.delta2bbox(anc[bi], deltas[bi],
-                                        max_shape=img_shape))
-        all_s.append(top_s)
-        all_l.append(top_i % num_classes)
-    boxes = torch.cat(all_b)
-    scores = torch.cat(all_s)
-    labels = torch.cat(all_l)
-    if scale_factor is not None:
-        boxes = boxes / torch.as_tensor(scale_factor, dtype=boxes.dtype,
-                                        device=boxes.device)
-    res = nms_ops.batched_nms(boxes, scores, labels, GA_NMS_IOU,
-                              GA_MAX_PER_IMG, valid=scores > GA_SCORE_THR)
-    return nms_ops.DetResult(res.boxes, res.scores, labels[res.inds],
-                             res.valid)
+        levels.append((box_ops.delta2bbox(anc, reg.reshape(-1, 4).float(),
+                                          max_shape=img_shape), scores))
+    return dense_decode(levels, num_classes, GA_NMS_PRE, GA_SCORE_THR,
+                        GA_NMS_IOU, GA_MAX_PER_IMG, scale_factor)
 
 
 def ga_retinanet_loss(model: GARetinaNet, batch,

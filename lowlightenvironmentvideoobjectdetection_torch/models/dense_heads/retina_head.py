@@ -14,7 +14,8 @@ on the positives' deltas, both averaged over the positives. The decode keeps
 each level's top 1000 (anchor, class) scores, in ``lax.top_k``'s order
 (descending, the lower index first among equal scores: a stable sort, not
 ``torch.topk``, whose order among ties CUDA leaves open), then one
-class-aware NMS (IoU 0.5, score above 0.05, at most 100).
+class-aware NMS (IoU 0.5, score above 0.05, at most 100): ``dense_decode``,
+the tail every dense head's decode shares.
 
 ``RetinaSepBNHead`` and ``NASFPNRetinaNet`` are not ported (ROADMAP.md
 Queue 1 item 9).
@@ -154,10 +155,36 @@ def retina_loss(level_outs, level_anchors: Sequence[torch.Tensor],
 
 def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
-    """``lax.top_k`` of a 1-D tensor: the k largest, descending, the lower
-    index first among equal values."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """``lax.top_k`` over the last axis: the k largest, descending, the
+    lower index first among equal values."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def dense_decode(levels, num_classes: int, nms_pre: int, score_thr: float,
+                 iou_threshold: float, max_per_img: int, scale_factor=None
+                 ) -> nms_ops.DetResult:
+    """The dense heads' decode tail: per level (boxes [n, 4], scores [n,
+    C]) the top ``nms_pre`` (box, class) scores (``top_k_stable``), boxes
+    divided by ``scale_factor`` [4], then one class-aware NMS (scores above
+    ``score_thr``) -> fixed-shape detections [max_per_img]."""
+    all_b, all_s, all_l = [], [], []
+    for boxes, scores in levels:
+        flat = scores.reshape(-1)
+        top_s, top_i = top_k_stable(flat, min(nms_pre, flat.shape[0]))
+        all_b.append(boxes[top_i // num_classes])
+        all_s.append(top_s)
+        all_l.append(top_i % num_classes)
+    boxes = torch.cat(all_b)
+    scores = torch.cat(all_s)
+    labels = torch.cat(all_l)
+    if scale_factor is not None:
+        boxes = boxes / torch.as_tensor(scale_factor, dtype=boxes.dtype,
+                                        device=boxes.device)
+    res = nms_ops.batched_nms(boxes, scores, labels, iou_threshold,
+                              max_per_img, valid=scores > score_thr)
+    return nms_ops.DetResult(res.boxes, res.scores, labels[res.inds],
+                             res.valid)
 
 
 @torch.no_grad()
@@ -168,27 +195,12 @@ def retina_decode(level_outs, level_anchors: Sequence[torch.Tensor],
                   ) -> nms_ops.DetResult:
     """Fixed-shape detections [max_per_img] of one image (mmdet's anchor
     head ``get_bboxes``), boxes divided by ``scale_factor`` [4]."""
-    all_boxes, all_scores, all_labels = [], [], []
-    for (cls, reg), anc in zip(level_outs, level_anchors):
-        scores = torch.sigmoid(cls.reshape(-1, num_classes).float())
-        deltas = reg.reshape(-1, 4).float()
-        flat = scores.reshape(-1)
-        top_s, top_i = top_k_stable(flat, min(nms_pre, flat.shape[0]))
-        box_i = top_i // num_classes
-        all_boxes.append(box_ops.delta2bbox(anc[box_i], deltas[box_i],
-                                            max_shape=img_shape))
-        all_scores.append(top_s)
-        all_labels.append(top_i % num_classes)
-    boxes = torch.cat(all_boxes)
-    scores = torch.cat(all_scores)
-    labels = torch.cat(all_labels)
-    if scale_factor is not None:
-        boxes = boxes / torch.as_tensor(scale_factor, dtype=boxes.dtype,
-                                        device=boxes.device)
-    res = nms_ops.batched_nms(boxes, scores, labels, iou_threshold,
-                              max_per_img, valid=scores > score_thr)
-    return nms_ops.DetResult(res.boxes, res.scores, labels[res.inds],
-                             res.valid)
+    levels = [(box_ops.delta2bbox(anc, reg.reshape(-1, 4).float(),
+                                  max_shape=img_shape),
+               torch.sigmoid(cls.reshape(-1, num_classes).float()))
+              for (cls, reg), anc in zip(level_outs, level_anchors)]
+    return dense_decode(levels, num_classes, nms_pre, score_thr,
+                        iou_threshold, max_per_img, scale_factor)
 
 
 def retinanet_loss(model: RetinaNet, batch):

@@ -47,7 +47,9 @@ The tracking routes, as the JAX CLI's ``run_mot_eval`` and
 The image-detector route, as the JAX CLI's ``run_image_detector`` (a
 type of ``apis/families.py`` whose test data is no video dataset:
 FasterRCNN, FastRCNN, RPN, FasterRCNNFPN and its GA-RPN, GRoIE and Libra
-variants, RetinaNet, GARetinaNet; the JAX package's other families raise
+variants, RetinaNet, GARetinaNet, and the dense heads FCOS, NASFCOS, ATSS,
+GFL, PAA, VFNet, FreeAnchor and PISA (RetinaNet); the JAX package's other
+families raise
 ``NotImplementedError``): ``apis/inference.py`` ``init_detector``
 (``--checkpoint``: the model's state dict or a training checkpoint), then
 every image of ``data.test`` (any image dataset of ``DATASETS``:

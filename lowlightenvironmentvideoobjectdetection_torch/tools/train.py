@@ -28,7 +28,9 @@ exists, every ``interval`` steps the current detector streams that split
 (``make_eval_fn``) and its ``mAP50`` is logged as ``eval: mAP50=...``.
 
 The image detectors (a type of ``apis/families.py``: FasterRCNN, FastRCNN,
-RPN, FasterRCNNFPN, RetinaNet; the JAX package's other families raise
+RPN, FasterRCNNFPN and its GA-RPN, GRoIE and Libra variants, RetinaNet,
+GARetinaNet, and the dense heads FCOS, NASFCOS, ATSS, GFL, PAA, VFNet,
+FreeAnchor and PISA (RetinaNet); the JAX package's other families raise
 ``NotImplementedError``) train through their family's loss, as the JAX
 CLI's family route: on ``--synthetic`` batches (``families.
 make_synth_batch``) or on a ``CocoDataset`` ``data.train`` (one image a

@@ -21,8 +21,12 @@ Libra's ``bfp.refine.{theta,phi,g,conv_out}``), ``RetinaNet``
 (``neck.extra_conv{k}``, ``bbox_head.{cls,reg}_conv{i}``,
 ``bbox_head.retina_cls`` / ``retina_reg``), ``GARetinaNet`` (the same
 and ``bbox_head.feature_adaption_{cls,reg}``, ``conv_loc``,
-``conv_shape``) and ``FastRCNN`` / ``RPN`` (``base.*``, the wrapped
-Faster R-CNN)). Module names match
+``conv_shape``), ``FastRCNN`` / ``RPN`` (``base.*``, the wrapped
+Faster R-CNN) and the dense heads FCOS / NAS-FCOS, ATSS / PAA, GFL and
+VFNet (``bbox_head.{cls,reg}_conv{i}``, their output convs, each level's
+``Scale`` ``scale{li}`` / ``scale_refine{li}``, whose 0-d ``scale``
+becomes ``weight``, VFNet's ``reg_refine_dconv`` and ``cls_dconv``, DCN
+``kernel`` leaves at the module's root)). Module names match
 the flax names, so a leaf's key is its path joined by dots with the leaf
 renamed:
 

@@ -101,8 +101,8 @@ def draw(shapes, rs, offset_std=OFFSET_STD):
         names = [str(getattr(p, "key", p)) for p in path]
         if name == "bias":
             return (rs.randn(*a.shape) * 0.05).astype(np.float32)
-        if name == "scale":
-            return (1 + rs.randn(*a.shape) * 0.1).astype(np.float32)
+        if name == "scale":  # FrozenBN's, or a dense head's 0-d Scale
+            return np.asarray(1 + rs.randn(*a.shape) * 0.1, np.float32)
         if name == "mean":
             return (rs.randn(*a.shape) * 0.1).astype(np.float32)
         if name == "var":

@@ -68,10 +68,15 @@ VARIANTS = {
 }
 
 
+# the dense one-stage heads (test_torch_port_dense_families*.py)
+DENSE = {"FCOS", "NASFCOS", "ATSS", "GFL", "PAA", "VFNet", "FreeAnchor",
+         "FreeAnchorRetinaNet", "PISA", "PISARetinaNet"}
+
+
 def test_the_table_covers_the_jax_names():
     ported = set(TF.FAMILIES)
     assert ported == {"FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
-                      "RetinaNet"} | set(VARIANTS)
+                      "RetinaNet"} | set(VARIANTS) | DENSE
     assert ported | set(TF.NOT_PORTED) == set(JF.FAMILIES)
     assert ported | set(TF.NOT_PORTED) == TF.IMAGE_FAMILIES
     assert not ported & set(TF.NOT_PORTED)
