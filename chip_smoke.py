@@ -66,8 +66,8 @@ and from a CUDA graph. Then the training data path from files, in a
 temporary directory under the checkout: ``data_train`` (a DarkFarm-layout
 tree of 2 x 10 PNG pairs at 1080x1920 written with the port's PNG writer
 and a COCO-VID annotation file; the port's CLI, ``tools/train.py``, on the
-canonical config with ``--cfg-options`` pointing ``data.train`` at it, 6
-steps with 4 loader workers and 6 without: B and D twice and E, F, G 12
+canonical config with ``--cfg-options`` pointing ``data.train`` at it,
+DATA_STEPS steps with 4 loader workers and as many without: B and D twice and E, F, G 12
 times a step, finite losses, the loader's host ms a batch beside the step
 ms, the device's idle share with and without workers; then one sample's
 device stages on the card and on the CPU from the same files and draws,
@@ -145,25 +145,32 @@ RetinaNet and the DC5 Faster R-CNN through ``DetectorModel``),
 ``det_variants`` (GA Faster R-CNN, GRoIE and Libra R-CNN at 800 x 1344
 and GA-RetinaNet at 768 x 1280, bf16: image ms, idle share, B's and E's
 launches each image; f32 kernel path against the plain path as sets),
-``det_dense`` (the dense one-stage heads on the FPN trunk at 768 x 1280,
-bf16: FCOS, NAS-FCOS, ATSS, GFL, PAA, VFNet, FreeAnchor and
-PISA-RetinaNet, their classifiers' prior bias zeroed so that seeded
-weights detect; image ms, idle share, peak memory; E ten times an image
-for VFNet, no kernel for the others; VFNet's f32 kernel path against the
-plain path as sets), then on a COCO tree of PNG images ``det_train``,
-``det_eval``, ``det_variants_train`` (the four variant configs through
-the training CLI: step ms, finite losses, the launches of B, D, E, F and
-G), ``det_dense_train`` (the eight dense configs through the training
+``det_dense`` (the one-stage heads on the FPN trunk at 768 x 1280,
+bf16: FCOS, NAS-FCOS, ATSS, GFL, PAA, VFNet, FreeAnchor, PISA-RetinaNet,
+FSAF, FoveaBox, SABL, RepPoints and NAS-FPN RetinaNet, their
+classifiers' prior bias zeroed so that seeded weights detect; image ms,
+idle share, peak memory; E ten times an image for VFNet and RepPoints, no
+kernel for the others; their f32 kernel path against the plain path as
+sets), then on a COCO tree of PNG images ``det_train``, ``det_eval``,
+``det_variants_train`` (the four variant configs through the training
+CLI: step ms, finite losses, the launches of B, D, E, F and G),
+``det_dense_train`` (the thirteen dense configs through the training
 CLI: step ms, idle share, finite losses; E, F and G ten times a step for
-VFNet) and
+VFNet and RepPoints), ``det_autoaugment_train`` (the AutoAugment
+RetinaNet config with its own pipeline through the training CLI: finite
+losses, no kernel, every policy drawn), ``det_zoo_eval`` (those five
+configs and the AutoAugment one through the test CLI on the val split:
+every image, finite per-class results, RepPoints' E launches) and
 ``voc_eval`` (``faster_rcnn_r50_dc5_1x_voc.py`` through the test CLI on a
 VOC tree of JPEG copies and XML: the plain f32 run's detections as gts,
 the f32 kernel path's mAP50, the bf16 run's). The ``kernels`` phase also
 holds E, F and G at GA-RPN's P2-P6 and GA-RetinaNet's P3-P7 shapes (one
 deform group, f32) and B and D at GRoIE's every-level pooling (300 rois
 on each of P2-P5), and E, F and G at VFNet's P3 and P7 with star
-offsets, each beside its plain version and its bound. Then JPEG
-frames, the learning check and checkpoint import: ``jpeg_decode`` (the host decoder ``csrc/jpeg_decode.cpp`` built
+offsets and at RepPoints' P3 and P7 with the points' offsets, each
+beside its plain version and its bound. Then JPEG frames, the learning
+check and checkpoint import: ``jpeg_decode`` (the host decoder
+``csrc/jpeg_decode.cpp`` built
 with g++: every committed fixture of ``tests/data/jpeg`` against its
 manifest's sha256 of cv2's pixels; the 1080x1920 4:2:0 frame's decode ms
 beside the same pixels as PNG), ``jpeg_train`` (the canonical config
@@ -179,6 +186,9 @@ streamed at f32 over IMPORT_FRAMES frames through the kernels and the plain
 path: equal detection sets). The entry points run there start from
 PyTorch's TF32 defaults and must turn TF32 off. Then one JSON line of
 kernel summaries (A-G), and a last line ``{"ok": true, "device": {...}}``.
+The phases draw each model's seeded weights once (``InitMemo``: a later
+build of the same model from the same seed loads a copy; line
+``init_memo``).
 Any failure exits non-zero.
 
     python3 chip_smoke.py --roi-grad-times ROOT
@@ -283,8 +293,8 @@ CANONICAL_CFG = ("configs/vid/llvod/"
                  "llvod_l1234_fusion_add_i1234_rdb_taf_darkfarm.py")
 RAW_CFG = "configs/vid/llvod/llvod_raw_darkfarm.py"
 DATA_TREE = dict(videos=2, frames=10, hw=(1080, 1920))  # DarkFarm's frames
-DATA_STEPS, RAW_STEPS = 6, 3
-DATA_PROFILED = 2       # data_train: the last steps, under the profiler
+DATA_STEPS, RAW_STEPS = 5, 3
+DATA_PROFILED = 1       # data_train: the last step, under the profiler
 DATA_WORKERS = 4
 # launches a step of A-G (KERNEL_NAMES): the canonical step, and the RAW
 # config's (no aggregator)
@@ -310,18 +320,18 @@ FASTDVD_CFG = "configs/vid/llvod/llvod_fastdvd_darkfarm.py"
 UNET_CFG = "configs/vid/llvod/llvod_unet_darkfarm.py"
 DARK_CLIP = 3           # a training clip: the key and 2 references
 DARK_VARIANT_REL = 1e-5  # of max |stage|: f32 kernel path vs plain DCN
-DARK_STEPS, DARK_TIMED = 8, 4  # dark_train: 2 warm-up, 4 timed, 2 profiled
+DARK_STEPS, DARK_TIMED = 7, 4  # dark_train: 2 warm-up, 4 timed, 1 profiled
 FASTDVD_STEPS, UNET_STEPS = 3, 2
 DARK_STREAM_S, DARK_STREAM_T = 4, 3  # dark_stream: ResNetC streams, frames
 # the flow-based ImageNet-VID families (FGFA, DFF) and SELSA's training
 FGFA_CFG = "configs/vid/fgfa/fgfa_faster_rcnn_r50_dc5_1x_imagenetvid.py"
 DFF_CFG = "configs/vid/dff/dff_faster_rcnn_r50_dc5_1x_imagenetvid.py"
 SELSA_CFG = "configs/vid/selsa/selsa_faster_rcnn_r50_dc5_1x_imagenetvid.py"
-FLOW_STEADY, FLOW_PROFILED = 10, 3  # fgfa_stream: frames after frame 0
+FLOW_STEADY, FLOW_PROFILED = 10, 1  # fgfa_stream: frames after frame 0
 DFF_FRAMES = 21         # dff_stream: key frames 0, 10 and 20
 FLOW_AGREE_FRAMES = 3   # f32 kernel path against plain (DFF: key, 2 warps)
 VID_TREE = dict(videos=2, frames=12, hw=(720, 1280))  # ImageNet-VID frames
-VID_STEPS, VID_TIMED = 6, 2  # vid_train: 2 warm-up, 2 timed, 2 profiled
+VID_STEPS, VID_TIMED = 5, 2  # vid_train: 2 warm-up, 2 timed, 1 profiled
 VID_WORKERS = 4
 # tracking: DeepSORT, Tracktor and SiamRPN++ at the configs' widths
 MOT_CFG = "configs/mot/deepsort/deepsort_faster-rcnn_fpn_4e_mot17-private-half.py"
@@ -329,7 +339,7 @@ TRACKTOR_CFG = ("configs/mot/tracktor/"
                 "tracktor_faster-rcnn_r50_fpn_4e_mot17-private-half.py")
 SOT_CFG = "configs/sot/siamese_rpn/siamese_rpn_r50_1x_lasot.py"
 MOT_HW = (1080, 1920)   # MOT17's frames
-MOT_FRAMES, MOT_PROFILED = 21, 3  # mot_stream: frame 0, 20 steady, profiled
+MOT_FRAMES, MOT_PROFILED = 21, 1  # mot_stream: frame 0, 20 steady, profiled
 MOT_EMBED_REL = 1e-3    # f32 embeddings, kernel path vs plain, of max |e|
 # seeded weights score detections near 0.5: track every detection, so the
 # association works on the frame's 48
@@ -339,7 +349,7 @@ TRACKTOR_PAN = (6, 2)   # px a frame (dx, dy)
 TRACKTOR_PAN_TOL = 0.1  # px: ECC's translation against the known pan
 # seeded weights score detections near 0.5: keep every track alive
 TRACKTOR_TRACKER = dict(obj_score_thr=0.05, regression_score_thr=0.0)
-SOT_FRAMES, SOT_PROFILED = 21, 3  # init, 20 steady steps, profiled
+SOT_FRAMES, SOT_PROFILED = 21, 1  # init, 20 steady steps, profiled
 SOT_BOX_TOL = 1e-2      # px: one step on the card against the CPU
 MOT_TREE = dict(videos=1, frames=8, hw=(1080, 1920), objects=4, seed=0,
                 jitter=2.0)
@@ -350,7 +360,7 @@ JPEG_FIXTURES = REPO / "tests" / "data" / "jpeg"
 JPEG_TIMED = "darkfarm_0_low.jpg"  # 1080x1920 4:2:0, DarkFarm's frame size
 JPEG_DECODES = 5        # jpeg_decode: the median of this many decodes
 JPEG_TREE = dict(videos=2, val_videos=2, frames=6)
-JPEG_STEPS, JPEG_PROFILED = 4, 2
+JPEG_STEPS, JPEG_PROFILED = 3, 1
 LEARNING_STEPS, LEARNING_EVAL_IMAGES = 1000, 16
 LEARNING_JAX_MAP_AFTER = 0.049  # the JAX tool, CPU, 1000 steps (PERF.md)
 LEARNING_MAP_FLOOR = 0.5 * LEARNING_JAX_MAP_AFTER
@@ -363,16 +373,16 @@ IMPORT_FRAMES = 4       # torch_import: frame 0 (the memo fill) and 3 more
 IMPORT_CLS_SCALE = 4.0  # the synthetic fc_cls's spread over the init's
 # tracking training and the image detectors
 SOT_TRAIN_TREE = dict(videos=2, frames=12, hw=(720, 1280), seed=0)
-SOT_TRAIN_STEPS, SOT_TRAIN_SKIP = 20, 15  # the last 5 steps profiled
+SOT_TRAIN_STEPS, SOT_TRAIN_SKIP = 16, 15  # the last step profiled
 DET_FPN_CFG = "configs/det/faster_rcnn_r50_fpn_1x_coco.py"
 DET_RETINA_CFG = "configs/det/retinanet_r50_fpn_1x_coco.py"
 DET_DC5_CFG = "configs/det/faster_rcnn_r50_dc5_1x_coco.py"
 DET_STREAM = (("FasterRCNNFPN", DET_FPN_CFG), ("RetinaNet", DET_RETINA_CFG),
               ("FasterRCNN", DET_DC5_CFG))
 DET_HW = (480, 640)
-DET_IMAGES, DET_PROFILED = 20, 4
+DET_IMAGES, DET_PROFILED = 12, 1
 COCO_TREE = dict(images=8, val_images=8, hw=DET_HW, seed=0)
-DET_TRAIN_STEPS, DET_TRAIN_SKIP = 6, 3
+DET_TRAIN_STEPS, DET_TRAIN_SKIP = 4, 3
 # the configs' resize: into 1333 x 800, RetinaNet's into its 1280 x 768 bucket
 DET_TRAIN_SCALE = {DET_FPN_CFG: (1333, 800), DET_RETINA_CFG: (1280, 768)}
 DET_GTS_PER_IMAGE = 8
@@ -383,8 +393,8 @@ VARIANT_CFGS = (
     ("GRoIEFasterRCNN", "configs/det/faster_rcnn_r50_fpn_groie_1x_coco.py"),
     ("LibraFasterRCNN", "configs/det/libra_faster_rcnn_r50_fpn_1x_coco.py"),
     ("GARetinaNet", "configs/det/ga_retinanet_r50_fpn_1x_coco.py"))
-VARIANT_IMAGES, VARIANT_PROFILED = 8, 4
-VARIANT_TRAIN_STEPS, VARIANT_TRAIN_SKIP = 5, 3
+VARIANT_IMAGES, VARIANT_PROFILED = 8, 1
+VARIANT_TRAIN_STEPS, VARIANT_TRAIN_SKIP = 4, 3
 # the configs' resize: into 1333 x 800, GA-RetinaNet into its 1280 x 768
 VARIANT_TRAIN_SCALE = {"GAFasterRCNN": (1333, 800),
                        "GRoIEFasterRCNN": (1333, 800),
@@ -403,18 +413,38 @@ DENSE_CFGS = (
     ("PAA", "configs/det/paa_r50_fpn_1x_coco.py"),
     ("VFNet", "configs/det/vfnet_r50_fpn_1x_coco.py"),
     ("FreeAnchor", "configs/det/retinanet_free_anchor_r50_fpn_1x_coco.py"),
-    ("PISA", "configs/det/pisa_retinanet_r50_fpn_1x_coco.py"))
-DENSE_IMAGES, DENSE_PROFILED = 10, 3
-DENSE_TRAIN_STEPS, DENSE_TRAIN_SKIP = 5, 3
+    ("PISA", "configs/det/pisa_retinanet_r50_fpn_1x_coco.py"),
+    ("FSAF", "configs/det/fsaf_r50_fpn_1x_coco.py"),
+    ("FoveaBox", "configs/det/fovea_r50_fpn_4x4_1x_coco.py"),
+    ("SABL", "configs/det/sabl_retinanet_r50_fpn_1x_coco.py"),
+    ("RepPoints", "configs/det/reppoints_moment_r50_fpn_1x_coco.py"),
+    ("NASFPNRetinaNet",
+     "configs/det/retinanet_r50_nasfpn_crop640_50e_coco.py"))
+DENSE_IMAGES, DENSE_PROFILED = 8, 1
+DENSE_TRAIN_STEPS, DENSE_TRAIN_SKIP = 4, 3
 DENSE_TRAIN_SCALE = (1280, 768)  # into the 768 x 1280 bucket
 # kernel E's launches an image (F's and G's a training step): VFNet's two
-# star DCNs on each of P3-P7; the other seven launch no kernel
-DENSE_E_PER_IMAGE = {"VFNet": 10}
-DENSE_CLS = ("fcos_cls", "atss_cls", "gfl_cls", "vfnet_cls", "retina_cls")
+# star DCNs and RepPoints' two points DCNs on each of P3-P7; the other
+# eleven launch no kernel
+DENSE_E_PER_IMAGE = {"VFNet": 10, "RepPoints": 10}
+DENSE_CLS = ("fcos_cls", "atss_cls", "gfl_cls", "vfnet_cls", "retina_cls",
+             "conv_cls", "reppoints_cls_out")
 DENSE_TERM = {"FCOS": "loss_centerness", "NASFCOS": "loss_centerness",
               "ATSS": "loss_centerness", "GFL": "loss_dfl", "PAA": "loss_iou",
               "VFNet": "loss_bbox_refine", "FreeAnchor": "positive_bag_loss",
-              "PISA": "loss_carl"}
+              "PISA": "loss_carl", "FSAF": "loss_bbox",
+              "FoveaBox": "loss_bbox", "SABL": "loss_bbox_reg",
+              "RepPoints": "loss_pts_refine", "NASFPNRetinaNet": "loss_bbox"}
+# E, F, G at RepPoints' P3 and P7 of 768 x 1280: (name, level, c, h, w);
+# the offsets of points N(0, REP_OFFSET_STD^2) px about the base grid
+REP_DCN_SHAPES = (("reppoints_P3", 0, 256, 96, 160),
+                  ("reppoints_P7", 4, 256, 6, 10))
+REP_OFFSET_STD = 1.5
+# det_autoaugment_train: the config's own pipeline (AutoAugment's three
+# policies, its resize into the 768 x 1280 bucket) through the training
+# CLI on det_train's tree; enough steps that every policy is drawn
+AUTOAUG_CFG = "configs/det/retinanet_r50_fpn_autoaugment_1x_coco.py"
+AUTOAUG_STEPS, AUTOAUG_SKIP = 8, 3
 # E, F, G at VFNet's P3 and P7 of 768 x 1280: (name, level, c, h, w), the
 # star offsets of distances REG_DENOMS[level] * exp(N(0, 0.5^2)) px (the
 # seeded head's are near REG_DENOMS)
@@ -439,6 +469,9 @@ VOC_IMAGES = 8
 VOC_MIN_SIDE = 8.0      # px: a gt's smallest side (its XML rounds to ints)
 # --loader-close: rounds of opening, reading and closing the loader
 LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
+# the plain versions' calls a timing turn (milliseconds a call; the
+# kernels' 20)
+PLAIN_ITERS = 5
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOP_PER_S = 989e12
@@ -565,12 +598,13 @@ def graph_ms(fn, iters=20):
 def compare_times(kernel, plain, library=None):
     """plain, kernel, kernel, plain (plain, library, kernel, kernel,
     library, plain with a library call); the two means of each (None for
-    no library call)."""
-    p1 = timed(plain)
+    no library call). The plain versions, milliseconds a call, are timed
+    over PLAIN_ITERS calls a turn."""
+    p1 = timed(plain, PLAIN_ITERS, 1)
     l1 = timed(library) if library else None
     k1, k2 = timed(kernel), timed(kernel)
     l2 = timed(library) if library else None
-    p2 = timed(plain)
+    p2 = timed(plain, PLAIN_ITERS, 1)
     return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2 if library else None
 
 
@@ -780,19 +814,28 @@ def roi_grad_case(name, ops, plain_backward, maps_shape, rois, binds, g,
     return entry
 
 
+def device_generator(g, dev):
+    """A generator on ``dev`` seeded by a draw from the CPU generator
+    ``g``: large random operands drawn on the card, not by the CPU's
+    serial draws (seconds for the DCN cases' tens of millions)."""
+    return torch.Generator(device=dev).manual_seed(
+        int(torch.randint(2**62, (1,), generator=g)))
+
+
 def dcn_inputs(dev, dtype, g, n, c, h, w, std=2.5, push=True,
                groups=DCN_GROUPS):
-    """DCN operands at one stage shape: x [n, c, h, w], offsets of N(0,
-    std^2) px (at 2.5 many beyond 2 px, samples beyond the edges), with
-    ``push`` every 50th pushed beyond the map, masks in (0, 1); ``groups``
-    deform groups."""
-    gr = groups
-    x = torch.randn(n, c, h, w, generator=g).to(dev, dtype)
-    off = torch.randn(n, gr * 18, h, w, generator=g) * std
+    """DCN operands at one stage shape, drawn on the card
+    (``device_generator``): x [n, c, h, w], offsets of N(0, std^2) px (at
+    2.5 many beyond 2 px, samples beyond the edges), with ``push`` every
+    50th pushed beyond the map, masks in (0, 1); ``groups`` deform
+    groups."""
+    gr, gd = groups, device_generator(g, dev)
+    x = torch.randn(n, c, h, w, generator=gd, device=dev).to(dtype)
+    off = torch.randn(n, gr * 18, h, w, generator=gd, device=dev) * std
     if push:
         off.view(-1)[::50] += float(h + w)
-    mask = torch.rand(n, gr * 9, h, w, generator=g)
-    return x, off.to(dev), mask.to(dev)
+    mask = torch.rand(n, gr * 9, h, w, generator=gd, device=dev)
+    return x, off, mask
 
 
 def dcn_check(ops, tag, x, off, mask, g, errs):
@@ -816,7 +859,8 @@ def dcn_check(ops, tag, x, off, mask, g, errs):
                 DCN_REL * ref.abs().max().item())
     errs[f"{tag}_forward"] = max_err(got, ref)
     del got, ref, want
-    grad_cols = torch.randn(cols.shape, generator=g).to(dev)
+    grad_cols = torch.randn(cols.shape, generator=device_generator(g, dev),
+                            device=dev)
     del cols
     got = ops.modulated_deform_conv_backward(grad_cols, x, off, mask)
     plain = ops.modulated_deform_conv_backward_plain(grad_cols, x, off, mask)
@@ -2836,7 +2880,7 @@ def noise_raw(dev, smi, kernels, root, ann, item):
                                 "--work-dir", f"{root}/work_raw"]
                   + data_options(root, ann, 0)
                   + [f"data.train.pipeline={raw_pipeline!r}"],
-                  kernels, per_step, RAW_STEPS, 1)
+                  kernels, per_step, RAW_STEPS, RAW_STEPS - 1)
     phase("noise_raw", card=smi, card_vs_cpu_err_rel_to_max=errs,
           add_noise_rtol=NOISE_RTOL, raw_rtol=RAW_RTOL,
           a7s3_moments=moments, moment_clean=MOMENT_CLEAN,
@@ -4706,6 +4750,27 @@ def vfnet_dcn_kernels(dev, g, ops, errs):
                                "vfnet_levels")
 
 
+def rep_dcn_kernels(dev, g, ops, errs):
+    """E, F and G at REP_DCN_SHAPES with RepPoints' offsets
+    (``reppoints_head.points_offsets`` of points N(0, REP_OFFSET_STD^2) px
+    about the base grid; ``dcnv1_level_kernels``, key
+    ``reppoints_levels``)."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (  # noqa: E501
+        reppoints_head as RP)
+
+    def inputs(shape):
+        _, level, c, h, w = shape
+        x = torch.randn(1, c, h, w, generator=g).to(dev)
+        base = torch.tensor(RP.BASE_GRID)[None, :, None, None]
+        pts = base + REP_OFFSET_STD * torch.randn(1, 18, h, w, generator=g)
+        off = RP.points_offsets(pts)
+        return x, off.contiguous().to(dev), dict(
+            offsets="points", offset_std=REP_OFFSET_STD,
+            level=f"P{level + 3}")
+    return dcnv1_level_kernels(dev, g, ops, errs, REP_DCN_SHAPES, inputs,
+                               "reppoints_levels")
+
+
 def groie_roi_kernels(dev, g, ops, errs):
     """Kernels B and D at GRoIE's shapes: GROIE_ROIS rois of every FPN
     scale (``sized_rois``, a quarter a level, P2-sized ones covering all of
@@ -5007,9 +5072,10 @@ def det_dense(dev, smi, kernels):
     ``DetectorModel.inference_detector`` (the 768 x 1280 bucket) on
     DENSE_IMAGES random 480 x 640 frames and DENSE_PROFILED more under the
     profiler: image ms, the device's idle share, peak memory, E's launches
-    each image. Gates: E DENSE_E_PER_IMAGE times an image (VFNet 10),
-    nothing else launched (no B), finite results; VFNet at f32: the
-    kernel path's detections equal the plain path's as sets
+    each image. Gates: E DENSE_E_PER_IMAGE times an image (VFNet and
+    RepPoints 10), nothing else launched (no B), finite results; VFNet and
+    RepPoints at f32: the kernel path's detections equal the plain path's
+    as sets
     (SET_BOX_TOL / SET_SCORE_TOL), none unmatched, some. Returns the
     launch counts (A-G) and empty bodies."""
     from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
@@ -5097,13 +5163,13 @@ def det_dense(dev, smi, kernels):
 
 
 def det_dense_train(dev, smi, kernels, root, train_ann):
-    """The training CLI's image route for the eight DENSE_CFGS on the COCO
-    tree ``det_train`` wrote (resized into the 768 x 1280 bucket), bf16,
+    """The training CLI's image route for the thirteen DENSE_CFGS on the
+    COCO tree ``det_train`` wrote (resized into the 768 x 1280 bucket), bf16,
     seeded weights, DENSE_TRAIN_STEPS steps each, the last ones profiled:
     step ms, idle share, peak memory. Gates: finite losses with each
     family's terms (DENSE_TERM); E, F and G DENSE_E_PER_IMAGE times a step
-    (VFNet 10), no kernel for the others. Returns the launch counts (A-G)
-    and empty bodies."""
+    (VFNet and RepPoints 10), no kernel for the others. Returns the launch
+    counts (A-G) and empty bodies."""
     from lowlightenvironmentvideoobjectdetection_torch.tools import (
         train as cli)
     t_phase = time.perf_counter()
@@ -5152,6 +5218,179 @@ def det_dense_train(dev, smi, kernels, root, train_ann):
           launches=dict(zip(KERNEL_NAMES, total)),
           phase_s=time.perf_counter() - t_phase)
     return total, dict(roi_align={}, roi_align_backward={})
+
+
+def det_autoaugment_train(dev, smi, kernels, root, train_ann):
+    """AUTOAUG_CFG through the training CLI on the COCO tree ``det_train``
+    wrote, its own pipeline (AutoAugment on the host, in the main process:
+    no loader workers), bf16, seeded weights, AUTOAUG_STEPS steps, the
+    last ones profiled: step ms, the loader's host ms, idle share. Gates:
+    finite losses with RetinaNet's terms; no kernel launched; every
+    policy of the config drawn at least once over the steps' images (each
+    draw read ahead of the step's own, from the same generator state; the
+    loader's read-ahead sample after the last step is not counted).
+    Returns the launch counts (A-G) and empty bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.config import (
+        load_config)
+    from lowlightenvironmentvideoobjectdetection_torch.data.pipelines import (
+        auto_augment as AA)
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        train as cli)
+    t_phase = time.perf_counter()
+    policies = [t["policies"] for t in load_config(str(REPO / AUTOAUG_CFG))[
+        "data"]["train"]["pipeline"] if t["type"] == "AutoAugment"][0]
+    real, drawn, host_ms = AA.AutoAugment.transform, [], []
+
+    def counting(self, results, np_rng):
+        state = np_rng.get_state()
+        drawn.append(int(np_rng.randint(len(self.policies))))
+        np_rng.set_state(state)
+        t = time.perf_counter()
+        out = real(self, results, np_rng)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    window = StepWindow(AUTOAUG_STEPS, AUTOAUG_SKIP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    AA.AutoAugment.transform = counting
+    t0 = time.perf_counter()
+    try:
+        out = cli.main([str(REPO / AUTOAUG_CFG), "--seed", "0",
+                        "--work-dir", f"{root}/work_autoaug", "--steps",
+                        str(AUTOAUG_STEPS), "--cfg-options",
+                        f"data.train.ann_file={train_ann}",
+                        f"data.train.img_prefix={root}/coco/",
+                        "data.workers_per_gpu=0"], on_step=window)
+    finally:
+        AA.AutoAugment.transform = real
+    counts = [k.launches for k in kernels]
+    every_policy = set(drawn[:AUTOAUG_STEPS]) == set(range(len(policies)))
+    if any(counts) or not every_policy or not all(
+            np.isfinite(v) for m in out["metrics"] for v in m.values()) \
+            or not all({"loss_cls", "loss_bbox"} <= set(m)
+                       for m in out["metrics"]):
+        raise AssertionError(f"det_autoaugment_train: counts {counts}, "
+                             f"policies drawn {drawn}; metrics "
+                             f"{out['metrics']}")
+    step_ms = [(y - x) * 1e3 for x, y in zip([t0] + window.stamps,
+                                            window.stamps)]
+    phase("det_autoaugment_train", card=smi, config=AUTOAUG_CFG,
+          tree=COCO_TREE, steps=AUTOAUG_STEPS, first_step_ms=step_ms[0],
+          median_step_ms=statistics.median(step_ms[1:AUTOAUG_SKIP]),
+          step_ms=step_ms, device_window=window.window,
+          policies_drawn=drawn, autoaugment_host_ms=host_ms,
+          losses=out["metrics"], loader_ms=loader_summary(out["timings"], 1),
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+          launches=dict(zip(KERNEL_NAMES, counts)),
+          phase_s=time.perf_counter() - t_phase)
+    del out
+    torch.cuda.empty_cache()
+    return counts, dict(roi_align={}, roi_align_backward={})
+
+
+def det_zoo_eval(dev, smi, kernels, root, val_ann):
+    """The test CLI's image route on the card over the COCO tree's val
+    split for this slice's configs (DENSE_CFGS' last five and
+    AUTOAUG_CFG) at their bf16, seeded weights as the CLI builds them (no
+    checkpoint): the summary line, images/s. Gates: every image, 80
+    per-class lists of finite [N, 5] rows, mAP50 in [0, 1], E
+    DENSE_E_PER_IMAGE times an image (RepPoints 10), nothing else
+    launched. Returns the launch counts (A-G) and empty bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        test as tcli)
+    import io
+    t_phase = time.perf_counter()
+    total, runs = [0] * len(kernels), {}
+    n_images = COCO_TREE["val_images"]
+    test = dict(type="CocoDataset", ann_file=val_ann,
+                img_prefix=f"{root}/coco/")
+    for name, cfg_path in DENSE_CFGS[-5:] + (("RetinaNet", AUTOAUG_CFG),):
+        reset_counts(*kernels)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = tcli.main([str(REPO / cfg_path), "--cfg-options",
+                             f"data.test={test!r}"])
+        line = buf.getvalue().strip().splitlines()[-1]
+        counts = [k.launches for k in kernels]
+        want = [0, 0, 0, 0, DENSE_E_PER_IMAGE.get(name, 0) * n_images, 0, 0]
+        if counts != want or out["summary"]["frames"] != n_images or not \
+                all(len(r) == 80 and all(a.ndim == 2 and a.shape[1] == 5
+                                         and np.isfinite(a).all() for a in r)
+                    for r in out["dets"]) \
+                or not 0.0 <= out["metrics"]["mAP50"] <= 1.0:
+            raise AssertionError(f"det_zoo_eval {cfg_path}: counts {counts}, "
+                                 f"want {want}; {line}")
+        runs[name if cfg_path != AUTOAUG_CFG else "AutoAugment"] = dict(
+            config=cfg_path, summary_line=line,
+            map50=out["metrics"]["mAP50"],
+            frames_per_s=out["summary"]["fps"],
+            detections=sum(len(a) for r in out["dets"] for a in r),
+            launches=dict(zip(KERNEL_NAMES, counts)))
+        total = [a + c for a, c in zip(total, counts)]
+        del out
+    reset_counts(*kernels)
+    phase("det_zoo_eval", card=smi, images=n_images, runs=runs,
+          launches=dict(zip(KERNEL_NAMES, total)),
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align={}, roi_align_backward={})
+
+
+class InitMemo:
+    """The port's seeded init (``models/vid/selsa.py`` ``init_params``,
+    which every entry point calls to draw seeded weights) done once a
+    model over the run: the first init of a model class with given
+    parameter names, shapes and dtypes from a generator state draws the
+    weights on the CPU, as the entry points do, and keeps a copy; a later
+    one of the same model from the same generator state loads that copy
+    and leaves the generator in the state the draws would have: the same
+    numbers without the CPU's truncated-normal draws (several seconds a
+    full-width detector, more for the canonical config's aggregator).
+    Installed over the phases, which build most models in more than one
+    phase: ``with InitMemo(): ...``."""
+
+    def __init__(self):
+        from lowlightenvironmentvideoobjectdetection_torch.apis import (
+            families)
+        from lowlightenvironmentvideoobjectdetection_torch.models import (
+            builder)
+        from lowlightenvironmentvideoobjectdetection_torch.models.vid import (
+            selsa)
+        from lowlightenvironmentvideoobjectdetection_torch.tools import (
+            train)
+        # the modules that call it, by their own name for it
+        self.sites = (selsa, families, builder, train)
+        self.real = selsa.init_params
+        self.store, self.hits = {}, 0
+
+    def __enter__(self):
+        for mod in self.sites:
+            mod.init_params = self
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.sites:
+            mod.init_params = self.real
+        self.store.clear()
+
+    @torch.no_grad()
+    def __call__(self, model, generator):
+        key = (type(model).__module__, type(model).__qualname__,
+               tuple((n, tuple(v.shape), v.dtype)
+                     for n, v in model.state_dict().items()),
+               generator.get_state().numpy().tobytes())
+        if key in self.store:
+            state, after = self.store[key]
+            model.load_state_dict(state, strict=True)
+            generator.set_state(after)
+            self.hits += 1
+            return model
+        self.real(model, generator)
+        self.store[key] = ({n: v.detach().clone() for n, v in
+                            model.state_dict().items()},
+                           generator.get_state())
+        return model
 
 
 def voc_gt_objects(det_lists):
@@ -5878,6 +6117,10 @@ def main() -> int:
     vf_dcn = vfnet_dcn_kernels(dev, g, dcn_ops, errs)
     for name, kern in zip(dcn_names, "EFG"):
         summary[name].update(vf_dcn[kern])
+    # RepPoints: E, F, G at its P3 and P7 with the points' offsets
+    rep_dcn = rep_dcn_kernels(dev, g, dcn_ops, errs)
+    for name, kern in zip(dcn_names, "EFG"):
+        summary[name].update(rep_dcn[kern])
     summary["roi_align"]["groie_levels"], \
         summary["roi_align_backward"]["groie_levels"] = groie_roi_kernels(
             dev, g, roi_ops, errs)
@@ -5889,6 +6132,10 @@ def main() -> int:
                           roi_grad_bf16_rtol=ROI_GRAD_BF16_RTOL,
                           dcn_atol_rel_to_max=DCN_REL,
                           dcn_grad_x_bf16_rtol=DCN_BF16_RTOL))
+
+    # each model's seeded weights drawn once over the phases
+    phases = contextlib.ExitStack()
+    init_memo = phases.enter_context(InitMemo())
 
     # ---- stream: full-width SELSA R50-DC5, default config (bf16)
     rng = np.random.RandomState(0)
@@ -6068,10 +6315,10 @@ def main() -> int:
         runs.append(sot_train(dev, smi, path_kernels, root))
     # the image detectors: FPN Faster R-CNN, RetinaNet and the DC5 Faster
     # R-CNN streamed, trained and evaluated from a COCO tree
-    runs.append(det_stream(dev, smi, path_kernels))
-    runs.append(det_variants(dev, smi, path_kernels))
-    runs.append(det_dense(dev, smi, path_kernels))
     with tempfile.TemporaryDirectory(prefix="_smoke_det_", dir=REPO) as root:
+        runs.append(det_stream(dev, smi, path_kernels))
+        runs.append(det_variants(dev, smi, path_kernels))
+        runs.append(det_dense(dev, smi, path_kernels))
         counts, bodies, train_ann, val_ann = det_train(dev, smi,
                                                        path_kernels, root)
         runs.append((counts, bodies))
@@ -6079,9 +6326,13 @@ def main() -> int:
         # the FPN-trunk variants and GA-RetinaNet on the same tree
         runs.append(det_variants_train(dev, smi, path_kernels, root,
                                        train_ann))
-        # the dense one-stage heads on the same tree
+        # the dense one-stage heads on the same tree, and AutoAugment
         runs.append(det_dense_train(dev, smi, path_kernels, root,
                                     train_ann))
+        runs.append(det_autoaugment_train(dev, smi, path_kernels, root,
+                                          train_ann))
+        # their configs through the test CLI on the val split
+        runs.append(det_zoo_eval(dev, smi, path_kernels, root, val_ann))
         # the VOC route: the DC5 config on a VOC tree of JPEG images
         runs.append(voc_eval(dev, smi, path_kernels, root))
     # JPEG frames, the learning check and the original code's checkpoints
@@ -6092,6 +6343,9 @@ def main() -> int:
         runs.append(jpeg_eval(dev, smi, path_kernels, root, val_ann))
     runs.append(learning(dev, smi, path_kernels))
     runs.append(torch_import(dev, smi, path_kernels))
+    phase("init_memo", distinct_models=len(init_memo.store),
+          loaded_copies=init_memo.hits)
+    phases.close()
     for counts, bodies in runs:
         for name, n in zip(KERNEL_NAMES, counts):
             summary[name]["launches"] += n

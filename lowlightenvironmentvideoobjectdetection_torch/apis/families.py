@@ -21,6 +21,14 @@ detector type of a config, the counterpart of the JAX package's
   tower with FreeAnchor's loss (``FreeAnchor`` / ``FreeAnchorRetinaNet``,
   ``free_anchor_head.py``, 16 anchors a bag) or PISA's
   (``PISA`` / ``PISARetinaNet``, ``pisa_nasfcos.py``), decoded as
+  RetinaNet;
+- the rest of the one-stage zoo on RetinaNet's FPN (extra convs on C5),
+  each with its loss and decode: ``FSAF`` (``fsaf_head.py``), ``FoveaBox``
+  / ``FOVEA`` (``fovea_head.py``), ``SABL`` / ``SABLRetinaNet``
+  (``sabl_head.py``) and ``RepPoints`` / ``RepPointsDetector``
+  (``reppoints_head.py``, two points DCNs a level on kernels E, F, G);
+  ``NASFPNRetinaNet`` (``retina_head.py``: the NAS-FPN neck and
+  ``RetinaSepBNHead``, 2 stacks with ``tiny``), trained and decoded as
   RetinaNet.
 
 An entry's ``build(mcfg, tiny, seed, device)`` gives (model, aux) with
@@ -50,12 +58,16 @@ from ..models.builder import (DTYPES, IMAGE_FAMILIES,
                                _selsa_cfg)
 from ..models.dense_heads import atss_head as AT
 from ..models.dense_heads import fcos_head as FC
+from ..models.dense_heads import fovea_head as FV
 from ..models.dense_heads import free_anchor_head as FA
+from ..models.dense_heads import fsaf_head as FS
 from ..models.dense_heads import gfl_head as GF
 from ..models.dense_heads import guided_anchor_head as GA
 from ..models.dense_heads import paa_head as PA
 from ..models.dense_heads import pisa_nasfcos as PN
+from ..models.dense_heads import reppoints_head as RP
 from ..models.dense_heads import retina_head as R
+from ..models.dense_heads import sabl_head as SB
 from ..models.dense_heads import vfnet_head as VF
 from ..models.detectors import fpn_faster_rcnn as FF
 from ..models.detectors import more_rcnn as MR
@@ -219,6 +231,10 @@ FAMILIES["GRoIEFasterRCNN"] = FAMILIES["GenericRoIExtractor"] = _fpn_family(
     roi_extract="groie")
 FAMILIES["LibraFasterRCNN"] = FAMILIES["LibraRCNN"] = _fpn_family(
     sampler="iou_balanced", reg_loss="balanced_l1", with_bfp=True)
+FAMILIES["NASFPNRetinaNet"] = Family(
+    _dense_build(R.NASFPNRetinaNet, dict(stack_times=2)),
+    FAMILIES["RetinaNet"].loss, FAMILIES["RetinaNet"].detect,
+    input_hw=DENSE_TINY_HW)
 FAMILIES["GARetinaNet"] = FAMILIES["GuidedAnchoring"] = Family(
     _dense_build(GA.GARetinaNet),
     lambda m, a, b, generator=None, uniforms=None: GA.ga_retinanet_loss(m, b),
@@ -281,6 +297,13 @@ FAMILIES["PAA"] = _dense_family(PA.PAA, PA.paa_loss, PA.paa_decode)
 FAMILIES["VFNet"] = _dense_family(VF.VFNet, VF.vfnet_loss, VF.vfnet_decode)
 FAMILIES["GFL"] = _dense_family(GF.GFL, GF.gfl_loss, GF.gfl_decode,
                                 extra=lambda m: dict(reg_max=m.reg_max))
+FAMILIES["FSAF"] = _dense_family(FS.FSAF, FS.fsaf_loss, FS.fsaf_decode)
+FAMILIES["FoveaBox"] = FAMILIES["FOVEA"] = _dense_family(
+    FV.FoveaBox, FV.fovea_loss, FV.fovea_decode)
+FAMILIES["SABL"] = FAMILIES["SABLRetinaNet"] = _dense_family(
+    SB.SABLRetinaNet, SB.sabl_loss, SB.sabl_decode)
+FAMILIES["RepPoints"] = FAMILIES["RepPointsDetector"] = _dense_family(
+    RP.RepPointsDetector, RP.reppoints_loss, RP.reppoints_decode)
 FAMILIES["FreeAnchor"] = FAMILIES["FreeAnchorRetinaNet"] = \
     _retina_tower_family(lambda m, outs, anchors, b: FA.free_anchor_loss(
         outs, anchors, b.gt_boxes, b.gt_labels, b.gt_valid, m.num_classes,
@@ -311,9 +334,9 @@ def pad_hw(model, fam: Family, tiny: bool) -> Tuple[int, int]:
     """The bucket images are padded to: a DC5 family's config pad, FPN
     Faster R-CNN's own ``pad_h`` x ``pad_w`` (800 x 1344; 128 x 128 with
     ``tiny``; its variants too), the dense families' (RetinaNet,
-    GA-RetinaNet, FCOS and the rest) 768 x 1280 (128 x 128 with ``tiny``),
-    as the JAX
-    ``DetectorModel`` pads save for FPN (ROADMAP fault F18)."""
+    GA-RetinaNet, NAS-FPN RetinaNet, FCOS and the rest) 768 x 1280 (128 x
+    128 with ``tiny``), as the JAX ``DetectorModel`` pads save for FPN
+    (ROADMAP fault F18)."""
     cfg = getattr(model, "cfg", None)
     if cfg is not None:
         return cfg.pad_h, cfg.pad_w

@@ -1,9 +1,10 @@
 """Target assignment and random sampling with static shapes, the
 counterpart of the JAX package's ``core/assigners.py`` (``max_iou_assign``,
-``random_sample_masks``, ``random_sample_gather``,
-``iou_balanced_sample_gather``): mmdet's MaxIoUAssigner (and, given the
-overlaps, ApproxMaxIoUAssigner), RandomSampler and Libra R-CNN's combined
-sampler as fixed-size masks and gathers.
+``point_assign``, ``center_region_assign``, ``random_sample_masks``,
+``random_sample_gather``, ``iou_balanced_sample_gather``): mmdet's
+MaxIoUAssigner (and, given the overlaps, ApproxMaxIoUAssigner),
+PointAssigner (RepPoints), CenterRegionAssigner (FSAF), RandomSampler and
+Libra R-CNN's combined sampler as fixed-size masks and gathers.
 
 The samplers take their uniforms as an argument ([2, N] for the masks: the
 positives' and the negatives' ranks; [3, N] for the gather: those and the
@@ -76,6 +77,114 @@ def max_iou_assign(boxes: torch.Tensor, gt_boxes: torch.Tensor,
     labels = torch.where(assigned > 0,
                          gt_labels[(assigned - 1).clamp(0, g - 1)].long(), -1)
     return AssignResult(assigned, max_overlaps, labels)
+
+
+def point_assign(points_xy: torch.Tensor, points_lvl: torch.Tensor,
+                 gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                 gt_valid: torch.Tensor, scale: float = 4.0,
+                 pos_num: int = 1) -> AssignResult:
+    """PointAssigner (RepPoints' first stage): points [P, 2] (x, y) with
+    their level ``points_lvl`` [P] (log2 of the stride); a gt's level is
+    trunc((log2(w / scale) + log2(h / scale)) / 2), clamped to the points'
+    levels. Each valid gt claims its ``pos_num`` nearest points of its
+    level by the distance of its centre over its size (ties to the lower
+    point index, as ``lax.top_k``); a point claimed by several gts goes to
+    the strictly nearer one, the earlier gt (and candidate) where the
+    distances are equal -- the JAX ``fori_loop`` over the gts' candidates,
+    which takes a point only where its distance is below the point's
+    current one. ``max_overlaps`` is zeros."""
+    num_p, num_g = points_xy.shape[0], gt_boxes.shape[0]
+    dev = points_xy.device
+    gt_xy = (gt_boxes[:, :2] + gt_boxes[:, 2:]) / 2
+    gt_wh = (gt_boxes[:, 2:] - gt_boxes[:, :2]).clamp_min(1e-6)
+    gt_lvl = torch.trunc((torch.log2(gt_wh[:, 0] / scale)
+                          + torch.log2(gt_wh[:, 1] / scale)) / 2).long()
+    gt_lvl = torch.minimum(torch.maximum(gt_lvl, points_lvl.min()),
+                           points_lvl.max())
+    diff = (points_xy[:, None, :] - gt_xy[None, :, :]) / gt_wh[None, :, :]
+    dist = torch.sqrt((diff * diff).sum(-1))  # [P, G]
+    masked = torch.where((points_lvl[:, None] == gt_lvl[None, :])
+                         & gt_valid[None, :], dist, math.inf)
+    k = min(pos_num, num_p)
+    cand_d, cand_p = torch.sort(masked.T, dim=-1, stable=True)  # [G, P]
+    flat_p = cand_p[:, :k].reshape(-1)  # in the loop's order: gt, then k
+    flat_d = cand_d[:, :k].reshape(-1)
+    flat_g = torch.arange(num_g, device=dev).repeat_interleave(k)
+    best_d = torch.full((num_p,), math.inf, device=dev).scatter_reduce(
+        0, flat_p, flat_d, reduce="amin")
+    order = torch.arange(flat_p.shape[0], device=dev)
+    first = (flat_d == best_d[flat_p]) & (flat_d < math.inf)
+    big = flat_p.shape[0]
+    win = torch.full((num_p,), big, dtype=torch.long, device=dev)
+    win = win.scatter_reduce(0, flat_p, torch.where(first, order, big),
+                             reduce="amin")
+    taken = win < big
+    assigned = torch.where(taken, flat_g[win.clamp_max(big - 1)] + 1, 0)
+    labels = torch.where(assigned > 0, gt_labels[(assigned - 1).clamp(
+        0, num_g - 1)].long(), -1)
+    return AssignResult(assigned, torch.zeros(num_p, device=dev), labels)
+
+
+def center_region_assign(boxes: torch.Tensor, gt_boxes: torch.Tensor,
+                         gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                         pos_scale: float, neg_scale: float,
+                         min_pos_iof: float = 1e-2):
+    """CenterRegionAssigner (FSAF's, 0.2 / 0.2 / 0.01): a box [N, 4] is a
+    positive candidate of a valid gt when its centre lies strictly inside
+    the gt and its IoF with the gt's ``pos_scale`` core exceeds
+    ``min_pos_iof``; the smallest-area gt wins (its priority: the rank in
+    a stable descending sort of the areas). Shadow pairs: the IoF with the
+    ``neg_scale`` region passes but the pair is not a core candidate, or
+    it is one but lost to another gt. A positive shadowed by a gt of its
+    own class is demoted to a negative. Returns (AssignResult with 0
+    negative, k > 0 gt k - 1; shadowed [N, G] bool)."""
+    num_g = gt_boxes.shape[0]
+    dev = boxes.device
+
+    def scaled(b, s):
+        c = (b[:, :2] + b[:, 2:]) / 2
+        half = (b[:, 2:] - b[:, :2]) / 2 * s
+        return torch.cat([c - half, c + half], dim=-1)
+
+    ctr = (boxes[:, :2] + boxes[:, 2:]) / 2
+    area_box = ((boxes[:, 2] - boxes[:, 0]).clamp_min(0)
+                * (boxes[:, 3] - boxes[:, 1]).clamp_min(0))
+
+    def iof(regions):  # [N, G] intersection over the box's area
+        ix1 = torch.maximum(boxes[:, None, 0], regions[None, :, 0])
+        iy1 = torch.maximum(boxes[:, None, 1], regions[None, :, 1])
+        ix2 = torch.minimum(boxes[:, None, 2], regions[None, :, 2])
+        iy2 = torch.minimum(boxes[:, None, 3], regions[None, :, 3])
+        inter = (ix2 - ix1).clamp_min(0) * (iy2 - iy1).clamp_min(0)
+        return inter / area_box[:, None].clamp_min(1e-6)
+
+    in_gt = ((ctr[:, None, 0] > gt_boxes[None, :, 0])
+             & (ctr[:, None, 0] < gt_boxes[None, :, 2])
+             & (ctr[:, None, 1] > gt_boxes[None, :, 1])
+             & (ctr[:, None, 1] < gt_boxes[None, :, 3]))
+    in_core = (in_gt & (iof(scaled(gt_boxes, pos_scale)) > min_pos_iof)
+               & gt_valid[None, :])
+    in_shadow = ((iof(scaled(gt_boxes, neg_scale)) > min_pos_iof)
+                 & ~in_core & gt_valid[None, :])
+    areas = ((gt_boxes[:, 2] - gt_boxes[:, 0])
+             * (gt_boxes[:, 3] - gt_boxes[:, 1]))
+    order = torch.sort(-areas, stable=True).indices  # descending area
+    prio = torch.empty_like(order)
+    prio[order] = torch.arange(num_g, device=dev)
+    best = torch.where(in_core, prio[None, :], -1).argmax(1)  # unique ranks
+    matched = in_core.any(1)
+    assigned = torch.where(matched, best + 1, 0)
+    chosen = ((torch.arange(num_g, device=dev)[None, :] == best[:, None])
+              & matched[:, None])
+    shadowed = in_shadow | (in_core & ~chosen)
+    labels = torch.where(matched, gt_labels[best.clamp(0, num_g - 1)].long(),
+                         -1)
+    override = (shadowed & (gt_labels[None, :].long() == labels[:, None])
+                & matched[:, None]).any(1)
+    assigned = torch.where(override, 0, assigned)
+    labels = torch.where(override, -1, labels)
+    return AssignResult(assigned, torch.zeros_like(area_box), labels), \
+        shadowed
 
 
 def _ranks(key: torch.Tensor) -> torch.Tensor:

@@ -71,14 +71,15 @@ PORTED_IMAGE_FAMILIES = ("FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
                          "LibraFasterRCNN", "LibraRCNN", "GARetinaNet",
                          "GuidedAnchoring", "ATSS", "FCOS", "NASFCOS", "GFL",
                          "PAA", "VFNet", "FreeAnchor", "FreeAnchorRetinaNet",
-                         "PISA", "PISARetinaNet")
+                         "PISA", "PISARetinaNet", "FSAF", "FoveaBox", "FOVEA",
+                         "SABL", "SABLRetinaNet", "RepPoints",
+                         "RepPointsDetector", "NASFPNRetinaNet")
 NOT_PORTED_IMAGE_FAMILIES = (
     "CascadeRCNN", "CascadeRPN", "CentripetalNet", "CornerNet", "DETR",
-    "DoubleHeadRCNN", "DoubleHeadRoIHead", "DynamicRCNN", "FOVEA", "FSAF",
-    "FoveaBox", "GridRCNN", "HTC", "HybridTaskCascade", "MaskRCNN",
-    "MaskScoringRCNN", "NASFPNRetinaNet", "PISAFasterRCNN", "PISARoIHead",
-    "PointRend", "RepPoints", "RepPointsDetector", "SABL", "SABLRetinaNet",
-    "SCNet", "SSD", "SparseRCNN", "TridentFasterRCNN", "YOLACT", "YOLOV3")
+    "DoubleHeadRCNN", "DoubleHeadRoIHead", "DynamicRCNN", "GridRCNN", "HTC",
+    "HybridTaskCascade", "MaskRCNN", "MaskScoringRCNN", "PISAFasterRCNN",
+    "PISARoIHead", "PointRend", "SCNet", "SSD", "SparseRCNN",
+    "TridentFasterRCNN", "YOLACT", "YOLOV3")
 IMAGE_FAMILIES = frozenset(PORTED_IMAGE_FAMILIES + NOT_PORTED_IMAGE_FAMILIES)
 # SelsaDarkDetect's backbone when its config names none
 DARK_DETECT_BACKBONE = "DarkResNet"

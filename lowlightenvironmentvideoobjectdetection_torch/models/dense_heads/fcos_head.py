@@ -124,19 +124,21 @@ class FCOSHead(DenseTowers):
 
 
 class DenseDetector(nn.Module):
-    """ResNet C3-C5 + FPN (extra convs on the output, ReLU before the
-    second; P3-P7) + a dense head (flax ``bbox_head``); ``dtype`` the
-    compute dtype."""
+    """ResNet C3-C5 + FPN (P3-P7: the extra convs on the output with a ReLU
+    before the second, or with ``add_extra_convs="on_input"`` RetinaNet's,
+    the first on C5 and no ReLU) + a dense head (flax ``bbox_head``);
+    ``dtype`` the compute dtype."""
 
     def __init__(self, head: nn.Module, num_classes: int, depth: int,
-                 dtype):
+                 dtype, add_extra_convs: str = "on_output"):
         super().__init__()
         self.num_classes = num_classes
         self.compute_dtype = dtype
         self.backbone = ResNet(depth=depth, out_indices=(1, 2, 3),
                                frozen_stages=1, dtype=dtype)
-        self.neck = FPN((512, 1024, 2048), 256, 5, "on_output",
-                        relu_before_extra_convs=True, dtype=dtype)
+        self.neck = FPN((512, 1024, 2048), 256, 5, add_extra_convs,
+                        relu_before_extra_convs=add_extra_convs == "on_output",
+                        dtype=dtype)
         self.bbox_head = head
 
     def forward(self, imgs: torch.Tensor, impl: Optional[str] = None):

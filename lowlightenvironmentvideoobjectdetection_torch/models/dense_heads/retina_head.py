@@ -17,13 +17,19 @@ each level's top 1000 (anchor, class) scores, in ``lax.top_k``'s order
 class-aware NMS (IoU 0.5, score above 0.05, at most 100): ``dense_decode``,
 the tail every dense head's decode shares.
 
-``RetinaSepBNHead`` and ``NASFPNRetinaNet`` are not ported (ROADMAP.md
-Queue 1 item 9).
+``NASFPNRetinaNet`` is RetinaNet with the NAS-FPN neck
+(``necks/extra_necks.py`` ``NASFPN``, ``stack_times`` stacks; 7 in its
+config) and ``RetinaSepBNHead``: RetinaNet's head whose conv kernels
+(without bias) are shared by the levels while each level has its own
+norm a stacked conv, a trainable per-channel affine (flax
+``{cls,reg}_bn{level}_{i}_scale`` / ``_bias`` at the head's root): mmdet's
+BN with frozen unit statistics, as the JAX docstring has it (ROADMAP
+fault F29). Its loss and decode are RetinaNet's.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,6 +39,7 @@ from ...core import assigners, boxes as box_ops, losses
 from ...core import nms as nms_ops
 from ...core.anchors import AnchorGenerator
 from ..backbones.resnet import Conv2d, ResNet
+from ..necks.extra_necks import NASFPN
 from ..necks.fpn import FPN
 
 PRIOR_BIAS = -4.595  # -log((1 - 0.01) / 0.01)
@@ -82,19 +89,83 @@ def retina_anchor_generator(strides=(8, 16, 32, 64, 128)) -> AnchorGenerator:
                            octave_base_scale=4, scales_per_octave=3)
 
 
+class RetinaSepBNHead(nn.Module):
+    """flax names ``{cls,reg}_conv{i}`` (no bias, shared by the levels),
+    ``{cls,reg}_bn{level}_{i}_scale`` / ``_bias`` (a level's affine after
+    conv i), ``retina_cls``, ``retina_reg``."""
+
+    def __init__(self, num_classes: int = 80, num_ins: int = 5,
+                 num_base_anchors: int = 9, in_channels: int = 256,
+                 feat_channels: int = 256, stacked_convs: int = 4,
+                 dtype=torch.float32):
+        super().__init__()
+        self.num_classes, self.num_ins = num_classes, num_ins
+        self.stacked_convs = stacked_convs
+        for branch in ("cls", "reg"):
+            for i in range(stacked_convs):
+                self.add_module(f"{branch}_conv{i}", Conv2d(
+                    in_channels if i == 0 else feat_channels, feat_channels,
+                    3, padding=1, bias=False, dtype=dtype))
+                for lvl in range(num_ins):
+                    self.register_parameter(
+                        f"{branch}_bn{lvl}_{i}_scale",
+                        nn.Parameter(torch.ones(feat_channels)))
+                    self.register_parameter(
+                        f"{branch}_bn{lvl}_{i}_bias",
+                        nn.Parameter(torch.zeros(feat_channels)))
+        self.retina_cls = Conv2d(feat_channels, num_base_anchors * num_classes,
+                                 3, padding=1, dtype=dtype)
+        self.retina_reg = Conv2d(feat_channels, num_base_anchors * 4, 3,
+                                 padding=1, dtype=dtype)
+
+    @torch.no_grad()
+    def init_flax(self, generator: torch.Generator) -> None:
+        """Unit affines and the classifier's prior bias."""
+        for name, p in self.named_parameters(recurse=False):
+            p.fill_(1.0 if name.endswith("_scale") else 0.0)
+        self.retina_cls.bias.fill_(PRIOR_BIAS)
+
+    def _sep_bn(self, x, branch, lvl, i):
+        scale = getattr(self, f"{branch}_bn{lvl}_{i}_scale")
+        bias = getattr(self, f"{branch}_bn{lvl}_{i}_bias")
+        return (x * scale.to(x.dtype)[:, None, None]
+                + bias.to(x.dtype)[:, None, None])
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        """NCHW maps -> per level (cls [T, h, w, A*C], reg [T, h, w, A*4]),
+        NHWC."""
+        if len(feats) != self.num_ins:
+            raise ValueError(f"{len(feats)} levels, the head has "
+                             f"{self.num_ins}")
+        outs = []
+        for lvl, x in enumerate(feats):
+            c = r = x
+            for i in range(self.stacked_convs):
+                c = F.relu(self._sep_bn(getattr(self, f"cls_conv{i}")(c),
+                                        "cls", lvl, i))
+                r = F.relu(self._sep_bn(getattr(self, f"reg_conv{i}")(r),
+                                        "reg", lvl, i))
+            outs.append((self.retina_cls(c).permute(0, 2, 3, 1),
+                         self.retina_reg(r).permute(0, 2, 3, 1)))
+        return outs
+
+
 class RetinaNet(nn.Module):
     """ResNet + FPN (extra convs on the input) + RetinaHead (flax
-    ``bbox_head``). ``dtype`` is the compute dtype of all three."""
+    ``bbox_head``). ``dtype`` is the compute dtype of all three. ``neck``
+    and ``head`` replace the FPN and the head (NAS-FPN RetinaNet)."""
 
     def __init__(self, num_classes: int = 80, depth: int = 50,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, *, neck: Optional[nn.Module] = None,
+                 head: Optional[nn.Module] = None):
         super().__init__()
         self.num_classes = num_classes
         self.compute_dtype = dtype
         self.backbone = ResNet(depth=depth, out_indices=(1, 2, 3),
                                frozen_stages=1, dtype=dtype)
-        self.neck = FPN((512, 1024, 2048), 256, 5, "on_input", dtype=dtype)
-        self.bbox_head = RetinaHead(num_classes, dtype=dtype)
+        self.neck = neck or FPN((512, 1024, 2048), 256, 5, "on_input",
+                                dtype=dtype)
+        self.bbox_head = head or RetinaHead(num_classes, dtype=dtype)
         self.anchor_gen = retina_anchor_generator()
         self._anchors = {}
 
@@ -113,6 +184,18 @@ class RetinaNet(nn.Module):
             self._anchors[key] = [torch.as_tensor(a, device=dev) for a in
                                   self.anchor_gen.grid_anchors(sizes)]
         return self._anchors[key]
+
+
+class NASFPNRetinaNet(RetinaNet):
+    """ResNet + NASFPN (``stack_times`` stacks) + RetinaSepBNHead; flax
+    ``backbone``, ``neck``, ``bbox_head``."""
+
+    def __init__(self, num_classes: int = 80, depth: int = 50,
+                 stack_times: int = 7, dtype=torch.bfloat16):
+        super().__init__(num_classes, depth, dtype,
+                         neck=NASFPN(out_channels=256, num_outs=5,
+                                     stack_times=stack_times, dtype=dtype),
+                         head=RetinaSepBNHead(num_classes, dtype=dtype))
 
 
 class RetinaLossOut(NamedTuple):

@@ -26,7 +26,13 @@ Faster R-CNN) and the dense heads FCOS / NAS-FCOS, ATSS / PAA, GFL and
 VFNet (``bbox_head.{cls,reg}_conv{i}``, their output convs, each level's
 ``Scale`` ``scale{li}`` / ``scale_refine{li}``, whose 0-d ``scale``
 becomes ``weight``, VFNet's ``reg_refine_dconv`` and ``cls_dconv``, DCN
-``kernel`` leaves at the module's root)). Module names match
+``kernel`` leaves at the module's root), FSAF, FoveaBox, SABL and
+RepPoints (``reppoints_{cls,pts_refine}_conv``: DCN ``kernel`` leaves at
+the module's root), and NAS-FPN RetinaNet (``neck.adapt{i}``,
+``neck.s{s}_{cell}.conv``; ``RetinaSepBNHead``'s per-level affines
+``bbox_head.{cls,reg}_bn{level}_{i}_scale`` / ``_bias`` at the head's
+root, which keep their names, as a ``MomentTransfer``'s
+``moment_transfer`` does)). Module names match
 the flax names, so a leaf's key is its path joined by dots with the leaf
 renamed:
 
@@ -55,6 +61,7 @@ int32 counters become host ints). Needs numpy only.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -65,7 +72,10 @@ from ..models.vid.fgfa import DFFState, FGFAState
 from ..models.vid.selsa import VideoState
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
-_ROOT_PARAMS = ("cls_weights", "reg_weights")  # SiamRPN's level weights
+# parameters that keep their flax names: SiamRPN's level weights at the
+# root, RetinaSepBNHead's per-level affines, RepPoints' moment transfer
+_OWN_NAMES = re.compile(r"cls_weights|reg_weights|(cls|reg)_bn\d+_\d+_"
+                        r"(scale|bias)|moment_transfer")
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -104,7 +114,7 @@ def from_jax_variables(variables: Mapping,
                     and "conv_offset" in _node(tree, mods) and a.ndim == 4
                     and a.shape[:2] == (3, 3)):
                 a = a.transpose(3, 2, 0, 1)  # the DCN's raw [3, 3, in, out]
-            elif coll == "params" and not mods and leaf_name in _ROOT_PARAMS:
+            elif coll == "params" and _OWN_NAMES.fullmatch(leaf_name):
                 pass
             elif leaf_name not in names or not mods:
                 raise KeyError(f"unconsumed leaf {coll}/{'/'.join(path)}")

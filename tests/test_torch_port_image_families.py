@@ -71,12 +71,15 @@ VARIANTS = {
 # the dense one-stage heads (test_torch_port_dense_families*.py)
 DENSE = {"FCOS", "NASFCOS", "ATSS", "GFL", "PAA", "VFNet", "FreeAnchor",
          "FreeAnchorRetinaNet", "PISA", "PISARetinaNet"}
+# the rest of the one-stage zoo (test_torch_port_zoo_heads_c.py)
+ZOO_C = {"FSAF", "FoveaBox", "FOVEA", "SABL", "SABLRetinaNet", "RepPoints",
+         "RepPointsDetector", "NASFPNRetinaNet"}
 
 
 def test_the_table_covers_the_jax_names():
     ported = set(TF.FAMILIES)
     assert ported == {"FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
-                      "RetinaNet"} | set(VARIANTS) | DENSE
+                      "RetinaNet"} | set(VARIANTS) | DENSE | ZOO_C
     assert ported | set(TF.NOT_PORTED) == set(JF.FAMILIES)
     assert ported | set(TF.NOT_PORTED) == TF.IMAGE_FAMILIES
     assert not ported & set(TF.NOT_PORTED)
