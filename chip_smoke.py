@@ -160,15 +160,29 @@ VFNet and RepPoints), ``det_autoaugment_train`` (the AutoAugment
 RetinaNet config with its own pipeline through the training CLI: finite
 losses, no kernel, every policy drawn), ``det_zoo_eval`` (those five
 configs and the AutoAugment one through the test CLI on the val split:
-every image, finite per-class results, RepPoints' E launches) and
+every image, finite per-class results, RepPoints' E launches, and the
+seven two-stage DC5 configs below), ``det_rcnn`` (the two-stage families
+on the DC5 trunk at 608 x 1024, bf16, 80 classes, Cascade RPN's one:
+Cascade R-CNN, Cascade RPN, Double-Head, Dynamic and PISA R-CNN, Grid R-CNN
+and TridentNet through ``DetectorModel``; image ms, idle share; B's
+launches an image on each body (Grid's 14x14 ``gather14x2`` among them)
+and Cascade RPN's E; Grid's and Cascade RPN's f32 kernel path against the
+plain path as sets), ``det_rcnn_train`` (those seven configs through the
+training CLI: step ms, idle share, finite losses, Dynamic R-CNN's
+``batch_iou`` / ``batch_beta``; B and D a step on each body, Grid's
+``scatter14x2`` among them, and E, F, G once a step for Cascade RPN) and
 ``voc_eval`` (``faster_rcnn_r50_dc5_1x_voc.py`` through the test CLI on a
 VOC tree of JPEG copies and XML: the plain f32 run's detections as gts,
 the f32 kernel path's mAP50, the bf16 run's). The ``kernels`` phase also
 holds E, F and G at GA-RPN's P2-P6 and GA-RetinaNet's P3-P7 shapes (one
 deform group, f32) and B and D at GRoIE's every-level pooling (300 rois
 on each of P2-P5), and E, F and G at VFNet's P3 and P7 with star
-offsets and at RepPoints' P3 and P7 with the points' offsets, each
-beside its plain version and its bound. Then JPEG frames, the learning
+offsets and at RepPoints' P3 and P7 with the points' offsets, B's
+``gather14x2`` and D's ``scatter14x2`` at Grid R-CNN's shapes (one 38 x 64
+x 512 map, 100 and 256 rois), B at PISA's 604 candidates and at
+Double-Head's 1.3x rois, and E, F and G at Cascade RPN's stage 2 (1 x 256
+x 38 x 64, offsets from refined anchors), each beside its plain version
+and its bound. Then JPEG frames, the learning
 check and checkpoint import: ``jpeg_decode`` (the host decoder
 ``csrc/jpeg_decode.cpp`` built
 with g++: every committed fixture of ``tests/data/jpeg`` against its
@@ -467,6 +481,50 @@ GROIE_ROIS = 300        # the test proposals (training samples 256)
 VOC_CFG = "configs/det/faster_rcnn_r50_dc5_1x_voc.py"
 VOC_IMAGES = 8
 VOC_MIN_SIDE = 8.0      # px: a gt's smallest side (its XML rounds to ints)
+# the two-stage families on the DC5 trunk (det_rcnn, det_rcnn_train)
+RCNN_CFGS = (
+    ("CascadeRCNN", "configs/det/cascade_rcnn_r50_dc5_1x_coco.py"),
+    ("CascadeRPN", "configs/det/cascade_rpn_r50_dc5_1x_coco.py"),
+    ("DoubleHeadRCNN", "configs/det/dh_faster_rcnn_r50_dc5_1x_coco.py"),
+    ("DynamicRCNN", "configs/det/dynamic_rcnn_r50_dc5_1x.py"),
+    ("PISAFasterRCNN", "configs/det/pisa_faster_rcnn_r50_dc5_1x_coco.py"),
+    ("GridRCNN", "configs/det/grid_rcnn_r50_dc5_1x_coco.py"),
+    ("TridentFasterRCNN", "configs/det/tridentnet_r50_1x_coco.py"))
+RCNN_IMAGES, RCNN_PROFILED = 8, 1
+RCNN_TRAIN_STEPS, RCNN_TRAIN_SKIP = 4, 3
+RCNN_TRAIN_SCALE = (1024, 608)  # into the 608 x 1024 bucket
+# launches an image at test time, as the code calls them: (B gather7x2, B
+# gather14x2, E); Cascade R-CNN's three stages, Double-Head's rois and
+# their 1.3x, Grid's 7x7 scoring and 14x14 grid head, Trident's middle
+# branch, Cascade RPN's stage-2 DCN
+RCNN_TEST = {"CascadeRCNN": (3, 0, 0), "CascadeRPN": (0, 0, 1),
+             "DoubleHeadRCNN": (2, 0, 0), "DynamicRCNN": (1, 0, 0),
+             "PISAFasterRCNN": (1, 0, 0), "GridRCNN": (1, 1, 0),
+             "TridentFasterRCNN": (1, 0, 0)}
+# a training step: (B 7x2, B 14x2, D 7x2, D 14x2, E = F = G); PISA's
+# ScoreHLR pass over every candidate has no gradient (B without D),
+# Trident's three branches
+RCNN_TRAIN = {"CascadeRCNN": (3, 0, 3, 0, 0), "CascadeRPN": (0, 0, 0, 0, 1),
+              "DoubleHeadRCNN": (2, 0, 2, 0, 0),
+              "DynamicRCNN": (1, 0, 1, 0, 0),
+              "PISAFasterRCNN": (2, 0, 1, 0, 0), "GridRCNN": (1, 1, 1, 1, 0),
+              "TridentFasterRCNN": (3, 0, 3, 0, 0)}
+RCNN_TERM = {"CascadeRCNN": "s2.loss_bbox", "CascadeRPN": "loss_s2_reg",
+             "DoubleHeadRCNN": "loss_bbox", "DynamicRCNN": "batch_beta",
+             "PISAFasterRCNN": "loss_carl", "GridRCNN": "loss_grid",
+             "TridentFasterRCNN": "loss"}
+RCNN_AGREE = ("GridRCNN", "CascadeRPN")  # f32 kernel path vs plain, as sets
+# kernels at their shapes: Grid R-CNN's 14x14 bodies on one DC5 map (100
+# test detections, 256 training rois), PISA's G + 600 candidates and
+# Double-Head's 300 test proposals scaled 1.3x on the 7x7 body
+RCNN_MAP = (38, 64, 512)
+RCNN_GRID_ROIS = (100, 256)
+RCNN_PISA_CANDIDATES = 604
+RCNN_DH_ROIS = 300
+# E, F, G at Cascade RPN's stage 2: offsets from the single anchors
+# refined by N(0, 0.5^2) deltas (stds (0.1, 0.1, 0.5, 0.5))
+CRPN_DCN_SHAPES = (("cascade_rpn_s2", 256, 38, 64),)
+CRPN_DELTA_STD = 0.5
 # --loader-close: rounds of opening, reading and closing the loader
 LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
 # the plain versions' calls a timing turn (milliseconds a call; the
@@ -4831,6 +4889,149 @@ def groie_roi_kernels(dev, g, ops, errs):
     return b_out, d_out
 
 
+def rcnn_roi_kernels(dev, g, ops, errs):
+    """Kernels B and D at the DC5 two-stage families' shapes on one map
+    RCNN_MAP: Grid R-CNN's 14x14 bodies (``gather14x2``, ``scatter14x2``)
+    over RCNN_GRID_ROIS rois (``test_rois``: the first one outside the map,
+    which must give 0), f32 (the grid head's map) and bf16; B against its
+    plain version (ROI_F32_ATOL / ROI_BF16_TOL), D against
+    ``roi_align_backward_plain`` and torch autograd through the plain
+    RoIAlign (ROI_GRAD_F32_REL x max |grad|, bf16 also
+    ROI_GRAD_BF16_RTOL); then B's 7x7 body at PISA's RCNN_PISA_CANDIDATES
+    candidates and at Double-Head's RCNN_DH_ROIS rois scaled 1.3x (many
+    past the map), f32. Each f32 case timed beside its plain version
+    (plain, kernel, kernel, plain) and from a CUDA graph, with its bound.
+    Returns ({case: B entry}, {case: D entry})."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.detectors import (  # noqa: E501
+        roi_head_families as RH)
+    gen = torch.Generator().manual_seed(29)
+    h, w, c = RCNN_MAP
+    b_out, d_out = {}, {}
+
+    def b_case(key, rois, out_size, dtypes=(torch.float32, torch.bfloat16)):
+        body = f"gather{out_size}x2"
+        for dtype in dtypes:
+            f = torch.randn((h, w, c), generator=gen).to(dev, dtype)
+            n_body = ops.roi_align.body_launches[body]
+            got = ops.roi_align(f, rois, 1 / 16, out_size=out_size)
+            if ops.roi_align.body_launches[body] != n_body + 1:
+                raise AssertionError(f"rcnn B {key}: not the {body} body")
+            want = ops.roi_align(f, rois, 1 / 16, out_size=out_size,
+                                 impl="plain")
+            tol = ROI_F32_ATOL if dtype == torch.float32 else ROI_BF16_TOL
+            check_close(f"rcnn B {key}", got, want,
+                        0.0 if dtype == torch.float32 else tol, tol)
+            errs[f"roi_align_rcnn_{key}_{str(dtype)[6:]}"] = max_err(got,
+                                                                     want)
+        f = torch.randn((h, w, c), generator=gen).to(dev)
+        ms, plain_ms, _ = compare_times(
+            lambda: ops.roi_align(f, rois, 1 / 16, out_size=out_size),
+            lambda: ops.roi_align(f, rois, 1 / 16, out_size=out_size,
+                                  impl="plain"))
+        gms = graph_ms(lambda: ops.roi_align(f, rois, 1 / 16,
+                                             out_size=out_size))
+        nbytes, flops = roi_align_cost(1, h, w, c, rois.shape[0], 4,
+                                       out_size=out_size)
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+        b_out[key] = dict(
+            body=body, rois=int(rois.shape[0]), map=[h, w, c],
+            dtype="float32", max_abs_err=errs[
+                f"roi_align_rcnn_{key}_float32"], ms=ms, graph_ms=gms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms, graph_share_of_bound=bound_ms / gms,
+            library_ms=None, library_note=NO_LIBRARY_ROI_ALIGN,
+            bytes=nbytes, flops=flops)
+
+    for n in RCNN_GRID_ROIS:
+        key = f"grid14_{n}"
+        rois = test_rois(dev, n, h, w, gen)
+        b_case(key, rois, 14)
+        if ops.roi_align(torch.randn((h, w, c), generator=gen).to(dev),
+                         rois[:1], 1 / 16, out_size=14).abs().max() != 0:
+            raise AssertionError("rcnn B 14x14: a roi outside the map is "
+                                 "not 0")
+        backward = ops.roi_align_backward
+        shape = (h, w, c)
+        fz = torch.zeros(shape, device=dev, requires_grad=True)
+        out = ops.roi_align(fz, rois, 1 / 16, out_size=14, impl="plain")
+        for dtype in (torch.float32, torch.bfloat16):
+            grad_out = torch.randn((n, 14, 14, c), generator=gen).to(dev,
+                                                                     dtype)
+            n_body = backward.body_launches["scatter14x2"]
+            dk = backward(grad_out, rois, None, shape, 1 / 16, out_size=14)
+            if backward.body_launches["scatter14x2"] != n_body + 1:
+                raise AssertionError("rcnn D: not the scatter14x2 body")
+            auto = torch.autograd.grad(out, fz, grad_out.float(),
+                                       retain_graph=True)[0].to(dtype)
+            dp = ops.roi_align_backward_plain(grad_out, rois, None, shape,
+                                              1 / 16, out_size=14)
+            atol = ROI_GRAD_F32_REL * auto.float().abs().max().item()
+            rtol = 0.0 if dtype == torch.float32 else ROI_GRAD_BF16_RTOL
+            check_close(f"rcnn D {key} vs autograd", dk, auto, rtol, atol)
+            check_close(f"rcnn D {key} vs plain", dk, dp, rtol, atol)
+            tag = f"roi_align_backward_rcnn_{key}_{str(dtype)[6:]}"
+            errs[tag] = max_err(dk, auto)
+            errs[tag + "_vs_plain"] = max_err(dk, dp)
+            errs[tag + "_max_abs_grad"] = auto.float().abs().max().item()
+            if dk.float().abs().max() == 0:
+                raise AssertionError("rcnn D: an all-zero gradient")
+        grad_out = torch.randn((n, 14, 14, c), generator=gen).to(dev)
+        ms, plain_ms, _ = compare_times(
+            lambda: backward(grad_out, rois, None, shape, 1 / 16,
+                             out_size=14),
+            lambda: ops.roi_align_backward_plain(grad_out, rois, None, shape,
+                                                 1 / 16, out_size=14))
+        gms = graph_ms(lambda: backward(grad_out, rois, None, shape, 1 / 16,
+                                        out_size=14))
+        nbytes, flops, atomics = roi_align_backward_cost(
+            1, h, w, c, n, 4, out_size=14)
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+        d_out[key] = dict(
+            body="scatter14x2", rois=n, map=[h, w, c], dtype="float32",
+            max_abs_err=errs[f"roi_align_backward_rcnn_{key}_float32"],
+            ms=ms, graph_ms=gms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, share_of_bound=bound_ms / ms,
+            graph_share_of_bound=bound_ms / gms, atomic_adds=atomics,
+            library_ms=None, library_note=NO_LIBRARY_ROI_ALIGN,
+            bytes=nbytes, flops=flops)
+        del fz, out
+    # PISA: the gts and 600 proposals, one pass a step without gradient
+    b_case("pisa_candidates", test_rois(dev, RCNN_PISA_CANDIDATES, h, w,
+                                        gen), 7, (torch.float32,))
+    # Double-Head: the regression branch's rois, 1.3x about their centres
+    dh = RH.roi_rescale(test_rois(dev, RCNN_DH_ROIS, h, w, gen),
+                        RH.DH_REG_ROI_SCALE)
+    b_case("double_head_1.3x", dh, 7, (torch.float32,))
+    b_out["double_head_1.3x"]["rois_past_the_map"] = int(
+        ((dh[:, :2] < 0).any(1) | (dh[:, 2] > w * 16)
+         | (dh[:, 3] > h * 16)).sum())
+    return b_out, d_out
+
+
+def crpn_dcn_kernels(dev, g, ops, errs):
+    """E, F and G at CRPN_DCN_SHAPES with Cascade RPN's stage-2 offsets:
+    ``CascadeRPNHead.stage2_offsets`` of its single anchors refined by
+    N(0, CRPN_DELTA_STD^2) deltas (``dcnv1_level_kernels``, key
+    ``cascade_rpn_levels``)."""
+    from lowlightenvironmentvideoobjectdetection_torch.core import boxes
+    from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (  # noqa: E501
+        cascade_rpn_head as CRPN)
+    head = CRPN.CascadeRPNHead(256)
+
+    def inputs(shape):
+        _, c, h, w = shape
+        x = torch.randn(1, c, h, w, generator=g).to(dev)
+        anchors = head.base_anchors(h, w, "cpu")
+        deltas = CRPN_DELTA_STD * torch.randn(h * w, 4, generator=g)
+        refined = boxes.delta2bbox(anchors, deltas, stds=CRPN.S1_STDS)
+        off = head.stage2_offsets(refined, h, w)
+        return x, off.contiguous().to(dev), dict(
+            offsets="refined anchors", delta_std=CRPN_DELTA_STD,
+            offset_abs_max_px=float(off.abs().max()))
+    return dcnv1_level_kernels(dev, g, ops, errs, CRPN_DCN_SHAPES, inputs,
+                               "cascade_rpn_levels")
+
+
 def variant_counting(levels):
     """A stand-in for ``multilevel_roi_align`` that appends each call's
     rois a level to ``levels``; (the module, the real function)."""
@@ -5290,14 +5491,191 @@ def det_autoaugment_train(dev, smi, kernels, root, train_ann):
     return counts, dict(roi_align={}, roi_align_backward={})
 
 
+def rcnn_want(name, n_images):
+    """det_rcnn's launch counts (A-G) and B's bodies over ``n_images``."""
+    b7, b14, e = RCNN_TEST[name]
+    return ([0, (b7 + b14) * n_images, 0, 0, e * n_images, 0, 0],
+            dict(gather7x2=b7 * n_images, gather14x2=b14 * n_images))
+
+
+def det_rcnn(dev, smi, kernels):
+    """The two-stage families of RCNN_CFGS at full width, bf16, 80 classes
+    (Cascade RPN's one), seeded weights, through
+    ``DetectorModel.inference_detector`` (the 608 x 1024 bucket) on
+    RCNN_IMAGES random 480 x 640 frames and RCNN_PROFILED more under the
+    profiler: image ms, the device's busy ms and idle share, peak memory,
+    launches an image by body. Gates: B on each body and E as RCNN_TEST
+    says an image, nothing else; finite results; at f32 the kernel path's
+    detections equal the plain path's as sets for RCNN_AGREE (Grid R-CNN:
+    the first path through ``gather14x2``; Cascade RPN: E), none unmatched,
+    some. Returns the launch counts (A-G) and B's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        DetectorModel)
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(37)
+    n = RCNN_IMAGES + RCNN_PROFILED
+    raw = rng.randint(0, 256, (n,) + DET_HW + (3,)).astype(np.uint8)
+    roi_align = kernels[1]
+    total, bodies, runs, agree = [0] * len(kernels), {}, {}, {}
+    for name, cfg_path in RCNN_CFGS:
+        mtype, kw = detector_kwargs(cfg_path)
+        det = DetectorModel(mtype, device=dev, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        lat, ndet = [], []
+        for i in range(RCNN_IMAGES):
+            t = time.perf_counter()
+            res = det.inference_detector(raw[i])
+            lat.append((time.perf_counter() - t) * 1e3)
+            ndet.append(sum(len(r) for r in res))
+            if len(res) != det.num_classes or not all(
+                    np.isfinite(r).all() for r in res):
+                raise AssertionError(f"det_rcnn {name}: bad result")
+        frames = iter(range(RCNN_IMAGES, n))
+        window = flow_profiled(lambda: det.inference_detector(
+            raw[next(frames)]), RCNN_PROFILED)
+        counts = [k.launches for k in kernels]
+        want, want_bodies = rcnn_want(name, n)
+        if counts != want:
+            raise AssertionError(f"det_rcnn {name}: launch counts {counts}, "
+                                 f"want {want}")
+        check_bodies(f"det_rcnn {name}", roi_align, **want_bodies)
+        add_counts(bodies, dict(roi_align=roi_align.body_launches))
+        steady = lat[1:]
+        runs[name] = dict(
+            config=cfg_path, bucket=[det.pad_h, det.pad_w],
+            classes=det.num_classes, frames=n, frame0_ms=lat[0],
+            median_frame_ms=statistics.median(steady),
+            min_frame_ms=min(steady), max_frame_ms=max(steady),
+            frame_ms=steady, device_window=window,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            detections_per_frame=ndet,
+            launches_per_image=dict(
+                zip(("gather7x2", "gather14x2", "dcn_im2col"),
+                    RCNN_TEST[name])),
+            launches=dict(zip(KERNEL_NAMES, counts)))
+        total = [a + b for a, b in zip(total, counts)]
+        del det
+        torch.cuda.empty_cache()
+        if name not in RCNN_AGREE:
+            continue
+        mtype, kw = detector_kwargs(cfg_path, compute_dtype="float32")
+        det = DetectorModel(mtype, device=dev, **kw)
+        imgs, shape, sf = prepare_frames(raw[:1], det.pad_h, det.pad_w,
+                                         device=dev)
+        sf = torch.as_tensor(sf, device=dev)
+        reset_counts(*kernels)
+        got = det.detect(imgs[0], shape, sf)
+        if [k.launches for k in kernels] != rcnn_want(name, 1)[0]:
+            raise AssertionError(f"det_rcnn {name} f32: launches "
+                                 f"{[k.launches for k in kernels]}")
+        det.impl = "plain"
+        reset_counts(*kernels)
+        want_d = det.detect(imgs[0], shape, sf)
+        if any(k.launches for k in kernels):
+            raise AssertionError(f"det_rcnn {name}: the plain path "
+                                 f"launched a kernel")
+        sets = match_sets(got, want_d)
+        if sets["unmatched"] or sets["n_got"] != sets["n_want"] or \
+                not sets["n_want"]:
+            raise AssertionError(f"det_rcnn {name} f32: sets {sets}")
+        agree[name] = sets
+        del det, imgs
+        torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    phase("det_rcnn", card=smi, frame_hw=DET_HW, models=runs,
+          f32_kernel_vs_plain=dict(sets=agree, tolerances=dict(
+              box_px=SET_BOX_TOL, score=SET_SCORE_TOL)),
+          launches=dict(zip(KERNEL_NAMES, total)), body_launches=bodies,
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward={})
+
+
+def det_rcnn_train(dev, smi, kernels, root, train_ann):
+    """The training CLI's image route for the seven RCNN_CFGS on the COCO
+    tree ``det_train`` wrote (resized into the 608 x 1024 bucket), bf16,
+    seeded weights, RCNN_TRAIN_STEPS steps each, the last ones profiled:
+    step ms, idle share, peak memory, Dynamic R-CNN's ``batch_iou`` and
+    ``batch_beta``. Gates: finite losses with each family's term
+    (RCNN_TERM); B and D a step on each body and E, F, G as RCNN_TRAIN
+    says (Grid's ``gather14x2`` and ``scatter14x2`` once a step, Cascade
+    RPN's E, F, G once), nothing else. Returns the launch counts (A-G) and
+    B's and D's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        train as cli)
+    t_phase = time.perf_counter()
+    total, bodies, runs = [0] * len(kernels), {}, {}
+    pipeline = [dict(type="LoadImageFromFile"),
+                dict(type="LoadAnnotations", with_bbox=True),
+                dict(type="Resize", img_scale=RCNN_TRAIN_SCALE),
+                dict(type="RandomFlip", flip_ratio=0.5),
+                dict(type="Normalize"), dict(type="Pad", size_divisor=16)]
+    d = dict(type="CocoDataset", ann_file=train_ann,
+             img_prefix=f"{root}/coco/", pipeline=pipeline)
+    steps = RCNN_TRAIN_STEPS
+    for name, cfg_path in RCNN_CFGS:
+        window = StepWindow(steps, RCNN_TRAIN_SKIP)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        t0 = time.perf_counter()
+        out = cli.main([str(REPO / cfg_path), "--seed", "0",
+                        "--work-dir", f"{root}/work_rcnn", "--steps",
+                        str(steps), "--cfg-options", f"data.train={d!r}",
+                        "data.workers_per_gpu=0"], on_step=window)
+        counts = [k.launches for k in kernels]
+        b7, b14, d7, d14, e = RCNN_TRAIN[name]
+        want = [0, (b7 + b14) * steps, 0, (d7 + d14) * steps, e * steps,
+                e * steps, e * steps]
+        if counts != want or not all(
+                np.isfinite(v) for m in out["metrics"] for v in m.values()) \
+                or not all(RCNN_TERM[name] in m for m in out["metrics"]):
+            raise AssertionError(f"det_rcnn_train {name}: counts {counts}, "
+                                 f"want {want}; metrics {out['metrics']}")
+        check_bodies(f"det_rcnn_train {name} roi_align", kernels[1],
+                     gather7x2=b7 * steps, gather14x2=b14 * steps)
+        check_bodies(f"det_rcnn_train {name} roi_align_backward", kernels[3],
+                     scatter7x2=d7 * steps, scatter14x2=d14 * steps)
+        add_counts(bodies, dict(roi_align=kernels[1].body_launches,
+                                roi_align_backward=kernels[3].body_launches))
+        step_ms = [(y - x) * 1e3 for x, y in zip([t0] + window.stamps,
+                                                window.stamps)]
+        runs[name] = dict(
+            config=cfg_path, steps=steps, first_step_ms=step_ms[0],
+            median_step_ms=statistics.median(step_ms[1:RCNN_TRAIN_SKIP]),
+            step_ms=step_ms, device_window=window.window,
+            losses=out["metrics"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            launches=dict(zip(KERNEL_NAMES, counts)))
+        if name == "DynamicRCNN":
+            runs[name]["batch_iou"] = [m["batch_iou"] for m in out["metrics"]]
+            runs[name]["batch_beta"] = [m["batch_beta"]
+                                        for m in out["metrics"]]
+        total = [a + c for a, c in zip(total, counts)]
+        del out
+        torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    phase("det_rcnn_train", card=smi, tree=COCO_TREE, runs=runs,
+          launches=dict(zip(KERNEL_NAMES, total)), body_launches=bodies,
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward=bodies.get("roi_align_backward",
+                                                     {}))
+
+
 def det_zoo_eval(dev, smi, kernels, root, val_ann):
     """The test CLI's image route on the card over the COCO tree's val
-    split for this slice's configs (DENSE_CFGS' last five and
-    AUTOAUG_CFG) at their bf16, seeded weights as the CLI builds them (no
-    checkpoint): the summary line, images/s. Gates: every image, 80
-    per-class lists of finite [N, 5] rows, mAP50 in [0, 1], E
-    DENSE_E_PER_IMAGE times an image (RepPoints 10), nothing else
-    launched. Returns the launch counts (A-G) and empty bodies."""
+    split for the zoo's later configs (DENSE_CFGS' last five, AUTOAUG_CFG
+    and the seven RCNN_CFGS) at their bf16, seeded weights as the CLI
+    builds them (no checkpoint): the summary line, images/s. Gates: every
+    image, 80 per-class lists (Cascade RPN's 1) of finite [N, 5] rows,
+    mAP50 in [0, 1], E DENSE_E_PER_IMAGE times an image (RepPoints 10), B
+    and E as RCNN_TEST says an image on each body, nothing else launched.
+    Returns the launch counts (A-G) and B's bodies."""
     from lowlightenvironmentvideoobjectdetection_torch.tools import (
         test as tcli)
     import io
@@ -5306,7 +5684,9 @@ def det_zoo_eval(dev, smi, kernels, root, val_ann):
     n_images = COCO_TREE["val_images"]
     test = dict(type="CocoDataset", ann_file=val_ann,
                 img_prefix=f"{root}/coco/")
-    for name, cfg_path in DENSE_CFGS[-5:] + (("RetinaNet", AUTOAUG_CFG),):
+    bodies = {}
+    for name, cfg_path in (DENSE_CFGS[-5:] + (("RetinaNet", AUTOAUG_CFG),)
+                           + RCNN_CFGS):
         reset_counts(*kernels)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -5314,11 +5694,18 @@ def det_zoo_eval(dev, smi, kernels, root, val_ann):
                              f"data.test={test!r}"])
         line = buf.getvalue().strip().splitlines()[-1]
         counts = [k.launches for k in kernels]
-        want = [0, 0, 0, 0, DENSE_E_PER_IMAGE.get(name, 0) * n_images, 0, 0]
+        if name in RCNN_TEST:
+            want, want_bodies = rcnn_want(name, n_images)
+            check_bodies(f"det_zoo_eval {name}", kernels[1], **want_bodies)
+            add_counts(bodies, dict(roi_align=kernels[1].body_launches))
+        else:
+            want = [0, 0, 0, 0, DENSE_E_PER_IMAGE.get(name, 0) * n_images,
+                    0, 0]
+        classes = 1 if name == "CascadeRPN" else 80
         if counts != want or out["summary"]["frames"] != n_images or not \
-                all(len(r) == 80 and all(a.ndim == 2 and a.shape[1] == 5
-                                         and np.isfinite(a).all() for a in r)
-                    for r in out["dets"]) \
+                all(len(r) == classes and all(
+                    a.ndim == 2 and a.shape[1] == 5 and np.isfinite(a).all()
+                    for a in r) for r in out["dets"]) \
                 or not 0.0 <= out["metrics"]["mAP50"] <= 1.0:
             raise AssertionError(f"det_zoo_eval {cfg_path}: counts {counts}, "
                                  f"want {want}; {line}")
@@ -5332,9 +5719,10 @@ def det_zoo_eval(dev, smi, kernels, root, val_ann):
         del out
     reset_counts(*kernels)
     phase("det_zoo_eval", card=smi, images=n_images, runs=runs,
-          launches=dict(zip(KERNEL_NAMES, total)),
+          launches=dict(zip(KERNEL_NAMES, total)), body_launches=bodies,
           phase_s=time.perf_counter() - t_phase)
-    return total, dict(roi_align={}, roi_align_backward={})
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward={})
 
 
 class InitMemo:
@@ -6124,6 +6512,14 @@ def main() -> int:
     summary["roi_align"]["groie_levels"], \
         summary["roi_align_backward"]["groie_levels"] = groie_roi_kernels(
             dev, g, roi_ops, errs)
+    # the DC5 two-stage families: B and D on their 14x14 bodies at Grid
+    # R-CNN's shapes, B at PISA's candidates and Double-Head's 1.3x rois,
+    # E, F, G at Cascade RPN's stage 2
+    summary["roi_align"]["rcnn"], summary["roi_align_backward"]["rcnn"] = \
+        rcnn_roi_kernels(dev, g, roi_ops, errs)
+    crpn_dcn = crpn_dcn_kernels(dev, g, dcn_ops, errs)
+    for name, kern in zip(dcn_names, "EFG"):
+        summary[name].update(crpn_dcn[kern])
     phase("kernels", card=smi, max_abs_err=errs, bf16_times=summary,
           tolerances=dict(attention_atol=ATTN_ATOL, library_atol=LIBRARY_TOL,
                           roi_f32_atol=ROI_F32_ATOL,
@@ -6319,6 +6715,7 @@ def main() -> int:
         runs.append(det_stream(dev, smi, path_kernels))
         runs.append(det_variants(dev, smi, path_kernels))
         runs.append(det_dense(dev, smi, path_kernels))
+        runs.append(det_rcnn(dev, smi, path_kernels))
         counts, bodies, train_ann, val_ann = det_train(dev, smi,
                                                        path_kernels, root)
         runs.append((counts, bodies))
@@ -6331,6 +6728,8 @@ def main() -> int:
                                     train_ann))
         runs.append(det_autoaugment_train(dev, smi, path_kernels, root,
                                           train_ann))
+        # the two-stage families on the DC5 trunk on the same tree
+        runs.append(det_rcnn_train(dev, smi, path_kernels, root, train_ann))
         # their configs through the test CLI on the val split
         runs.append(det_zoo_eval(dev, smi, path_kernels, root, val_ann))
         # the VOC route: the DC5 config on a VOC tree of JPEG images

@@ -29,7 +29,16 @@ detector type of a config, the counterpart of the JAX package's
   (``reppoints_head.py``, two points DCNs a level on kernels E, F, G);
   ``NASFPNRetinaNet`` (``retina_head.py``: the NAS-FPN neck and
   ``RetinaSepBNHead``, 2 stacks with ``tiny``), trained and decoded as
-  RetinaNet.
+  RetinaNet;
+- the two-stage families on the DC5 trunk: ``CascadeRCNN``
+  (``detectors/cascade_rcnn.py``), ``CascadeRPN`` (one class; the 300
+  stage-2 proposals are the detections; ``dense_heads/cascade_rpn_head.py``,
+  a DCN on kernels E, F, G), ``DoubleHeadRCNN`` / ``DoubleHeadRoIHead``,
+  ``DynamicRCNN`` (trained at the schedule's initial IoU 0.4 and beta 1.0,
+  as the JAX table does: ROADMAP F31) and ``PISAFasterRCNN`` /
+  ``PISARoIHead`` (detected as Faster R-CNN;
+  ``detectors/roi_head_families.py``), ``GridRCNN`` (14x14 RoIAlign for
+  its grid head) and ``TridentFasterRCNN`` (``detectors/more_rcnn.py``).
 
 An entry's ``build(mcfg, tiny, seed, device)`` gives (model, aux) with
 seeded flax-style weights (``aux``: the DC5 families' anchors, else None:
@@ -69,12 +78,15 @@ from ..models.dense_heads import reppoints_head as RP
 from ..models.dense_heads import retina_head as R
 from ..models.dense_heads import sabl_head as SB
 from ..models.dense_heads import vfnet_head as VF
+from ..models.dense_heads import cascade_rpn_head as CRPN
+from ..models.detectors import cascade_rcnn as CR
 from ..models.detectors import fpn_faster_rcnn as FF
 from ..models.detectors import more_rcnn as MR
+from ..models.detectors import roi_head_families as RH
 from ..models.detectors.faster_rcnn import (DetTrainBatch, FasterRCNN,
                                             faster_rcnn_detect,
                                             faster_rcnn_loss)
-from ..models.vid.selsa import init_params, make_anchors
+from ..models.vid.selsa import init_params, loss_uniforms, make_anchors
 from ..utils.device import resolve_device
 
 ZOO_ITEM = FF.ZOO_ITEM
@@ -102,7 +114,9 @@ def _seeded(model: torch.nn.Module, seed: int, device) -> torch.nn.Module:
     return model.to(resolve_device(device))
 
 
-def _dc5_build(cls, default_classes: int):
+def _dc5_build(cls, default_classes: int, anchors: bool = True):
+    """(model, its anchors; None without ``anchors``: Cascade RPN makes
+    its own)."""
     def build(mcfg, tiny, seed=0, device=None):
         kw = dict(mcfg)
         kw.setdefault("num_classes", default_classes)
@@ -110,6 +124,8 @@ def _dc5_build(cls, default_classes: int):
             kw.update(TINY_KW)
         cfg = _selsa_cfg(**kw)
         model = _seeded(cls(cfg), seed, device)
+        if not anchors:
+            return model, None
         return model, make_anchors(cfg, next(model.parameters()).device)
     return build
 
@@ -241,6 +257,58 @@ FAMILIES["GARetinaNet"] = FAMILIES["GuidedAnchoring"] = Family(
     lambda m, a, img, ishape, sf=None, impl=None: GA.ga_retinanet_detect(
         m, img, ishape, scale_factor=sf, impl=impl),
     input_hw=DENSE_TINY_HW)
+
+
+def _dc5_two_stage(cls, loss_fn, detect_fn, draw=None):
+    """A DC5 two-stage family: ``loss_fn(model, batch, anchors, uniforms)``
+    and ``detect_fn(model, img, img_shape, anchors, scale_factor, impl)``;
+    ``draw(cfg, num_gts, num_anchors, generator, device)`` makes the
+    uniforms (by default ``LossUniforms``)."""
+    def loss(m, a, b, generator=None, uniforms=None):
+        if uniforms is None and draw is not None:
+            if generator is None:
+                raise ValueError("pass uniforms or a generator")
+            uniforms = draw(m.cfg, b.gt_boxes.shape[0], a.shape[0], generator,
+                            b.img.device)
+        elif draw is None:
+            uniforms = loss_uniforms(m.cfg, b.gt_boxes.shape[0], a,
+                                     generator, uniforms)
+        return loss_fn(m, b, a, uniforms)
+
+    def detect(m, a, img, ishape, sf=None, impl=None):
+        return detect_fn(m, img, ishape, a, scale_factor=sf, impl=impl)
+
+    return Family(_dc5_build(cls, 80), loss, detect)
+
+
+def _crpn_loss(m, a, b, generator=None, uniforms=None):
+    n = (b.img.shape[0] // 16) * (b.img.shape[1] // 16)
+    u = _uniforms(uniforms, (2, n), generator, b.img.device)
+    return CRPN.cascade_rpn_model_loss(m, b, u)
+
+
+def _crpn_detect(m, a, img, ishape, sf=None, impl=None):
+    return CRPN.cascade_rpn_propose(m, img, ishape, scale_factor=sf,
+                                    impl=impl)
+
+
+FAMILIES["CascadeRCNN"] = _dc5_two_stage(
+    CR.CascadeRCNN, CR.cascade_loss, CR.cascade_detect,
+    draw=CR.draw_cascade_uniforms)
+FAMILIES["CascadeRPN"] = Family(_dc5_build(CRPN.CascadeRPNModel, 1, False),
+                                _crpn_loss, _crpn_detect)
+FAMILIES["DoubleHeadRCNN"] = FAMILIES["DoubleHeadRoIHead"] = _dc5_two_stage(
+    RH.DoubleHeadRCNN, RH.double_head_loss, RH.double_head_detect)
+FAMILIES["DynamicRCNN"] = _dc5_two_stage(
+    FasterRCNN, RH.dynamic_rcnn_loss, RH.dynamic_rcnn_detect)
+FAMILIES["PISAFasterRCNN"] = FAMILIES["PISARoIHead"] = _dc5_two_stage(
+    FasterRCNN, RH.pisa_roi_loss, faster_rcnn_detect)
+FAMILIES["GridRCNN"] = _dc5_two_stage(
+    MR.GridRCNN, MR.grid_rcnn_loss, MR.grid_rcnn_detect,
+    draw=MR.draw_grid_uniforms)
+FAMILIES["TridentFasterRCNN"] = _dc5_two_stage(
+    MR.TridentFasterRCNN, MR.trident_loss, MR.trident_detect,
+    draw=MR.draw_trident_uniforms)
 
 
 def _totalled(ls) -> Tuple[torch.Tensor, dict]:

@@ -1,15 +1,18 @@
 """Target assignment and random sampling with static shapes, the
 counterpart of the JAX package's ``core/assigners.py`` (``max_iou_assign``,
-``point_assign``, ``center_region_assign``, ``random_sample_masks``,
-``random_sample_gather``, ``iou_balanced_sample_gather``): mmdet's
+``point_assign``, ``center_region_assign``, ``region_assign``,
+``random_sample_masks``, ``random_sample_gather``,
+``iou_balanced_sample_gather``, ``score_hlr_sample_gather``): mmdet's
 MaxIoUAssigner (and, given the overlaps, ApproxMaxIoUAssigner),
-PointAssigner (RepPoints), CenterRegionAssigner (FSAF), RandomSampler and
-Libra R-CNN's combined sampler as fixed-size masks and gathers.
+PointAssigner (RepPoints), CenterRegionAssigner (FSAF), RegionAssigner
+(Cascade RPN's stage 1), RandomSampler, Libra R-CNN's combined sampler and
+PISA's ScoreHLRSampler as fixed-size masks and gathers.
 
 The samplers take their uniforms as an argument ([2, N] for the masks: the
 positives' and the negatives' ranks; [3, N] for the gather: those and the
-tiebreak; [4, N] for the IoU-balanced gather), so a test can feed them the
-JAX package's ``jax.random`` draws.
+tiebreak; [4, N] for the IoU-balanced gather; [3, N] for ScoreHLR: the
+positives', the below-threshold negatives' and the tiebreak), so a test
+can feed them the JAX package's ``jax.random`` draws.
 Sorts are stable, as ``jnp.argsort``, so ties (the 2.0 and 1e9 fillers)
 fall in index order on both sides.
 """
@@ -22,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .boxes import bbox_overlaps
+from .nms import nms_match
 
 IOU_BINS = 3  # the IoU-balanced sampler's bins of negatives
 
@@ -187,6 +191,60 @@ def center_region_assign(boxes: torch.Tensor, gt_boxes: torch.Tensor,
         shadowed
 
 
+def region_assign(gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                  featmap_sizes, strides, anchor_scale: float = 8.0,
+                  center_ratio: float = 0.2, ignore_ratio: float = 0.5,
+                  adjacent_ignore: bool = True) -> torch.Tensor:
+    """RegionAssigner (Cascade RPN's stage 1: one square anchor a cell,
+    centred at ``x * stride``). Each valid gt belongs to the level whose
+    anchor matches its scale; in gt order (a later gt overriding an
+    earlier) its ``ignore_ratio`` ring is written -1, then its
+    ``center_ratio`` core gt + 1, both as rounded feature-space regions
+    against the integer cell grid; with ``adjacent_ignore`` the rings
+    projected onto the two adjacent levels become -1 (the JAX package's
+    default, the reference's intent). Returns the per-level [h * w] maps
+    concatenated: -1 ignore, 0 negative, k > 0 gt k - 1."""
+    num_lvls = len(featmap_sizes)
+    dev = gt_boxes.device
+    r1 = (1 - center_ratio) / 2
+    r2 = (1 - ignore_ratio) / 2
+    scale = ((gt_boxes[:, 2] - gt_boxes[:, 0])
+             * (gt_boxes[:, 3] - gt_boxes[:, 1])).clamp_min(1e-12).sqrt()
+    min_anchor = torch.tensor(float(anchor_scale * strides[0]), device=dev)
+    lvl_of = torch.floor(torch.log2(scale) - torch.log2(min_anchor) + 0.5
+                         ).clamp(0, num_lvls - 1).long()
+    out = []
+    for li, (h, w) in enumerate(featmap_sizes):
+        gb = gt_boxes / float(strides[li])
+        xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+        ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+
+        def masks(ratio, live):  # [G, h, w]
+            x1 = torch.round((1 - ratio) * gb[:, 0] + ratio * gb[:, 2]
+                             ).clamp(0, w)
+            y1 = torch.round((1 - ratio) * gb[:, 1] + ratio * gb[:, 3]
+                             ).clamp(0, h)
+            x2 = torch.round(ratio * gb[:, 0] + (1 - ratio) * gb[:, 2]
+                             ).clamp(0, w)
+            y2 = torch.round(ratio * gb[:, 1] + (1 - ratio) * gb[:, 3]
+                             ).clamp(0, h)
+            m = ((xs >= x1[:, None, None]) & (xs <= x2[:, None, None])
+                 & (ys >= y1[:, None, None]) & (ys <= y2[:, None, None]))
+            return m & live[:, None, None]
+
+        on = gt_valid & (lvl_of == li)
+        m_ign, m_ctr = masks(r2, on), masks(r1, on)
+        a = torch.zeros((h, w), dtype=torch.long, device=dev)
+        for g in range(gt_boxes.shape[0]):
+            a = torch.where(m_ign[g], -1, a)
+            a = torch.where(m_ctr[g], g + 1, a)
+        if adjacent_ignore:
+            adj = gt_valid & ((lvl_of == li - 1) | (lvl_of == li + 1))
+            a = torch.where(masks(r2, adj).any(0), -1, a)
+        out.append(a.reshape(-1))
+    return torch.cat(out)
+
+
 def _ranks(key: torch.Tensor) -> torch.Tensor:
     """``argsort(argsort(key))`` with stable sorts: each element's place in
     the key order, ties to the lower index."""
@@ -293,3 +351,64 @@ def iou_balanced_sample_gather(assign: AssignResult, uniforms: torch.Tensor,
     priority = torch.where(sel, u_tie, 1e9)
     inds = torch.sort(priority, stable=True).indices[:num]
     return SampleResult(inds, pos_mask[inds], sel[inds])
+
+
+def score_hlr_sample_gather(assign: AssignResult, uniforms: torch.Tensor,
+                            num: int, pos_fraction: float,
+                            neg_max_score: torch.Tensor,
+                            pred_boxes: torch.Tensor,
+                            neg_ce_loss: torch.Tensor,
+                            score_thr: float = 0.05, iou_thr: float = 0.5,
+                            k: float = 0.5, bias: float = 0.0):
+    """PISA's ScoreHLRSampler (ISR-N) as ``num`` gather indices, as the JAX
+    package forms it. Positives as RandomSampler (``uniforms[0]``).
+    Negatives whose max foreground score ``neg_max_score`` [N] exceeds
+    ``score_thr`` are grouped by ``nms_match`` over their decoded
+    ``pred_boxes`` [N, 4]; each one's importance is ``num_valid - (its
+    score rank within its group) + score``, and the most important fill
+    the negative quota; the shortfall comes from the below-threshold
+    negatives in the order of ``uniforms[1]``, at the smallest weight.
+    Weights ``(bias + (1 - bias) (up - imp_rank) / up) ** k``, scaled so
+    the weighted background cross entropy ``neg_ce_loss`` [N] of the
+    sampled negatives keeps its sum. The sampled boxes follow in the order
+    of ``uniforms[2]``. Returns (SampleResult, the label weights [num]: 1
+    for positives). Stable sorts throughout, as JAX's."""
+    is_pos = assign.assigned_gt_inds > 0
+    is_neg = assign.assigned_gt_inds == 0
+    n = is_pos.shape[0]
+    u_pos, u_rand, u_tie = uniforms[:3]
+    pos_mask = is_pos & (_rank_by_random(is_pos, u_pos)
+                         < int(num * pos_fraction))
+    num_expected = num - pos_mask.sum()
+    valid = is_neg & (neg_max_score > score_thr)
+    invalid = is_neg & ~valid
+    num_valid = valid.sum()
+
+    root = nms_match(pred_boxes, neg_max_score, iou_thr, valid=valid)
+    seg = torch.where(valid, root, n)
+    key = seg.float() * 2.0 - torch.where(valid, neg_max_score.float(), 0.0)
+    grank = _ranks(key)
+    within = (grank - _segment_start(grank, valid, seg, n + 1)).float()
+    imp = torch.where(valid, num_valid.float() - within + neg_max_score,
+                      -math.inf)
+    imp_rank = _ranks(-imp).float()
+    hlr_sel = valid & (imp_rank < num_expected)
+    num_hlr = torch.minimum(num_valid, num_expected)
+    rand_sel = invalid & (_rank_by_random(invalid, u_rand)
+                          < num_expected - num_hlr)
+    neg_mask = hlr_sel | rand_sel
+
+    up = torch.maximum(num_expected, num_valid).float()
+    imp_w = (up - imp_rank) / up.clamp_min(1.0)
+    min_w = torch.where(hlr_sel, imp_w, math.inf).min()
+    min_w = torch.where(torch.isfinite(min_w), min_w, 1.0)
+    w = torch.where(hlr_sel, imp_w, torch.where(rand_sel, min_w, 1.0))
+    w = (bias + (1.0 - bias) * w) ** k
+    sel_ce = torch.where(neg_mask, neg_ce_loss, 0.0)
+    ratio = sel_ce.sum() / (sel_ce * w).sum().clamp_min(1e-6)
+    w = torch.where(neg_mask, w * ratio, 1.0)
+
+    sel = pos_mask | neg_mask
+    inds = torch.sort(torch.where(sel, u_tie, 1e9), stable=True).indices[:num]
+    sample = SampleResult(inds, pos_mask[inds], sel[inds])
+    return sample, torch.where(sample.is_pos, 1.0, w[inds])

@@ -1,5 +1,6 @@
 """Fixed-size greedy NMS, the counterpart of the JAX package's
-``core/nms.py`` (``nms_fixed``, ``batched_nms``, ``multiclass_nms``).
+``core/nms.py`` (``nms_fixed``, ``batched_nms``, ``multiclass_nms``,
+``nms_match``).
 
 Same semantics as the JAX reference, step for step: a stable descending sort
 (ties go to the lower index), a ``pre_top_k`` candidate window, the
@@ -154,3 +155,38 @@ def multiclass_nms(
     res = batched_nms(flat_boxes, flat_scores, labels, iou_threshold, max_num,
                       valid=cand_valid, pre_top_k=pre_top_k)
     return DetResult(res.boxes, res.scores, labels[res.inds], res.valid)
+
+
+def nms_match(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NMS suppression groups (mmcv ``nms_match``): [N] int64, for each box
+    the index of the kept box that suppresses it (the best-ranked kept box
+    overlapping it from ``iou_threshold``), a kept box its own index, an
+    invalid box -1. The same fixpoint as ``nms_fixed`` over all N boxes,
+    with the ">=" relation and no window (ScoreHLR's grouping)."""
+    n = boxes.shape[0]
+    live = scores.float()
+    if valid is not None:
+        live = torch.where(valid, live, torch.full_like(live, NEG_INF))
+    alive = live > NEG_INF / 2
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    iw = (torch.minimum(x2[:, None], x2[None, :])
+          - torch.maximum(x1[:, None], x1[None, :])).clamp_min(0.0)
+    ih = (torch.minimum(y2[:, None], y2[None, :])
+          - torch.maximum(y1[:, None], y1[None, :])).clamp_min(0.0)
+    inter = iw * ih
+    area = (x2 - x1).clamp_min(0.0) * (y2 - y1).clamp_min(0.0)
+    iou = inter / (area[:, None] + area[None, :] - inter).clamp_min(1e-6)
+    order = torch.sort(-live, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=boxes.device)
+    overlap = ((iou >= iou_threshold) & (rank[None, :] < rank[:, None])
+               & alive[None, :])
+    keep, prev, it = alive, torch.zeros_like(alive), 0
+    while it < n and not torch.equal(keep, prev):
+        prev, keep = keep, alive & ~(overlap & keep[None, :]).any(dim=1)
+        it += 1
+    cand = keep[None, :] & (iou >= iou_threshold) & alive[:, None]
+    root = torch.where(cand, rank[None, :], n + 1).argmin(dim=1)
+    root = torch.where(keep, torch.arange(n, device=boxes.device), root)
+    return torch.where(alive & (cand.any(dim=1) | keep), root, -1)

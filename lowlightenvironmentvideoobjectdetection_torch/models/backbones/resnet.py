@@ -99,7 +99,8 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Multi-stage ResNet. Input [N, C, H, W]; returns the stage outputs
-    selected by ``out_indices`` (duplicates allowed), NCHW. With
+    selected by ``out_indices`` (duplicates allowed), NCHW; stages past
+    the last selected one are built but not run. With
     ``frozen_stages`` k >= 0 no gradient reaches the stem or stages 1..k.
 
     A subclass chooses a stage's blocks (``stage_block``) and may append a
@@ -169,7 +170,8 @@ class ResNet(nn.Module):
         if self.frozen_stages >= 0:
             x = x.detach()
         outs = []
-        for i, names in enumerate(self.stages):
+        last = max(self.out_indices)  # later stages feed no output
+        for i, names in enumerate(self.stages[:last + 1]):
             for name in names:
                 x = getattr(self, name)(x, clip_len=clip_len, impl=impl)
             if self.frozen_stages >= i + 1:

@@ -73,13 +73,14 @@ PORTED_IMAGE_FAMILIES = ("FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
                          "PAA", "VFNet", "FreeAnchor", "FreeAnchorRetinaNet",
                          "PISA", "PISARetinaNet", "FSAF", "FoveaBox", "FOVEA",
                          "SABL", "SABLRetinaNet", "RepPoints",
-                         "RepPointsDetector", "NASFPNRetinaNet")
+                         "RepPointsDetector", "NASFPNRetinaNet",
+                         "CascadeRCNN", "CascadeRPN", "DoubleHeadRCNN",
+                         "DoubleHeadRoIHead", "DynamicRCNN", "PISAFasterRCNN",
+                         "PISARoIHead", "GridRCNN", "TridentFasterRCNN")
 NOT_PORTED_IMAGE_FAMILIES = (
-    "CascadeRCNN", "CascadeRPN", "CentripetalNet", "CornerNet", "DETR",
-    "DoubleHeadRCNN", "DoubleHeadRoIHead", "DynamicRCNN", "GridRCNN", "HTC",
-    "HybridTaskCascade", "MaskRCNN", "MaskScoringRCNN", "PISAFasterRCNN",
-    "PISARoIHead", "PointRend", "SCNet", "SSD", "SparseRCNN",
-    "TridentFasterRCNN", "YOLACT", "YOLOV3")
+    "CentripetalNet", "CornerNet", "DETR", "HTC", "HybridTaskCascade",
+    "MaskRCNN", "MaskScoringRCNN", "PointRend", "SCNet", "SSD", "SparseRCNN",
+    "YOLACT", "YOLOV3")
 IMAGE_FAMILIES = frozenset(PORTED_IMAGE_FAMILIES + NOT_PORTED_IMAGE_FAMILIES)
 # SelsaDarkDetect's backbone when its config names none
 DARK_DETECT_BACKBONE = "DarkResNet"

@@ -24,7 +24,8 @@ BBOX_STDS = (0.2, 0.2, 0.2, 0.2)
 class Shared2FCBBoxHead(nn.Module):
     """Shared FCs, each followed by a SELSA aggregator, then cls/reg linears;
     with ``with_selsa=False`` (Faster R-CNN's head, as FGFA and DFF use it)
-    the shared FCs with ReLU alone.
+    the shared FCs with ReLU alone. ``reg_class_agnostic`` regresses one
+    box a roi (Cascade R-CNN's heads) instead of one a class.
 
     RoI features enter as [N, 7, 7, C]; their row-major flatten is the
     (7, 7, C) row order of the first FC's input, as in the JAX head. Plain
@@ -35,7 +36,7 @@ class Shared2FCBBoxHead(nn.Module):
 
     def __init__(self, in_features: int, num_classes: int = 30,
                  num_shared_fcs: int = 2, dtype=torch.float32,
-                 with_selsa: bool = True):
+                 with_selsa: bool = True, reg_class_agnostic: bool = False):
         super().__init__()
         c = self.fc_out_channels
         self.num_shared_fcs = num_shared_fcs
@@ -47,7 +48,8 @@ class Shared2FCBBoxHead(nn.Module):
                 self.add_module(f"aggregator{i}", SelsaAggregator(
                     c, self.num_attention_blocks, dtype=dtype))
         self.fc_cls = Linear(c, num_classes + 1, dtype=dtype)
-        self.fc_reg = Linear(c, 4 * num_classes, dtype=dtype)
+        self.fc_reg = Linear(c, 4 if reg_class_agnostic else 4 * num_classes,
+                             dtype=dtype)
 
     def _stage(self, i: int):
         return getattr(self, f"shared_fc{i}"), getattr(self, f"aggregator{i}")
@@ -124,25 +126,34 @@ ROI_POS_FRACTION, ROI_IOU = 0.25, 0.5
 
 def bbox_targets(proposals, proposal_valid, gt_boxes, gt_labels, gt_valid,
                  uniforms: torch.Tensor, num_classes: int = 30,
-                 num_samples: int = 256) -> BBoxTargets:
-    """Assign and sample the RoI head's rois for one image. The gts join
-    the candidates ahead of the proposals (add_gt_as_proposals), so
-    ``uniforms`` is [3, G + P] (``random_sample_gather``). Negatives take
-    label ``num_classes``; regression targets are deltas with stds 0.2 on
-    the positives and 0 elsewhere."""
-    cand = torch.cat([gt_boxes, proposals])
-    cand_valid = torch.cat([gt_valid, proposal_valid])
+                 num_samples: int = 256,
+                 pos_fraction: float = ROI_POS_FRACTION,
+                 pos_iou_thr: float = ROI_IOU, neg_iou_thr: float = ROI_IOU,
+                 min_pos_iou: float = ROI_IOU,
+                 add_gt_as_proposals: bool = True,
+                 stds=BBOX_STDS) -> BBoxTargets:
+    """Assign and sample the RoI head's rois for one image. With
+    ``add_gt_as_proposals`` the gts join the candidates ahead of the
+    proposals, so ``uniforms`` is [3, G + P] (``random_sample_gather``),
+    else [3, P]. Negatives take label ``num_classes``; regression targets
+    are deltas with ``stds`` (by default 0.2) on the positives and 0
+    elsewhere."""
+    if add_gt_as_proposals:
+        cand = torch.cat([gt_boxes, proposals])
+        cand_valid = torch.cat([gt_valid, proposal_valid])
+    else:
+        cand, cand_valid = proposals, proposal_valid
     assign = assigners.max_iou_assign(cand, gt_boxes, gt_labels, gt_valid,
-                                      ROI_IOU, ROI_IOU, ROI_IOU,
+                                      pos_iou_thr, neg_iou_thr, min_pos_iou,
                                       box_valid=cand_valid)
     sample = assigners.random_sample_gather(assign, uniforms, num_samples,
-                                            ROI_POS_FRACTION)
+                                            pos_fraction)
     rois = cand[sample.inds]
     matched = (assign.assigned_gt_inds[sample.inds] - 1).clamp(
         0, gt_boxes.shape[0] - 1)
     pos = sample.is_pos
     labels = torch.where(pos, gt_labels[matched].long(), num_classes)
-    tgt = box_ops.bbox2delta(rois, gt_boxes[matched], stds=BBOX_STDS)
+    tgt = box_ops.bbox2delta(rois, gt_boxes[matched], stds=stds)
     tgt = torch.where(pos[:, None], tgt, 0.0)
     return BBoxTargets(rois, labels, sample.is_valid.float(), tgt,
                        pos.float(), pos)
@@ -155,16 +166,22 @@ class BBoxLossOut(NamedTuple):
 
 
 def bbox_loss(cls_score, bbox_pred, targets: BBoxTargets,
-              num_classes: int = 30) -> BBoxLossOut:
+              num_classes: int = 30,
+              reg_class_agnostic: bool = False) -> BBoxLossOut:
     """Softmax cross entropy over C + 1 classes and SmoothL1 (beta 1) on
-    the target class's deltas, both averaged over the sampled rois."""
+    the target class's deltas (the one box of a class-agnostic head), both
+    averaged over the sampled rois."""
     avg = targets.label_weights.sum().clamp_min(1.0)
     logits = cls_score.float()
     loss_cls = losses.softmax_cross_entropy(
         logits, targets.labels, weight=targets.label_weights, avg_factor=avg)
-    pred = bbox_pred.reshape(-1, num_classes, 4).float()
-    idx = targets.labels.clamp(0, num_classes - 1)
-    pred = torch.gather(pred, 1, idx[:, None, None].expand(-1, 1, 4))[:, 0]
+    if reg_class_agnostic:
+        pred = bbox_pred.float()
+    else:
+        pred = bbox_pred.reshape(-1, num_classes, 4).float()
+        idx = targets.labels.clamp(0, num_classes - 1)
+        pred = torch.gather(pred, 1, idx[:, None, None].expand(-1, 1, 4)
+                            )[:, 0]
     loss_bbox = losses.smooth_l1_loss(
         pred, targets.bbox_targets, beta=1.0,
         weight=targets.bbox_weights[:, None], avg_factor=avg)

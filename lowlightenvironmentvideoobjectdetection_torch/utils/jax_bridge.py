@@ -32,7 +32,12 @@ the module's root), and NAS-FPN RetinaNet (``neck.adapt{i}``,
 ``neck.s{s}_{cell}.conv``; ``RetinaSepBNHead``'s per-level affines
 ``bbox_head.{cls,reg}_bn{level}_{i}_scale`` / ``_bias`` at the head's
 root, which keep their names, as a ``MomentTransfer``'s
-``moment_transfer`` does)). Module names match
+``moment_transfer`` does), and the two-stage families on the DC5 trunk
+(Cascade RPN's raw ``crpn.s2_weight`` and the trident blocks' shared
+``conv{1,2,3}_kernel`` / ``ds_kernel``, HWIO to OIHW under their own
+names; Grid R-CNN's grouped 4x4 ``deconv{1,2}_w``, re-laid and flipped
+for ``conv_transpose2d``; its GroupNorms' ``scale`` / ``bias``)). Module
+names match
 the flax names, so a leaf's key is its path joined by dots with the leaf
 renamed:
 
@@ -75,7 +80,25 @@ _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 # parameters that keep their flax names: SiamRPN's level weights at the
 # root, RetinaSepBNHead's per-level affines, RepPoints' moment transfer
 _OWN_NAMES = re.compile(r"cls_weights|reg_weights|(cls|reg)_bn\d+_\d+_"
-                        r"(scale|bias)|moment_transfer")
+                        r"(scale|bias)|moment_transfer|s2_bias|deconv\d_b")
+# raw HWIO conv kernels that keep their names, as OIHW: Cascade RPN's DCN
+# weight, the trident blocks' shared kernels
+_RAW_KERNELS = re.compile(r"s2_weight|conv\d_kernel|ds_kernel")
+# Grid R-CNN's grouped transposed convs: HWIO [4, 4, in / 9, out] of a
+# conv_general_dilated with lhs_dilation 2 (``_gdeconv``)
+_GROUPED_DECONVS = re.compile(r"deconv\d_w")
+GRID_GROUPS = 9
+
+
+def _grouped_deconv(a: np.ndarray, groups: int = GRID_GROUPS) -> np.ndarray:
+    """The JAX ``_gdeconv`` kernel [kh, kw, in / g, out] -> the
+    ``conv_transpose2d(stride=2, padding=1, groups=g)`` weight [in, out /
+    g, kh, kw]: the same map with the taps flipped in both axes (the
+    dilated convolution correlates, the transposed one scatters)."""
+    kh, kw, cin_g, cout = a.shape
+    a = a[::-1, ::-1].reshape(kh, kw, cin_g, groups, cout // groups)
+    return a.transpose(3, 2, 4, 0, 1).reshape(groups * cin_g, cout // groups,
+                                              kh, kw)
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -116,6 +139,12 @@ def from_jax_variables(variables: Mapping,
                 a = a.transpose(3, 2, 0, 1)  # the DCN's raw [3, 3, in, out]
             elif coll == "params" and _OWN_NAMES.fullmatch(leaf_name):
                 pass
+            elif (coll == "params" and _RAW_KERNELS.fullmatch(leaf_name)
+                  and a.ndim == 4):
+                a = a.transpose(3, 2, 0, 1)
+            elif (coll == "params" and _GROUPED_DECONVS.fullmatch(leaf_name)
+                  and a.ndim == 4):
+                a = _grouped_deconv(a)
             elif leaf_name not in names or not mods:
                 raise KeyError(f"unconsumed leaf {coll}/{'/'.join(path)}")
             elif leaf_name == "kernel":

@@ -45,8 +45,8 @@ from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
     grads_from_jax,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 REL = 1e-5
 FLOOR = 1e-6  # of the largest |grad| of any leaf
@@ -77,6 +77,9 @@ CASES = {
                    [(2, 16, 12, 8), (2, 8, 6, 16), (2, 4, 3, 32),
                     (2, 4, 3, 32), (2, 4, 3, 24)], 0),
 }
+
+
+_pinned_threads = thread_count(1)
 
 
 class _Named(nn.Module):

@@ -70,8 +70,8 @@ from test_torch_port_darkfarm import (
     _t,
     jax_uniforms,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 AGG = dict(TINY, out_indices=(3, 3))
 LOSS_RTOL = 1e-5
@@ -84,6 +84,9 @@ FROZEN = ("selsa.backbone.conv1", "selsa.backbone.bn1",
 # metrics-only variants: (DarkfarmConfig overrides)
 VARIANTS = {"u_without_rdb": dict(dual_branch="u", agg_rdb=False),
             "d_without_taf": dict(dual_branch="d", agg_taf=False)}
+
+
+_pinned_threads = thread_count(1)
 
 
 def _configs(**kw):

@@ -16,9 +16,12 @@ from lowlightenvironmentvideoobjectdetection_torch.ops.fused_attention import (
     selsa_attention_reference_hm,
     selsa_fused_attention_2slab_hm,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 ATOL = 1e-5
+
+
+_pinned_threads = thread_count(1)
 
 
 def _inputs(seed, n=12, m1=40, m2=10, nb=4, hd=64, live1=None, live2=None):

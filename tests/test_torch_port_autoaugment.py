@@ -43,6 +43,7 @@ from lowlightenvironmentvideoobjectdetection_torch.tools import (
 from lowlightenvironmentvideoobjectdetection_tpu.data.pipelines import (
     auto_augment as JA,
 )
+from torch_port_threads import thread_count
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = f"{ROOT}/configs/det/retinanet_r50_fpn_autoaugment_1x_coco.py"
@@ -51,13 +52,7 @@ NAMES = ("Shear", "Rotate", "Translate", "ColorTransform",
          "AutoAugment", "InstaBoost")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _own_thread_count():
-    """This module's tests set torch's thread count; the next module in the
-    same worker gets the count it had."""
-    n = torch.get_num_threads()
-    yield
-    torch.set_num_threads(n)
+_pinned_threads = thread_count(1)
 
 
 def frame(seed, h=61, w=83, const=None):

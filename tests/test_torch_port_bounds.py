@@ -14,6 +14,7 @@ columns and gradients).
 
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 import chip_smoke as cs
 
@@ -27,6 +28,9 @@ B_SERVE_BYTES = (4 * 38 * 64 * 512 * 2     # 4 maps
                  + 1200 * 4 * 4            # rois
                  + 1200 * 8                # int64 map index per roi
                  + 1200 * 7 * 7 * 512 * 2)  # output
+
+
+_pinned_threads = thread_count(1)
 
 
 def test_hand_counts():

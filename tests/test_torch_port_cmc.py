@@ -18,6 +18,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.core.motion import (
     cmc as TC,
@@ -29,6 +30,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.core.motion import (
 SHIFT_TOL = 0.05  # px
 LINEAR_TOL = 1e-4
 HW = (120, 160)
+
+
+_pinned_threads = thread_count(1)
 
 
 def _scene(seed=0):

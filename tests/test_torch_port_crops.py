@@ -25,6 +25,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 from test_torch_port_dark_backbones import draw
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.models.mot import (
     deep_sort as TD,
@@ -65,6 +66,9 @@ CASES = {  # (out_hw, scale (y, x), translation (y, x))
     "wholly_outside": ((8, 8), (1.0, 1.0), (100.0, 100.0)),
     "fractional": ((16, 16), (0.31, 0.57), (8.3, -2.7)),
 }
+
+
+_pinned_threads = thread_count(1)
 
 
 def _jax_st(img, out_hw, scale, translation):

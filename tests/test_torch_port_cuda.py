@@ -31,6 +31,7 @@ x's bf16 gradient within one bf16 rounding plus that atol.
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.ops import (
     deform_conv as dcn,
@@ -46,6 +47,9 @@ from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
 )
 
 pytestmark = pytest.mark.cuda
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture

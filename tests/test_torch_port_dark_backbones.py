@@ -55,8 +55,8 @@ from lowlightenvironmentvideoobjectdetection_torch.models.backbones import (
 from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 REL = 1e-4
 OFFSET_STD = 4.0  # of conv_offset's kernels, in units of 1 / sqrt(fan_in)
@@ -69,6 +69,9 @@ VARIANTS = sorted(JD.DARK_VARIANTS)
 COMPILED_WHOLE = ("InsertResNet",)
 JIT_DCN = jax.jit(JA.modulated_deform_conv,
                   static_argnames=("kernel_size", "deform_groups"))
+
+
+_pinned_threads = thread_count(1)
 
 
 class ScanPack(JA.ModulatedDCNPack):

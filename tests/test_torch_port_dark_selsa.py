@@ -90,8 +90,8 @@ from test_torch_port_darkfarm import (
     jax_uniforms,
 )
 from test_torch_port_serve import _same_dets, _same_state
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LLVOD = os.path.join(ROOT, "configs/vid/llvod")
@@ -103,6 +103,9 @@ CASES = {
 }
 FROZEN = ("selsa.backbone.conv1", "selsa.backbone.bn1",
           "selsa.backbone.layer1_", "cleaner.")
+
+
+_pinned_threads = thread_count(1)
 
 
 def _model_dict(name):

@@ -69,8 +69,8 @@ from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
     grads_from_jax,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 TINY = dict(pad_h=64, pad_w=64, neck_channels=32, num_classes=4,
             num_ref_frames=2, train_nms_pre=128, train_nms_post=32,
@@ -92,6 +92,9 @@ CASES = {
     "raw": (dict(in_channels=4), "noise", 2),
 }
 TRAINER_SEED = 2  # the Trainer step's batch of 2
+
+
+_pinned_threads = thread_count(1)
 
 
 def _t(a):

@@ -16,6 +16,10 @@ from test_torch_port_darkfarm import (  # noqa: F401 (a fixture)
     _check_loss_and_grads,
     base,
 )
+from torch_port_threads import thread_count
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.mark.parametrize("name", ["clean_branch", "no_cleaner", "l2",

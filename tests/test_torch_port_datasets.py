@@ -12,6 +12,7 @@ import random
 
 import numpy as np
 import pytest
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.data import (
     coco_vid as tcoco,
@@ -23,6 +24,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.data import (
 )
 
 VIDEO_LENGTHS = (1, 2, 7, 23)
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module")

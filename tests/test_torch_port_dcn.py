@@ -39,8 +39,8 @@ from lowlightenvironmentvideoobjectdetection_torch.models.aggregators import (
 from lowlightenvironmentvideoobjectdetection_torch.ops import (
     deform_conv as tdcn,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 REL = 1e-5
 RTOL = 1e-5
@@ -58,6 +58,9 @@ CASES = {
     "g8_far": (1, 16, 8, 11, 8, 6, "far"),
     "g2_one_spot": (1, 8, 9, 7, 2, 4, "one_spot"),
 }
+
+
+_pinned_threads = thread_count(1)
 
 
 def _inputs(name, seed=0):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 import torch_port_variant_cases as C
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.apis import (
     families as TF,
@@ -24,6 +25,9 @@ TERMS = {"FCOS": ("loss_cls", "loss_bbox", "loss_centerness"),
          "NASFCOS": ("loss_cls", "loss_bbox", "loss_centerness"),
          "ATSS": ("loss_cls", "loss_bbox", "loss_centerness"),
          "GFL": ("loss_qfl", "loss_dfl", "loss_giou")}
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module", params=FAMILIES)
@@ -101,7 +105,15 @@ def test_f25_nasfcos_is_fcos_with_the_same_weights():
 
 
 def test_the_two_stage_pisa_still_raises():
-    """PISA's two-stage form waits for ROADMAP Queue 1 item 9's part 4."""
-    for name in ("PISAFasterRCNN", "PISARoIHead"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TF.get_family(name)
+    """PISA's two-stage form is a family of its own since ROADMAP Queue 1
+    item 9's part 4: ``PISAFasterRCNN`` / ``PISARoIHead`` build the DC5
+    Faster R-CNN (trained with PISA R-CNN's loss), not the one-stage
+    PISA's RetinaNet."""
+    from lowlightenvironmentvideoobjectdetection_torch.models.detectors.faster_rcnn import (  # noqa: E501
+        FasterRCNN,
+    )
+    two = TF.get_family("PISAFasterRCNN")
+    assert two is TF.get_family("PISARoIHead")
+    assert two is not TF.get_family("PISA")
+    model, anchors = two.build(dict(num_classes=4), True, 0, "cpu")
+    assert type(model) is FasterRCNN and anchors.shape[-1] == 4

@@ -28,6 +28,7 @@ from test_torch_port_dense_families import (
     head_outputs_match,
     loss_terms_and_gradients_match,
 )
+from torch_port_threads import thread_count
 
 FAMILIES = ("PAA", "VFNet", "FreeAnchor", "PISA")
 TERMS = {"PAA": ("loss_cls", "loss_bbox", "loss_iou"),
@@ -40,6 +41,9 @@ SEED = {"VFNet": 6, "PAA": 6}
 GTS = {"PAA": np.array([[10.0, 12.0, 90.0, 100.0], [40.0, 30.0, 110.0, 100.0],
                         [5.0, 60.0, 50.0, 120.0], [0.0, 0.0, 0.0, 0.0]],
                        np.float32)}
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module", params=FAMILIES)

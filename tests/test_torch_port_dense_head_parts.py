@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.models.dense_heads import (
     atss_head as TA,
@@ -57,6 +58,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.ops import (
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 SIZES = [(16, 16), (8, 8), (4, 4), (2, 2), (1, 1)]
+
+
+_pinned_threads = thread_count(1)
 
 
 def t(a):

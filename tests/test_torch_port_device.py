@@ -5,6 +5,7 @@ and cuDNN convolutions (ROADMAP O2), from PyTorch's defaults."""
 
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
     VIDModel,
@@ -26,6 +27,9 @@ from lowlightenvironmentvideoobjectdetection_torch.utils.device import (
 TINY = dict(pad_h=64, pad_w=64, neck_channels=32, num_classes=3,
             num_ref_frames=2, test_nms_pre=64, test_nms_post=8,
             det_nms_pre=32, compute_dtype=torch.float32)
+
+
+_pinned_threads = thread_count(1)
 
 
 def test_resolve_device():

@@ -22,7 +22,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from test_torch_port_fgfa import (
     IMG_SHAPE,
     MAP_ATOL,
@@ -51,12 +50,15 @@ from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     dff_state_from_jax,
     grads_from_jax,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 KEY_INTERVAL = 2
 STREAM_FRAMES = 4
 DFF_SEED = 3
+
+
+_pinned_threads = thread_count(1)
 
 
 def make_pair():

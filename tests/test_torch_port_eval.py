@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch import config as tconfig
 from lowlightenvironmentvideoobjectdetection_torch.apis import test as tapi
@@ -79,6 +80,9 @@ GTS_PER_FRAME = 2
 BOX_TOL, SCORE_TOL, MAP_TOL = 5e-3, 1e-5, 1e-6
 FIX_SAMPLER = dict(method="test_with_fix_stride", frame_range=[-2, 2],
                    stride=2)
+
+
+_pinned_threads = thread_count(1)
 
 
 def jax_kwargs(cfg):

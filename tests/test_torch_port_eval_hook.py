@@ -17,11 +17,13 @@ the CPU:
 import contextlib
 import io
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 from test_torch_port_eval import CANONICAL, top_detection_gts
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch import config as tconfig
 from lowlightenvironmentvideoobjectdetection_torch.apis.train import (
@@ -41,6 +43,9 @@ from lowlightenvironmentvideoobjectdetection_torch.tools import (
 STEPS = 4
 NARROW = ["model.out_indices=(2, 3)", "model.neck_channels=32",
           "data.workers_per_gpu=0"]
+
+
+_pinned_threads = thread_count(1)
 
 
 class CountingTrainer:
@@ -105,7 +110,8 @@ def runs(tmp_path_factory):
                      for b in r["bbox_results"]] for r in res["results"]]
             out["ann"] = top_detection_gts(src, str(root / "gts.json"),
                                            dets)
-    return out
+    yield out
+    shutil.rmtree(root, ignore_errors=True)  # 1.2 GB of checkpoints
 
 
 def test_the_hook_leaves_training_bit_identical(runs):

@@ -89,8 +89,8 @@ from test_torch_port_darkfarm import (
     jax_uniforms,
 )
 from test_torch_port_train import _jax_loss_stopped as _selsa_loss_stopped
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LLVOD = os.path.join(ROOT, "configs/vid/llvod")
@@ -98,6 +98,9 @@ REL = 1e-5
 # denoiser: (config file, the sample's seed)
 CONFIGS = {"fastdvd": ("llvod_fastdvd_darkfarm.py", 1),
            "unet": ("llvod_unet_darkfarm.py", 0)}
+
+
+_pinned_threads = thread_count(1)
 
 
 def _variables(module, x, seed=0):

@@ -65,8 +65,8 @@ from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
     grads_from_jax,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 SMALL = dict(pad_h=64, pad_w=64, neck_channels=32, num_classes=4,
              num_ref_frames=3, train_nms_pre=128, train_nms_post=32,
@@ -75,6 +75,9 @@ IMG_SHAPE = (56.0, 60.0)
 MAP_ATOL = 1e-4
 STREAM_FRAMES = 4
 FGFA_SEED = 1
+
+
+_pinned_threads = thread_count(1)
 
 
 def _t(a):

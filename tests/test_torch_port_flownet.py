@@ -36,12 +36,14 @@ from lowlightenvironmentvideoobjectdetection_torch.models.motion import (
 from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
 )
+from torch_port_threads import thread_count
 
 VALUE_REL = 1e-5
 F13_TOL = 1e-6  # JAX's downscale against the antialiased interpolate
 F13_GAP = 0.5   # ... and at least this far from the plain one
 
-torch.set_num_threads(1)
+
+_pinned_threads = thread_count(1)
 
 
 def _bridged(jmodule, tmodule, *xs, seed=0):

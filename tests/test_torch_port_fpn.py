@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from test_torch_port_dark_backbones import draw
 from test_torch_port_selsa import _same_dets
 from test_torch_port_train import jax_uniforms
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.apis import (
     families as TF,
@@ -78,6 +79,9 @@ LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 SMALL = dict(num_classes=4, pad_h=128, pad_w=128, train_nms_post=32,
              test_nms_post=16, num_roi_samples=16)
+
+
+_pinned_threads = thread_count(1)
 
 
 def _nhwc(rs, c, h, w):

@@ -32,6 +32,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 from test_torch_port_dark_backbones import draw
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.core import (
     assigners as tassign,
@@ -69,6 +70,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.ops.deform_conv import (
 FEAT_TOL = 1e-4
 # the 800 x 1344 bucket's FPN levels P2-P6
 BUCKET_LEVELS = ((200, 336), (100, 168), (50, 84), (25, 42), (13, 21))
+
+
+_pinned_threads = thread_count(1)
 
 
 def _close(got, want, tol=FEAT_TOL, what=""):

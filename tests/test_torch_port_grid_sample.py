@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_tpu.ops import (
     grid_sample as JG,
@@ -31,6 +32,9 @@ from lowlightenvironmentvideoobjectdetection_torch.ops import (
 
 VALUE_REL = 1e-5
 GRAD_REL = 1e-4
+
+
+_pinned_threads = thread_count(1)
 
 
 def _t(a):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 import torch_port_variant_cases as C
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.apis import (
     families as TF,
@@ -22,6 +23,9 @@ from lowlightenvironmentvideoobjectdetection_torch.models.detectors import (
 from lowlightenvironmentvideoobjectdetection_tpu.models.detectors import (
     fpn_faster_rcnn as JFF,
 )
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module")

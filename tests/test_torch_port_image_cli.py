@@ -31,6 +31,7 @@ from test_torch_port_dark_backbones import draw
 from test_torch_port_eval import ROOT, same_per_class
 from test_torch_port_test_cli import results_of, run_jax_cli
 from test_torch_port_train_cli import _jax_cli
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
     write_coco_tree,
@@ -69,6 +70,9 @@ PIPELINE = [dict(type="LoadImageFromFile"),
             dict(type="RandomFlip", flip_ratio=0.5),
             dict(type="Normalize"), dict(type="Pad", size_divisor=16)]
 LOSS_RTOL = 1e-5
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(autouse=True)

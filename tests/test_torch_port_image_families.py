@@ -27,6 +27,7 @@ import torch
 from test_torch_port_dark_backbones import draw
 from test_torch_port_selsa import _same_dets
 from test_torch_port_train import jax_uniforms, sampler_uniforms
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.apis import (
     families as TF,
@@ -74,12 +75,19 @@ DENSE = {"FCOS", "NASFCOS", "ATSS", "GFL", "PAA", "VFNet", "FreeAnchor",
 # the rest of the one-stage zoo (test_torch_port_zoo_heads_c.py)
 ZOO_C = {"FSAF", "FoveaBox", "FOVEA", "SABL", "SABLRetinaNet", "RepPoints",
          "RepPointsDetector", "NASFPNRetinaNet"}
+# the two-stage families on the DC5 trunk (test_torch_port_rcnn_*.py)
+RCNN = {"CascadeRCNN", "CascadeRPN", "DoubleHeadRCNN", "DoubleHeadRoIHead",
+        "DynamicRCNN", "PISAFasterRCNN", "PISARoIHead", "GridRCNN",
+        "TridentFasterRCNN"}
+
+
+_pinned_threads = thread_count(1)
 
 
 def test_the_table_covers_the_jax_names():
     ported = set(TF.FAMILIES)
     assert ported == {"FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
-                      "RetinaNet"} | set(VARIANTS) | DENSE | ZOO_C
+                      "RetinaNet"} | set(VARIANTS) | DENSE | ZOO_C | RCNN
     assert ported | set(TF.NOT_PORTED) == set(JF.FAMILIES)
     assert ported | set(TF.NOT_PORTED) == TF.IMAGE_FAMILIES
     assert not ported & set(TF.NOT_PORTED)

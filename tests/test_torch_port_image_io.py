@@ -14,8 +14,12 @@ import zlib
 import cv2
 import numpy as np
 import pytest
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.data import image_io as io
+
+
+_pinned_threads = thread_count(1)
 
 
 def _image(seed, shape):

@@ -19,11 +19,16 @@ import pkgutil
 import subprocess
 import sys
 
+from torch_port_threads import thread_count
+
 import lowlightenvironmentvideoobjectdetection_torch as port
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL",
            "lowlightenvironmentvideoobjectdetection_tpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
+
+
+_pinned_threads = thread_count(1)
 
 
 def test_port_runs_without_jax_cv2_or_pil(tmp_path):

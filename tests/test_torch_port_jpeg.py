@@ -24,6 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 import cv2
 import numpy as np
 import pytest
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.data import image_io as io
 from lowlightenvironmentvideoobjectdetection_torch.data import jpeg
@@ -36,6 +37,9 @@ SAMPLING = {s: getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{s}")
             for s in ("411", "420", "422", "440", "444")}
 SIZES = [(1, 1), (2, 3), (3, 5), (8, 9), (9, 8), (16, 16), (17, 33),
          (33, 17), (24, 40)]
+
+
+_pinned_threads = thread_count(1)
 
 
 def texture(seed, shape):

@@ -9,9 +9,13 @@ Where the build fails the port raises: it has no SciPy fallback.
 import numpy as np
 import pytest
 from scipy.optimize import linear_sum_assignment as scipy_lsa
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.ops import lap as T
 from lowlightenvironmentvideoobjectdetection_tpu.ops import lap as J
+
+
+_pinned_threads = thread_count(1)
 
 
 def _same(got, want):

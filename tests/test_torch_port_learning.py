@@ -53,12 +53,15 @@ from lowlightenvironmentvideoobjectdetection_tpu.models.vid import (
     selsa as JS,
 )
 from test_torch_port_train import jax_uniforms
+from torch_port_threads import thread_count
 
-torch.set_num_threads(4)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 3
 FIRST_LOSS_RTOL = 1e-5
 LATER_LOSS_RTOL = 1e-4
+
+
+_pinned_threads = thread_count(4)
 
 
 def _jax_tool():

@@ -15,6 +15,7 @@ import jax
 import pytest
 import torch
 import torch_port_variant_cases as C
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.apis import (
     families as TF,
@@ -28,6 +29,9 @@ from lowlightenvironmentvideoobjectdetection_torch.models.necks import (
 from lowlightenvironmentvideoobjectdetection_tpu.models.detectors import (
     fpn_faster_rcnn as JFF,
 )
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ each class's ``ap``, ``recall``, ``precision``, ``num_gts`` and
 
 import numpy as np
 import pytest
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.core.eval import (
     mean_ap as tmap,
@@ -19,6 +20,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.core.eval import (
 
 NUM_CLASSES = 4
 NUM_IMGS = 6
+
+
+_pinned_threads = thread_count(1)
 
 
 def _boxes(rng, n, size=200.0):

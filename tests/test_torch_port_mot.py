@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_port_dark_backbones import draw
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.apis import (
     inference as TI,
@@ -85,6 +86,9 @@ EMBED_REL = 1e-4
 FRAMES = 5
 SORT_KW = dict(obj_score_thr=0.3, reid_sim_thr=2.0, match_iou_thr=0.5,
                num_tentatives=2, num_frames_retain=3)
+
+
+_pinned_threads = thread_count(1)
 
 
 def tamed(var):

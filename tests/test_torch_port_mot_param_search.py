@@ -13,6 +13,7 @@ import json
 import numpy as np
 import pytest
 from test_mot_param_search import _dets, _mot_json, _search_mod
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.tools import (
     mot_param_search as tps,
@@ -26,6 +27,9 @@ GRIDS = {
     "three_keys": ["obj_score_thr=0.3,0.5", "match_iou_thr=0.1,0.7",
                    "num_tentatives=1,3"],
 }
+
+
+_pinned_threads = thread_count(1)
 
 
 def _frames(variant):

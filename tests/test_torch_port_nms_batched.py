@@ -14,11 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_tpu.core import nms as jax_nms
 from lowlightenvironmentvideoobjectdetection_torch.core import nms as t_nms
 
-torch.set_num_threads(1)
+
+_pinned_threads = thread_count(1)
 
 
 def _chain(n):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.data.pipelines import (
     transforms as tt,
@@ -32,6 +33,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.ops import (
 )
 
 RTOL = 1e-6
+
+
+_pinned_threads = thread_count(1)
 
 
 def close(got, want):

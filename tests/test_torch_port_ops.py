@@ -32,8 +32,10 @@ from lowlightenvironmentvideoobjectdetection_torch.data import (
 from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
+
+_pinned_threads = thread_count(1)
 
 
 def test_anchors_equal():

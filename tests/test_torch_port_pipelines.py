@@ -22,6 +22,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.config import (
     load_config as t_load_config,
@@ -46,6 +47,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.data.pipelines import (
 
 CANONICAL = ("configs/vid/llvod/"
              "llvod_l1234_fusion_add_i1234_rdb_taf_darkfarm.py")
+
+
+_pinned_threads = thread_count(1)
 
 
 def assert_same(j, t, path="results"):

@@ -24,6 +24,7 @@ import pytest
 import torch
 from test_torch_port_dark_backbones import draw
 from test_torch_port_selsa import _same_dets
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.core import (
     anchors as tanchors,
@@ -57,6 +58,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.models.detectors import (
 FEAT_TOL = 1e-4
 LOSS_RTOL = 1e-5
 SIZES = [(16, 16), (8, 8), (4, 4), (2, 2), (1, 1)]
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.mark.parametrize("which", ["retina", "fpn"])

@@ -25,10 +25,13 @@ from lowlightenvironmentvideoobjectdetection_torch.ops.roi_align import (
     roi_align_backward_plain,
     roi_align_plain,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 ATOL = 1e-5
 STRIDE = 16
+
+
+_pinned_threads = thread_count(1)
 
 
 def _rois(rng, n, h, w):

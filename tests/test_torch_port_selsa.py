@@ -34,13 +34,16 @@ from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
 from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 SMALL = dict(pad_h=128, pad_w=128, neck_channels=32, num_classes=4,
              num_ref_frames=2, test_nms_pre=200, test_nms_post=16,
              det_nms_pre=64)
 IMG_SHAPE = (100.0, 120.0)
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module")

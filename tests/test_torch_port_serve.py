@@ -57,8 +57,8 @@ from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
     video_state_from_jax,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 ATOL = 1e-5
 TINY = dict(pad_h=64, pad_w=64, test_nms_pre=64, test_nms_post=8,
             num_ref_frames=2, num_classes=3, neck_channels=32)
@@ -68,6 +68,9 @@ SCALE_FACTORS = np.array([[1.0] * 4, [0.5] * 4], np.float32)
 
 
 # ---- attention
+
+
+_pinned_threads = thread_count(1)
 
 
 def _attn(seed, n=12, m=40, nb=4, hd=64, lead=()):

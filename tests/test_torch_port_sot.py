@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_port_dark_backbones import draw
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
     SOTModel,
@@ -37,6 +38,9 @@ HEAD_REL = 1e-5
 BOX_TOL = 1e-3
 SCORE_TOL = 1e-5
 TINY = dict(exemplar_size=64, search_size=128)
+
+
+_pinned_threads = thread_count(1)
 
 
 def test_depthwise_correlation_matches_jax():

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_port_dark_backbones import draw
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.data import (
     mot_sot_datasets as TD,
@@ -72,6 +73,9 @@ TINY = dict(exemplar_size=64, search_size=128)
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 FEAT_TOL = 1e-4
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module")

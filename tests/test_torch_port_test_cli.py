@@ -41,6 +41,7 @@ from test_torch_port_eval import (
     same_per_class,
     top_detection_gts,
 )
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
     init_model,
@@ -81,6 +82,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.utils.checkpoint import (
 
 VIDEOS, FRAMES, HW = 2, 4, (80, 112)
 NARROW = ["model.neck_channels=32", "data.workers_per_gpu=0"]
+
+
+_pinned_threads = thread_count(1)
 
 
 def options(ann, prefix):

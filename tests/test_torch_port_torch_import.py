@@ -48,9 +48,12 @@ from lowlightenvironmentvideoobjectdetection_tpu.utils import (
     torch_import as JI,
 )
 from test_torch_port_selsa import SMALL, _same_dets, _same_state
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 IMG_SHAPE = (100.0, 120.0)
+
+
+_pinned_threads = thread_count(1)
 
 
 def original_name(name: str) -> str:

@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.data.image_io import (
     UnsupportedImage,
@@ -61,6 +62,9 @@ SIAMRPN = os.path.join(ROOT, "configs/sot/siamese_rpn/"
 # the JAX CLI's --tiny for MOT (tools/test.py run_mot_eval)
 JAX_TINY_MOT = dict(pad_h=64, pad_w=64, test_nms_pre=64, test_nms_post=16,
                     compute_dtype=jnp.float32)
+
+
+_pinned_threads = thread_count(1)
 
 
 def jax_cli(argv):

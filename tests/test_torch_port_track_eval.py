@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import pytest
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.core.eval import (
     mot as TM,
@@ -33,6 +34,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.core.eval import (
 from lowlightenvironmentvideoobjectdetection_tpu.data import (
     mot_sot_datasets as JD,
 )
+
+
+_pinned_threads = thread_count(1)
 
 
 def _mot_results(seed, n_videos=2, n_frames=12, n_obj=5):

@@ -16,6 +16,7 @@
 
 import numpy as np
 import pytest
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.core import (
     track_utils as TU,
@@ -40,6 +41,9 @@ from lowlightenvironmentvideoobjectdetection_tpu.models.mot import (
 
 KALMAN_TOL = 1e-12
 FRAMES = 10
+
+
+_pinned_threads = thread_count(1)
 
 
 def test_kalman_filter_matches_jax():

@@ -65,8 +65,8 @@ from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
     grads_from_jax,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 
 TINY = dict(pad_h=64, pad_w=64, neck_channels=32, num_classes=4,
             num_ref_frames=2, train_nms_pre=128, train_nms_post=32,
@@ -75,6 +75,9 @@ LOSS_RTOL = 1e-5
 GRAD_REL_ATOL = 1e-4
 GRAD_FLOOR = 1e-6  # of the largest |g| of any leaf (see _close_grad)
 PARAM_ATOL = 1e-6
+
+
+_pinned_threads = thread_count(1)
 
 
 def _t(a):

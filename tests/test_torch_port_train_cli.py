@@ -27,11 +27,13 @@ import importlib.util
 import json
 import os
 import random
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch import config as tconfig
 from lowlightenvironmentvideoobjectdetection_torch.data import loader as tl
@@ -53,6 +55,9 @@ CANONICAL = os.path.join(
     ROOT, "configs/vid/llvod/llvod_l1234_fusion_add_i1234_rdb_taf_darkfarm.py")
 LLVOD = sorted(glob.glob(os.path.join(ROOT, "configs/vid/llvod/**/*.py"),
                          recursive=True))
+
+
+_pinned_threads = thread_count(1)
 
 
 def _jax_cli():
@@ -78,6 +83,14 @@ def test_cli_options_and_config_class():
     cfg = tconfig.Config.fromfile(CANONICAL)
     assert cfg.model.type == "SelsaNewDarkfarmDetect"
     assert cfg.data.train.pipeline[0].type == "LoadMutiImagePairsFromFile"
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints go when it ends: the whole run keeps every
+    test's folder to its end, and the runs' folders fill the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -52,8 +52,8 @@ from lowlightenvironmentvideoobjectdetection_torch.utils.jax_bridge import (
     from_jax_variables,
     video_state_from_jax,
 )
+from torch_port_threads import thread_count
 
-torch.set_num_threads(1)
 TROI_TOL = 1e-5
 HEAD_TOL = 1e-4
 TINY = dict(pad_h=64, pad_w=64, test_nms_pre=64, test_nms_post=8,
@@ -62,6 +62,9 @@ TINY = dict(pad_h=64, pad_w=64, test_nms_pre=64, test_nms_post=8,
 S, T = 2, 3
 IMG_SHAPES = np.array([[60.0, 60.0], [52.0, 64.0]], np.float32)
 SCALE_FACTORS = np.array([[1.0] * 4, [0.5] * 4], np.float32)
+
+
+_pinned_threads = thread_count(1)
 
 
 def _perturbed(variables, seed):

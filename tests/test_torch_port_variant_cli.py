@@ -24,6 +24,7 @@ from lowlightenvironmentvideoobjectdetection_torch.tools import (
     test as tcli,
     train as trcli,
 )
+from torch_port_threads import thread_count
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = {
@@ -41,6 +42,9 @@ PIPELINE = [dict(type="LoadImageFromFile"),
             dict(type="Resize", img_scale=(128, 96)),
             dict(type="RandomFlip", flip_ratio=0.5),
             dict(type="Normalize"), dict(type="Pad", size_divisor=32)]
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 from test_torch_port_eval import ROOT
 from test_torch_port_train_cli import _jax_cfg, _same_config
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch import config as tconfig
 from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
@@ -30,6 +31,9 @@ from lowlightenvironmentvideoobjectdetection_torch.models import (
 VID_CFGS = sorted(glob.glob(os.path.join(ROOT, "configs/vid/selsa/*.py"))
                   + glob.glob(os.path.join(ROOT, "configs/vid/fgfa/*.py"))
                   + glob.glob(os.path.join(ROOT, "configs/vid/dff/*.py")))
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.mark.parametrize("path", VID_CFGS,

@@ -14,6 +14,7 @@ configs, on the CPU, against the root JAX ``tools/test.py``:
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ import torch
 from test_torch_port_dark_backbones import draw
 from test_torch_port_eval import ROOT, same_per_class
 from test_torch_port_test_cli import results_of, run_jax_cli
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch import config as tconfig
 from lowlightenvironmentvideoobjectdetection_torch.core.eval.mean_ap import (
@@ -65,6 +67,18 @@ TINY_JAX = dict(pad_h=64, pad_w=64, train_nms_pre=64, train_nms_post=32,
                 neck_channels=32, compute_dtype=jnp.float32)
 
 
+_pinned_threads = thread_count(1)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each case's checkpoints (the JAX and the port weights with
+    FlowNetSimple, ~0.5 GB) go when it ends: the whole run keeps every
+    test's folder to its end."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     torch.set_num_threads(1)
@@ -75,8 +89,9 @@ def tree(tmp_path_factory):
 
 
 def _weights(family, root):
-    """Variables drawn in the JAX model's tiny shapes, saved as an orbax
-    checkpoint and as the port's state dict; returns both paths."""
+    """Variables drawn in the JAX model's tiny shapes, saved under
+    ``root`` as an orbax checkpoint and as the port's state dict; returns
+    both paths."""
     make = JF.make_fgfa if family == "FGFA" else JF.make_dff
     jmodel, _ = make(JS.SelsaConfig(**TINY_JAX))
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
@@ -93,8 +108,7 @@ def _weights(family, root):
 
 @pytest.mark.parametrize("family", ["FGFA", "DFF"])
 def test_cli_matches_the_jax_cli(tree, family, tmp_path):
-    root = tree["root"]
-    jax_ckpt, ckpt = _weights(family, root)
+    jax_ckpt, ckpt = _weights(family, tmp_path)
     opts = ["--cfg-options", f"data.test.ann_file={tree['val']}",
             f"data.test.img_prefix={tree['prefix']}",
             "model.neck_channels=32", "data.workers_per_gpu=0",

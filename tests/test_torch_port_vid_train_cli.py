@@ -16,12 +16,14 @@ ImageNet-VID families (SELSA, FGFA, DFF), on the CPU:
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 from test_torch_port_eval import ROOT
 from test_torch_port_train_cli import _jax_cli
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch import config as tconfig
 from lowlightenvironmentvideoobjectdetection_torch.data.synthetic import (
@@ -50,6 +52,17 @@ OWN_LEAF = {"SELSA": "bbox_head.aggregator0.fc_embed.weight",
             "DFF": "motion.deconv2.weight"}
 FROZEN = ("backbone.conv1.", "backbone.layer1_0.conv1.")
 NARROW = ["model.neck_channels=32", "data.workers_per_gpu=0"]
+
+
+_pinned_threads = thread_count(1)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints go when it ends: the whole run keeps every
+    test's folder to its end, and the runs' folders fill the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

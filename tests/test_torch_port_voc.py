@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_port_pipelines import assert_same
+from torch_port_threads import thread_count
 
 from lowlightenvironmentvideoobjectdetection_torch.data import voc as tvoc
 from lowlightenvironmentvideoobjectdetection_torch.data.pipelines import (
@@ -59,6 +60,9 @@ OBJECTS = [
     [("bus", (40, 50, 700, 800), True)],
     [("person", (1, 1, 1920, 1080), False), ("dog", (20, 30, 60, 90), False)],
 ]
+
+
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,7 @@ from lowlightenvironmentvideoobjectdetection_tpu.models.dense_heads import (
     reppoints_head as JRP,
     sabl_head as JSB,
 )
+from torch_port_threads import thread_count
 
 FAMILIES = ("FSAF", "FoveaBox", "SABL")
 SECOND_NAME = {"FoveaBox": "FOVEA", "SABL": "SABLRetinaNet",
@@ -88,13 +89,7 @@ def t(a):
 SEED = {"SABL": 6}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _own_thread_count():
-    """This module's tests set torch's thread count; the next module in the
-    same worker gets the count it had."""
-    n = torch.get_num_threads()
-    yield
-    torch.set_num_threads(n)
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module", params=FAMILIES)

@@ -57,17 +57,12 @@ from lowlightenvironmentvideoobjectdetection_tpu.models.necks import (
 from lowlightenvironmentvideoobjectdetection_tpu.ops import (
     deform_conv as jdcn,
 )
+from torch_port_threads import thread_count
 
 FAMILIES = ("RepPoints", "NASFPNRetinaNet")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _own_thread_count():
-    """This module's tests set torch's thread count; the next module in the
-    same worker gets the count it had."""
-    n = torch.get_num_threads()
-    yield
-    torch.set_num_threads(n)
+_pinned_threads = thread_count(1)
 
 
 @pytest.fixture(scope="module", params=FAMILIES)
