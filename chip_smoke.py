@@ -160,8 +160,9 @@ VFNet and RepPoints), ``det_autoaugment_train`` (the AutoAugment
 RetinaNet config with its own pipeline through the training CLI: finite
 losses, no kernel, every policy drawn), ``det_zoo_eval`` (those five
 configs and the AutoAugment one through the test CLI on the val split:
-every image, finite per-class results, RepPoints' E launches, and the
-seven two-stage DC5 configs below), ``det_rcnn`` (the two-stage families
+every image, finite per-class results, RepPoints' E launches, the seven
+two-stage DC5 configs and the six mask configs below), ``det_rcnn`` (the
+two-stage families
 on the DC5 trunk at 608 x 1024, bf16, 80 classes, Cascade RPN's one:
 Cascade R-CNN, Cascade RPN, Double-Head, Dynamic and PISA R-CNN, Grid R-CNN
 and TridentNet through ``DetectorModel``; image ms, idle share; B's
@@ -170,8 +171,19 @@ and Cascade RPN's E; Grid's and Cascade RPN's f32 kernel path against the
 plain path as sets), ``det_rcnn_train`` (those seven configs through the
 training CLI: step ms, idle share, finite losses, Dynamic R-CNN's
 ``batch_iou`` / ``batch_beta``; B and D a step on each body, Grid's
-``scatter14x2`` among them, and E, F, G once a step for Cascade RPN) and
-``voc_eval`` (``faster_rcnn_r50_dc5_1x_voc.py`` through the test CLI on a
+``scatter14x2`` among them, and E, F, G once a step for Cascade RPN),
+``det_mask`` (the mask families, Mask R-CNN, Mask Scoring R-CNN,
+PointRend, HTC and SCNet at 608 x 1024 and YOLACT at 768 x 1280, bf16, 80
+classes, through ``DetectorModel``, which drops the masks: image ms, idle
+share, B's launches an image on each body), ``det_mask_agree`` (Mask
+R-CNN and HTC at f32 through their modules, masks and all: the kernel
+path's detections against the plain path's as sets, each matched mask
+pasted at the bucket's size within MASK_AGREE_PIXELS pixels, and the
+kernel path's mask AP against the plain path's masks), ``det_mask_train``
+(the six mask configs through the training CLI on box-filled masks: step
+ms, idle share, the mask loss terms; B's ``gather28x2`` (the 28 x 28
+targets), ``gather14x2`` and D's ``scatter14x2`` a step as MASK_TRAIN
+says) and ``voc_eval`` (``faster_rcnn_r50_dc5_1x_voc.py`` through the test CLI on a
 VOC tree of JPEG copies and XML: the plain f32 run's detections as gts,
 the f32 kernel path's mAP50, the bf16 run's). The ``kernels`` phase also
 holds E, F and G at GA-RPN's P2-P6 and GA-RetinaNet's P3-P7 shapes (one
@@ -180,9 +192,12 @@ on each of P2-P5), and E, F and G at VFNet's P3 and P7 with star
 offsets and at RepPoints' P3 and P7 with the points' offsets, B's
 ``gather14x2`` and D's ``scatter14x2`` at Grid R-CNN's shapes (one 38 x 64
 x 512 map, 100 and 256 rois), B at PISA's 604 candidates and at
-Double-Head's 1.3x rois, and E, F and G at Cascade RPN's stage 2 (1 x 256
-x 38 x 64, offsets from refined anchors), each beside its plain version
-and its bound. Then JPEG frames, the learning
+Double-Head's 1.3x rois, E, F and G at Cascade RPN's stage 2 (1 x 256
+x 38 x 64, offsets from refined anchors), B's mask-target body
+``gather28x2`` (256 rois on 20 box-filled, and on random, 1-channel f32
+608 x 1024 masks) and B's ``gather14x2`` and D's ``scatter14x2`` at the
+mask heads' shapes (100 and 256 rois about gts on one 38 x 64 x 512 map),
+each beside its plain version and its bound. Then JPEG frames, the learning
 check and checkpoint import: ``jpeg_decode`` (the host decoder
 ``csrc/jpeg_decode.cpp`` built
 with g++: every committed fixture of ``tests/data/jpeg`` against its
@@ -514,9 +529,10 @@ RCNN_TERM = {"CascadeRCNN": "s2.loss_bbox", "CascadeRPN": "loss_s2_reg",
              "PISAFasterRCNN": "loss_carl", "GridRCNN": "loss_grid",
              "TridentFasterRCNN": "loss"}
 RCNN_AGREE = ("GridRCNN", "CascadeRPN")  # f32 kernel path vs plain, as sets
-# kernels at their shapes: Grid R-CNN's 14x14 bodies on one DC5 map (100
-# test detections, 256 training rois), PISA's G + 600 candidates and
-# Double-Head's 300 test proposals scaled 1.3x on the 7x7 body
+# kernels at their shapes: Grid R-CNN's and the mask heads' 14x14 bodies
+# on one DC5 map (100 test detections, 256 training rois), PISA's G + 600
+# candidates and Double-Head's 300 test proposals scaled 1.3x on the 7x7
+# body
 RCNN_MAP = (38, 64, 512)
 RCNN_GRID_ROIS = (100, 256)
 RCNN_PISA_CANDIDATES = 604
@@ -525,6 +541,40 @@ RCNN_DH_ROIS = 300
 # refined by N(0, 0.5^2) deltas (stds (0.1, 0.1, 0.5, 0.5))
 CRPN_DCN_SHAPES = (("cascade_rpn_s2", 256, 38, 64),)
 CRPN_DELTA_STD = 0.5
+# the mask families (PR 23): the five DC5 configs and YOLACT
+MASK_CFGS = (
+    ("MaskRCNN", "configs/det/mask_rcnn_r50_dc5_1x_coco.py"),
+    ("MaskScoringRCNN", "configs/det/ms_rcnn_r50_dc5_1x_coco.py"),
+    ("PointRend", "configs/det/point_rend_r50_dc5_1x_coco.py"),
+    ("HTC", "configs/det/htc_r50_dc5_1x_coco.py"),
+    ("SCNet", "configs/det/scnet_r50_dc5_1x_coco.py"),
+    ("YOLACT", "configs/det/yolact_r50_1x8_coco.py"))
+MASK_IMAGES, MASK_PROFILED = 4, 1
+# launches an image at test time, as the code calls them: (B gather7x2, B
+# gather14x2); HTC / SCNet read the neck and the semantic features at
+# every stage (3 x 2 at 7x7) and once for the mask heads (2 at 14x14);
+# YOLACT launches none
+MASK_TEST = {"MaskRCNN": (1, 1), "MaskScoringRCNN": (1, 1),
+             "PointRend": (1, 1), "HTC": (6, 2), "SCNet": (6, 2),
+             "YOLACT": (0, 0)}
+# a training step: (B 7x2, B 14x2, B 28x2 (the targets), D 7x2, D 14x2)
+MASK_TRAIN = {"MaskRCNN": (1, 1, 1, 1, 1), "MaskScoringRCNN": (1, 1, 1, 1, 1),
+              "PointRend": (1, 1, 1, 1, 1), "HTC": (6, 6, 3, 6, 6),
+              "SCNet": (6, 6, 3, 6, 6), "YOLACT": (0, 0, 0, 0, 0)}
+MASK_TERMS = {"MaskRCNN": ("loss_mask",),
+              "MaskScoringRCNN": ("loss_mask", "loss_mask_iou"),
+              "PointRend": ("loss_mask", "loss_point"),
+              "HTC": ("loss_semantic", "s0.loss_mask", "s1.loss_mask",
+                      "s2.loss_mask"),
+              "SCNet": ("loss_semantic", "s0.loss_mask", "s1.loss_mask",
+                        "s2.loss_mask"),
+              "YOLACT": ("loss_mask", "loss_segm")}
+MASK_AGREE = ("MaskRCNN", "HTC")  # f32 kernel path vs plain
+MASK_AGREE_PIXELS = 16  # pasted pixels a matched instance may differ by
+# kernel B's mask-target body: G box-filled (and random) 1-channel f32
+# masks at the DC5 bucket, rois about the gts (the mask heads' 14x14
+# bodies are rcnn_roi_kernels' cases)
+MASK_TARGET = dict(gts=20, rois=256, hw=(608, 1024))
 # --loader-close: rounds of opening, reading and closing the loader
 LOADER_CLOSE_ROUNDS, LOADER_CLOSE_BATCHES = 12, 6
 # the plain versions' calls a timing turn (milliseconds a call; the
@@ -1123,6 +1173,18 @@ def test_rois(dev, n, h, w, g):
     return r.to(dev)
 
 
+def mask_head_rois(dev, n, h, w, g):
+    """Rois as a mask head meets them: about 20 random gts of the padded
+    image (each corner moved by up to 20% of its gt's side), the first
+    one outside the image."""
+    gts = test_rois("cpu", 20, h, w, g).clamp(0, w * 16)
+    c = gts[torch.randint(0, 20, (n,), generator=g)]
+    side = (c[:, 2:] - c[:, :2]).repeat(1, 2)
+    r = c + (torch.rand(n, 4, generator=g) * 0.4 - 0.2) * side
+    r[0] = torch.tensor([-200.0, -200.0, -100.0, -120.0])
+    return r.to(dev)
+
+
 def batched_attention_inputs(dev, dtype, g, n_streams):
     """Kernel A's operands for S streams, each as ``attention_inputs``."""
     parts = [attention_inputs(dev, dtype, g) for _ in range(n_streams)]
@@ -1155,7 +1217,11 @@ def add_bodies(entry, launches):
 
 
 def check_bodies(name, kernel, **want):
-    """The kernel's launches per body since its last reset are ``want``."""
+    """The kernel's launches per body since its last reset are ``want``
+    (a body not named: none)."""
+    if set(want) - set(kernel.body_launches):
+        raise AssertionError(f"{name}: no body {sorted(want)}")
+    want = {b: want.get(b, 0) for b in kernel.body_launches}
     if kernel.body_launches != want:
         raise AssertionError(f"{name}: launches per body "
                              f"{kernel.body_launches}, want {want}")
@@ -4891,17 +4957,18 @@ def groie_roi_kernels(dev, g, ops, errs):
 
 def rcnn_roi_kernels(dev, g, ops, errs):
     """Kernels B and D at the DC5 two-stage families' shapes on one map
-    RCNN_MAP: Grid R-CNN's 14x14 bodies (``gather14x2``, ``scatter14x2``)
-    over RCNN_GRID_ROIS rois (``test_rois``: the first one outside the map,
-    which must give 0), f32 (the grid head's map) and bf16; B against its
-    plain version (ROI_F32_ATOL / ROI_BF16_TOL), D against
-    ``roi_align_backward_plain`` and torch autograd through the plain
-    RoIAlign (ROI_GRAD_F32_REL x max |grad|, bf16 also
-    ROI_GRAD_BF16_RTOL); then B's 7x7 body at PISA's RCNN_PISA_CANDIDATES
-    candidates and at Double-Head's RCNN_DH_ROIS rois scaled 1.3x (many
-    past the map), f32. Each f32 case timed beside its plain version
-    (plain, kernel, kernel, plain) and from a CUDA graph, with its bound.
-    Returns ({case: B entry}, {case: D entry})."""
+    RCNN_MAP: the 14x14 bodies (``gather14x2``, ``scatter14x2``) over
+    RCNN_GRID_ROIS rois, once as Grid R-CNN's (``test_rois``) and once as the
+    mask heads' (``mask_head_rois``: about random gts), the first roi of each
+    outside the map, which must give 0; f32 (the grid and mask heads' maps)
+    and bf16; B against its plain version (ROI_F32_ATOL / ROI_BF16_TOL), D
+    against ``roi_align_backward_plain`` and torch autograd through the plain
+    RoIAlign (ROI_GRAD_F32_REL x max |grad|, bf16 also ROI_GRAD_BF16_RTOL), D
+    never all zero; then B's 7x7 body at PISA's RCNN_PISA_CANDIDATES
+    candidates and at Double-Head's RCNN_DH_ROIS rois scaled 1.3x (many past
+    the map), f32. Each f32 case timed beside its plain version (plain,
+    kernel, kernel, plain) and from a CUDA graph, with its bound. Returns
+    ({case: B entry}, {case: D entry})."""
     from lowlightenvironmentvideoobjectdetection_torch.models.detectors import (  # noqa: E501
         roi_head_families as RH)
     gen = torch.Generator().manual_seed(29)
@@ -4942,9 +5009,12 @@ def rcnn_roi_kernels(dev, g, ops, errs):
             library_ms=None, library_note=NO_LIBRARY_ROI_ALIGN,
             bytes=nbytes, flops=flops)
 
-    for n in RCNN_GRID_ROIS:
-        key = f"grid14_{n}"
-        rois = test_rois(dev, n, h, w, gen)
+    cases = [(f"{kind}14_{n}", make(dev, n, h, w, gen))
+             for kind, make in (("grid", test_rois),
+                                ("mask_head", mask_head_rois))
+             for n in RCNN_GRID_ROIS]
+    for key, rois in cases:
+        n = rois.shape[0]
         b_case(key, rois, 14)
         if ops.roi_align(torch.randn((h, w, c), generator=gen).to(dev),
                          rois[:1], 1 / 16, out_size=14).abs().max() != 0:
@@ -5030,6 +5100,96 @@ def crpn_dcn_kernels(dev, g, ops, errs):
             offset_abs_max_px=float(off.abs().max()))
     return dcnv1_level_kernels(dev, g, ops, errs, CRPN_DCN_SHAPES, inputs,
                                "cascade_rpn_levels")
+
+
+def mask_target_inputs(dev, gen, kind):
+    """Kernel B's mask-target operands at MASK_TARGET: box-filled (or
+    random 0/1) masks [G, H, W, 1] f32 on the card, rois about the gts
+    (each corner moved by up to 20% of its gt's side, the first ones past
+    the image or of zero area) and their matched gt."""
+    g, n = MASK_TARGET["gts"], MASK_TARGET["rois"]
+    h, w = MASK_TARGET["hw"]
+    x1 = torch.rand(g, generator=gen) * (w - 64)
+    y1 = torch.rand(g, generator=gen) * (h - 64)
+    gts = torch.stack([x1, y1, x1 + 16 + torch.rand(g, generator=gen) * 400,
+                       y1 + 16 + torch.rand(g, generator=gen) * 300], 1)
+    matched = torch.randint(0, g, (n,), generator=gen)
+    c = gts[matched]
+    side = (c[:, 2:] - c[:, :2]).repeat(1, 2)
+    rois = c + (torch.rand(n, 4, generator=gen) * 0.4 - 0.2) * side
+    rois[:3] = torch.tensor([[-80.0, -60.0, -10.0, -5.0],
+                             [w - 30.0, h - 20.0, w + 90.0, h + 70.0],
+                             [100.0, 100.0, 100.0, 100.0]])
+    if kind == "box":
+        yy = torch.arange(h, dtype=torch.float32)[None, :, None]
+        xx = torch.arange(w, dtype=torch.float32)[None, None, :]
+        b = gts[:, :, None, None]
+        masks = ((yy >= b[:, 1]) & (yy < b[:, 3]) & (xx >= b[:, 0])
+                 & (xx < b[:, 2])).float()
+    else:
+        masks = (torch.rand(g, h, w, generator=gen) > 0.5).float()
+    return (masks[..., None].contiguous().to(dev), rois.to(dev),
+            matched.to(dev))
+
+
+def mask_roi_kernels(dev, g, ops, errs):
+    """The mask families' RoIAlign bodies. Kernel B's ``gather28x2`` (the
+    mask targets: scalar loads of 1-channel f32 masks, each roi's matched
+    gt its map index, scale 1) at MASK_TARGET on box-filled and random
+    masks against its plain version (ROI_F32_ATOL), the box-filled case
+    timed eagerly beside the plain version and from a CUDA graph, its
+    bound from the mask pixels the rois read (the plain version's nonzero
+    gradient); the binarised targets of both counted where they differ.
+    The mask heads' 14x14 bodies are ``rcnn_roi_kernels``' cases
+    ``mask_head14_*``. Returns {case: B entry}."""
+    gen = torch.Generator().manual_seed(31)
+    b_out = {}
+    for kind in ("box", "random"):
+        masks, rois, matched = mask_target_inputs(dev, gen, kind)
+        n_body = ops.roi_align.body_launches["gather28x2"]
+        got = ops.roi_align(masks, rois, 1.0, batch_inds=matched,
+                            out_size=28)
+        if ops.roi_align.body_launches["gather28x2"] != n_body + 1:
+            raise AssertionError("mask B: not the gather28x2 body")
+        want = ops.roi_align(masks, rois, 1.0, batch_inds=matched,
+                             out_size=28, impl="plain")
+        check_close(f"mask B 28x2 {kind}", got, want, 0.0, ROI_F32_ATOL)
+        if got[0].abs().max() != 0 or got.abs().max() == 0:
+            raise AssertionError("mask B 28x2: a roi outside the image is "
+                                 "not 0, or every target is")
+        errs[f"roi_align_mask_targets_{kind}"] = max_err(got, want)
+        flips = int(((got >= 0.5) != (want >= 0.5)).sum())
+        if kind != "box":
+            b_out["targets_random"] = dict(
+                body="gather28x2", rois=int(rois.shape[0]),
+                max_abs_err=errs["roi_align_mask_targets_random"],
+                binarised_flips=flips)
+            continue
+        call = lambda: ops.roi_align(masks, rois, 1.0,  # noqa: E731
+                                     batch_inds=matched, out_size=28)
+        ms, plain_ms, _ = compare_times(
+            call, lambda: ops.roi_align(masks, rois, 1.0, batch_inds=matched,
+                                        out_size=28, impl="plain"))
+        gms = graph_ms(call)
+        m = torch.zeros_like(masks, requires_grad=True)
+        ops.roi_align_plain(m, rois, 1.0, batch_inds=matched,
+                            out_size=28).sum().backward()
+        pixels = int((m.grad != 0).sum())
+        gts, h, w = masks.shape[0], *MASK_TARGET["hw"]
+        nbytes, flops = roi_align_cost(gts, h, w, 1, rois.shape[0], 4,
+                                       bind_bytes=8, out_size=28,
+                                       map_pixels=pixels)
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOP_PER_S)
+        b_out["targets_box"] = dict(
+            body="gather28x2", rois=int(rois.shape[0]), masks=[gts, h, w, 1],
+            dtype="float32", max_abs_err=errs["roi_align_mask_targets_box"],
+            binarised_flips=flips, mask_pixels_read=pixels, ms=ms,
+            graph_ms=gms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, share_of_bound=bound_ms / ms,
+            graph_share_of_bound=bound_ms / gms, library_ms=None,
+            library_note=NO_LIBRARY_ROI_ALIGN, bytes=nbytes, flops=flops)
+        del m
+    return b_out
 
 
 def variant_counting(levels):
@@ -5669,12 +5829,13 @@ def det_rcnn_train(dev, smi, kernels, root, train_ann):
 
 def det_zoo_eval(dev, smi, kernels, root, val_ann):
     """The test CLI's image route on the card over the COCO tree's val
-    split for the zoo's later configs (DENSE_CFGS' last five, AUTOAUG_CFG
-    and the seven RCNN_CFGS) at their bf16, seeded weights as the CLI
-    builds them (no checkpoint): the summary line, images/s. Gates: every
-    image, 80 per-class lists (Cascade RPN's 1) of finite [N, 5] rows,
-    mAP50 in [0, 1], E DENSE_E_PER_IMAGE times an image (RepPoints 10), B
-    and E as RCNN_TEST says an image on each body, nothing else launched.
+    split for the zoo's later configs (DENSE_CFGS' last five, AUTOAUG_CFG,
+    the seven RCNN_CFGS and the six MASK_CFGS) at their bf16, seeded
+    weights as the CLI builds them (no checkpoint): the summary line,
+    images/s. Gates: every image, 80 per-class lists (Cascade RPN's 1) of
+    finite [N, 5] rows, mAP50 in [0, 1], E DENSE_E_PER_IMAGE times an
+    image (RepPoints 10), B and E as RCNN_TEST (MASK_TEST) says an image on
+    each body, nothing else launched.
     Returns the launch counts (A-G) and B's bodies."""
     from lowlightenvironmentvideoobjectdetection_torch.tools import (
         test as tcli)
@@ -5686,7 +5847,7 @@ def det_zoo_eval(dev, smi, kernels, root, val_ann):
                 img_prefix=f"{root}/coco/")
     bodies = {}
     for name, cfg_path in (DENSE_CFGS[-5:] + (("RetinaNet", AUTOAUG_CFG),)
-                           + RCNN_CFGS):
+                           + RCNN_CFGS + MASK_CFGS):
         reset_counts(*kernels)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -5694,8 +5855,9 @@ def det_zoo_eval(dev, smi, kernels, root, val_ann):
                              f"data.test={test!r}"])
         line = buf.getvalue().strip().splitlines()[-1]
         counts = [k.launches for k in kernels]
-        if name in RCNN_TEST:
-            want, want_bodies = rcnn_want(name, n_images)
+        if name in RCNN_TEST or name in MASK_TEST:
+            want, want_bodies = (rcnn_want if name in RCNN_TEST
+                                 else mask_want)(name, n_images)
             check_bodies(f"det_zoo_eval {name}", kernels[1], **want_bodies)
             add_counts(bodies, dict(roi_align=kernels[1].body_launches))
         else:
@@ -5723,6 +5885,249 @@ def det_zoo_eval(dev, smi, kernels, root, val_ann):
           phase_s=time.perf_counter() - t_phase)
     return total, dict(roi_align=bodies.get("roi_align", {}),
                        roi_align_backward={})
+
+
+def mask_want(name, n_images):
+    """det_mask's launch counts (A-G) and B's bodies over ``n_images``."""
+    b7, b14 = MASK_TEST[name]
+    return ([0, (b7 + b14) * n_images, 0, 0, 0, 0, 0],
+            dict(gather7x2=b7 * n_images, gather14x2=b14 * n_images))
+
+
+def det_mask(dev, smi, kernels):
+    """The mask families of MASK_CFGS at full width, bf16, 80 classes,
+    seeded weights, through ``DetectorModel.inference_detector`` (the 608
+    x 1024 bucket; YOLACT's 768 x 1280), which drops the masks as the JAX
+    API does, on MASK_IMAGES random 480 x 640 frames and MASK_PROFILED
+    more under the profiler: image ms, the device's busy ms and idle
+    share, peak memory, launches an image by body. Gates: B on each body
+    as MASK_TEST says an image (Mask R-CNN's ``gather14x2`` once), nothing
+    else; 80 lists of finite rows. Returns the launch counts (A-G) and
+    B's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        DetectorModel)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(41)
+    n = MASK_IMAGES + MASK_PROFILED
+    raw = rng.randint(0, 256, (n,) + DET_HW + (3,)).astype(np.uint8)
+    total, bodies, runs = [0] * len(kernels), {}, {}
+    for name, cfg_path in MASK_CFGS:
+        mtype, kw = detector_kwargs(cfg_path)
+        det = DetectorModel(mtype, device=dev, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        lat, ndet = [], []
+        for i in range(MASK_IMAGES):
+            t = time.perf_counter()
+            res = det.inference_detector(raw[i])
+            lat.append((time.perf_counter() - t) * 1e3)
+            ndet.append(sum(len(r) for r in res))
+            if len(res) != det.num_classes or not all(
+                    np.isfinite(r).all() for r in res):
+                raise AssertionError(f"det_mask {name}: bad result")
+        frames = iter(range(MASK_IMAGES, n))
+        window = flow_profiled(lambda: det.inference_detector(
+            raw[next(frames)]), MASK_PROFILED)
+        counts = [k.launches for k in kernels]
+        want, want_bodies = mask_want(name, n)
+        if counts != want:
+            raise AssertionError(f"det_mask {name}: launch counts {counts}, "
+                                 f"want {want}")
+        check_bodies(f"det_mask {name}", kernels[1], **want_bodies)
+        add_counts(bodies, dict(roi_align=kernels[1].body_launches))
+        runs[name] = dict(
+            config=cfg_path, bucket=[det.pad_h, det.pad_w],
+            classes=det.num_classes, frames=n, frame0_ms=lat[0],
+            median_frame_ms=statistics.median(lat[1:]),
+            frame_ms=lat[1:], device_window=window,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            detections_per_frame=ndet,
+            launches_per_image=dict(zip(("gather7x2", "gather14x2"),
+                                        MASK_TEST[name])),
+            launches=dict(zip(KERNEL_NAMES, counts)))
+        total = [a + b for a, b in zip(total, counts)]
+        del det
+        torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    phase("det_mask", card=smi, frame_hw=DET_HW, models=runs,
+          launches=dict(zip(KERNEL_NAMES, total)), body_launches=bodies,
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward={})
+
+
+def mask_pairs(got, want):
+    """Index pairs (got row, want row) of equal detections (``match_rows``'
+    tolerances), greedily in want's order."""
+    gv = torch.nonzero(got.valid).flatten().tolist()
+    pairs = []
+    for j in torch.nonzero(want.valid).flatten().tolist():
+        for i in gv:
+            if (int(got.labels[i]) == int(want.labels[j])
+                    and (got.boxes[i] - want.boxes[j]).abs().max()
+                    < SET_BOX_TOL
+                    and abs(float(got.scores[i] - want.scores[j]))
+                    < SET_SCORE_TOL):
+                pairs.append((i, j))
+                gv.remove(i)
+                break
+    return pairs
+
+
+def det_mask_agree(dev, kernels):
+    """MASK_AGREE at f32 (TF32 off), full width, seeded weights, one
+    480 x 640 frame in the bucket: the family module's detect on the
+    kernel path (B as MASK_TEST says) and on the plain path (no launch).
+    Gates: the detections equal as sets, none unmatched, some; each matched
+    instance's mask pasted at the bucket's size (HTC: its averaged class
+    probabilities pasted) differs in at most MASK_AGREE_PIXELS pixels.
+    Prints ``eval_mask_ap`` of the kernel path's masks against the plain
+    path's as ground truth."""
+    from lowlightenvironmentvideoobjectdetection_torch.apis.inference import (
+        DetectorModel)
+    from lowlightenvironmentvideoobjectdetection_torch.core.eval.instseg import (  # noqa: E501
+        eval_mask_ap)
+    from lowlightenvironmentvideoobjectdetection_torch.data.preprocess import (
+        prepare_frames)
+    from lowlightenvironmentvideoobjectdetection_torch.models.detectors import (
+        htc as H, mask_rcnn as MK)
+    from lowlightenvironmentvideoobjectdetection_torch.models.roi_heads import (
+        mask_head as MH)
+    t_phase = time.perf_counter()
+    raw = np.random.RandomState(43).randint(
+        0, 256, (1,) + DET_HW + (3,)).astype(np.uint8)
+    out = {}
+    for name, cfg_path in MASK_CFGS:
+        if name not in MASK_AGREE:
+            continue
+        mtype, kw = detector_kwargs(cfg_path, compute_dtype="float32")
+        det = DetectorModel(mtype, device=dev, **kw)
+        imgs, shape, sf = prepare_frames(raw, det.pad_h, det.pad_w,
+                                         device=dev)
+        sf = torch.as_tensor(sf, device=dev)
+        h, w = det.pad_h, det.pad_w
+
+        def run(impl):
+            if name == "HTC":
+                d, probs = H.htc_detect(det.model, imgs[0], shape, det.aux,
+                                        scale_factor=sf, impl=impl)
+                return d, MH.paste_masks(MH.class_channel(probs, d.labels),
+                                         d.boxes, h, w)
+            return MK.mask_rcnn_detect(det.model, imgs[0], shape, det.aux,
+                                       scale_factor=sf, impl=impl)
+
+        reset_counts(*kernels)
+        got, gmasks = run(None)
+        if [k.launches for k in kernels] != mask_want(name, 1)[0]:
+            raise AssertionError(f"det_mask_agree {name}: launches "
+                                 f"{[k.launches for k in kernels]}")
+        reset_counts(*kernels)
+        want, wmasks = run("plain")
+        if any(k.launches for k in kernels):
+            raise AssertionError(f"det_mask_agree {name}: the plain path "
+                                 "launched a kernel")
+        sets = match_sets(got, want)
+        if sets["unmatched"] or sets["n_got"] != sets["n_want"] or \
+                not sets["n_want"]:
+            raise AssertionError(f"det_mask_agree {name}: sets {sets}")
+        pairs = mask_pairs(got, want)
+        diff = [int((gmasks[i] != wmasks[j]).sum()) for i, j in pairs]
+        if len(pairs) != sets["n_want"] or max(diff) > MASK_AGREE_PIXELS:
+            raise AssertionError(f"det_mask_agree {name}: mask pixels "
+                                 f"differ by {max(diff)}")
+        classes = det.num_classes
+        gv, wv = got.valid, want.valid
+        seg = [[dict(scores=got.scores[gv & (got.labels == k)].cpu().numpy(),
+                     masks=gmasks[gv & (got.labels == k)].cpu().numpy())
+                for k in range(classes)]]
+        ann = [dict(masks=wmasks[wv].cpu().numpy(),
+                    labels=want.labels[wv].cpu().numpy())]
+        out[name] = dict(sets=sets, instances=len(pairs),
+                         max_pixels_differ=max(diff),
+                         pixels_differ_total=sum(diff),
+                         mask_pixels=int(wmasks[wv].sum()),
+                         mask_ap_vs_plain=eval_mask_ap(seg, ann, classes))
+        del det, imgs, gmasks, wmasks
+        torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    phase("det_mask_agree", models=out, tolerances=dict(
+        box_px=SET_BOX_TOL, score=SET_SCORE_TOL,
+        mask_pixels_an_instance=MASK_AGREE_PIXELS),
+        phase_s=time.perf_counter() - t_phase)
+
+
+def det_mask_train(dev, smi, kernels, root, train_ann):
+    """The training CLI's image route for the six MASK_CFGS on the COCO tree
+    ``det_train`` wrote (into the 608 x 1024 bucket; YOLACT's 768 x 1280),
+    bf16, seeded weights, box-filled masks (the tree has none, as JAX),
+    RCNN_TRAIN_STEPS steps each, the last ones profiled: step ms, idle
+    share, peak memory, the mask loss terms. Gates: finite losses with
+    each family's MASK_TERMS; B and D a step on each body as MASK_TRAIN
+    says (the targets' ``gather28x2``, the mask heads' ``gather14x2`` and
+    ``scatter14x2``), nothing else. Returns the launch counts (A-G) and
+    B's and D's bodies."""
+    from lowlightenvironmentvideoobjectdetection_torch.tools import (
+        train as cli)
+    t_phase = time.perf_counter()
+    total, bodies, runs = [0] * len(kernels), {}, {}
+    steps = RCNN_TRAIN_STEPS
+    for name, cfg_path in MASK_CFGS:
+        scale = DENSE_TRAIN_SCALE if name == "YOLACT" else RCNN_TRAIN_SCALE
+        pipeline = [dict(type="LoadImageFromFile"),
+                    dict(type="LoadAnnotations", with_bbox=True),
+                    dict(type="Resize", img_scale=scale),
+                    dict(type="RandomFlip", flip_ratio=0.5),
+                    dict(type="Normalize"),
+                    dict(type="Pad", size_divisor=16)]
+        d = dict(type="CocoDataset", ann_file=train_ann,
+                 img_prefix=f"{root}/coco/", pipeline=pipeline)
+        window = StepWindow(steps, RCNN_TRAIN_SKIP)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        t0 = time.perf_counter()
+        out = cli.main([str(REPO / cfg_path), "--seed", "0",
+                        "--work-dir", f"{root}/work_mask", "--steps",
+                        str(steps), "--cfg-options", f"data.train={d!r}",
+                        "data.workers_per_gpu=0"], on_step=window)
+        counts = [k.launches for k in kernels]
+        b7, b14, b28, d7, d14 = MASK_TRAIN[name]
+        want = [0, (b7 + b14 + b28) * steps, 0, (d7 + d14) * steps, 0, 0, 0]
+        terms = MASK_TERMS[name]
+        if counts != want or not all(
+                np.isfinite(v) for m in out["metrics"] for v in m.values()) \
+                or not all(set(terms) <= set(m) for m in out["metrics"]):
+            raise AssertionError(f"det_mask_train {name}: counts {counts}, "
+                                 f"want {want}; metrics {out['metrics']}")
+        check_bodies(f"det_mask_train {name} roi_align", kernels[1],
+                     gather7x2=b7 * steps, gather14x2=b14 * steps,
+                     gather28x2=b28 * steps)
+        check_bodies(f"det_mask_train {name} roi_align_backward",
+                     kernels[3], scatter7x2=d7 * steps,
+                     scatter14x2=d14 * steps)
+        add_counts(bodies, dict(roi_align=kernels[1].body_launches,
+                                roi_align_backward=kernels[3].body_launches))
+        step_ms = [(y - x) * 1e3 for x, y in zip([t0] + window.stamps,
+                                                window.stamps)]
+        runs[name] = dict(
+            config=cfg_path, steps=steps, first_step_ms=step_ms[0],
+            median_step_ms=statistics.median(step_ms[1:RCNN_TRAIN_SKIP]),
+            step_ms=step_ms, device_window=window.window,
+            mask_terms={k: [m[k] for m in out["metrics"]] for k in terms},
+            losses=[m["loss"] for m in out["metrics"]],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            launches=dict(zip(KERNEL_NAMES, counts)))
+        total = [a + c for a, c in zip(total, counts)]
+        del out
+        torch.cuda.empty_cache()
+    reset_counts(*kernels)
+    phase("det_mask_train", card=smi, tree=COCO_TREE, runs=runs,
+          launches=dict(zip(KERNEL_NAMES, total)), body_launches=bodies,
+          phase_s=time.perf_counter() - t_phase)
+    return total, dict(roi_align=bodies.get("roi_align", {}),
+                       roi_align_backward=bodies.get("roi_align_backward",
+                                                     {}))
 
 
 class InitMemo:
@@ -6513,13 +6918,15 @@ def main() -> int:
         summary["roi_align_backward"]["groie_levels"] = groie_roi_kernels(
             dev, g, roi_ops, errs)
     # the DC5 two-stage families: B and D on their 14x14 bodies at Grid
-    # R-CNN's shapes, B at PISA's candidates and Double-Head's 1.3x rois,
-    # E, F, G at Cascade RPN's stage 2
+    # R-CNN's and the mask heads' shapes, B at PISA's candidates and
+    # Double-Head's 1.3x rois, E, F, G at Cascade RPN's stage 2
     summary["roi_align"]["rcnn"], summary["roi_align_backward"]["rcnn"] = \
         rcnn_roi_kernels(dev, g, roi_ops, errs)
     crpn_dcn = crpn_dcn_kernels(dev, g, dcn_ops, errs)
     for name, kern in zip(dcn_names, "EFG"):
         summary[name].update(crpn_dcn[kern])
+    # the mask families: B's mask-target body gather28x2
+    summary["roi_align"]["mask"] = mask_roi_kernels(dev, g, roi_ops, errs)
     phase("kernels", card=smi, max_abs_err=errs, bf16_times=summary,
           tolerances=dict(attention_atol=ATTN_ATOL, library_atol=LIBRARY_TOL,
                           roi_f32_atol=ROI_F32_ATOL,
@@ -6716,6 +7123,9 @@ def main() -> int:
         runs.append(det_variants(dev, smi, path_kernels))
         runs.append(det_dense(dev, smi, path_kernels))
         runs.append(det_rcnn(dev, smi, path_kernels))
+        # the mask families through the API, and f32 against plain
+        runs.append(det_mask(dev, smi, path_kernels))
+        det_mask_agree(dev, path_kernels)
         counts, bodies, train_ann, val_ann = det_train(dev, smi,
                                                        path_kernels, root)
         runs.append((counts, bodies))
@@ -6730,6 +7140,7 @@ def main() -> int:
                                           train_ann))
         # the two-stage families on the DC5 trunk on the same tree
         runs.append(det_rcnn_train(dev, smi, path_kernels, root, train_ann))
+        runs.append(det_mask_train(dev, smi, path_kernels, root, train_ann))
         # their configs through the test CLI on the val split
         runs.append(det_zoo_eval(dev, smi, path_kernels, root, val_ann))
         # the VOC route: the DC5 config on a VOC tree of JPEG images

@@ -38,7 +38,15 @@ detector type of a config, the counterpart of the JAX package's
   as the JAX table does: ROADMAP F31) and ``PISAFasterRCNN`` /
   ``PISARoIHead`` (detected as Faster R-CNN;
   ``detectors/roi_head_families.py``), ``GridRCNN`` (14x14 RoIAlign for
-  its grid head) and ``TridentFasterRCNN`` (``detectors/more_rcnn.py``).
+  its grid head) and ``TridentFasterRCNN`` (``detectors/more_rcnn.py``);
+- the mask families, trained on box-filled masks where the batch has none
+  (``as_mask_batch``, the JAX ``_as_mask_batch``): ``MaskRCNN``
+  (``detectors/mask_rcnn.py``), ``HTC`` / ``HybridTaskCascade`` and
+  ``SCNet`` (``detectors/htc.py``), ``MaskScoringRCNN`` and ``PointRend``
+  (``detectors/more_rcnn.py``) on the DC5 trunk, and ``YOLACT``
+  (``dense_heads/yolact_head.py``) on RetinaNet's FPN. Their modules
+  return (detections, masks); ``detect`` here drops the masks, as the
+  JAX table does.
 
 An entry's ``build(mcfg, tiny, seed, device)`` gives (model, aux) with
 seeded flax-style weights (``aux``: the DC5 families' anchors, else None:
@@ -78,9 +86,12 @@ from ..models.dense_heads import reppoints_head as RP
 from ..models.dense_heads import retina_head as R
 from ..models.dense_heads import sabl_head as SB
 from ..models.dense_heads import vfnet_head as VF
+from ..models.dense_heads import yolact_head as Y
 from ..models.dense_heads import cascade_rpn_head as CRPN
 from ..models.detectors import cascade_rcnn as CR
 from ..models.detectors import fpn_faster_rcnn as FF
+from ..models.detectors import htc as H
+from ..models.detectors import mask_rcnn as MK
 from ..models.detectors import more_rcnn as MR
 from ..models.detectors import roi_head_families as RH
 from ..models.detectors.faster_rcnn import (DetTrainBatch, FasterRCNN,
@@ -309,6 +320,38 @@ FAMILIES["GridRCNN"] = _dc5_two_stage(
 FAMILIES["TridentFasterRCNN"] = _dc5_two_stage(
     MR.TridentFasterRCNN, MR.trident_loss, MR.trident_detect,
     draw=MR.draw_trident_uniforms)
+
+
+def _mask_family(cls, loss_fn, boxes_fn, draw=None):
+    """A DC5 mask family: its loss on the batch with masks
+    (``as_mask_batch``), its detections without them. ``boxes_fn`` is the
+    test path up to the masks (the mask head runs, nothing is pasted:
+    the masks are dropped here, as the JAX family drops them)."""
+    return _dc5_two_stage(
+        cls, lambda m, b, a, u: loss_fn(m, MK.as_mask_batch(b), a, u),
+        lambda m, img, ishape, a, scale_factor=None, impl=None: boxes_fn(
+            m, img, ishape, a, scale_factor=scale_factor, impl=impl)[0],
+        draw=draw)
+
+
+FAMILIES["MaskRCNN"] = _mask_family(MK.MaskRCNN, MK.mask_rcnn_loss,
+                                    MK.mask_rcnn_boxes)
+FAMILIES["HTC"] = FAMILIES["HybridTaskCascade"] = _mask_family(
+    H.HTC, H.htc_loss, H.htc_detect, draw=CR.draw_cascade_uniforms)
+FAMILIES["SCNet"] = _mask_family(H.SCNet, H.htc_loss, H.htc_detect,
+                                 draw=CR.draw_cascade_uniforms)
+FAMILIES["MaskScoringRCNN"] = _mask_family(
+    MR.MaskScoringRCNN, MR.mask_scoring_loss, MR.mask_scoring_boxes)
+FAMILIES["PointRend"] = _mask_family(  # its detections are Mask R-CNN's
+    MR.PointRendRCNN, MR.point_rend_loss,
+    lambda m, *a, **kw: MK.mask_rcnn_boxes(m.mask_rcnn, *a, **kw))
+FAMILIES["YOLACT"] = Family(
+    _dense_build(Y.YOLACT),
+    lambda m, a, b, generator=None, uniforms=None: Y.yolact_model_loss(
+        m, b, MK.as_mask_batch(b).gt_masks),
+    lambda m, a, img, ishape, sf=None, impl=None: Y.yolact_model_detect(
+        m, img, ishape, scale_factor=sf, impl=impl)[0],
+    input_hw=DENSE_TINY_HW)
 
 
 def _totalled(ls) -> Tuple[torch.Tensor, dict]:

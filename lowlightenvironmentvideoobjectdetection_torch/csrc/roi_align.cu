@@ -43,6 +43,19 @@
 // - Positions round with __fmul_rn / __fadd_rn: FMA contraction moved
 //   samples by an ulp against the plain version.
 //
+// The mask-target body ("gather28x2", the scalar kernel below): Mask
+// R-CNN's targets are a RoIAlign at 28 x 28 of each sampled roi's matched
+// gt mask, a 1-channel float32 map at the image's size (JAX:
+// models/roi_heads/mask_head.py mask_targets). One channel is a quarter of
+// a 16-byte vector, so this body reads scalars: one thread per (bin,
+// channel), its 4 sr^2 corner loads independent, the sample table in
+// shared memory as above. What bounds it: the scattered 4-byte loads, 16 a
+// bin (784 bins a roi, 50 KB of corner reads against the 3 KB written); the
+// masks (G x 608 x 1024 x 4 B, 50 MB at 20 gts) do not stay in L2, but a
+// roi reads only its own footprint, at most 56 x 56 sample rows and
+// columns. No backward body: the targets are thresholded and take no
+// gradient.
+//
 // Kernel D ("scatter" body, llvod_roi_align_backward) is the backward of
 // kernel B with respect to the maps; no TPU kernel corresponds to it (the
 // JAX package takes this gradient by autodiff of ops/roi_align.py). The
@@ -247,6 +260,68 @@ roi_align_gather(const T* __restrict__ feat, const float* __restrict__ rois,
       }
       Vec<T>::store(o + static_cast<size_t>(p * OUT + q) * C + c, acc);
     }
+  }
+}
+
+// Kernel B's scalar body: any number of float32 channels, one thread per
+// (bin, channel) of a roi's OUT x OUT x C output, in the output's order.
+constexpr int kScalarThreads = 256;
+
+template <int OUT, int SR>
+__global__ void __launch_bounds__(kScalarThreads)
+roi_align_gather_scalar(const float* __restrict__ feat,
+                        const float* __restrict__ rois,
+                        const long long* __restrict__ binds,
+                        float* __restrict__ out, int B, int H, int W, int C,
+                        float spatial_scale, float offset) {
+  constexpr int kPts = OUT * SR;
+  __shared__ Sample ys[kPts], xs[kPts];
+
+  const int n = blockIdx.x;
+  const float* r = rois + 4 * n;
+  const float x1 = __fsub_rn(__fmul_rn(r[0], spatial_scale), offset);
+  const float y1 = __fsub_rn(__fmul_rn(r[1], spatial_scale), offset);
+  const float x2 = __fsub_rn(__fmul_rn(r[2], spatial_scale), offset);
+  const float y2 = __fsub_rn(__fmul_rn(r[3], spatial_scale), offset);
+  const float bin_w = (x2 - x1) / static_cast<float>(OUT);
+  const float bin_h = (y2 - y1) / static_cast<float>(OUT);
+  for (int i = threadIdx.x; i < 2 * kPts; i += blockDim.x) {
+    const int j = i < kPts ? i : i - kPts;
+    const float sub = (static_cast<float>(j % SR) + 0.5f) /
+                      static_cast<float>(SR);
+    if (i < kPts) {
+      ys[j] = axis_sample(y1, bin_h, j / SR, sub, H, W * C);
+    } else {
+      xs[j] = axis_sample(x1, bin_w, j / SR, sub, W, C);
+    }
+  }
+
+  long long b = binds ? binds[n] : 0;
+  b = b < 0 ? 0 : (b >= B ? B - 1 : b);
+  const float* f = feat + static_cast<size_t>(b) * H * W * C;
+  float* o = out + static_cast<size_t>(n) * OUT * OUT * C;
+  __syncthreads();
+
+  for (int it = threadIdx.x; it < OUT * OUT * C; it += blockDim.x) {
+    const int c = it % C;
+    const int bin = it / C;
+    const int p = bin / OUT, q = bin - p * OUT;
+    float acc = 0.0f;
+#pragma unroll
+    for (int ky = 0; ky < SR; ++ky) {
+      const Sample sy = ys[p * SR + ky];
+#pragma unroll
+      for (int kx = 0; kx < SR; ++kx) {
+        const Sample sx = xs[q * SR + kx];
+        const float v00 = __ldg(f + sy.o0 + sx.o0 + c);
+        const float v01 = __ldg(f + sy.o0 + sx.o1 + c);
+        const float v10 = __ldg(f + sy.o1 + sx.o0 + c);
+        const float v11 = __ldg(f + sy.o1 + sx.o1 + c);
+        acc += sy.w0 * sx.w0 * v00 + sy.w0 * sx.w1 * v01 +
+               sy.w1 * sx.w0 * v10 + sy.w1 * sx.w1 * v11;
+      }
+    }
+    __stcs(o + it, acc * (1.0f / static_cast<float>(SR * SR)));
   }
 }
 
@@ -481,6 +556,16 @@ int launch(const void* feat, const float* rois, const long long* binds,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int OUT, int SR>
+int launch_scalar(const void* feat, const float* rois, const long long* binds,
+                  void* out, int B, int H, int W, int C, int N,
+                  float spatial_scale, float offset, cudaStream_t s) {
+  roi_align_gather_scalar<OUT, SR><<<N, kScalarThreads, 0, s>>>(
+      static_cast<const float*>(feat), rois, binds, static_cast<float*>(out),
+      B, H, W, C, spatial_scale, offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_body(int out_size, int sr, const void* feat, const float* rois,
                 const long long* binds, void* out, int B, int H, int W, int C,
@@ -502,8 +587,8 @@ int launch_body(int out_size, int sr, const void* feat, const float* rois,
 // dtype: 0 = float32, 1 = bfloat16 (features and output); C a multiple of
 // 16 bytes of channels and feat / out 16-byte aligned. binds: the per-roi
 // int64 map index, or null (every roi reads map 0). (out_size, sr) is (7, 2)
-// or (14, 2). One thread block per roi. Returns cudaGetLastError() after the
-// launch.
+// or (14, 2), or (28, 2): the scalar body, float32 only, any C. One thread
+// block per roi. Returns cudaGetLastError() after the launch.
 extern "C" int llvod_roi_align(const void* feat, const void* rois,
                                const void* binds, void* out, int B, int H,
                                int W, int C, int N, float spatial_scale,
@@ -513,6 +598,11 @@ extern "C" int llvod_roi_align(const void* feat, const void* rois,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
   const long long* b = static_cast<const long long*>(binds);
+  if (out_size == 28 && sr == 2) {  // the scalar body, float32 only
+    if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_scalar<28, 2>(feat, r, b, out, B, H, W, C, N,
+                                spatial_scale, offset, s);
+  }
   if (dtype == 0) {
     return launch_body<float>(out_size, sr, feat, r, b, out, B, H, W, C, N,
                               spatial_scale, offset, s);

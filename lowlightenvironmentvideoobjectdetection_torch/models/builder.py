@@ -76,11 +76,11 @@ PORTED_IMAGE_FAMILIES = ("FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
                          "RepPointsDetector", "NASFPNRetinaNet",
                          "CascadeRCNN", "CascadeRPN", "DoubleHeadRCNN",
                          "DoubleHeadRoIHead", "DynamicRCNN", "PISAFasterRCNN",
-                         "PISARoIHead", "GridRCNN", "TridentFasterRCNN")
+                         "PISARoIHead", "GridRCNN", "TridentFasterRCNN",
+                         "MaskRCNN", "HTC", "HybridTaskCascade", "SCNet",
+                         "MaskScoringRCNN", "PointRend", "YOLACT")
 NOT_PORTED_IMAGE_FAMILIES = (
-    "CentripetalNet", "CornerNet", "DETR", "HTC", "HybridTaskCascade",
-    "MaskRCNN", "MaskScoringRCNN", "PointRend", "SCNet", "SSD", "SparseRCNN",
-    "YOLACT", "YOLOV3")
+    "CentripetalNet", "CornerNet", "DETR", "SSD", "SparseRCNN", "YOLOV3")
 IMAGE_FAMILIES = frozenset(PORTED_IMAGE_FAMILIES + NOT_PORTED_IMAGE_FAMILIES)
 # SelsaDarkDetect's backbone when its config names none
 DARK_DETECT_BACKBONE = "DarkResNet"

@@ -31,8 +31,28 @@ fused and the unfused heatmaps against radius-1 circles; the test path
 runs NMS on the unregressed proposals first, then moves each detection's
 borders to the score-weighted vote of its 3 boundary points.
 
-The other families of the JAX module (Mask Scoring R-CNN, PointRend) are
-not ported (ROADMAP.md Queue 1 item 9).
+Mask Scoring R-CNN (``MaskIoUHead``, ``MaskScoringRCNN``,
+``mask_scoring_loss``, ``mask_scoring_detect``; mmdet's
+``mask_scoring_rcnn.py`` and ``maskiou_head.py``): Mask R-CNN as
+``mask_rcnn`` and a MaskIoU head on the 14x14 mask features beside the
+28x28 prediction, resized to 14x14 as ``jax.image.resize(..., "linear")``
+does (antialiased) and maxed over all classes (ROADMAP F35); the L2 loss
+(weight 0.5) on the positives' IoU with their whole gt; at test each
+detection's score times its predicted IoU, clipped to [0, 1].
+
+PointRend (``PointHead``, ``uncertain_point_indices``, ``PointRendRCNN``,
+``point_rend_loss``, ``point_rend_detect``; mmdet's ``point_rend.py``):
+Mask R-CNN as ``mask_rcnn``, and at the 49 most uncertain cells of each
+roi's 28x28 class channel (-|logit|, ``lax.top_k``'s order: the lower
+index first among ties) a 3-layer MLP over the map's bilinear sample there
+(``ops/point_sample.py``) and the coarse logits refines the logits; BCE at
+those points in training.
+
+Both JAX losses run Mask R-CNN's loss and then the trunk, the RPN, the
+proposals and the sampler again with the same key, which gives the same
+rois and the same mask logits: here the forward runs once
+(``mask_rcnn_parts``), with the same total and gradients. Their test paths
+likewise run the mask branch once on the detections.
 """
 
 from __future__ import annotations
@@ -47,14 +67,22 @@ import torch.nn.functional as F
 from ...core import nms as nms_ops
 from ...core.boxes import delta2bbox
 from ...core.nms import DetResult
+from ...ops.point_sample import point_sample
 from ...ops.roi_align import roi_align
+from ...ops.scale_translate import weight_matrix
+from ..aggregators.selsa_aggregator import Linear
 from ..backbones.detectors_trident import TEST_BRANCH, TridentResNet
 from ..backbones.resnet import Conv2d
 from ..dense_heads import rpn_head as rpn
+from ..dense_heads.retina_head import top_k_stable
 from ..necks.channel_mapper import ChannelMapper
 from ..roi_heads import bbox_head as bh
+from ..roi_heads.mask_head import (ROI_SIZE, class_channel, mask_iou_targets,
+                                   paste_masks)
 from ..vid.selsa import LossUniforms, SelsaConfig
 from .faster_rcnn import DetTrainBatch, FasterRCNN, _zeros
+from .mask_rcnn import (MaskRCNN, MaskTrainBatch, mask_rcnn_boxes,
+                        mask_rcnn_parts)
 
 
 class FastRCNN(nn.Module):
@@ -541,3 +569,217 @@ def grid_rcnn_detect(model: GridRCNN, img: torch.Tensor, img_shape,
         boxes = boxes / torch.as_tensor(scale_factor, dtype=boxes.dtype,
                                         device=boxes.device)
     return dets._replace(boxes=boxes)
+
+
+# ---------------------------------------------------------------------------
+# Mask Scoring R-CNN
+
+
+class MaskIoUHead(nn.Module):
+    """[14x14 mask features ++ the class-max of the 28x28 prediction resized
+    to 14x14] -> 2 convs (128; the second stride 2) -> fc0 (256) ->
+    ``fc_iou`` (a predicted IoU a class), f32."""
+
+    def __init__(self, in_channels: int, num_classes: int = 80):
+        super().__init__()
+        self.conv0 = Conv2d(in_channels + 1, 128, 3, padding=1)
+        self.conv1 = Conv2d(128, 128, 3, stride=2, padding=1)
+        half = (ROI_SIZE + 1) // 2
+        self.fc0 = Linear(half * half * 128, 256)
+        self.fc_iou = Linear(256, num_classes)
+
+    @staticmethod
+    def resize_pred(mask_pred: torch.Tensor) -> torch.Tensor:
+        """``jax.image.resize(mask_pred, (N, 14, 14, C), "linear")``: the
+        triangle kernel widened by 2 (antialiased)."""
+        s = mask_pred.shape[1]
+        one = torch.ones((), device=mask_pred.device)
+        wy = weight_matrix(s, ROI_SIZE, one * (ROI_SIZE / s), one * 0.0)
+        wx = weight_matrix(mask_pred.shape[2], ROI_SIZE,
+                           one * (ROI_SIZE / mask_pred.shape[2]), one * 0.0)
+        return torch.einsum("ph,nhwc,qw->npqc", wy, mask_pred.float(), wx)
+
+    def forward(self, mask_feats: torch.Tensor,
+                mask_pred: torch.Tensor) -> torch.Tensor:
+        pred_max = self.resize_pred(mask_pred).amax(-1, keepdim=True)
+        x = torch.cat([mask_feats.float(), pred_max], -1).permute(0, 3, 1, 2)
+        x = F.relu(self.conv1(F.relu(self.conv0(x))))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.fc_iou(F.relu(self.fc0(x)))
+
+
+class MaskScoringRCNN(nn.Module):
+    """``mask_rcnn`` (Mask R-CNN) and ``maskiou_head``."""
+
+    def __init__(self, cfg: SelsaConfig = SelsaConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.mask_rcnn = MaskRCNN(cfg)
+        self.maskiou_head = MaskIoUHead(cfg.neck_channels, cfg.num_classes)
+
+
+def mask_scoring_loss(model: MaskScoringRCNN, batch: MaskTrainBatch,
+                      anchors: torch.Tensor, uniforms: LossUniforms,
+                      impl: Optional[str] = None):
+    """Mask R-CNN's losses and 0.5 x the squared error of the positives'
+    predicted IoU (their class) against the IoU of their binarised mask
+    with the whole gt (``mask_iou_targets``). Returns (total, metrics)."""
+    cfg = model.cfg
+    p = mask_rcnn_parts(model.mask_rcnn, batch, anchors, uniforms, impl)
+    miou_pred = model.maskiou_head(p.mask_feats, p.mask_logits)
+    labels = p.tgts.labels
+    pred_bin = (torch.sigmoid(class_channel(p.mask_logits, labels))
+                > 0.5).float()
+    actual = mask_iou_targets(pred_bin, (p.mask_tgts > 0.5).float(),
+                              batch.gt_masks, p.matched, p.tgts.rois)
+    miou_c = torch.gather(miou_pred, 1, labels.clamp(
+        0, cfg.num_classes - 1)[:, None])[:, 0]
+    wt = p.tgts.is_pos.float()
+    loss_miou = 0.5 * (wt * (miou_c - actual) ** 2).sum() / \
+        wt.sum().clamp_min(1.0)
+    total = p.total + loss_miou
+    metrics = dict(p.metrics, loss=total, loss_mask_iou=loss_miou)
+    return total, metrics
+
+
+@torch.no_grad()
+def mask_scoring_boxes(model: MaskScoringRCNN, img: torch.Tensor, img_shape,
+                       anchors: torch.Tensor, scale_factor=None,
+                       impl: Optional[str] = None):
+    """Mask R-CNN's detections, each score times its predicted IoU
+    (clipped to [0, 1]), and their mask logits: (DetResult, logits)."""
+    cfg = model.cfg
+    dets, _, mf, logits = mask_rcnn_boxes(model.mask_rcnn, img, img_shape,
+                                          anchors, scale_factor, impl)
+    miou = model.maskiou_head(mf, logits)
+    iou_c = torch.gather(miou, 1, dets.labels.clamp(
+        0, cfg.num_classes - 1)[:, None])[:, 0]
+    scores = dets.scores * iou_c.clamp(0.0, 1.0)
+    return DetResult(dets.boxes, scores, dets.labels, dets.valid), logits
+
+
+@torch.no_grad()
+def mask_scoring_detect(model: MaskScoringRCNN, img: torch.Tensor, img_shape,
+                        anchors: torch.Tensor, scale_factor=None,
+                        impl: Optional[str] = None):
+    """``mask_scoring_boxes``' detections and their pasted masks:
+    (DetResult, masks)."""
+    dets, logits = mask_scoring_boxes(model, img, img_shape, anchors,
+                                      scale_factor, impl)
+    return dets, paste_masks(torch.sigmoid(class_channel(logits, dets.labels)),
+                             dets.boxes, model.cfg.pad_h, model.cfg.pad_w)
+
+
+# ---------------------------------------------------------------------------
+# PointRend
+
+POINT_RES = 49
+
+
+class PointHead(nn.Module):
+    """An MLP over [fine point feature ++ coarse logits]: ``fc{0,1,2}``
+    (256, the coarse logits appended after each), ``fc_logits``."""
+
+    def __init__(self, in_channels: int, num_classes: int = 80):
+        super().__init__()
+        self.fc0 = Linear(in_channels + num_classes, 256)
+        self.fc1 = Linear(256 + num_classes, 256)
+        self.fc2 = Linear(256 + num_classes, 256)
+        self.fc_logits = Linear(256 + num_classes, num_classes)
+
+    def forward(self, fine: torch.Tensor,
+                coarse: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([fine, coarse], -1)
+        for i in range(3):
+            x = torch.cat([F.relu(getattr(self, f"fc{i}")(x)), coarse], -1)
+        return self.fc_logits(x)
+
+
+def uncertain_point_indices(mask_pred: torch.Tensor,
+                            labels: Optional[torch.Tensor],
+                            num_points: int):
+    """The ``num_points`` most uncertain cells of each roi: -|logit| of its
+    class channel (the max channel without ``labels``), ``lax.top_k``'s
+    order (descending, the lower index first among equal values).
+    mask_pred [N, mh, mw, C] -> (idx [N, P], uncertainty [N, mh * mw])."""
+    n, mh, mw, c = mask_pred.shape
+    flat = mask_pred.reshape(n, mh * mw, c)
+    if labels is None:
+        logit = flat.amax(-1)
+    else:
+        logit = torch.gather(flat, 2, labels.clamp(0, c - 1)[:, None, None]
+                             .expand(n, mh * mw, 1))[..., 0]
+    unc = -logit.abs()
+    return top_k_stable(unc, num_points)[1], unc
+
+
+class PointRendRCNN(nn.Module):
+    """``mask_rcnn`` (Mask R-CNN) and ``point_head``."""
+
+    def __init__(self, cfg: SelsaConfig = SelsaConfig(),
+                 num_points: int = POINT_RES):
+        super().__init__()
+        self.cfg = cfg
+        self.num_points = num_points
+        self.mask_rcnn = MaskRCNN(cfg)
+        self.point_head = PointHead(cfg.neck_channels, cfg.num_classes)
+
+    def refine(self, feat: torch.Tensor, rois: torch.Tensor,
+               mask_pred: torch.Tensor, labels=None):
+        """The coarse logits [N, mh, mw, C] refined at each roi's most
+        uncertain cells: the point head on the map's sample at the cell's
+        centre (normalised to the padded image) and the coarse logits
+        there. feat [1, h, w, C]. -> (refined logits, idx [N, P])."""
+        n, mh, mw, c = mask_pred.shape
+        flat = mask_pred.reshape(n, mh * mw, c)
+        idx, _ = uncertain_point_indices(mask_pred, labels, self.num_points)
+        py = (torch.div(idx, mw, rounding_mode="floor") + 0.5) / mh
+        px = (idx % mw + 0.5) / mw
+        r = rois.float()
+        gx = r[:, 0:1] + px * (r[:, 2:3] - r[:, 0:1])
+        gy = r[:, 1:2] + py * (r[:, 3:4] - r[:, 1:2])
+        pts = torch.stack([gx / self.cfg.pad_w, gy / self.cfg.pad_h], -1)
+        fine = point_sample(feat[0].float(), pts)  # [N, P, C]
+        gidx = idx[..., None].expand(n, idx.shape[1], c)
+        coarse = torch.gather(flat, 1, gidx)
+        refined = self.point_head(fine, coarse)
+        return torch.scatter(flat, 1, gidx, refined).reshape(
+            n, mh, mw, c), idx
+
+
+def point_rend_loss(model: PointRendRCNN, batch: MaskTrainBatch,
+                    anchors: torch.Tensor, uniforms: LossUniforms,
+                    impl: Optional[str] = None):
+    """Mask R-CNN's losses and the BCE of the refined logits at the points
+    (the rois' class, positives only). Returns (total, metrics)."""
+    cfg = model.cfg
+    p = mask_rcnn_parts(model.mask_rcnn, batch, anchors, uniforms, impl)
+    labels = p.tgts.labels
+    refined, idx = model.refine(p.feat, p.tgts.rois, p.mask_logits, labels)
+    n = refined.shape[0]
+    flat_r = refined.reshape(n, -1, cfg.num_classes)
+    cls_idx = labels.clamp(0, cfg.num_classes - 1)
+    x = torch.gather(torch.gather(
+        flat_r, 1, idx[..., None].expand(n, idx.shape[1], cfg.num_classes)),
+        2, cls_idx[:, None, None].expand(n, idx.shape[1], 1))[..., 0]
+    t = torch.gather(p.mask_tgts.reshape(n, -1), 1, idx)
+    wt = p.tgts.is_pos.float()[:, None]
+    bce = x.clamp_min(0) - x * t + torch.log1p(torch.exp(-x.abs()))
+    loss_pt = (bce * wt).sum() / (wt.sum() * idx.shape[1]).clamp_min(1.0)
+    total = p.total + loss_pt
+    metrics = dict(p.metrics, loss=total, loss_point=loss_pt)
+    return total, metrics
+
+
+@torch.no_grad()
+def point_rend_detect(model: PointRendRCNN, img: torch.Tensor, img_shape,
+                      anchors: torch.Tensor, scale_factor=None,
+                      impl: Optional[str] = None):
+    """Mask R-CNN's detections, their masks refined at the uncertain
+    points of their class and pasted at the bucket's size."""
+    cfg = model.cfg
+    dets, feat, _, logits = mask_rcnn_boxes(model.mask_rcnn, img, img_shape,
+                                            anchors, scale_factor, impl)
+    refined, _ = model.refine(feat, dets.boxes, logits, dets.labels)
+    probs = torch.sigmoid(class_channel(refined, dets.labels))
+    return dets, paste_masks(probs, dets.boxes, cfg.pad_h, cfg.pad_w)

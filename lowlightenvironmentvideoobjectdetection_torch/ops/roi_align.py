@@ -18,7 +18,9 @@ and the port do not.
 
 Each kernel has one body per (out_size, sampling_ratio) it is compiled for
 (``_roi_align_body``): B gathers (``gather7x2`` for the box head's 7x7,
-``gather14x2`` for the mask heads' 14x14), D scatters (``scatter7x2``,
+``gather14x2`` for the mask heads' 14x14, ``gather28x2`` for the mask
+targets: scalar loads, so 1-channel float32 masks, and no D body, since
+the targets take no gradient), D scatters (``scatter7x2``,
 ``scatter14x2``). ``roi_align.launches`` and
 ``roi_align_backward.launches`` count the launches, their
 ``body_launches`` the launches per body.
@@ -34,7 +36,10 @@ from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # channels per 16-byte vector
-_BODIES = {(7, 2): "7x2", (14, 2): "14x2"}
+_BODIES = {(7, 2): "7x2", (14, 2): "14x2", (28, 2): "28x2"}
+# bodies that read one float32 channel at a time (any channel count), and
+# have no backward
+_SCALAR_BODIES = {(28, 2)}
 _OFFSET = 0.5  # aligned=True
 _CHUNK = 64  # rois per gather step of the plain version (bounds its memory)
 
@@ -43,14 +48,14 @@ def _roi_align_body(out_size: int, sampling_ratio: int,
                     kind: str = "gather") -> str:
     """The body of kernel B (``kind="gather"``) or D (``"scatter"``) for an
     output size and sampling ratio; raises ``ValueError`` for a pair the
-    kernels are not compiled for."""
-    try:
-        return kind + _BODIES[(out_size, sampling_ratio)]
-    except KeyError:
+    kernel is not compiled for."""
+    pairs = set(_BODIES) - (_SCALAR_BODIES if kind == "scatter" else set())
+    if (out_size, sampling_ratio) not in pairs:
         raise ValueError(
-            f"roi_align kernel: no body for out_size={out_size}, "
+            f"roi_align kernel: no {kind} body for out_size={out_size}, "
             f"sampling_ratio={sampling_ratio} (compiled for "
-            f"{sorted(_BODIES)})") from None
+            f"{sorted(pairs)})")
+    return kind + _BODIES[(out_size, sampling_ratio)]
 
 
 def _axis_samples(lo, length, size: int, out_size: int, sr: int):
@@ -136,8 +141,9 @@ def roi_align(
     gradient raise ``ValueError`` (detach them).
 
     CPU tensors take ``roi_align_plain``; CUDA tensors launch kernel B's
-    body for (out_size, sampling_ratio), (7, 2) or (14, 2), and kernel D's
-    for the gradient, and raise ``ValueError`` for any other pair.
+    body for (out_size, sampling_ratio), (7, 2), (14, 2) or (28, 2) (float32
+    only, no gradient), and kernel D's for the gradient, and raise
+    ``ValueError`` for any other pair.
     ``impl="plain"`` forces the plain version (for comparisons only)."""
     if impl not in (None, "plain"):
         raise ValueError(f"unknown impl {impl!r}")
@@ -146,9 +152,12 @@ def roi_align(
     if impl == "plain" or feats.device.type == "cpu":
         return roi_align_plain(feats, rois, spatial_scale, batch_inds,
                                out_size, sampling_ratio)
+    grad = torch.is_grad_enabled() and feats.requires_grad
+    if grad:  # a gradient needs kernel D's body for the pair
+        _roi_align_body(out_size, sampling_ratio, "scatter")
     _, rois_c, binds = _check(feats.device, feats.dtype, feats.shape, rois,
                               batch_inds, out_size, sampling_ratio)
-    if torch.is_grad_enabled() and feats.requires_grad:
+    if grad:
         return _RoIAlign.apply(feats, rois_c, binds, spatial_scale, out_size,
                                sampling_ratio)
     return _roi_align_cuda(feats, rois_c, binds, spatial_scale, out_size,
@@ -181,7 +190,8 @@ def _roi_align_cuda(feats, rois, binds, spatial_scale, out_size,
                     sampling_ratio):
     """Launch kernel B's body for (out_size, sampling_ratio) on operands
     that ``_check`` passed."""
-    if not feats.is_contiguous() or feats.data_ptr() % 16:
+    scalar = (out_size, sampling_ratio) in _SCALAR_BODIES
+    if not feats.is_contiguous() or (feats.data_ptr() % 16 and not scalar):
         raise ValueError("roi_align kernel: the maps must be contiguous on a "
                          "16-byte boundary")
     maps = feats.view((-1,) + tuple(feats.shape[-3:]))
@@ -219,7 +229,12 @@ def _check(device, dtype, feat_shape, rois, batch_inds, out_size,
                          f"{tuple(rois.shape)}")
     shape = (1,) * (4 - len(feat_shape)) + tuple(feat_shape)
     b, h, w, c = shape
-    if c % _VEC[dtype]:
+    if (out_size, sampling_ratio) in _SCALAR_BODIES:
+        if dtype != torch.float32:
+            raise TypeError(f"roi_align kernel: the {out_size}x"
+                            f"{sampling_ratio} body takes float32 maps, not "
+                            f"{dtype}")
+    elif c % _VEC[dtype]:
         raise ValueError(f"roi_align kernel: {c} channels of {dtype} must be "
                          "whole 16-byte vectors")
     if h * w * c >= 2 ** 31:
@@ -347,4 +362,5 @@ roi_align.body_launches = dict.fromkeys(
     ("gather" + b for b in _BODIES.values()), 0)
 roi_align_backward.launches = 0
 roi_align_backward.body_launches = dict.fromkeys(
-    ("scatter" + b for b in _BODIES.values()), 0)
+    ("scatter" + b for k, b in _BODIES.items() if k not in _SCALAR_BODIES),
+    0)

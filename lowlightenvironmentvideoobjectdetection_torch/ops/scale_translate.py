@@ -17,6 +17,9 @@ by two products:
   outside [-0.5, size - 0.5] is 0.
 
 The products run in float32 (PyTorch's default matmul precision; TF32 off).
+
+``resize_nearest`` is ``jax.image.resize(..., "nearest")``, which the mask
+families' targets use (HTC's semantic map, YOLACT's downscaled masks).
 """
 
 from __future__ import annotations
@@ -80,3 +83,18 @@ def scale_and_translate(img: torch.Tensor, out_hw: Sequence[int],
         t = t.reshape(n, oh, w, c).permute(0, 2, 1, 3).reshape(n, w, oh * c)
         out = torch.bmm(wx, t).reshape(n, ow, oh, c).permute(0, 2, 1, 3)
     return out.reshape(*lead, oh, ow, c)
+
+
+def resize_nearest(x: torch.Tensor, dims, sizes) -> torch.Tensor:
+    """``jax.image.resize(..., "nearest")`` along ``dims`` to ``sizes``:
+    output i reads input floor((i + 0.5) * m / n), computed in float32 in
+    that order (half-pixel centres, ROADMAP F20; PyTorch's
+    ``nearest-exact`` rounds (i + 0.5) * (m / n) instead)."""
+    for d, n in zip(dims, sizes):
+        m = x.shape[d]
+        if m == n:
+            continue
+        src = torch.floor((torch.arange(n, dtype=torch.float32,
+                                        device=x.device) + 0.5) * m / n)
+        x = torch.index_select(x, d, src.long())
+    return x

@@ -12,7 +12,8 @@ they get the same bound (kernel A) or one bf16 rounding of the output
 tensor-core (``mma``) body: exact bf16 products summed in f32, and P split
 into two bf16 parts (about 16 bits), so they keep the 1e-5 bound. Kernel
 B's cases count the launches of its gather bodies (``gather7x2``,
-``gather14x2``). Kernel D (RoIAlign's backward, bodies ``scatter7x2`` and
+``gather14x2``, and ``gather28x2``, the mask targets' scalar body on
+1-channel f32 masks: 1e-5). Kernel D (RoIAlign's backward, bodies ``scatter7x2`` and
 ``scatter14x2``) is held against torch autograd through the plain version
 in f32, cast to the feature dtype, and against its explicit plain version
 ``roi_align_backward_plain`` (the same separable sums in f32, cast): f32 to
@@ -333,6 +334,63 @@ def test_roi_align_no_rois_no_launch(dev):
     assert out.shape == (0, 7, 7, 64)
     assert roi_align.launches == before
     assert roi_align.body_launches == bodies
+
+
+def _mask_target_case(dev, kind, g=20, n=256, hw=(96, 160), seed=8):
+    """The mask targets' operands: ``g`` box-filled (or random 0/1) masks
+    [g, H, W, 1] f32, ``n`` rois about the gts (each corner moved by up to
+    20% of its gt's side; the first ones past the map) and their matched
+    gt as the map index."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    x1 = rng.uniform(-10, w - 20, g)
+    y1 = rng.uniform(-10, h - 20, g)
+    gts = np.stack([x1, y1, x1 + rng.uniform(4, w / 2, g),
+                    y1 + rng.uniform(4, h / 2, g)], 1)
+    if kind == "box":
+        yy, xx = np.mgrid[:h, :w]
+        masks = ((yy >= gts[:, 1, None, None]) & (yy < gts[:, 3, None, None])
+                 & (xx >= gts[:, 0, None, None])
+                 & (xx < gts[:, 2, None, None]))
+    else:
+        masks = rng.rand(g, h, w) > 0.5
+    matched = rng.randint(0, g, n)
+    c = gts[matched]
+    side = np.concatenate([c[:, 2:] - c[:, :2]] * 2, 1)
+    rois = c + rng.uniform(-0.2, 0.2, (n, 4)) * side
+    rois[:4] = [[-40, -30, -5, -2], [w - 8, h - 8, w + 30, h + 20],
+                [10, 10, 10, 10], [0, 0, w, h]]
+    return (torch.as_tensor(masks[..., None], dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(rois, dtype=torch.float32, device=dev),
+            torch.as_tensor(matched, device=dev))
+
+
+@pytest.mark.parametrize("kind", ["box", "random"])
+def test_roi_align_mask_target_body(dev, kind):
+    """Kernel B's ``gather28x2`` body (scalar loads) on 1-channel f32 masks
+    with each roi's matched gt as its map index, scale 1: one launch on
+    that body, equal to the plain version to 1e-5; a roi outside the map
+    gives 0. The body takes no bf16 maps and has no backward."""
+    masks, rois, matched = _mask_target_case(dev, kind)
+    before, bodies = roi_align.launches, dict(roi_align.body_launches)
+    got = roi_align(masks, rois, 1.0, batch_inds=matched, out_size=28)
+    torch.cuda.synchronize()
+    assert roi_align.launches == before + 1
+    assert roi_align.body_launches == {
+        k: v + (k == "gather28x2") for k, v in bodies.items()}
+    want = roi_align(masks, rois, 1.0, batch_inds=matched, out_size=28,
+                     impl="plain")
+    assert got.shape == (rois.shape[0], 28, 28, 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert got[0].abs().max().item() == 0.0
+    assert got[3].abs().max().item() > 0.0
+    with pytest.raises(TypeError):
+        roi_align(masks.bfloat16(), rois, 1.0, batch_inds=matched,
+                  out_size=28)
+    with pytest.raises(ValueError):
+        roi_align(masks.requires_grad_(), rois, 1.0, batch_inds=matched,
+                  out_size=28)
 
 
 def test_roi_align_rejects_what_no_body_takes(dev):

@@ -79,6 +79,9 @@ ZOO_C = {"FSAF", "FoveaBox", "FOVEA", "SABL", "SABLRetinaNet", "RepPoints",
 RCNN = {"CascadeRCNN", "CascadeRPN", "DoubleHeadRCNN", "DoubleHeadRoIHead",
         "DynamicRCNN", "PISAFasterRCNN", "PISARoIHead", "GridRCNN",
         "TridentFasterRCNN"}
+# the mask families (test_torch_port_mask_*.py)
+MASK = {"MaskRCNN", "MaskScoringRCNN", "PointRend", "HTC",
+        "HybridTaskCascade", "SCNet", "YOLACT"}
 
 
 _pinned_threads = thread_count(1)
@@ -87,7 +90,8 @@ _pinned_threads = thread_count(1)
 def test_the_table_covers_the_jax_names():
     ported = set(TF.FAMILIES)
     assert ported == {"FasterRCNN", "FastRCNN", "RPN", "FasterRCNNFPN",
-                      "RetinaNet"} | set(VARIANTS) | DENSE | ZOO_C | RCNN
+                      "RetinaNet"} | set(VARIANTS) | DENSE | ZOO_C | RCNN \
+        | MASK
     assert ported | set(TF.NOT_PORTED) == set(JF.FAMILIES)
     assert ported | set(TF.NOT_PORTED) == TF.IMAGE_FAMILIES
     assert not ported & set(TF.NOT_PORTED)

@@ -239,7 +239,7 @@ def test_a_dark_variant_config_streams(world, monkeypatch):
     (["data.test.type=MOTChallengeDataset"], "mot"),
     (["model.type=SiamRPN"], "sot"),
     (["model.type=FasterRCNN", "data.test.type=CocoDataset"], "image"),
-    (["model.type=MaskRCNN", "data.test.type=CocoDataset"], "item 9"),
+    (["model.type=SSD", "data.test.type=CocoDataset"], "item 9"),
 ], ids=["mot_model", "mot_data", "sot", "image", "zoo"])
 def test_routes_the_port_lacks_raise(world, opts, want):
     """Only the image families the port lacks raise (naming ROADMAP

@@ -84,7 +84,7 @@ def built(name, seed=1):
         shapes, np.random.RandomState(seed)))
     tfam = TF.get_family(name)
     tm, taux = tfam.build(dict(MCFG), True, 0, "cpu")
-    tm.load_state_dict(from_jax_variables(var), strict=True)
+    tm.load_state_dict(from_jax_variables(var, tm), strict=True)
     if jaux is not None:
         np.testing.assert_array_equal(taux.numpy(), np.asarray(jaux))
     return jfam, jm, jaux, var, tfam, tm, taux
@@ -104,14 +104,22 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-def uniforms(name, key, num_anchors):
-    """The port's uniforms for family ``name`` replaying the JAX draws of
-    key ``key``: Cascade R-CNN splits it in 4 (the RPN, a RoI sampler a
-    stage: stage 0 over the gts and the proposals, stages 1 and 2 over the
-    previous sample); Cascade RPN samples stage 2 with it; the others split
-    it into (rpn, roi), Trident folding in the branch, Grid R-CNN's jitter
+def uniforms(name, key, num_anchors, num_gts=GTS.shape[0]):
+    """The port's uniforms for family ``name`` replaying the JAX draws of key
+    ``key`` on a batch of ``num_gts`` gts: Cascade R-CNN splits it in 4 (the
+    RPN, a RoI sampler a stage: stage 0 over the gts and the proposals, stages
+    1 and 2 over the previous sample), HTC and SCNet in 5 (the same, the fifth
+    unused); Cascade RPN samples stage 2 with it; the others split it into
+    (rpn, roi), Trident folding in the branch, Grid R-CNN's jitter
     ``uniform(fold_in(key, 7))`` in +-0.15."""
-    n_cand = GTS.shape[0] + NUM_PROPS
+    n_cand = num_gts + NUM_PROPS
+    if name in ("HTC", "HybridTaskCascade", "SCNet"):
+        r = jax.random.split(key, 5)  # the RPN, a RoI sampler a stage
+        return TCR.CascadeUniforms(
+            _t(sampler_uniforms(r[0], num_anchors)[:2]),
+            (_t(sampler_uniforms(r[1], n_cand)),
+             _t(sampler_uniforms(r[2], NUM_SAMPLES)),
+             _t(sampler_uniforms(r[3], NUM_SAMPLES))))
     if name == "CascadeRPN":
         return _t(sampler_uniforms(key, num_anchors)[:2])
     if name == "CascadeRCNN":
@@ -152,14 +160,16 @@ def stopped_proposals():
         yield
 
 
-def jax_loss_and_grads(jfam, jm, jaux, var, key, jb):
+def jax_loss_and_grads(jfam, jm, jaux, var, key, jb, model=None):
     """The JAX family loss's metrics and parameter gradients (proposals
-    stopped)."""
+    stopped), in the layout of the port ``model`` (its transposed convs'
+    kernels flipped)."""
     with stopped_proposals():
         (_, jmet), jg = jax.jit(jax.value_and_grad(
             lambda v: jfam.loss(jm, jaux, v, jb, key), has_aux=True))(var)
     return ({k: float(v) for k, v in jmet.items()},
-            grads_from_jax(jax.tree_util.tree_map(np.asarray, jg["params"])))
+            grads_from_jax(jax.tree_util.tree_map(np.asarray, jg["params"]),
+                           model))
 
 
 def same_loss_and_grads(want_met, want_grads, tfam, tm, taux, tb, u):
